@@ -1,51 +1,84 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card.
+"""Drive the PyTorch port's training and serving paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile] [--steps N]
 
 Phases, each fatal on failure (exit code 1, and no result line):
 
   1. device: a CUDA device must be present; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles every kernel of the path from the sources in this
-     checkout (triplegan_tpu_torch/ops/csrc) and prints the seconds;
-  3. kernels: runs each kernel's wrapper at every shape the serving path
-     gives it, float32 and bfloat16, holds it to its plain PyTorch version
-     on the same inputs, and times both with CUDA events (L2 flushed
-     before each run; median of 30 after 5 warm-up runs);
-  4. serve: builds cifar10_4k at full width from seeded weights (written
-     and read back in the JAX package's npz export format), seeded batch
-     norm statistics and seeded ZCA statistics, for each compute dtype and
-     each epilogue arm (use_pallas True: the kernel; False: plain PyTorch),
-     starts the port's HTTP server on an ephemeral port in a thread and
-     drives /healthz, /classify (250 images: three chunks of the static
-     batch of 100, the last padded), /generate (JSON, with and without
-     pixels) and /metrics. The kernel's launch count is set to 0 just
-     before and read just after, and must rise by 9 per classify chunk and
-     4 per generate chunk; the plain arm must launch nothing. Outputs are
-     checked for shape, dtype and finiteness, the two arms against each
-     other, and the float32 card outputs against the plain path on the
-     CPU on a few inputs. Images/s are timed per arm.
+  2. build: compiles every kernel of the paths from the sources in this
+     checkout (triplegan_tpu_torch/ops/csrc), one nvcc per source, all
+     started together, and prints each build's seconds;
+  3. train: cifar10_4k at full width, ZCA fitted on a 4096-image synthetic
+     dataset, through the port's create_state, make_optimizers,
+     make_device_train_step and make_eval_step, at two settings:
+       shipped: float32, batch 100, share_pseudo_forward off;
+       bench:   bfloat16 compute over float32 weights, batch 384,
+                share_pseudo_forward on;
+     each in both arms (use_pallas True: the Hopper kernels; False: plain
+     PyTorch and cuDNN), from the same seeded state, in turns (kernel,
+     plain, plain, kernel). The kernels' launch counts, keyed by the shape
+     of each call, are cleared just before each arm's steps and read just
+     after: the kernel arm must launch each conv kernel at exactly the
+     shapes and counts that the step's convs imply (``step_launches``) and
+     the epilogue kernel the count its layers imply, the plain arm nothing.
+     Losses must be finite; the two arms' step-1 metrics must agree;
+     ms/step and img/s are timed;
+  4. card against CPU: two steps of a cut-down config (cifar10_4k's layers
+     at a few channels, no noise, dropout or augmentation, argmax
+     pseudo-labels) on the card with the kernels and on the CPU with their
+     plain versions, on the same batches;
+  5. serve: as in slice 1: cifar10_4k at full width from seeded weights
+     (written and read back in the JAX package's npz export format), per
+     compute dtype and arm, an HTTP server on an ephemeral port driven
+     through /healthz, /classify, /generate and /metrics; the kernel arm
+     must launch 9 epilogues and 7 convs per classify chunk, 4 and 3 per
+     generate chunk; outputs checked against each other and the CPU;
+  6. kernels: at every (shape, dtype, activation) at which a kernel arm of
+     phases 3 and 5 launched a kernel, holds the kernel's wrapper to its
+     plain PyTorch version on fresh seeded inputs and times both with CUDA
+     events (L2 flushed before each run), and times the one PyTorch call
+     that computes the same function where there is one (F.conv2d for the
+     conv forward, torch.nn.grad.conv2d_input and conv2d_weight for dgrad
+     and wgrad; none for scale_bias_act).
+
+With --profile, one extra step per train arm and 10 chunks per serving
+arm run under torch.profiler (device busy share, kernels by device time).
 
 The last three lines of standard output are the kernels' JSON summary,
 nvidia-smi's line again, and ``{"ok": true, "device": {...}}``.
 
-Tolerances: a kernel against its plain version, float32:
-|kernel − plain| ≤ 1e-6·(1 + |plain|); bfloat16: at most one bfloat16 ulp.
-Kernel arm against plain arm on the card, float32: logits within
-1e-4·(1 + max|logit|), images within 1e-4 (the weight-norm output deconv
-folds its norm into the epilogue in one arm and into the kernel in the
-other); bfloat16 logits within 16 bfloat16 ulps of the largest logit (the
-plain arm rounds x·k and then +b to bfloat16 at each of 9 layers, the
-kernel rounds once). Card against CPU, float32: within 1e-3·(1 + max|ref|)
-(cuDNN and the CPU library may pick different conv algorithms).
+Tolerances.
+- scale_bias_act against plain, float32: |kernel − plain| ≤ 1e-6·(1 +
+  |plain|); bfloat16: one bfloat16 ulp.
+- conv3x3 against plain: |kernel − plain| ≤ 8·sqrt(K)·2⁻²⁴·(the plain op
+  on |inputs|), K the length of each sum (both sum in float32, in other
+  orders), plus one bfloat16 ulp of the value where the output is
+  bfloat16 (both round a float32 sum once).
+- train arms, step-1 metrics: float32 within 1e-3·(1 + |m|); bfloat16
+  within 2 bfloat16 ulps of max(|a|, |b|, 1): the metrics are bfloat16
+  scalars and the arms round their bf16 convs differently, so a metric may
+  round one ulp apart; the floor at 1 covers c_adv, a mean of terms of
+  size ≈0.7 whose own value is ≈4e-4 (on an H100 every metric but c_adv
+  agreed bitwise and c_adv within 6.1e-5).
+- card against CPU, train: metrics within 1e-4·(1 + |m|); parameters
+  within 2·N·lr after N steps (Adam turns a near-zero gradient into a ±lr
+  step whose sign the last bits decide), and 95% of them within lr/100.
+- serve, kernel arm against plain arm: float32 logits within 1e-4·(1 +
+  max|logit|) and images within 1e-4; bfloat16 logits within 16 bfloat16
+  ulps of the largest logit. Card against CPU, serve, float32: within
+  1e-3·(1 + max|ref|).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import concurrent.futures
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -59,14 +92,14 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
 SEED = 0
 BATCH = 100
 N_REQ = 250                   # images per request: chunks 100, 100, 50 (+50 pad)
-CLF_SHAPES = [(100, 32, 32, 128)] * 3 + [(100, 16, 16, 256)] * 3 + [
-    (100, 6, 6, 512), (100, 6, 6, 256), (100, 6, 6, 128)]
-GEN_SHAPES = [(100, 4, 4, 512), (100, 8, 8, 256), (100, 16, 16, 128)]
-GEN_OUT_SHAPE = (100, 32, 32, 3)
-RAGGED_SHAPE = (7, 13, 11, 37)
+RAGGED_SHAPE = (7, 13, 11, 37)  # an epilogue off every path: odd C, scalar loads
+TOTAL_STEPS = 10_000
+# (name, compute dtype, batch, share_pseudo_forward)
+SETTINGS = [("shipped", "float32", 100, False), ("bench", "bfloat16", 384, True)]
 
 
 def fail(msg: str):
@@ -79,6 +112,15 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
+def emit(key: str, obj):
+    print(json.dumps({key: obj}), flush=True)
+
+
+def public(arm: dict) -> dict:
+    """An arm's results without its live objects (keys starting with _)."""
+    return {k: v for k, v in arm.items() if not k.startswith("_")}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -86,11 +128,6 @@ def smi_line() -> str:
     )
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-# ---------------------------------------------------------------------------
-# phase 3: the kernel against its plain version
-# ---------------------------------------------------------------------------
 
 
 def bf16_ulp(v):
@@ -139,76 +176,347 @@ def time_ms(fn, flush, reps=30, warm=5) -> dict:
     }
 
 
-def kernel_phase(sba) -> list:
-    import torch
+def counts_zero():
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-    cases = []
-    for shape in sorted(set(CLF_SHAPES)):
-        cases.append(("clf", "leaky_relu", 0.1, shape))
-    for shape in GEN_SHAPES:
-        cases.append(("gen", "relu", 0.1, shape))
-    cases.append(("gen_out", "tanh", 0.1, GEN_OUT_SHAPE))
-    cases.append(("ragged", "linear", 0.1, RAGGED_SHAPE))
-    rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for where, act, slope, shape in cases:
-            c = shape[-1]
-            x = (torch.randn(shape, generator=gen, device=dev) * 2.0).to(dtype)
-            k = torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0
-            b = torch.randn(c, generator=gen, device=dev) * 0.3
-            got = sba.scale_bias_act(x, k, b, act, slope)
-            torch.cuda.synchronize()
-            want = sba.reference_scale_bias_act(x, k, b, act, slope)
-            check(got.dtype == dtype and got.shape == x.shape, f"kernel output {got.dtype} {tuple(got.shape)}")
-            err, excess = max_excess(got, want, dtype)
-            check(excess <= 0, f"scale_bias_act {act} {shape} {dtype}: max err {err} exceeds tolerance")
-            tk = time_ms(lambda: sba.scale_bias_act(x, k, b, act, slope), flush)
-            tp = time_ms(lambda: sba.reference_scale_bias_act(x, k, b, act, slope), flush)
-            # Host time to issue one call (no device wait): what a chain of
-            # small epilogues costs when the host, not the card, is the limit.
-            for fn, t in ((lambda: sba.scale_bias_act(x, k, b, act, slope), tk),
-                          (lambda: sba.reference_scale_bias_act(x, k, b, act, slope), tp)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(100):
-                    fn()
-                t["host_us"] = (time.perf_counter() - t0) * 1e4
-                torch.cuda.synchronize()
-            esize = x.element_size()
-            nbytes = 2 * x.numel() * esize + 2 * c * esize  # x read, y written, k and b read
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = 3 * x.numel() / F32_FLOPS_PER_S * 1e3  # mul, add, activation
-            rows.append({
-                "where": where, "act": act, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": err, "ms": tk["cold"], "warm_ms": tk["warm"],
-                "plain_ms": tp["cold"], "plain_warm_ms": tp["warm"],
-                "host_us": tk["host_us"], "plain_host_us": tp["host_us"],
-                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            })
-    del flush
-    return rows
+    for counter in (sba.launches, cv.fwd_launches, cv.wgrad_launches):
+        counter.clear()
+
+
+def counts_read() -> dict:
+    """Each kernel's launches since counts_zero, keyed by the call's shape."""
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    return {"scale_bias_act": sba.launches.copy(), "conv3x3_fwd": cv.fwd_launches.copy(),
+            "conv3x3_wgrad": cv.wgrad_launches.copy()}
+
+
+def totals(counts: dict) -> dict:
+    return {name: c.total() for name, c in counts.items()}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serving end to end
+# phase 2: build
+# ---------------------------------------------------------------------------
+
+
+def build_phase() -> dict:
+    """Both sources compiled at once, one nvcc each; seconds per build."""
+    from triplegan_tpu_torch.ops import build
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    def timed(name):
+        t0 = time.perf_counter()
+        build.build(name)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        futs = {name: ex.submit(timed, name) for name in ("scale_bias_act", "conv3x3")}
+        secs = {name: f.result() for name, f in futs.items()}
+    sba._lib()
+    cv._lib()
+    secs["wall"] = time.perf_counter() - t0
+    return secs
+
+
+# ---------------------------------------------------------------------------
+# phase 3: training at full width
+# ---------------------------------------------------------------------------
+
+
+def train_cfg(dtype: str, batch: int, share: bool, use_pallas: bool):
+    from triplegan_tpu_torch.configs import get_config
+
+    cfg = get_config("cifar10_4k")
+    cfg.compute_dtype, cfg.batch_size = dtype, batch
+    cfg.share_pseudo_forward, cfg.use_pallas = share, use_pallas
+    return cfg
+
+
+def step_launches(cfg):
+    """Every kernel launch of one train step of ``cfg`` with use_pallas:
+    (Counter of conv launches keyed as the conv wrappers key theirs, (role,
+    n, h, w, cin, cout, halo, dtype), {key: the players it runs in},
+    epilogue launches). Role "fwd" is a forward conv, "dgrad" the forward
+    kernel on a cotangent (input (n, h, w, cin) the cotangent), "wgrad" the
+    filter gradient of a conv whose input is (n, h, w, cin)."""
+    b, s, nc, dt = cfg.batch_size, cfg.image_size, cfg.num_classes, cfg.compute_dtype
+    clf, h, cin = [], s, cfg.channels
+    for block in cfg.clf.conv_blocks:
+        for w in block:
+            clf.append((h, cin, w, 1))
+            cin = w
+        h = -(-h // 2)
+    clf.append((h, cin, cfg.clf.tail[0], 0))
+    disc, h, cin = [], s, cfg.channels + nc
+    widths, strides = cfg.disc.widths, cfg.disc.strides
+    for i, (w, st) in enumerate(zip(widths, strides)):
+        if st == 1:
+            disc.append((h, cin, w, 1))
+        cin = w
+        if st == 2:
+            h = -(-h // 2)
+            if cfg.disc.label_reconcat and i + 1 < len(widths):
+                cin += nc
+    gw = cfg.gen.widths
+    gen, h = [], s // 2 ** len(gw)
+    for i in range(len(gw) - 1):
+        gen.append((h, gw[i], 4 * gw[i + 1], 1))
+        h *= 2
+    gen.append((h, gw[-1], 4 * cfg.channels, 1))
+
+    convs, players = collections.Counter(), collections.defaultdict(set)
+
+    def add(where, *key):
+        convs[key] += 1
+        players[key].add(where)
+
+    def fwd(where, n, layers):
+        for h_, ci, co, p in layers:
+            add(where, "fwd", n, h_, h_, ci, co, p, dt)
+
+    def bwd(where, n, layers, dw, dx_first):
+        for i, (h_, ci, co, p) in enumerate(layers):
+            ho = h_ + 2 * p - 2
+            if dw:
+                add(where, "wgrad", n, h_, h_, ci, co, p, dt)
+            if i > 0 or dx_first:
+                add(where, "dgrad", n, ho, ho, co, ci, 2 - p, dt)
+
+    share = bool(cfg.share_pseudo_forward)
+    c_passes = 2 if share else 3
+    # D update: G and C forwards without grad, D's 3B-row pass and backward
+    fwd("gen", b, gen)
+    fwd("clf", b, clf)
+    fwd("disc", 3 * b, disc)
+    bwd("disc", 3 * b, disc, dw=True, dx_first=False)
+    # G update: G with grad, scored by D (gradient to D's input only)
+    fwd("gen", b, gen)
+    fwd("disc", b, disc)
+    bwd("disc", b, disc, dw=False, dx_first=True)
+    bwd("gen", b, gen, dw=True, dx_first=True)
+    # C update: G forward, 3 C passes (2 new under share), D on the pseudo-pairs
+    fwd("gen", b, gen)
+    for _ in range(c_passes):
+        fwd("clf", b, clf)
+    for _ in range(3):
+        bwd("clf", b, clf, dw=True, dx_first=False)
+    fwd("disc", b, disc)
+    n_g = len(gw) + 1
+    n_c = sum(len(bl) for bl in cfg.clf.conv_blocks) + len(cfg.clf.tail)
+    n_d = len(widths)
+    epilogues = (n_g + n_c + n_d) + (n_g + n_d) + (n_g + c_passes * n_c + n_d)
+    return convs, players, epilogues
+
+
+def profile_calls(fn, reps: int, top: int) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn``: wall and device time
+    per call, the device's busy share of the wall time, and the ``top``
+    kernels by device time (per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    return {"wall_us": wall_us / reps, "device_us": busy_us / reps, "device_busy_share": busy_us / wall_us,
+            "top_device": [{"name": e.key[:80], "us": e.self_device_time_total / reps, "calls": e.count / reps}
+                           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]]}
+
+
+def train_arm(setting, use_pallas, data, zca, n_steps, profile) -> dict:
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+    from triplegan_tpu_torch.train.step import (METRICS, make_device_train_step, make_eval_step,
+                                                upload_device_data)
+
+    name, dtype, batch, share = setting
+    cfg = train_cfg(dtype, batch, share, use_pallas)
+    nets = make_networks(cfg)
+    opts = make_optimizers(cfg, TOTAL_STEPS)
+    state = create_state(cfg, nets, opts, device="cuda")
+    dev_data = upload_device_data(data, "cuda")
+    step = make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca)
+    torch.cuda.synchronize()
+
+    counts_zero()  # the main path starts here
+    metrics, secs = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, m = step(state, dev_data)
+        m = {k: float(v) for k, v in m.items()}  # waits for the step
+        secs.append(time.perf_counter() - t0)
+        metrics.append(m)
+    counts = counts_read()  # the main path ends here
+    launches = totals(counts)
+
+    ev = make_eval_step(cfg, nets, zca)
+    n_test = len(data.y_test)
+    out = ev(state, {"x": torch.as_tensor(data.x_test, device="cuda"),
+                     "y": torch.as_tensor(data.y_test, device="cuda"),
+                     "mask": torch.ones(n_test, device="cuda")})
+    arm = {"setting": name, "dtype": dtype, "batch": batch, "share_pseudo_forward": share,
+           "use_pallas": use_pallas, "steps": n_steps, "step_s": secs,
+           "ms_per_step": 1e3 * statistics.mean(secs[1:]),
+           "img_s": batch / statistics.mean(secs[1:]),
+           "first_step_s": secs[0], "launches": launches,
+           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+           "eval_correct": int(out["correct"]), "eval_count": int(out["count"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "metrics": metrics,
+           "_counts": counts}
+    for t, m in enumerate(metrics):
+        check(sorted(m) == sorted(METRICS), f"metrics {sorted(m)}")
+        check(all(math.isfinite(v) for v in m.values()), f"{name} arm {use_pallas}: step {t} {m}")
+    if use_pallas:
+        convs, players, epilogues = step_launches(cfg)
+        want = collections.Counter({key: c * n_steps for key, c in convs.items()})
+        got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+        check(got == want, f"{name} kernel arm: conv launches not implied by the step's convs "
+                           f"{dict(got - want)}; implied and not launched {dict(want - got)}")
+        check(launches["scale_bias_act"] == epilogues * n_steps,
+              f"{name} kernel arm launched {launches['scale_bias_act']} epilogues, "
+              f"want {epilogues * n_steps}")
+        arm["_players"] = players
+    else:
+        check(not any(launches.values()), f"{name} plain arm launched kernels: {launches}")
+    if profile:
+        arm["profile"] = profile_calls(lambda: float(step(state, dev_data)[1]["loss_c"]), reps=1, top=10)
+    del state, step, dev_data
+    torch.cuda.empty_cache()
+    return arm
+
+
+def train_phase(n_steps: int, profile: bool):
+    import torch
+
+    from triplegan_tpu_torch.data.datasets import synthetic_dataset
+    from triplegan_tpu_torch.data.zca import fit_zca
+
+    data = synthetic_dataset(image_size=32, channels=3, num_classes=10, n_train=4096, n_test=256,
+                             num_labeled=512)
+    t0 = time.perf_counter()
+    zca = fit_zca(data.x_unlabel)
+    emit("zca_fit", {"images": 4096, "seconds": time.perf_counter() - t0})
+    arms = []
+    for setting in SETTINGS:
+        # In turns (kernel, plain, plain, kernel), so a drift of clocks or
+        # host load over the run falls on both arms; each turn is a main-path
+        # run with its own launch counts. The first turn of each arm is
+        # reported (and profiled); ms/step is the mean of its two turns.
+        pair = {}
+        for use_pallas in (True, False, False, True):
+            torch.cuda.reset_peak_memory_stats()
+            arm = train_arm(setting, use_pallas, data, zca, n_steps, profile and use_pallas not in pair)
+            arms.append(arm)
+            if use_pallas in pair:
+                first = pair[use_pallas]
+                first["ms_per_step_turns"] = [first["ms_per_step"], arm["ms_per_step"]]
+                first["ms_per_step"] = statistics.mean(first["ms_per_step_turns"])
+                first["img_s"] = first["batch"] * 1e3 / first["ms_per_step"]
+                emit("train", public(first))
+            else:
+                pair[use_pallas] = arm
+        a, b = pair[True]["metrics"][0], pair[False]["metrics"][0]
+        diffs = {k: abs(a[k] - b[k]) for k in a}
+        if setting[1] == "float32":
+            lims = {k: 1e-3 * (1 + abs(b[k])) for k in a}
+        else:  # two bfloat16 ulps of max(|a|, |b|, 1)
+            lims = {k: 2.0 ** (math.floor(math.log2(max(abs(a[k]), abs(b[k]), 1.0))) - 6) for k in a}
+        emit("train_arms_agree", {"setting": setting[0], "step": 1, "abs_diff": diffs, "limit": lims})
+        for k in a:
+            check(diffs[k] <= lims[k], f"{setting[0]}: step-1 {k} differs between arms: {a[k]} vs {b[k]}")
+    return arms, data, zca
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the train step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def card_vs_cpu_phase(data, zca) -> dict:
+    import torch
+
+    from triplegan_tpu_torch import bridge
+    from triplegan_tpu_torch.configs import get_config, make_networks
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+    from triplegan_tpu_torch.train.step import METRICS, _make_batch_sampler, make_train_step, \
+        upload_device_data
+
+    cfg = get_config("cifar10_4k")
+    cfg.gen.widths = (16, 8, 8)
+    cfg.disc.widths = (8, 8, 16, 16, 16, 16)
+    cfg.clf.conv_blocks = ((16, 16, 16), (16, 16, 16))
+    cfg.clf.tail = (16, 16, 16)
+    cfg.batch_size, cfg.z_dim = 8, 16
+    cfg.disc.input_noise = cfg.disc.input_dropout = cfg.disc.block_dropout = 0.0
+    cfg.clf.input_noise = cfg.clf.block_dropout = 0.0
+    cfg.aug_translate, cfg.aug_flip = 0, False
+    cfg.alpha_p_warmup_epochs = 0
+    sample = _make_batch_sampler(cfg)
+    cpu_data = upload_device_data(data, "cpu")
+    n = 2
+    batches = [sample(0, t, cpu_data) for t in range(n)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        nets = make_networks(cfg)
+        opts = make_optimizers(cfg, 100)
+        state = create_state(cfg, nets, opts, device=dev)
+        step = make_train_step(cfg, nets, opts, 100, zca_stats=zca, pseudo_label_mode="argmax")
+        ms = []
+        for batch in batches:
+            b = {s: {k: v.to(dev) for k, v in d.items()} for s, d in batch.items()}
+            state, m = step(state, b)
+            ms.append({k: float(v) for k, v in m.items()})
+        params = {p: bridge.flat(state.params[p], state.bn[p]) for p in state.params}
+        out[dev] = (ms, {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()})
+    lr = float(cfg.lr_c)
+    worst_m = max(abs(a[k] - b[k]) / (1 + abs(b[k]))
+                  for a, b in zip(out["cuda"][0], out["cpu"][0]) for k in METRICS)
+    errs = torch.cat([(out["cuda"][1][p][k] - v).abs().flatten()
+                      for p, sd in out["cpu"][1].items() for k, v in sd.items()])
+    res = {"steps": n, "metrics_max_rel_diff": worst_m, "param_max_abs_diff": float(errs.max()),
+           "param_frac_within_lr_100": float((errs <= lr / 100).double().mean()),
+           "lr": lr, "metrics_card": out["cuda"][0], "metrics_cpu": out["cpu"][0]}
+    emit("train_card_vs_cpu", res)
+    check(worst_m <= 1e-4, f"card and CPU train metrics differ by {worst_m} (relative)")
+    check(res["param_max_abs_diff"] <= 2 * n * lr, f"card and CPU params differ by {res['param_max_abs_diff']}")
+    check(res["param_frac_within_lr_100"] >= 0.95, f"card/CPU params: {res['param_frac_within_lr_100']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving end to end
 # ---------------------------------------------------------------------------
 
 
 def seeded_jax_export(nets, seed: int) -> dict:
-    """Every weight and batch-norm statistic of the port's nets drawn from
-    ``seed`` at scales that keep activations O(1) through the full-width
-    stack (He-normal kernels; gains, biases and statistics near their
-    identities), in the JAX package's flat npz export layout."""
+    """Every weight and batch-norm statistic of the port's Generator and
+    Classifier drawn from ``seed`` at scales that keep activations O(1)
+    through the full-width stack (He-normal kernels; gains, biases and
+    statistics near their identities), in the JAX package's flat npz
+    export layout."""
     import torch
 
     from triplegan_tpu_torch import bridge
 
     g = torch.Generator().manual_seed(seed)
     state = {}
-    for player, net in zip(("gen", "clf"), nets):
+    for player, net in (("gen", nets[0]), ("clf", nets[2])):
         sd = {}
         for key, t in net.state_dict().items():
             name = key.split(".")[1]
@@ -263,11 +571,11 @@ def npy(arr) -> bytes:
     return buf.getvalue()
 
 
-def start_arm(cfg, state, zca, images, sba) -> dict:
+def start_arm(cfg, state, zca, images) -> dict:
     """Start one server for one (compute dtype, use_pallas) arm and drive
     the main path through it: /healthz, /classify, /generate twice,
-    /metrics, with the kernel's launch count set to 0 just before and read
-    just after. The server keeps running for the timing turns."""
+    /metrics, with the kernels' launch counts set to 0 just before and
+    read just after. The server keeps running for the timing turns."""
     from triplegan_tpu_torch.configs import make_networks
     from triplegan_tpu_torch.serve import app_from_state, make_server
 
@@ -281,25 +589,26 @@ def start_arm(cfg, state, zca, images, sba) -> dict:
            "_app": app, "_server": server, "_thread": thread, "_base": base}
     chunks = -(-N_REQ // BATCH)
 
-    sba.launches = 0  # the main path starts here
+    counts_zero()  # the main path starts here
     status, body = http("GET", base + "/healthz")
     health = json.loads(body)
     check(status == 200 and health["status"] == "ok" and health["backend"] == "cuda",
           f"/healthz: {health}")
     status, body = http("POST", base + "/classify", npy(images), "application/x-npy")
     logits = load_npy(body)
-    n_classify = sba.launches
+    n_classify = totals(counts_read())
     status, body = http("POST", base + "/generate",
                         json.dumps({"n": N_REQ, "seed": 3}).encode(), "application/json")
     imgs = load_npy(body)
-    n_generate = sba.launches - n_classify
+    n_generate = {k: v - n_classify[k] for k, v in totals(counts_read()).items()}
     status, body = http("POST", base + "/generate",
                         json.dumps({"n": N_REQ, "seed": 3, "pixels": True}).encode(),
                         "application/json")
     pixels = load_npy(body)
     status, body = http("GET", base + "/metrics")
     metrics = body.decode()
-    arm["launches"] = sba.launches  # the main path ends here
+    arm["_counts"] = counts_read()  # the main path ends here
+    arm["launches"] = totals(arm["_counts"])
 
     check(logits.shape == (N_REQ, cfg.num_classes) and logits.dtype == np.float32,
           f"/classify gave {logits.shape} {logits.dtype}")
@@ -314,11 +623,14 @@ def start_arm(cfg, state, zca, images, sba) -> dict:
     check('triplegan_requests_total{endpoint="classify"} 1' in metrics
           and 'triplegan_requests_total{endpoint="generate"} 2' in metrics, "/metrics counters")
     if cfg.use_pallas:
-        check(n_classify == 9 * chunks, f"classify launched the kernel {n_classify} times, want {9 * chunks}")
-        check(n_generate == 4 * chunks, f"generate launched the kernel {n_generate} times, want {4 * chunks}")
-        check(arm["launches"] == 9 * chunks + 2 * 4 * chunks, f"main path launches {arm['launches']}")
+        want_c = {"scale_bias_act": 9 * chunks, "conv3x3_fwd": 7 * chunks, "conv3x3_wgrad": 0}
+        want_g = {"scale_bias_act": 4 * chunks, "conv3x3_fwd": 3 * chunks, "conv3x3_wgrad": 0}
+        check(n_classify == want_c, f"classify launched {n_classify}, want {want_c}")
+        check(n_generate == want_g, f"generate launched {n_generate}, want {want_g}")
+        want = {k: want_c[k] + 2 * want_g[k] for k in want_c}
+        check(arm["launches"] == want, f"serving main path launched {arm['launches']}, want {want}")
     else:
-        check(arm["launches"] == 0, f"the plain arm launched the kernel {arm['launches']} times")
+        check(not any(arm["launches"].values()), f"the plain arm launched {arm['launches']}")
     arm["_logits"], arm["_imgs"] = logits, imgs
     return arm
 
@@ -332,18 +644,18 @@ def stop_arm(arm):
 
 def time_arm(arm, images, z, y) -> dict:
     """Images/s of one arm, warm: the server's per-chunk function at the
-    static batch (host→device copy, forward, device→host copy; 20 chunks
-    after 3 warm-up chunks), and whole HTTP requests of 250 (median of 3)."""
+    static batch (host→device copy, forward, device→host copy; 10 chunks
+    after 2 warm-up chunks), and whole HTTP requests of 250 (median of 2)."""
     import torch
 
     app, base = arm["_app"], arm["_base"]
     out = {}
     for name, fn, args in (("classify", app.classify, (images[:BATCH],)),
                            ("generate", app.generate, (z[:BATCH], y[:BATCH]))):
-        for _ in range(3):
+        for _ in range(2):
             fn(*args)
         torch.cuda.synchronize()
-        reps = 20
+        reps = 10
         t0 = time.perf_counter()
         for _ in range(reps):
             fn(*args)
@@ -354,7 +666,7 @@ def time_arm(arm, images, z, y) -> dict:
         ("generate", json.dumps({"n": N_REQ, "seed": 3}).encode(), "application/json"),
     ):
         secs = []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             http("POST", base + "/" + name, body, ctype)
             secs.append(time.perf_counter() - t0)
@@ -363,40 +675,13 @@ def time_arm(arm, images, z, y) -> dict:
 
 
 def profile_arm(arm, images, z, y) -> dict:
-    """torch.profiler over 10 chunks of each function: the device's busy
-    share of the wall time and the five kernels with the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """torch.profiler over 10 chunks of each serving function."""
     app = arm["_app"]
     out = {}
     for name, fn, args in (("classify", app.classify, (images[:BATCH],)),
                            ("generate", app.generate, (z[:BATCH], y[:BATCH]))):
         fn(*args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(10):
-                fn(*args)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        stats = prof.key_averages()
-        # Device work is the kernel and memcpy events themselves; the host
-        # ops that launched them carry the same time again, so skip those.
-        kernels = [e for e in stats if e.device_type == DeviceType.CUDA]
-        host = [e for e in stats if e.device_type == DeviceType.CPU]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        out[name] = {
-            "wall_us_per_chunk": wall_us / 10, "device_us_per_chunk": busy_us / 10,
-            "device_busy_share": busy_us / wall_us,
-            "top_device": [{"name": e.key[:70], "us_per_chunk": e.self_device_time_total / 10,
-                            "calls_per_chunk": e.count / 10}
-                           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]],
-            "top_host": [{"name": e.key[:70], "self_us_per_chunk": e.self_cpu_time_total / 10,
-                          "calls_per_chunk": e.count / 10}
-                         for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]],
-        }
+        out[name] = profile_calls(lambda: fn(*args), reps=10, top=6)
     return out
 
 
@@ -412,7 +697,7 @@ def cpu_reference(cfg, state, zca, images, z, y):
             generate(torch.from_numpy(z), torch.from_numpy(y)).numpy())
 
 
-def serve_phase(sba, profile: bool) -> list:
+def serve_phase(profile: bool) -> list:
     from triplegan_tpu_torch import bridge
     from triplegan_tpu_torch.configs import get_config, make_networks
 
@@ -434,7 +719,7 @@ def serve_phase(sba, profile: bool) -> list:
             for use_pallas in (True, False):
                 cfg = get_config("cifar10_4k")
                 cfg.compute_dtype, cfg.use_pallas = dtype, use_pallas
-                arms[dtype, use_pallas] = start_arm(cfg, state, zca, images, sba)
+                arms[dtype, use_pallas] = start_arm(cfg, state, zca, images)
 
         # Timing in turns within each dtype (kernel, plain, plain, kernel),
         # so a drift of clocks or host load over the run falls on both arms.
@@ -453,8 +738,7 @@ def serve_phase(sba, profile: bool) -> list:
         for arm in arms.values():
             stop_arm(arm)
     for arm in arms.values():
-        print(json.dumps({"serve": {k: v for k, v in arm.items() if not k.startswith("_")}}),
-              flush=True)
+        emit("serve", public(arm))
 
     for dtype in ("float32", "bfloat16"):
         k, p = arms[dtype, True], arms[dtype, False]
@@ -462,9 +746,8 @@ def serve_phase(sba, profile: bool) -> list:
         dl = float(np.abs(k["_logits"] - p["_logits"]).max())
         di = float(np.abs(k["_imgs"] - p["_imgs"]).max())
         lim = 1e-4 * (1.0 + scale) if dtype == "float32" else 16 * 2.0 ** -8 * scale
-        print(json.dumps({"arms_agree": {"dtype": dtype, "max_logit": scale, "logits_max_abs_diff": dl,
-                                         "logits_limit": lim, "images_max_abs_diff": di,
-                                         "images_limit": 1e-4}}), flush=True)
+        emit("arms_agree", {"dtype": dtype, "max_logit": scale, "logits_max_abs_diff": dl,
+                            "logits_limit": lim, "images_max_abs_diff": di, "images_limit": 1e-4})
         check(dl <= lim, f"{dtype}: kernel and plain arms' logits differ by {dl} > {lim}")
         check(di <= 1e-4, f"{dtype}: kernel and plain arms' images differ by {di}")
 
@@ -476,26 +759,221 @@ def serve_phase(sba, profile: bool) -> list:
     for name, got, ref in (("logits", card["_logits"][:n], ref_logits), ("images", card["_imgs"][:n], ref_imgs)):
         diff = float(np.abs(got - ref).max())
         lim = 1e-3 * (1.0 + float(np.abs(ref).max()))
-        print(json.dumps({"card_vs_cpu": {"what": name, "max_abs_diff": diff, "limit": lim}}), flush=True)
+        emit("card_vs_cpu", {"what": name, "max_abs_diff": diff, "limit": lim})
         check(diff <= lim, f"card and CPU {name} differ by {diff} > {lim}")
     return list(arms.values())
+
+
+# ---------------------------------------------------------------------------
+# phase 6: each kernel against its plain version at the paths' shapes
+# ---------------------------------------------------------------------------
+
+
+def conv_case(op, n, h, w, cin, cout, pad, dtype, gen, flush, reps):
+    """Check and time one conv kernel call against its plain version and
+    the library call that computes the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+
+    dev = torch.device("cuda")
+    x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(dtype)
+    ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
+    if op == "wgrad":
+        g = torch.randn((n, ho, wo, cout), generator=gen, device=dev).to(dtype)
+        xp = cv._pad_hw(x, pad)
+        run = lambda: cv.conv3x3_wgrad(x, g, pad)  # noqa: E731
+        plain = lambda: cv.reference_conv3x3_wgrad(xp, g)  # noqa: E731
+        abs_ref = cv.reference_conv3x3_wgrad(xp.abs(), g.abs())
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        library = lambda: torch.nn.grad.conv2d_weight(xc, (cout, cin, 3, 3), gc, padding=pad)  # noqa: E731
+        k_len = n * ho * wo
+        flops = 2.0 * n * ho * wo * 9 * cin * cout
+        nbytes = (x.numel() + g.numel()) * x.element_size() + 9 * cin * cout * 4
+    else:
+        wt = (torch.randn((3, 3, cin, cout), generator=gen, device=dev) / math.sqrt(9 * cin)).to(dtype)
+        xp = cv._pad_hw(x, pad)
+        run = lambda: cv.conv3x3_nopad(x, wt, pad)  # noqa: E731
+        plain = lambda: cv.reference_conv3x3_nopad(xp, wt)  # noqa: E731
+        abs_ref = cv.reference_conv3x3_nopad(xp.abs(), wt.abs()).float()
+        xc = x.permute(0, 3, 1, 2)
+        if op == "fwd":
+            wc = wt.permute(3, 2, 0, 1)
+            library = lambda: F.conv2d(xc, wc, padding=pad)  # noqa: E731
+        else:  # the input gradient of a conv with the unflipped kernel and halo 2 - pad
+            w_fwd = wt.flip((0, 1)).transpose(2, 3).permute(3, 2, 0, 1).contiguous()
+            size = (n, cout, ho, wo)
+            library = lambda: torch.nn.grad.conv2d_input(size, w_fwd, xc, padding=2 - pad)  # noqa: E731
+        k_len = 9 * cin
+        flops = 2.0 * n * ho * wo * 9 * cin * cout
+        nbytes = (x.numel() + wt.numel() + n * ho * wo * cout) * x.element_size()
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"conv3x3 {op} {(n, h, w, cin, cout, pad)}: {tuple(got.shape)} {got.dtype}")
+    err = (got.double() - want.double()).abs()
+    lim = 8.0 * math.sqrt(k_len) * 2.0 ** -24 * abs_ref.double()
+    if got.dtype == torch.bfloat16:
+        lim = lim + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    check(bool(torch.isfinite(got).all()), f"conv3x3 {op}: non-finite output")
+    check(bool((err <= lim).all()),
+          f"conv3x3 {op} {(n, h, w, cin, cout, pad)} {dtype}: max err {float(err.max())} "
+          f"exceeds tolerance (worst excess {float((err - lim).max())})")
+    max_err = float(err.max())
+    del abs_ref, err, lim, got, want
+    tk = time_ms(run, flush, reps=reps, warm=2)
+    tp = time_ms(plain, flush, reps=reps, warm=2)
+    tl = time_ms(library, flush, reps=reps, warm=2)
+    peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ms": tk["cold"], "plain_ms": tp["cold"], "library_ms": tl["cold"],
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "tflop_s": flops / (tk["cold"] * 1e9),
+            "max_abs_err": max_err}
+
+
+def sba_case(shape, dtype, act, slope, gen, flush) -> dict:
+    """Check and time one scale_bias_act kernel call against its plain
+    version on seeded inputs of the given shape."""
+    import torch
+
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) * 2.0).to(dt)
+    k = torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0
+    b = torch.randn(c, generator=gen, device=dev) * 0.3
+    got = sba.scale_bias_act(x, k, b, act, slope)
+    torch.cuda.synchronize()
+    want = sba.reference_scale_bias_act(x, k, b, act, slope)
+    check(got.dtype == dt and got.shape == x.shape, f"kernel output {got.dtype} {tuple(got.shape)}")
+    err, excess = max_excess(got, want, dt)
+    check(excess <= 0, f"scale_bias_act {act} {slope} {shape} {dtype}: max err {err} exceeds tolerance")
+    tk = time_ms(lambda: sba.scale_bias_act(x, k, b, act, slope), flush, reps=15)
+    tp = time_ms(lambda: sba.reference_scale_bias_act(x, k, b, act, slope), flush, reps=15)
+    esize = x.element_size()
+    nbytes = 2 * x.numel() * esize + 2 * c * esize  # x read, y written, k and b read
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * x.numel() / F32_FLOPS_PER_S * 1e3  # mul, add, activation
+    return {"max_abs_err": err, "ms": tk["cold"], "warm_ms": tk["warm"],
+            "plain_ms": tp["cold"], "plain_warm_ms": tp["warm"], "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def path_launches(train_arms, serve_arms) -> list:
+    """The keyed launch counts of each main path: the first kernel-arm run
+    of each train setting (per step) and each serving dtype (over its main
+    path: one /classify and two /generate of 250 images)."""
+    sources, seen = [], set()
+    for arm in train_arms:
+        if arm["use_pallas"] and arm["setting"] not in seen:
+            seen.add(arm["setting"])
+            per_step = {name: {key: c / arm["steps"] for key, c in counts.items()}
+                        for name, counts in arm["_counts"].items()}
+            sources.append(("train " + arm["setting"], per_step, arm["_players"]))
+    for arm in serve_arms:
+        if arm["use_pallas"]:
+            sources.append(("serve " + arm["dtype"], arm["_counts"], {}))
+    return sources
+
+
+def kernel_phase(sources) -> tuple:
+    """Every kernel against its plain version at each (shape, dtype,
+    activation) that a main path launched it at, plus one ragged epilogue
+    (odd channel count) in each dtype."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    sba_keys = {(RAGGED_SHAPE, dt, "linear", 0.1): {} for dt in ("float32", "bfloat16")}
+    conv_keys, players = {}, collections.defaultdict(set)
+    for source, counts, where in sources:
+        for key, c in counts["scale_bias_act"].items():
+            sba_keys.setdefault(key, {})[source] = c
+        for name in ("conv3x3_fwd", "conv3x3_wgrad"):
+            for key, c in counts[name].items():
+                conv_keys.setdefault(key, {})[source] = c
+                players[key] |= where.get(key, set())
+    sba_rows = []
+    for (shape, dtype, act, slope), launches in sorted(sba_keys.items()):
+        row = {"shape": list(shape), "dtype": dtype, "act": act, "slope": slope, "launches": launches,
+               **sba_case(shape, dtype, act, slope, gen, flush)}
+        sba_rows.append(row)
+        emit("scale_bias_act", row)
+    conv_rows = []
+    for key, launches in sorted(conv_keys.items()):
+        op, n, h, w, cin, cout, pad, dtype = key
+        row = {"op": op, "input": [n, h, w, cin], "cout": cout, "halo": pad, "dtype": dtype,
+               "where": sorted(players[key]), "launches": launches,
+               **conv_case(op, n, h, w, cin, cout, pad, getattr(torch, dtype), gen, flush, reps=5)}
+        conv_rows.append(row)
+        emit("conv3x3", row)
+    del flush
+    return sba_rows, conv_rows
+
+
+# ---------------------------------------------------------------------------
+# summary
+# ---------------------------------------------------------------------------
+
+
+def summary(sba_rows, conv_rows, train_arms, serve_arms) -> list:
+    """One line per kernel: launches over every main path, and times and
+    bounds summed over one shipped train step's launches."""
+    launched = collections.Counter()
+    for arm in train_arms + serve_arms:
+        launched.update(arm["launches"])
+    kernels = []
+    for name, rows, source, replaces in (
+        ("scale_bias_act", sba_rows, "scale_bias_act.cu", "triplegan_tpu/ops/pallas_fused.py:59"),
+        ("conv3x3_fwd", [r for r in conv_rows if r["op"] != "wgrad"], "conv3x3.cu",
+         "triplegan_tpu/ops/pallas_conv.py:54"),
+        ("conv3x3_wgrad", [r for r in conv_rows if r["op"] == "wgrad"], "conv3x3.cu",
+         "triplegan_tpu/ops/pallas_conv.py:104"),
+    ):
+        shipped = [(r["launches"]["train shipped"], r) for r in rows if "train shipped" in r["launches"]]
+        per_step = {key: sum(n * r[key] for n, r in shipped) for key in ("ms", "plain_ms", "bound_ms")}
+        library = [n * r["library_ms"] for n, r in shipped if r["library_ms"] is not None]
+        ops_bound = sum(n * r["bound_ms"] for n, r in shipped if r["bound_by"] == "operations")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "triplegan_tpu_torch/ops/csrc/" + source,
+            "replaces": replaces,
+            "launches": launched[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **per_step,
+            "bound_by": "operations" if ops_bound >= per_step["bound_ms"] / 2 else "bytes",
+            "library_ms": sum(library) if library else None,
+            "basis": "sum over one train step's launches at the shipped setting "
+                     "(cifar10_4k, float32, batch 100, share_pseudo_forward off)",
+        })
+    return kernels
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write every result as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace each serving arm with torch.profiler (device busy share, top kernels)")
+                    help="also trace each train and serving arm with torch.profiler")
+    ap.add_argument("--steps", type=int, default=8,
+                    help="train steps per arm (the first is not timed)")
     args = ap.parse_args()
+    check(args.steps >= 2, "--steps must be at least 2")
 
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs only on a CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from triplegan_tpu_torch.ops import build
-    from triplegan_tpu_torch.ops import scale_bias_act as sba
     from triplegan_tpu_torch.utils.platform import resolve_device
+
+    t_start = time.perf_counter()
+    phases = {}
 
     # 1. device
     dev = resolve_device(None)
@@ -506,47 +984,36 @@ def main():
     print(smi, flush=True)
 
     # 2. build
-    t0 = time.perf_counter()
-    build.build("scale_bias_act")
-    sba._lib()
-    build_s = time.perf_counter() - t0
-    print(json.dumps({"build": {"kernel": "scale_bias_act", "seconds": build_s}}), flush=True)
+    build_s = build_phase()
+    emit("build", build_s)
+    phases["build"] = time.perf_counter() - t_start
 
-    # 3. kernels
-    rows = kernel_phase(sba)
-    for r in rows:
-        print(json.dumps({"scale_bias_act": r}), flush=True)
+    # 3. train
+    train_arms, data, zca = train_phase(args.steps, args.profile)
+    phases["train"] = time.perf_counter() - t_start
 
-    # 4. serve
-    arms = serve_phase(sba, args.profile)
+    # 4. card against CPU
+    card_cpu = card_vs_cpu_phase(data, zca)
+    phases["card_vs_cpu"] = time.perf_counter() - t_start
+
+    # 5. serve
+    serve_arms = serve_phase(args.profile)
     torch.cuda.synchronize(dev)
+    phases["serve"] = time.perf_counter() - t_start
 
-    # 5. summary: per served batch pair (one classify chunk and one generate
-    # chunk of 100) at the shipped float32, the sum over its 13 epilogues.
-    f32 = {(r["where"], tuple(r["shape"])): r for r in rows if r["dtype"] == "float32"}
-    path = [("clf", s) for s in CLF_SHAPES] + [("gen", s) for s in GEN_SHAPES] + [("gen_out", GEN_OUT_SHAPE)]
-    total = {key: sum(f32[w, s][key] for w, s in path) for key in ("ms", "plain_ms", "bound_ms")}
-    kernels = [{
-        "name": "scale_bias_act",
-        "route": "cuda",
-        "source": "triplegan_tpu_torch/ops/csrc/scale_bias_act.cu",
-        "replaces": "triplegan_tpu/ops/pallas_fused.py:59",
-        "launches": sum(a["launches"] for a in arms),
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "max_err": max(r["max_abs_err"] for r in rows),
-        "ms": total["ms"],
-        "kernel_ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "basis": "sum over the 13 epilogues of one classify and one generate batch of 100, float32",
-    }]
+    # 6. kernels, at the shapes the main paths launched them at
+    sba_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms))
+    phases["kernels"] = time.perf_counter() - t_start
+    emit("phase_end_s", phases)
+
+    kernels = summary(sba_rows, conv_rows, train_arms, serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"smi": smi, "kind": kind, "build_s": build_s, "kernel_rows": rows,
-                       "serve": [{k: v for k, v in a.items() if not k.startswith("_")} for a in arms],
+            json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
+                       "sba_rows": sba_rows, "conv_rows": conv_rows, "train": [public(a) for a in train_arms],
+                       "card_vs_cpu": card_cpu,
+                       "serve": [public(a) for a in serve_arms],
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

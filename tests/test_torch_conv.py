@@ -1,0 +1,162 @@
+"""triplegan_tpu_torch.ops.conv3x3 against the JAX package's Pallas conv
+(``triplegan_tpu/ops/pallas_conv.py``, interpreted on the CPU as
+tests/test_ops_conv.py runs it).
+
+On the CPU the port's wrappers take their plain versions (nine shifted
+matmuls accumulated in float32), so these tests hold the plain versions,
+the halo read of the kernel's interface, and the autograd Function's
+backward (dx through the forward on the halo-padded cotangent against the
+flipped kernel, dw through wgrad) to the TPU kernels' semantics: forward,
+dx and dw, SAME and VALID, Cin 3, 13 and 16 (below the Pallas kernel's
+Cin 8 limit on the TPU, which interpret mode does not have), an odd
+spatial size, float32 and bfloat16.
+
+Tolerances. float32: atol = rtol = 1e-5 (the same float32 sums in another
+order). bfloat16: the forward and dx are float32 sums rounded once to
+bfloat16 on both sides, so they may differ by one bfloat16 ulp of the
+value, held as at most 2 ulps of the largest |value|; dw is float32 on
+both sides (exact bf16 products summed in float32): rtol = atol = 1e-5.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from triplegan_tpu.ops import pallas_conv as JC  # noqa: E402
+from triplegan_tpu_torch.ops import build  # noqa: E402
+from triplegan_tpu_torch.ops import conv3x3 as cv  # noqa: E402
+
+torch.set_num_threads(1)
+_DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _ulp_of_max(a: np.ndarray) -> float:
+    m = float(np.max(np.abs(a)))
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _close(got, want, dtype, exact_f32=False):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    if dtype == "float32" or exact_f32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.max(np.abs(got - want)) <= 2 * _ulp_of_max(want)
+
+
+def _inputs(n, h, w, cin, cout, padding, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.normal(size=(n, h, w, cin)).astype(np.float32)
+    wt = (rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+    ho, wo = (h, w) if padding == "SAME" else (h - 2, w - 2)
+    g = rng.normal(size=(n, ho, wo, cout)).astype(np.float32)
+    return x, wt, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+@pytest.mark.parametrize("cin", [3, 13, 16])
+def test_conv3x3_forward_and_grads_match_jax(cin, padding, dtype):
+    jdt, tdt = _DT[dtype]
+    x, wt, g = _inputs(2, 7, 9, cin, 12, padding, seed=cin)
+    # JAX: x in the compute dtype, w float32 (cast inside, as the networks do)
+    jx, jw, jg = jnp.asarray(x).astype(jdt), jnp.asarray(wt), jnp.asarray(g).astype(jdt)
+    y_j, vjp = jax.vjp(lambda a, b: JC.conv3x3(a, b, padding, True), jx, jw)
+    dx_j, dw_j = vjp(jg)
+
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    tw = torch.from_numpy(wt).requires_grad_()
+    y_t = cv.conv3x3(tx, tw, padding)
+    dx_t, dw_t = torch.autograd.grad(y_t, (tx, tw), torch.from_numpy(g).to(tdt))
+    assert y_t.dtype == dx_t.dtype == tdt and dw_t.dtype == torch.float32
+
+    _close(y_t.detach().float().numpy(), np.asarray(y_j.astype(jnp.float32)), dtype)
+    _close(dx_t.float().numpy(), np.asarray(dx_j.astype(jnp.float32)), dtype)
+    _close(dw_t.numpy(), np.asarray(dw_j), dtype, exact_f32=True)
+
+
+@pytest.mark.parametrize("pad", [0, 1, 2])
+def test_halo_read_equals_jax_pad_then_nopad(pad):
+    x, wt, _ = _inputs(3, 6, 5, 13, 8, "SAME", seed=7)
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    want = JC.conv3x3_nopad(jnp.asarray(xp), jnp.asarray(wt), interpret=True)
+    got = cv.conv3x3_nopad(torch.from_numpy(x), torch.from_numpy(wt), pad)
+    _close(got.numpy(), np.asarray(want), "float32")
+    g = np.random.RandomState(8).normal(size=want.shape).astype(np.float32)
+    want_dw = JC.conv3x3_wgrad(jnp.asarray(xp), jnp.asarray(g), interpret=True)
+    got_dw = cv.conv3x3_wgrad(torch.from_numpy(x), torch.from_numpy(g), pad)
+    _close(got_dw.numpy(), np.asarray(want_dw), "float32")
+
+
+def test_plain_versions_match_jax_on_prepadded_input():
+    rng = np.random.RandomState(9)
+    xp = rng.normal(size=(2, 9, 7, 16)).astype(np.float32)
+    wt = (rng.normal(size=(3, 3, 16, 24)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(2, 7, 5, 24)).astype(np.float32)
+    _close(cv.reference_conv3x3_nopad(torch.from_numpy(xp), torch.from_numpy(wt)).numpy(),
+           np.asarray(JC.conv3x3_nopad(jnp.asarray(xp), jnp.asarray(wt), interpret=True)),
+           "float32")
+    _close(cv.reference_conv3x3_wgrad(torch.from_numpy(xp), torch.from_numpy(g)).numpy(),
+           np.asarray(JC.conv3x3_wgrad(jnp.asarray(xp), jnp.asarray(g), interpret=True)),
+           "float32")
+    x = xp[:, 1:-1, 1:-1]
+    _close(cv.reference_conv3x3(torch.from_numpy(x), torch.from_numpy(wt), "SAME").numpy(),
+           np.asarray(JC.reference_conv3x3(jnp.asarray(x), jnp.asarray(wt), "SAME")), "float32")
+
+
+def test_input_gradient_skipped_for_data_inputs(monkeypatch):
+    """C's first conv takes data: its backward computes dw only."""
+    calls = []
+    real = cv.conv3x3_nopad
+
+    def spy(x, w, pad=0):
+        calls.append(pad)
+        return real(x, w, pad)
+
+    monkeypatch.setattr(cv, "conv3x3_nopad", spy)
+    x = torch.randn(2, 5, 5, 3)
+    w = torch.randn(3, 3, 3, 4, requires_grad=True)
+    y = cv.conv3x3(x, w, "SAME")
+    (dw,) = torch.autograd.grad(y.sum(), (w,))
+    assert calls == [1]  # the forward only: no dgrad launch
+    assert dw.shape == w.shape
+
+
+def test_cpu_call_does_not_count_or_build(monkeypatch):
+    def no_nvcc():
+        raise AssertionError("a CPU call must not build the kernel")
+
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    before = (cv.fwd_launches.copy(), cv.wgrad_launches.copy())
+    x = torch.randn(2, 5, 5, 4, requires_grad=True)
+    w = torch.randn(3, 3, 4, 6, requires_grad=True)
+    torch.autograd.grad(cv.conv3x3(x, w).sum(), (x, w))
+    assert (cv.fwd_launches, cv.wgrad_launches) == before
+    assert "conv3x3" not in build._loaded
+
+
+def test_wrappers_reject_what_they_cannot_take():
+    x = torch.zeros(1, 4, 4, 2)
+    with pytest.raises(ValueError, match="SAME or VALID"):
+        cv.conv3x3(x, torch.zeros(3, 3, 2, 2), "FULL")
+    with pytest.raises(ValueError, match="halo"):
+        cv.conv3x3_nopad(x, torch.zeros(3, 3, 2, 2), 3)
+    with pytest.raises(ValueError, match="smaller than"):
+        cv.conv3x3_nopad(torch.zeros(1, 2, 2, 2), torch.zeros(3, 3, 2, 2), 0)
+    with pytest.raises(ValueError, match="g must be"):
+        cv.conv3x3_wgrad(x, torch.zeros(1, 3, 3, 2), 1)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cv.conv3x3_nopad(x.to("meta"), torch.zeros(3, 3, 2, 2, device="meta"), 1)
+
+
+def test_wgrad_splits_cover_the_reduction_exactly():
+    for m, cin, cout in [(100 * 32 * 32, 3, 128), (384 * 16 * 16, 256, 256),
+                         (1152 * 32 * 32, 13, 32), (100 * 6 * 6, 256, 512), (17, 3, 12)]:
+        splits, chunk = cv.wgrad_splits(m, cin, cout)
+        assert chunk % 16 == 0 and splits >= 1
+        assert splits * chunk >= m > (splits - 1) * chunk

@@ -1,13 +1,17 @@
-"""The scale_bias_act CUDA kernel against its plain PyTorch version, on the
-card. Skips where there is no CUDA device (the kernel has no CPU mode).
+"""The CUDA kernels (scale_bias_act, conv3x3 forward and wgrad) against
+their plain PyTorch versions, on the card. Skips where there is no CUDA
+device (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: float32 |kernel − plain| ≤ 1e-6·(1 + |plain|); bfloat16 within
-one bfloat16 ulp (the kernel rounds as the plain version does, so both are
-met with room).
+Tolerance, scale_bias_act: float32 |kernel − plain| ≤ 1e-6·(1 + |plain|);
+bfloat16 within one bfloat16 ulp (the kernel rounds as the plain version
+does, so both are met with room). conv3x3: |kernel − plain| ≤
+8·sqrt(K)·2⁻²⁴·(the plain op on |inputs|), K the length of each sum (the
+two take float32 sums in different orders), plus one bfloat16 ulp of the
+value where the output is bfloat16 (both round a float32 sum once).
 """
 
 import numpy as np
@@ -15,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from triplegan_tpu_torch.ops import conv3x3 as cv  # noqa: E402
 from triplegan_tpu_torch.ops import scale_bias_act as sba  # noqa: E402
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -44,10 +49,11 @@ def test_kernel_matches_plain_on_card(dtype, cuda):
         for shape in [(4, 6, 6, 16), (5, 17, 13, 24), (3, 7, 11, 3)]:
             x, k, b = _inputs(shape, cuda)
             x = x.to(_DT[dtype])
-            before = sba.launches
+            before = sba.launches.total()
             got = sba.scale_bias_act(x, k, b, act, 0.1)
             torch.cuda.synchronize()
-            assert sba.launches == before + 1
+            assert sba.launches.total() == before + 1
+            assert sba.launches[shape, dtype, act, 0.1] >= 1
             want = sba.reference_scale_bias_act(x, k, b, act, 0.1)
             assert got.dtype == x.dtype and got.shape == x.shape
             err = (got.double() - want.double()).abs()
@@ -70,3 +76,100 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
         sba.scale_bias_act(torch.zeros(8, 4, device=cuda), torch.ones(5, device=cuda), zeros)
     with pytest.raises(ValueError, match="is on"):
         sba.scale_bias_act(torch.zeros(8, 4, device=cuda), torch.ones(4), zeros)
+
+
+def _bf16_ulp(v):
+    mag = torch.clamp_min(v.abs().double(), 2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _conv_limit(abs_ref, k, got, want):
+    lim = 8.0 * (k ** 0.5) * 2.0 ** -24 * abs_ref.double()
+    if got.dtype == torch.bfloat16:
+        lim = lim + _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    return lim
+
+
+# (N, H, W, Cin, Cout, halo): C's first conv, a D conv with Cout <= 32 (the
+# narrow tile), a G phase conv, and a VALID conv with an odd size.
+CONV_SHAPES = [(4, 32, 32, 3, 128, 1), (6, 16, 16, 42, 32, 1), (3, 8, 8, 256, 512, 1),
+               (5, 9, 7, 13, 12, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_kernels_match_plain_on_card(shape, dtype, cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, h, w, cin, cout, pad = shape
+    rng = np.random.RandomState(1)
+    dt = _DT[dtype]
+    x = torch.from_numpy(rng.normal(size=(n, h, w, cin)).astype(np.float32)).to(cuda, dt)
+    wt = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)).to(cuda, dt)
+    ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
+    g = torch.from_numpy(rng.normal(size=(n, ho, wo, cout)).astype(np.float32)).to(cuda, dt)
+    xp = cv._pad_hw(x, pad)
+
+    key = ("fwd", n, h, w, cin, cout, pad, dtype)
+    before = cv.fwd_launches.total()
+    got = cv.conv3x3_nopad(x, wt, pad)
+    torch.cuda.synchronize()
+    assert cv.fwd_launches.total() == before + 1 and cv.fwd_launches[key] >= 1
+    want = cv.reference_conv3x3_nopad(xp, wt)
+    assert got.dtype == dt and got.shape == want.shape
+    lim = _conv_limit(cv.reference_conv3x3_nopad(xp.abs(), wt.abs()).float(), 9 * cin, got, want)
+    assert bool(((got.double() - want.double()).abs() <= lim).all()), float((got.double() - want.double()).abs().max())
+
+    dw = cv.conv3x3_wgrad(x, g, pad)
+    torch.cuda.synchronize()
+    want_dw = cv.reference_conv3x3_wgrad(xp, g)
+    assert dw.dtype == torch.float32 and dw.shape == (3, 3, cin, cout)
+    lim = _conv_limit(cv.reference_conv3x3_wgrad(xp.abs(), g.abs()), n * ho * wo, dw, want_dw)
+    assert bool(((dw.double() - want_dw.double()).abs() <= lim).all()), float((dw - want_dw).abs().max())
+
+
+@pytest.mark.cuda
+def test_conv_function_grads_match_plain_on_card(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    for padding, (n, h, w, cin, cout) in (("SAME", (3, 10, 9, 13, 40)), ("VALID", (2, 8, 8, 16, 24))):
+        x = torch.from_numpy(rng.normal(size=(n, h, w, cin)).astype(np.float32))
+        wt = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32))
+        outs = []
+        for dev in ("cpu", cuda):
+            xd = x.to(dev).requires_grad_()
+            wd = wt.to(dev).requires_grad_()
+            y = cv.conv3x3(xd, wd, padding)
+            gy = torch.cos(torch.arange(y.numel(), device=y.device, dtype=torch.float32)).reshape(y.shape)
+            dx, dw = torch.autograd.grad(y, (xd, wd), gy)
+            outs.append([t.detach().cpu() for t in (y, dx, dw)])
+        for a, b in zip(*outs):
+            torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_conv_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros(2, 6, 6, 8, device=cuda)
+    wt = torch.zeros(3, 3, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv3x3_nopad(x.permute(0, 2, 1, 3), wt, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cv.conv3x3_nopad(x.half(), wt.half(), 1)
+    with pytest.raises(TypeError, match="one dtype"):
+        cv.conv3x3_nopad(x, wt.bfloat16(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv3x3_wgrad(x, torch.zeros(2, 6, 4, 6, device=cuda).transpose(2, 3), 1)
+    with pytest.raises(ValueError, match=r"\(3, 3, 8, Cout\)"):
+        cv.conv3x3_nopad(x, torch.zeros(3, 3, 5, 4, device=cuda), 1)
+
+
+@pytest.mark.cuda
+def test_conv_wgrad_is_bitwise_repeatable(cuda):
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.normal(size=(64, 16, 16, 42)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(64, 16, 16, 64)).astype(np.float32)).to(cuda)
+    assert cv.wgrad_splits(64 * 16 * 16, 42, 64)[0] > 1  # the split reduction is exercised
+    a = cv.conv3x3_wgrad(x, g, 1)
+    b = cv.conv3x3_wgrad(x, g, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

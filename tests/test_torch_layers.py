@@ -108,8 +108,8 @@ def test_batchnorm_act_eval(act, slope, use_pallas):
     want, _ = JL.batchnorm_act_apply(p, s, jnp.asarray(x), train=False, act=act, slope=slope,
                                      use_pallas=use_pallas)
     pt = _port("clf", p, s)
-    got = TL.batchnorm_act_apply(pt, pt, torch.from_numpy(x), act=act, slope=slope,
-                                 use_pallas=use_pallas)
+    got, _ = TL.batchnorm_act_apply(pt, pt, torch.from_numpy(x), act=act, slope=slope,
+                                    use_pallas=use_pallas)
     _check(got, want)
 
 

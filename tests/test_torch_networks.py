@@ -64,7 +64,7 @@ def build_pair(jax_cfg, use_pallas, tmp_path, seed=0):
     pg, sg = jgen.init(kg)
     pc, sc = jclf.init(kc)
     params, bn = randomize_state({"gen": pg, "clf": pc}, {"gen": sg, "clf": sc}, seed)
-    tgen, tclf = port_base.make_networks(cfg)
+    tgen, _, tclf = port_base.make_networks(cfg)
     state = bridge.from_jax(params, bn)
     tgen.load_state_dict(state["gen"])
     tclf.load_state_dict(state["clf"])

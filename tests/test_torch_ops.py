@@ -97,7 +97,7 @@ def test_cpu_call_does_not_count_or_build(monkeypatch):
         raise AssertionError("a CPU call must not build the kernel")
 
     monkeypatch.setattr(build, "_nvcc", no_nvcc)
-    before = sba.launches
+    before = sba.launches.copy()
     x, k, b = _inputs((2, 4, 4, 8))
     sba.scale_bias_act(torch.from_numpy(x), torch.from_numpy(k), torch.from_numpy(b), "relu")
     assert sba.launches == before

@@ -97,7 +97,7 @@ def test_bf16_config_keeps_generator_f32_and_logits_f32(run):
 def test_load_npz_of_jax_export(run):
     from_npz = bridge.load_npz(run.npz)
     direct = bridge.from_jax(run.jstate.params, run.jstate.bn)
-    assert sorted(from_npz) == ["clf", "gen"]  # the Discriminator is not carried
+    assert sorted(from_npz) == ["clf", "disc", "gen"]  # all three players are carried
     for player in direct:
         assert sorted(from_npz[player]) == sorted(direct[player])
         for key, t in direct[player].items():
@@ -109,7 +109,7 @@ def test_load_npz_of_jax_export(run):
 
 def test_to_jax_round_trip(run):
     params, bn = bridge.to_jax(bridge.from_jax(run.jstate.params, run.jstate.bn))
-    for player in ("gen", "clf"):
+    for player in ("gen", "disc", "clf"):
         for tree, ref in ((params, run.jstate.params), (bn, run.jstate.bn)):
             for layer, arrays in ref[player].items():
                 for name, a in arrays.items():

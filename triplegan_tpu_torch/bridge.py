@@ -9,9 +9,13 @@ state is one ``state_dict`` per player, keyed ``<layer>.<array>``
 
 Layouts: a conv kernel goes HWIO → OIHW; a dense kernel stays (in, out);
 a deconv kernel (the Generator's 4-D kernels) stays (k, k, in, out);
-``g``, ``b`` and the batch-norm arrays go over as they are. Only the
-players the port has (``gen``, ``clf``) are carried; the Discriminator
-comes with the training slice.
+``g``, ``b``, the Discriminator's weight-norm dense head and the
+batch-norm arrays go over as they are. All three players are carried:
+``gen``, ``disc`` (whose 4-D kernels are convs) and ``clf``.
+
+The train step works on nested trees instead (``nn/networks.py``):
+``nested`` and ``flat`` convert one player's state_dict to and from its
+(params, stats) trees.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-PLAYERS = ("gen", "clf")
+PLAYERS = ("gen", "disc", "clf")
 _DECONV_PLAYERS = ("gen",)  # whose 4-D kernels are transposed-conv kernels
 
 
@@ -68,6 +72,23 @@ def to_jax(state: Dict[str, Dict[str, torch.Tensor]]):
             tree = bn if name in ("mean", "var") else params
             tree[player].setdefault(layer, {})[name] = _to_jax(player, t)
     return params, bn
+
+
+def nested(sd: Dict[str, torch.Tensor]):
+    """One player's state_dict ``{"<layer>.<array>": t}`` → its (params,
+    stats) trees ``{layer: {array: t}}``; ``mean``/``var`` go to stats."""
+    params: dict = {}
+    stats: dict = {}
+    for key, t in sd.items():
+        layer, name = key.split(".")
+        (stats if name in ("mean", "var") else params).setdefault(layer, {})[name] = t
+    return params, stats
+
+
+def flat(params: dict, stats: dict) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`nested`."""
+    return {f"{layer}.{name}": t for tree in (params, stats)
+            for layer, arrays in tree.items() for name, t in arrays.items()}
 
 
 def load_npz(path: str) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -5,8 +5,9 @@ JAX trainer loads here unchanged.
 
 Every field keeps the JAX package's name and default, with one exception:
 ``use_pallas`` defaults to True, which in the port selects the hand-written
-Hopper epilogue kernel (``ops/scale_bias_act.py``); False selects the plain
-PyTorch epilogue that the JAX package's non-Pallas branch computes.
+Hopper kernels (the epilogue ``ops/scale_bias_act.py`` and the 3×3 conv
+``ops/conv3x3.py``); False selects plain PyTorch: the epilogue that the JAX
+package's non-Pallas branch computes, and ``F.conv2d`` for every conv.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ def base_config() -> ConfigDict:
     # --- execution ---------------------------------------------------------
     cfg.compute_dtype = "float32"             # "bfloat16" for throughput runs
     cfg.prng_impl = "threefry"
-    cfg.use_pallas = True                     # True: the Hopper epilogue kernel
+    cfg.use_pallas = True                     # True: the Hopper kernels
     cfg.fused_clf_forward = False
     cfg.data_on_device = True
     cfg.mesh_shape = (1,)
@@ -162,9 +163,9 @@ def merge_saved(cfg: ConfigDict, path: str) -> ConfigDict:
 
 
 def make_networks(cfg: ConfigDict):
-    """Build the (Generator, Classifier) modules of a config. The
-    Discriminator comes with the training slice."""
-    from triplegan_tpu_torch.nn.networks import Classifier, Generator
+    """Build the (Generator, Discriminator, Classifier) modules of a
+    config, in the JAX package's order."""
+    from triplegan_tpu_torch.nn.networks import Classifier, Discriminator, Generator
 
     gen = Generator(
         image_size=cfg.image_size,
@@ -173,6 +174,19 @@ def make_networks(cfg: ConfigDict):
         z_dim=cfg.z_dim,
         widths=tuple(cfg.gen.widths),
         kernel=cfg.gen.kernel,
+        bn_momentum=cfg.bn_momentum,
+        use_pallas=cfg.use_pallas,
+    )
+    disc = Discriminator(
+        image_size=cfg.image_size,
+        channels=cfg.channels,
+        num_classes=cfg.num_classes,
+        widths=tuple(cfg.disc.widths),
+        strides=tuple(cfg.disc.strides),
+        input_noise=cfg.disc.input_noise,
+        input_dropout=cfg.disc.input_dropout,
+        block_dropout=cfg.disc.block_dropout,
+        label_reconcat=bool(cfg.disc.get("label_reconcat", True)),
         use_pallas=cfg.use_pallas,
     )
     clf = Classifier(
@@ -181,6 +195,9 @@ def make_networks(cfg: ConfigDict):
         num_classes=cfg.num_classes,
         conv_blocks=tuple(tuple(b) for b in cfg.clf.conv_blocks),
         tail=tuple(cfg.clf.tail),
+        input_noise=cfg.clf.input_noise,
+        block_dropout=cfg.clf.block_dropout,
+        bn_momentum=cfg.bn_momentum,
         use_pallas=cfg.use_pallas,
     )
-    return gen, clf
+    return gen, disc, clf

@@ -1,10 +1,10 @@
-"""ZCA whitening at serve time: load the run dir's statistics and apply them
-as one matmul. Mirrors ``triplegan_tpu/data/zca.py``; fitting stays with
-the JAX package (it runs once, at prepare/train time, in float64 numpy)."""
+"""ZCA whitening: fit once on the host in float64 numpy, apply on the device
+as one matmul. Mirrors ``triplegan_tpu/data/zca.py``."""
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -21,6 +21,31 @@ class ZCAStats:
     def load(path: str) -> "ZCAStats":
         with np.load(path, allow_pickle=False) as z:
             return ZCAStats(mean=z["mean"], whiten=z["whiten"])
+
+
+def fit_zca(images: np.ndarray, eps: float = 1e-5) -> ZCAStats:
+    """Fit ZCA on uint8/float images (N, H, W, C) rescaled to [-1, 1]:
+    float64 covariance and symmetric eigendecomposition, float32 result.
+    N should exceed D = H·W·C, or the whitening amplifies the covariance's
+    null directions by 1/sqrt(eps) (a warning says so)."""
+    n = images.shape[0]
+    dims = int(np.prod(images.shape[1:]))
+    if n < dims:
+        warnings.warn(
+            f"fit_zca: {n} samples < {dims} dims — covariance is rank-"
+            "deficient; whitening will amplify null directions on unseen "
+            "data. Fit on more samples or disable ZCA.",
+            stacklevel=2,
+        )
+    flat = images.reshape(n, -1).astype(np.float64)
+    flat = flat / 127.5 - 1.0
+    mean = flat.mean(axis=0)
+    centered = flat - mean
+    cov = centered.T @ centered / n
+    eigval, eigvec = np.linalg.eigh(cov)
+    eigval = np.maximum(eigval, 0.0)
+    whiten = (eigvec * (1.0 / np.sqrt(eigval + eps))) @ eigvec.T
+    return ZCAStats(mean=mean.astype(np.float32), whiten=whiten.astype(np.float32))
 
 
 def apply_zca(x: torch.Tensor, mean: torch.Tensor, whiten: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,7 @@ def make_serving_fns(cfg, nets, state, zca_stats=None, device=None) -> Tuple[Cal
     ``(classify, generate)``. The Generator's phase kernels and the ZCA
     arrays in the compute dtype are built here, once."""
     dev = resolve_device(device)
-    gen, clf = nets
+    gen, _, clf = nets
     gen.load_state_dict(state["gen"])
     clf.load_state_dict(state["clf"])
     gen.to(dev).eval()

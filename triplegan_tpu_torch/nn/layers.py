@@ -1,11 +1,20 @@
-"""Layer functions of the serving path, over plain dicts of tensors.
+"""Layer functions of the three networks, over plain dicts of tensors.
 
 Each function mirrors its namesake in ``triplegan_tpu/nn/layers.py`` and
-takes the same parameter names. Activations are NHWC at every public
-function, as in the JAX package. Weight layouts follow PyTorch where a
-library call takes them: a conv kernel is OIHW (the bridge permutes JAX's
-HWIO); a dense kernel stays (in, out); a deconv kernel stays JAX's
-(k, k, in, out), because the subpixel plan reads its taps directly.
+takes the same parameter names, in eval and in train mode. Activations are
+NHWC at every public function, as in the JAX package. Weight layouts
+follow PyTorch where a library call takes them: a conv kernel is OIHW (the
+bridge permutes JAX's HWIO); a dense kernel stays (in, out); a deconv
+kernel stays JAX's (k, k, in, out), because the subpixel plan reads its
+taps directly.
+
+``use_pallas`` routes every 3×3 stride-1 conv (the Classifier's SAME convs
+and its VALID ``t0``, the Discriminator's stride-1 convs, and the
+Generator's subpixel phase convs) through the Hopper conv kernels
+(``ops/conv3x3.py``) and every epilogue through the Hopper
+``scale_bias_act`` kernel; on the CPU those take their plain versions.
+1×1 convs, stride-2 convs and every conv with ``use_pallas`` off go to
+``F.conv2d``.
 
 A contiguous NHWC tensor permuted to NCHW is a channels_last view, which
 ``F.conv2d`` takes without a copy and answers in channels_last, so the
@@ -14,17 +23,21 @@ the epilogue kernel reads.
 
 Init functions keep JAX's shapes and scales (normal, std 0.05; g = 1,
 b = 0; BN scale 1, bias 0, mean 0, var 1) and draw from an explicit
-``torch.Generator``.
+``torch.Generator``. The stochastic layers (noise, dropout) draw from an
+explicit generator too; with none they are the identity, as JAX's are
+with no key.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from triplegan_tpu_torch.ops.conv3x3 import conv3x3
 from triplegan_tpu_torch.ops.scale_bias_act import apply_act, scale_bias_act
 
 Params = Dict[str, torch.Tensor]
@@ -35,10 +48,14 @@ def _normal(gen: torch.Generator, shape, stddev: float) -> torch.Tensor:
 
 
 def _wn_kernel(v: torch.Tensor, g: torch.Tensor, reduce_axes: Tuple[int, ...]) -> torch.Tensor:
-    """w = g · v / ‖v‖ per output channel, the norm taken over ``reduce_axes``
-    (every axis but the output axis)."""
+    """w = g · v / ‖v‖ per output channel, the norm sqrt(Σv² + 1e-12) taken
+    over ``reduce_axes`` (every axis but the output axis)."""
     norm = torch.sqrt(torch.sum(v * v, dim=reduce_axes, keepdim=True) + 1e-12)
     return v * (g.reshape(norm.shape) / norm)
+
+
+def _weight(p: Params, reduce_axes: Tuple[int, ...]) -> torch.Tensor:
+    return _wn_kernel(p["v"], p["g"], reduce_axes) if "v" in p else p["w"]
 
 
 # ---------------------------------------------------------------------------
@@ -46,49 +63,73 @@ def _wn_kernel(v: torch.Tensor, g: torch.Tensor, reduce_axes: Tuple[int, ...]) -
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen, in_dim, out_dim, *, w_std=0.05) -> Params:
-    return {"w": _normal(gen, (in_dim, out_dim), w_std), "b": torch.zeros(out_dim)}
+def dense_init(gen, in_dim, out_dim, *, weight_norm=False, w_std=0.05, use_bias=True) -> Params:
+    v = _normal(gen, (in_dim, out_dim), w_std)
+    p: Params = {"v": v, "g": torch.ones(out_dim)} if weight_norm else {"w": v}
+    if use_bias:
+        p["b"] = torch.zeros(out_dim)
+    return p
 
 
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = x @ _weight(p, (0,)).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Conv2D (NHWC activations, OIHW kernels), stride 1
+# Conv2D (NHWC activations, OIHW kernels)
 # ---------------------------------------------------------------------------
 
 
-def conv2d_init(gen, in_ch, out_ch, *, kernel=3, w_std=0.05, use_bias=True) -> Params:
-    p: Params = {"w": _normal(gen, (out_ch, in_ch, kernel, kernel), w_std)}
+def conv2d_init(gen, in_ch, out_ch, *, kernel=3, weight_norm=False, w_std=0.05,
+                use_bias=True) -> Params:
+    v = _normal(gen, (out_ch, in_ch, kernel, kernel), w_std)
+    p: Params = {"v": v, "g": torch.ones(out_ch)} if weight_norm else {"w": v}
     if use_bias:
         p["b"] = torch.zeros(out_ch)
     return p
 
 
-def _conv_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, padding) -> torch.Tensor:
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=padding)
+def _tf_pads(size: int, k: int, stride: int, padding: str) -> Tuple[int, int]:
+    """(before, after) padding of one spatial axis under TF's rules: SAME
+    gives ceil(size/stride) outputs and puts the odd pixel after (so a
+    stride-2 3×3 conv of an even size pads (0, 1)); VALID pads nothing."""
+    if padding == "VALID":
+        return 0, 0
+    if padding != "SAME":
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, stride: int, padding: str) -> torch.Tensor:
+    kh, kw = w_oihw.shape[2:]
+    ph, pw = _tf_pads(x.shape[1], kh, stride, padding), _tf_pads(x.shape[2], kw, stride, padding)
+    xc = x.permute(0, 3, 1, 2)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        y = F.conv2d(xc, w_oihw, stride=stride, padding=(ph[0], pw[0]))
+    else:
+        y = F.conv2d(F.pad(xc, (pw[0], pw[1], ph[0], ph[1])), w_oihw, stride=stride)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def conv2d_apply(p: Params, x: torch.Tensor, *, padding: str = "SAME") -> torch.Tensor:
-    """Stride-1 conv with TF padding names; SAME pads (k−1)/2 on each side
-    of an odd kernel, VALID pads nothing. (The Discriminator's stride-2 and
-    weight-norm convs come with the training slice.)"""
-    w = p["w"]
-    kh, kw = w.shape[2:]
-    if padding == "SAME":
-        if kh % 2 == 0 or kw % 2 == 0:
-            raise NotImplementedError("SAME padding of an even kernel")
-        pad = ((kh - 1) // 2, (kw - 1) // 2)
-    elif padding == "VALID":
-        pad = (0, 0)
-    else:
-        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-    y = _conv_nhwc(x, w.to(x.dtype), pad)
+def _conv(x: torch.Tensor, w_oihw: torch.Tensor, stride: int, padding: str,
+          use_pallas: bool) -> torch.Tensor:
+    """The conv itself, in x's dtype: the Hopper 3×3 kernel for a 3×3
+    stride-1 conv under ``use_pallas``, else ``F.conv2d``."""
+    if use_pallas and stride == 1 and tuple(w_oihw.shape[2:]) == (3, 3):
+        return conv3x3(x.contiguous(), w_oihw.permute(2, 3, 1, 0), padding)
+    return _conv_nhwc(x, w_oihw.to(x.dtype), stride, padding)
+
+
+def conv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1, padding: str = "SAME",
+                 use_pallas: bool = False) -> torch.Tensor:
+    """Conv with TF padding names and strides; a weight-norm layer (``v``,
+    ``g``) convolves with g·v/‖v‖, the norm over (I, H, W)."""
+    y = _conv(x, _weight(p, (1, 2, 3)), stride, padding, use_pallas)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y.to(x.dtype)
@@ -123,56 +164,78 @@ def _subpixel_plan(k: int, s: int):
     return phases, min(offsets), max(offsets)
 
 
-def phase_kernel(w: torch.Tensor, stride: int) -> torch.Tensor:
-    """The dense (s²·Cout, Cin, kk, kk) conv kernel equivalent to the
-    transposed-conv kernel ``w`` (k, k, Cin, Cout): output channel
-    ``(a·s + b)·Cout + cout`` holds phase (a, b). Built in w's dtype."""
-    k, _, cin, cout = w.shape
-    s = stride
+@functools.lru_cache(maxsize=None)
+def _phase_index(k: int, s: int) -> torch.Tensor:
+    """(kk, kk, s, s) index of the tap of a k×k kernel (row-major, k·k for
+    none) at each position of the phase kernel. Built outside inference
+    mode even when first asked for inside it (serving), so that a later
+    train step can save it for backward."""
     phases, d_min, d_max = _subpixel_plan(k, s)
     kk = d_max - d_min + 1
-    wp = torch.zeros((kk, kk, cin, s * s, cout), dtype=w.dtype, device=w.device)
+    with torch.inference_mode(False):
+        idx = torch.full((kk, kk, s, s), k * k, dtype=torch.long)
     for a in range(s):
         for b in range(s):
             for pu, du in phases[a]:
                 for pv, dv in phases[b]:
-                    wp[du - d_min, dv - d_min, :, a * s + b, :] = w[pu, pv]
-    return wp.reshape(kk, kk, cin, s * s * cout).permute(3, 2, 0, 1).contiguous()
+                    idx[du - d_min, dv - d_min, a, b] = pu * k + pv
+    return idx
 
 
-def _deconv2d_subpixel(x: torch.Tensor, wp: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """``conv_transpose`` SAME of NHWC x as one dense conv with the phase
-    kernel ``wp`` (from :func:`phase_kernel`), then depth-to-space."""
+def phase_kernel(w: torch.Tensor, stride: int) -> torch.Tensor:
+    """The dense HWIO (kk, kk, Cin, s²·Cout) conv kernel equivalent to the
+    transposed-conv kernel ``w`` (k, k, Cin, Cout): output channel
+    ``(a·s + b)·Cout + cout`` holds phase (a, b). One gather, in w's dtype
+    and differentiable in w."""
+    k, _, cin, cout = w.shape
+    s = stride
+    idx = _phase_index(k, s).to(w.device)
+    taps = torch.cat([w.reshape(k * k, cin, cout), w.new_zeros((1, cin, cout))])
+    kk = idx.shape[0]
+    wp = taps[idx]  # (kk, kk, s, s, cin, cout)
+    return wp.permute(0, 1, 4, 2, 3, 5).reshape(kk, kk, cin, s * s * cout)
+
+
+def _deconv2d_subpixel(x: torch.Tensor, wp: torch.Tensor, k: int, stride: int,
+                       use_pallas: bool = False) -> torch.Tensor:
+    """``conv_transpose`` SAME of NHWC x as one dense conv with the HWIO
+    phase kernel ``wp`` (from :func:`phase_kernel`), then depth-to-space.
+    The phase conv of the networks' k = 5, stride-2 deconvs is 3×3 with
+    halo 1, which ``use_pallas`` runs on the Hopper conv kernel."""
     s = stride
     n, h, wd, _ = x.shape
     _, d_min, d_max = _subpixel_plan(k, s)
-    cout = wp.shape[0] // (s * s)
-    xc = x.permute(0, 3, 1, 2)
-    if -d_min == d_max:
-        y = F.conv2d(xc, wp.to(x.dtype), padding=d_max)
+    cout = wp.shape[-1] // (s * s)
+    if use_pallas and -d_min == d_max == 1:
+        y = conv3x3(x.contiguous(), wp, "SAME")
     else:
-        y = F.conv2d(F.pad(xc, (-d_min, d_max, -d_min, d_max)), wp.to(x.dtype))
-    y = y.permute(0, 2, 3, 1)  # (n, h, w, s·s·cout), phases outermost
+        xc = x.permute(0, 3, 1, 2)
+        w_oihw = wp.permute(3, 2, 0, 1).to(x.dtype)
+        if -d_min == d_max:
+            y = F.conv2d(xc, w_oihw, padding=d_max)
+        else:
+            y = F.conv2d(F.pad(xc, (-d_min, d_max, -d_min, d_max)), w_oihw)
+        y = y.permute(0, 2, 3, 1)  # (n, h, w, s·s·cout), phases outermost
     y = y.reshape(n, h, wd, s, s, cout).permute(0, 1, 3, 2, 4, 5)
     return y.reshape(n, h * s, wd * s, cout)
 
 
 def deconv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
-                   wp: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   wp: Optional[torch.Tensor] = None, use_pallas: bool = False) -> torch.Tensor:
     """TF-semantics ``conv2d_transpose`` with SAME padding: out = in · stride.
-    ``wp`` is the layer's phase kernel when the caller built it at load; it
-    is built from ``p`` here otherwise."""
-    w = _wn_kernel(p["v"], p["g"], (0, 1, 2)) if "v" in p else p["w"]
+    ``wp`` is the layer's phase kernel when the caller built it once (the
+    serving path); it is built from ``p`` here otherwise."""
+    w = _weight(p, (0, 1, 2))
     if wp is None:
         wp = phase_kernel(w, stride)
-    y = _deconv2d_subpixel(x, wp, w.shape[0], stride)
+    y = _deconv2d_subpixel(x, wp, w.shape[0], stride, use_pallas)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Batch norm (eval) and fused epilogues
+# Batch norm and fused epilogues
 # ---------------------------------------------------------------------------
 
 
@@ -182,24 +245,73 @@ def batchnorm_init(num_features: int) -> Tuple[Params, Params]:
     return params, state
 
 
+def _moments(p: Params, s: Params, x: torch.Tensor, train: bool, momentum: float):
+    """(mean, var, new running stats). In train mode the batch moments in
+    float32 over all axes but the channel axis, the biased variance
+    max(E[x²] − E[x]², 0), and the running stats advanced as
+    momentum·old + (1 − momentum)·new, outside autograd; in eval mode the
+    running stats, unchanged."""
+    if not train:
+        return s["mean"], s["var"], s
+    axes = tuple(range(x.dim() - 1))
+    xf = x.float()
+    mean = torch.mean(xf, dim=axes)
+    mean_sq = torch.mean(xf * xf, dim=axes)
+    var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+    with torch.no_grad():
+        new_s = {
+            "mean": momentum * s["mean"] + (1.0 - momentum) * mean,
+            "var": momentum * s["var"] + (1.0 - momentum) * var,
+        }
+    return mean, var, new_s
+
+
+def batchnorm_apply(p: Params, s: Params, x: torch.Tensor, *, train: bool,
+                    momentum: float = 0.99, eps: float = 1e-3):
+    """BN over all axes but the last: (y in x's dtype, new running stats)."""
+    mean, var, new_s = _moments(p, s, x, train, momentum)
+    inv = torch.rsqrt(var + eps) * p["scale"]
+    y = (x.float() - mean) * inv + p["bias"]
+    return y.to(x.dtype), new_s
+
+
 def _scale_bias_act(x, k, b, act, slope, use_pallas):
     """Per-channel affine + activation: the Hopper kernel when ``use_pallas``
     (its plain version for a CPU tensor), else the plain epilogue that the
     JAX package's non-Pallas branch computes, in x's dtype."""
     if use_pallas:
-        return scale_bias_act(x, k, b, act or "linear", slope)
+        return scale_bias_act(x.contiguous(), k, b, act or "linear", slope)
     return apply_act(x * k + b, act or "linear", slope).to(x.dtype)
 
 
-def batchnorm_act_apply(p: Params, s: Params, x: torch.Tensor, *, act: Optional[str] = None,
-                        slope: float = 0.1, eps: float = 1e-3,
+def batchnorm_act_apply(p: Params, s: Params, x: torch.Tensor, *, train: bool = False,
+                        act: Optional[str] = None, slope: float = 0.1, momentum: float = 0.99,
+                        eps: float = 1e-3, use_pallas: bool = False):
+    """Batch norm folded to ``act(x·k + b)`` with k = scale·rsqrt(var + eps),
+    b = bias − mean·k, from the batch moments (train) or the running stats
+    (eval). Returns (y in x's dtype, new running stats)."""
+    mean, var, new_s = _moments(p, s, x, train, momentum)
+    k = p["scale"] * torch.rsqrt(var + eps)
+    b = p["bias"] - mean * k
+    return _scale_bias_act(x, k.to(x.dtype), b.to(x.dtype), act, slope, use_pallas), new_s
+
+
+def conv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 1, padding: str = "SAME",
+                        act: Optional[str] = None, slope: float = 0.2,
                         use_pallas: bool = False) -> torch.Tensor:
-    """Eval-mode batch norm folded to ``act(x·k + b)`` with
-    k = scale·rsqrt(var + eps), b = bias − mean·k, from the running stats.
-    Train mode (batch moments) comes with the training slice."""
-    k = p["scale"] * torch.rsqrt(s["var"] + eps)
-    b = p["bias"] - s["mean"] * k
-    return _scale_bias_act(x, k.to(x.dtype), b.to(x.dtype), act, slope, use_pallas)
+    """Weight-norm conv with the norm as a fused epilogue:
+    conv(x, v·g/‖v‖) = conv(x, v)·(g/‖v‖) per output channel. With
+    ``use_pallas`` the raw-v conv runs and k = g/‖v‖ goes into the
+    epilogue kernel; without it, the normalized kernel is applied as
+    ``conv2d_apply`` does."""
+    if "v" not in p or not use_pallas:
+        return apply_act(conv2d_apply(p, x, stride=stride, padding=padding), act or "linear", slope)
+    v, g = p["v"], p["g"]
+    norm = torch.sqrt(torch.sum(v * v, dim=(1, 2, 3)) + 1e-12)
+    k = (g / norm).to(x.dtype)
+    b = p["b"].to(x.dtype) if "b" in p else torch.zeros_like(k)
+    y = _conv(x, v, stride, padding, True).to(x.dtype)
+    return _scale_bias_act(y, k, b, act, slope, True)
 
 
 def deconv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
@@ -219,19 +331,47 @@ def deconv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
     b = p["b"].to(x.dtype) if "b" in p else torch.zeros_like(k)
     if wp is None:
         wp = phase_kernel(v, stride)
-    y = _deconv2d_subpixel(x, wp, v.shape[0], stride).to(x.dtype)
-    return _scale_bias_act(y.contiguous(), k, b, act, slope, True)
+    y = _deconv2d_subpixel(x, wp, v.shape[0], stride, True).to(x.dtype)
+    return _scale_bias_act(y, k, b, act, slope, True)
 
 
 # ---------------------------------------------------------------------------
-# Pooling and labels
+# Stochastic layers
 # ---------------------------------------------------------------------------
+
+
+def gaussian_noise(gen: Optional[torch.Generator], x: torch.Tensor, sigma: float, *,
+                   train: bool) -> torch.Tensor:
+    if not train or sigma <= 0.0 or gen is None:
+        return x
+    return x + sigma * torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+
+
+def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float, *,
+            train: bool) -> torch.Tensor:
+    """``x · mask · (1/keep)`` with a Bernoulli(keep) mask, keep = 1 − rate
+    (JAX's 32-bit branch)."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return x * (mask.to(x.dtype) * (1.0 / keep))
+
+
+# ---------------------------------------------------------------------------
+# Activations, pooling and labels
+# ---------------------------------------------------------------------------
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
 
 
 def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """Non-overlapping (stride = window) max pool with TF SAME padding,
     NHWC. SAME then pads only the far edge of an odd size, which
-    ``ceil_mode`` reproduces."""
+    ``ceil_mode`` reproduces. The gradient goes to one element of each
+    window, as through JAX's ``reduce_window``."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, window, ceil_mode=True)
     return y.permute(0, 2, 3, 1).contiguous()
 
@@ -242,3 +382,10 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 def onehot(labels: torch.Tensor, num_classes: int, dtype=torch.float32) -> torch.Tensor:
     return F.one_hot(labels.long(), num_classes).to(dtype)
+
+
+def label_concat_spatial(x: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
+    """Broadcast one-hot labels to spatial planes and concat on channels."""
+    n, h, w, _ = x.shape
+    planes = y_onehot[:, None, None, :].to(x.dtype).expand(n, h, w, y_onehot.shape[-1])
+    return torch.cat([x, planes], dim=-1)

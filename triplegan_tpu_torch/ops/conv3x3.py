@@ -1,0 +1,230 @@
+"""3×3 stride-1 convolution of NHWC activations with hand-written Hopper
+forward and filter-gradient kernels, and its autograd Function.
+
+The CUDA source ``csrc/conv3x3.cu`` replaces the TPU kernels of
+``triplegan_tpu/ops/pallas_conv.py``: ``conv3x3_fwd`` replaces
+``_fwd_kernel`` (``conv3x3_nopad``) and also computes the input gradient,
+``conv3x3_wgrad`` replaces ``_wgrad_kernel``. Both are bound by operations
+at the training step's shapes (an implicit GEMM with M = N·H·W, N = Cout,
+K = 9·Cin, on the CUDA cores in float32 for now); design notes are in the
+source.
+
+Semantics, as in the JAX package:
+
+* ``conv3x3_nopad(x, w, pad)``: a VALID 3×3 conv of x read with a zero halo
+  of ``pad`` pixels (0 = x is already padded, JAX's ``conv3x3_nopad``);
+  the sum over the nine taps accumulates in float32 and the result is in
+  x's dtype. The kernel reads the halo with bounds checks instead of
+  materializing the padded copy.
+* ``conv3x3_wgrad(x, g, pad)``: dW[dy,dx] = Σ x_halo[n,h+dy,w+dx,:]ᵀ ·
+  g[n,h,w,:], float32 (3, 3, Cin, Cout). Deterministic on the card: the
+  reduction over N·H·W is split over blocks into a float32 workspace and
+  summed in a fixed order.
+* ``conv3x3(x, w, padding)``: the differentiable op (``pallas_conv.py``
+  ``conv3x3`` with its custom VJP). w is HWIO (3, 3, Cin, Cout), the
+  layout the kernels take, cast to x's dtype for the forward; dx is the
+  forward kernel on g with halo 2 − p against the flipped, in/out-swapped
+  kernel; dw is ``conv3x3_wgrad`` cast to w's dtype. Gradients that autograd
+  does not need (dx of a conv on data) are not computed.
+
+A tensor on the CPU takes the plain versions (``reference_*``: nine
+shifted matmuls accumulated in float32, as the Pallas bodies do). A CUDA
+tensor launches the kernel or raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import math
+
+import torch
+
+from triplegan_tpu_torch.ops import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PAD = {"SAME": 1, "VALID": 0}
+
+# Kernel launches since the counts were last cleared: the forward kernel
+# (forward and input gradient) and the filter-gradient kernel, keyed by
+# (role, N, H, W, Cin, Cout, halo, dtype) of the call, role "fwd", "dgrad"
+# or "wgrad" and (N, H, W, Cin) the kernel's input.
+fwd_launches: collections.Counter = collections.Counter()
+wgrad_launches: collections.Counter = collections.Counter()
+
+# wgrad splits its reduction so that about this many blocks fill the card.
+_WGRAD_TARGET_BLOCKS = 4 * 132
+_WGRAD_MIN_CHUNK = 256
+
+
+def _pad_hw(x: torch.Tensor, p: int) -> torch.Tensor:
+    if p == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, 0, p, p, p, p))
+
+
+def _taps(x_pad: torch.Tensor, ho: int, wo: int):
+    for dy in range(3):
+        for dx in range(3):
+            yield dy, dx, x_pad[:, dy:dy + ho, dx:dx + wo, :].reshape(-1, x_pad.shape[-1]).float()
+
+
+def reference_conv3x3_nopad(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``conv3x3_nopad``: (N, Ho+2, Wo+2, Cin) × (3, 3,
+    Cin, Cout) → (N, Ho, Wo, Cout) in x's dtype, float32 accumulation."""
+    n, hp, wp, _ = x_pad.shape
+    ho, wo = hp - 2, wp - 2
+    acc = torch.zeros((n * ho * wo, w.shape[-1]), dtype=torch.float32, device=x_pad.device)
+    for dy, dx, patch in _taps(x_pad, ho, wo):
+        acc += patch @ w[dy, dx].float()
+    return acc.reshape(n, ho, wo, -1).to(x_pad.dtype)
+
+
+def reference_conv3x3_wgrad(x_pad: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``conv3x3_wgrad``: float32 (3, 3, Cin, Cout)."""
+    _, ho, wo, cout = g.shape
+    g2 = g.reshape(-1, cout).float()
+    out = torch.empty((3, 3, x_pad.shape[-1], cout), dtype=torch.float32, device=x_pad.device)
+    for dy, dx, patch in _taps(x_pad, ho, wo):
+        out[dy, dx] = patch.T @ g2
+    return out
+
+
+def reference_conv3x3(x: torch.Tensor, w: torch.Tensor, padding: str = "SAME") -> torch.Tensor:
+    """Plain forward of ``conv3x3`` (SAME or VALID)."""
+    return reference_conv3x3_nopad(_pad_hw(x, _PAD[padding]), w.to(x.dtype))
+
+
+def _lib():
+    lib = build.load("conv3x3")
+    fwd, wgrad = lib.conv3x3_fwd_launch, lib.conv3x3_wgrad_launch
+    if fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        fwd.restype = i
+        wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_longlong, i, p]
+        wgrad.restype = i
+    return fwd, wgrad
+
+
+def _check_cuda(name: str, **tensors):
+    x = next(iter(tensors.values()))
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} takes cpu or cuda tensors, got {x.device}")
+    for arg, t in tensors.items():
+        if t.device != x.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {x.device}")
+        if t.dtype not in _DTYPES or t.dtype != x.dtype:
+            raise TypeError(f"{name} kernel takes float32 or bfloat16 tensors of one dtype; "
+                            f"{arg} is {t.dtype}, x is {x.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous tensors; {arg} is not")
+        if t.dim() != 4 or t.numel() == 0:
+            raise ValueError(f"{name}: {arg} must be a non-empty 4-D tensor, got {tuple(t.shape)}")
+
+
+def _out_hw(x: torch.Tensor, pad: int):
+    if pad not in (0, 1, 2):
+        raise ValueError(f"halo must be 0, 1 or 2 pixels, got {pad}")
+    ho, wo = x.shape[1] + 2 * pad - 2, x.shape[2] + 2 * pad - 2
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"input {tuple(x.shape)} with halo {pad} is smaller than the 3x3 kernel")
+    return ho, wo
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
+def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "fwd") -> torch.Tensor:
+    """VALID 3×3 conv of NHWC x read with a zero halo of ``pad`` pixels;
+    w is HWIO (3, 3, Cin, Cout). CPU tensors take the plain version, CUDA
+    tensors the Hopper kernel (w must then be in x's dtype). ``role`` only
+    labels the launch count: "fwd", or "dgrad" where x is a cotangent."""
+    ho, wo = _out_hw(x, pad)
+    if x.device.type == "cpu":
+        return reference_conv3x3_nopad(_pad_hw(x, pad), w)
+    _check_cuda("conv3x3_nopad", x=x, w=w)
+    n, hin, win, cin = x.shape
+    if tuple(w.shape[:3]) != (3, 3, cin):
+        raise ValueError(f"w must be (3, 3, {cin}, Cout), got {tuple(w.shape)}")
+    cout = w.shape[3]
+    y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    fwd, _ = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, hin, win, cin, cout, pad,
+                 _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3 forward kernel launch failed: cudaError {rc}")
+    fwd_launches[role, n, hin, win, cin, cout, pad, _dtype_name(x)] += 1
+    return y
+
+
+def wgrad_splits(m: int, cin: int, cout: int):
+    """(splits, chunk) of the wgrad reduction over m = N·Ho·Wo pixels:
+    enough blocks to fill the card, chunks of at least 256 pixels and a
+    multiple of 16. A function of the shapes alone, so results repeat."""
+    tiles = math.ceil(9 * cin / 64) * math.ceil(cout / 64)
+    splits = max(1, min(math.ceil(_WGRAD_TARGET_BLOCKS / tiles), math.ceil(m / _WGRAD_MIN_CHUNK)))
+    chunk = math.ceil(math.ceil(m / splits) / 16) * 16
+    return math.ceil(m / chunk), chunk
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int = 0) -> torch.Tensor:
+    """Filter gradient of ``conv3x3_nopad(x, w, pad)`` for the output
+    cotangent g: float32 (3, 3, Cin, Cout). CPU tensors take the plain
+    version, CUDA tensors the Hopper kernel."""
+    ho, wo = _out_hw(x, pad)
+    if tuple(g.shape[:3]) != (x.shape[0], ho, wo):
+        raise ValueError(f"g must be ({x.shape[0]}, {ho}, {wo}, Cout), got {tuple(g.shape)}")
+    if x.device.type == "cpu":
+        return reference_conv3x3_wgrad(_pad_hw(x, pad), g)
+    _check_cuda("conv3x3_wgrad", x=x, g=g)
+    n, hin, win, cin = x.shape
+    cout = g.shape[3]
+    splits, chunk = wgrad_splits(n * ho * wo, cin, cout)
+    out = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    ws = out if splits == 1 else torch.empty((splits, 9 * cin * cout), dtype=torch.float32,
+                                             device=x.device)
+    _, wgrad = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(), n, hin, win, cin,
+                   cout, pad, splits, chunk, _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3 wgrad kernel launch failed: cudaError {rc}")
+    wgrad_launches["wgrad", n, hin, win, cin, cout, pad, _dtype_name(x)] += 1
+    return out
+
+
+class _Conv3x3(torch.autograd.Function):
+    """``pallas_conv.py::conv3x3`` and its custom VJP (``_conv3x3_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, padding):
+        p = _PAD[padding]
+        ctx.p = p
+        ctx.save_for_backward(x, w)
+        return conv3x3_nopad(x, w.to(x.dtype).contiguous(), pad=p)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_flip = w.flip((0, 1)).transpose(2, 3).to(g.dtype).contiguous()
+            dx = conv3x3_nopad(g, w_flip, pad=2 - ctx.p, role="dgrad").to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad(x, g, pad=ctx.p).to(w.dtype)
+        return dx, dw, None
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, padding: str = "SAME") -> torch.Tensor:
+    """Differentiable 3×3 stride-1 conv (SAME or VALID) of contiguous NHWC
+    x with an HWIO w, through the Hopper kernels on the card. Matches
+    ``F.conv2d`` (and JAX's ``lax.conv_general_dilated``) in float32."""
+    if padding not in _PAD:
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    return _Conv3x3.apply(x, w, padding)

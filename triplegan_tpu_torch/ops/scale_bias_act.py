@@ -15,12 +15,18 @@ float32 and the result is written in x's dtype (float32 or bfloat16).
 tanh.
 
 A tensor on the CPU goes to ``reference_scale_bias_act``, the plain
-version. A CUDA tensor launches the kernel or raises. Forward only: the
-training slice adds the autograd Function.
+version. A CUDA tensor launches the kernel or raises.
+
+``scale_bias_act`` is differentiable: a ``torch.autograd.Function`` whose
+backward is plain PyTorch, as the JAX package's custom VJP is jnp
+(``pallas_fused.py::_bwd``). Like ``_bwd`` it recomputes z = x·k + b in
+x's dtype (not in float32 as the forward does), and returns dk and db in
+k's and b's dtypes; callers pass k and b already cast to x's dtype.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -30,8 +36,9 @@ from triplegan_tpu_torch.ops import build
 ACTS = {"linear": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches by scale_bias_act since the count was last set to 0.
-launches = 0
+# Kernel launches since the counts were last cleared, keyed by (x's shape,
+# x's dtype, act, slope): the shapes each path runs the kernel at.
+launches: collections.Counter = collections.Counter()
 
 
 def apply_act(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
@@ -43,6 +50,21 @@ def apply_act(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
         return torch.where(z >= 0, z, z * slope)
     if act == "tanh":
         return torch.tanh(z)
+    raise ValueError(f"unknown act {act!r}")
+
+
+def act_grad(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
+    """d act / dz, as ``pallas_fused.py::_act_grad`` (relu and leaky_relu
+    take the z >= 0 branch at 0)."""
+    if act == "linear":
+        return torch.ones_like(z)
+    if act == "relu":
+        return (z >= 0).to(z.dtype)
+    if act == "leaky_relu":
+        return torch.where(z >= 0, torch.ones_like(z), torch.full_like(z, slope))
+    if act == "tanh":
+        t = torch.tanh(z)
+        return 1.0 - t * t
     raise ValueError(f"unknown act {act!r}")
 
 
@@ -67,11 +89,38 @@ def _lib():
 
 
 def scale_bias_act(x, k, b, act="leaky_relu", slope=0.1):
-    """``act(x·k + b)`` per channel (last axis). CPU tensors take the plain
-    version; CUDA tensors take the Hopper kernel."""
-    global launches
+    """``act(x·k + b)`` per channel (last axis), differentiable in x, k and
+    b. CPU tensors take the plain version; CUDA tensors take the Hopper
+    kernel."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; expected one of {sorted(ACTS)}")
+    return _ScaleBiasAct.apply(x, k, b, act, float(slope))
+
+
+class _ScaleBiasAct(torch.autograd.Function):
+    """``pallas_fused.py::scale_bias_act`` with its custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, k, b, act, slope):
+        ctx.save_for_backward(x, k, b)
+        ctx.act, ctx.slope = act, slope
+        return _forward(x, k, b, act, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k, b = ctx.saved_tensors
+        kc, bc = k.to(x.dtype), b.to(x.dtype)
+        t = g * act_grad(x * kc + bc, ctx.act, ctx.slope)
+        axes = tuple(range(x.dim() - 1))
+        dx = (t * kc).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dk = torch.sum(t * x, dim=axes).to(k.dtype) if ctx.needs_input_grad[1] else None
+        db = torch.sum(t, dim=axes).to(b.dtype) if ctx.needs_input_grad[2] else None
+        return dx, dk, db, None, None
+
+
+def _forward(x, k, b, act, slope):
+    """The forward alone: the plain version for a CPU tensor, else one
+    launch of the kernel."""
     if x.device.type == "cpu":
         return reference_scale_bias_act(x, k, b, act, slope)
     if x.device.type != "cuda":
@@ -100,5 +149,5 @@ def scale_bias_act(x, k, b, act="leaky_relu", slope=0.1):
         )
     if rc != 0:
         raise RuntimeError(f"scale_bias_act kernel launch failed: cudaError {rc}")
-    launches += 1
+    launches[tuple(x.shape), str(x.dtype).split(".")[-1], act, float(slope)] += 1
     return y
