@@ -8,8 +8,9 @@ Phases, each fatal on failure (exit code 1, and no result line):
   1. device: a CUDA device must be present; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: compiles every kernel of the paths from the sources in this
-     checkout (triplegan_tpu_torch/ops/csrc), one nvcc per source, all
-     started together, and prints each build's seconds;
+     checkout (triplegan_tpu_torch/ops/csrc: scale_bias_act.cu, conv3x3.cu
+     for float32 convs, conv3x3_sm90.cu for bfloat16 convs), one nvcc per
+     source, all started together, and prints each build's seconds;
   3. train: cifar10_4k at full width, ZCA fitted on a 4096-image synthetic
      dataset, through the port's create_state, make_optimizers,
      make_device_train_step and make_eval_step, at two settings:
@@ -41,7 +42,13 @@ Phases, each fatal on failure (exit code 1, and no result line):
      events (L2 flushed before each run), and times the one PyTorch call
      that computes the same function where there is one (F.conv2d for the
      conv forward, torch.nn.grad.conv2d_input and conv2d_weight for dgrad
-     and wgrad; none for scale_bias_act).
+     and wgrad; none for scale_bias_act). A float32 conv row times
+     conv3x3.cu's kernel, a bfloat16 row conv3x3_sm90.cu's.
+
+The kernels' JSON line sums each kernel's times over one train step at
+each setting (``per_step``: launches per step × that shape's time, with
+the source that serves the setting's dtype); its top-level numbers are
+the shipped setting's.
 
 With --profile, one extra step per train arm and 10 chunks per serving
 arm run under torch.profiler (device busy share, kernels by device time).
@@ -203,7 +210,7 @@ def totals(counts: dict) -> dict:
 
 
 def build_phase() -> dict:
-    """Both sources compiled at once, one nvcc each; seconds per build."""
+    """All sources compiled at once, one nvcc each; seconds per build."""
     from triplegan_tpu_torch.ops import build
     from triplegan_tpu_torch.ops import conv3x3 as cv
     from triplegan_tpu_torch.ops import scale_bias_act as sba
@@ -213,12 +220,14 @@ def build_phase() -> dict:
         build.build(name)
         return time.perf_counter() - t0
 
+    names = ("scale_bias_act", "conv3x3", "conv3x3_sm90")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        futs = {name: ex.submit(timed, name) for name in ("scale_bias_act", "conv3x3")}
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        futs = {name: ex.submit(timed, name) for name in names}
         secs = {name: f.result() for name, f in futs.items()}
     sba._lib()
     cv._lib()
+    cv._lib_sm90()
     secs["wall"] = time.perf_counter() - t0
     return secs
 
@@ -923,34 +932,49 @@ def kernel_phase(sources) -> tuple:
 
 def summary(sba_rows, conv_rows, train_arms, serve_arms) -> list:
     """One line per kernel: launches over every main path, and times and
-    bounds summed over one shipped train step's launches."""
+    bounds summed over one train step's launches at each setting
+    (``per_step``), the shipped setting's also at the top level."""
     launched = collections.Counter()
     for arm in train_arms + serve_arms:
         launched.update(arm["launches"])
+    csrc = "triplegan_tpu_torch/ops/csrc/"
+    conv_src = {"float32": csrc + "conv3x3.cu", "bfloat16": csrc + "conv3x3_sm90.cu"}
+    sba_src = {"float32": csrc + "scale_bias_act.cu", "bfloat16": csrc + "scale_bias_act.cu"}
     kernels = []
-    for name, rows, source, replaces in (
-        ("scale_bias_act", sba_rows, "scale_bias_act.cu", "triplegan_tpu/ops/pallas_fused.py:59"),
-        ("conv3x3_fwd", [r for r in conv_rows if r["op"] != "wgrad"], "conv3x3.cu",
+    for name, rows, sources, replaces in (
+        ("scale_bias_act", sba_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:59"),
+        ("conv3x3_fwd", [r for r in conv_rows if r["op"] != "wgrad"], conv_src,
          "triplegan_tpu/ops/pallas_conv.py:54"),
-        ("conv3x3_wgrad", [r for r in conv_rows if r["op"] == "wgrad"], "conv3x3.cu",
+        ("conv3x3_wgrad", [r for r in conv_rows if r["op"] == "wgrad"], conv_src,
          "triplegan_tpu/ops/pallas_conv.py:104"),
     ):
-        shipped = [(r["launches"]["train shipped"], r) for r in rows if "train shipped" in r["launches"]]
-        per_step = {key: sum(n * r[key] for n, r in shipped) for key in ("ms", "plain_ms", "bound_ms")}
-        library = [n * r["library_ms"] for n, r in shipped if r["library_ms"] is not None]
-        ops_bound = sum(n * r["bound_ms"] for n, r in shipped if r["bound_by"] == "operations")
+        per_step = {}
+        for setting, dtype, batch, _ in SETTINGS:
+            runs = [(r["launches"]["train " + setting], r) for r in rows if "train " + setting in r["launches"]]
+            sums = {key: sum(n * r[key] for n, r in runs) for key in ("ms", "plain_ms", "bound_ms")}
+            library = [n * r["library_ms"] for n, r in runs if r["library_ms"] is not None]
+            ops_bound = sum(n * r["bound_ms"] for n, r in runs if r["bound_by"] == "operations")
+            per_step[setting] = {
+                "dtype": dtype, "batch": batch, "source": sources[dtype],
+                "launches": sum(n for n, _ in runs), **sums,
+                "max_abs_err": max((r["max_abs_err"] for _, r in runs), default=None),
+                "bound_by": "operations" if ops_bound >= sums["bound_ms"] / 2 else "bytes",
+                "library_ms": sum(library) if library else None,
+            }
+        top = per_step["shipped"]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "triplegan_tpu_torch/ops/csrc/" + source,
+            "source": top["source"],
+            "sources": sources,
             "replaces": replaces,
             "launches": launched[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **per_step,
-            "bound_by": "operations" if ops_bound >= per_step["bound_ms"] / 2 else "bytes",
-            "library_ms": sum(library) if library else None,
-            "basis": "sum over one train step's launches at the shipped setting "
-                     "(cifar10_4k, float32, batch 100, share_pseudo_forward off)",
+            **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "basis": "top level: sum over one train step's launches at the shipped setting "
+                     "(cifar10_4k, float32, batch 100, share_pseudo_forward off); per_step: "
+                     "the same at each setting",
+            "per_step": per_step,
         })
     return kernels
 

@@ -133,11 +133,13 @@ def test_cpu_call_does_not_count_or_build(monkeypatch):
 
     monkeypatch.setattr(build, "_nvcc", no_nvcc)
     before = (cv.fwd_launches.copy(), cv.wgrad_launches.copy())
-    x = torch.randn(2, 5, 5, 4, requires_grad=True)
-    w = torch.randn(3, 3, 4, 6, requires_grad=True)
-    torch.autograd.grad(cv.conv3x3(x, w).sum(), (x, w))
+    for dtype in (torch.float32, torch.bfloat16):  # bfloat16 would take conv3x3_sm90 on the card
+        x = torch.randn(2, 5, 5, 4, dtype=dtype, requires_grad=True)
+        w = torch.randn(3, 3, 4, 6, requires_grad=True)
+        torch.autograd.grad(cv.conv3x3(x, w).float().sum(), (x, w))
+        cv.conv3x3_wgrad(x.detach(), torch.randn(2, 5, 5, 6, dtype=dtype), 1)
     assert (cv.fwd_launches, cv.wgrad_launches) == before
-    assert "conv3x3" not in build._loaded
+    assert "conv3x3" not in build._loaded and "conv3x3_sm90" not in build._loaded
 
 
 def test_wrappers_reject_what_they_cannot_take():
@@ -160,3 +162,53 @@ def test_wgrad_splits_cover_the_reduction_exactly():
         splits, chunk = cv.wgrad_splits(m, cin, cout)
         assert chunk % 16 == 0 and splits >= 1
         assert splits * chunk >= m > (splits - 1) * chunk
+
+
+_SM90_SHAPES = [(100 * 32 * 32, 3, 128), (384 * 32 * 32, 128, 128), (384 * 16 * 16, 256, 256),
+                (1152 * 32 * 32, 13, 32), (100 * 6 * 6, 256, 512), (100 * 4 * 4, 512, 1024),
+                (100 * 16 * 16, 128, 12), (17, 3, 12), (64 * 16 * 16, 42, 64)]
+
+
+def test_sm90_wgrad_plan_covers_the_reduction_exactly():
+    for m, cin, cout in _SM90_SHAPES:
+        cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+        bn, splits, chunk = cv.sm90_wgrad_plan(m, cin8, cout8)
+        assert (bn, splits, chunk) == cv.sm90_wgrad_plan(m, cin8, cout8)  # the shape alone decides
+        assert bn in (64, 128) and bn >= min(cout8, 128)
+        assert chunk % 64 == 0 and splits >= 1
+        assert splits * chunk >= m > (splits - 1) * chunk
+        tiles = -(-9 * cin8 // 128) * -(-cout8 // bn)
+        assert splits == 1 or splits * tiles <= 2 * 132  # at most one wave of two blocks per SM
+        assert splits == 1 or chunk >= 512
+
+
+def test_sm90_forward_block_covers_cout():
+    for cout in (1, 12, 13, 16, 17, 32, 42, 64, 65, 74, 128, 256, 512, 1024):
+        bn = cv.sm90_fwd_block_n(cout)
+        assert bn in (16, 32, 64, 128) and (bn >= cout or bn == 128)
+        assert bn == 128 or bn // 2 < cout or bn == 16  # the narrowest tile that holds Cout
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 12), (13, 42), (32, 128), (64, 200), (74, 13)])
+def test_packed_weight_and_padded_channels_give_the_same_conv(cin, cout):
+    """The plain conv on the bf16 kernels' operands (channels padded to a
+    multiple of 8, the weight packed K-major), sliced back, equals the plain
+    conv on the originals; float32 on the CPU."""
+    x, wt, g = _inputs(2, 6, 7, cin, cout, "SAME", seed=cin + cout)
+    x, wt, g = torch.from_numpy(x), torch.from_numpy(wt), torch.from_numpy(g)
+    cin8 = -(-cin // 8) * 8
+    bn = cv.sm90_fwd_block_n(cout)
+    wp = cv.pack_weight_sm90(wt, cin8, bn)
+    assert wp.shape[0] % bn == 0 and wp.shape[0] >= cout and wp.shape[1] % 64 == 0
+    assert wp.shape[1] - 64 < 9 * cin8 <= wp.shape[1]
+    w_hwio = wp[:, :9 * cin8].reshape(-1, 3, 3, cin8).permute(1, 2, 3, 0)  # (3, 3, cin8, Np)
+    assert torch.equal(w_hwio[:, :, :cin, :cout], wt)
+    assert not w_hwio[:, :, cin:].any() and not w_hwio[..., cout:].any() and not wp[:, 9 * cin8:].any()
+    xk = cv.pad_channels(x, cin8)
+    assert xk.shape == (2, 6, 7, cin8) and torch.equal(xk[..., :cin], x) and not xk[..., cin:].any()
+    xp, xkp = cv._pad_hw(x, 1), cv._pad_hw(xk, 1)
+    got = cv.reference_conv3x3_nopad(xkp, w_hwio.contiguous())[..., :cout]
+    torch.testing.assert_close(got, cv.reference_conv3x3_nopad(xp, wt), rtol=1e-5, atol=1e-5)
+    gk = cv.pad_channels(g, -(-cout // 8) * 8)
+    got_dw = cv.reference_conv3x3_wgrad(xkp, gk)[:, :, :cin, :cout]
+    torch.testing.assert_close(got_dw, cv.reference_conv3x3_wgrad(xp, g), rtol=1e-5, atol=1e-5)

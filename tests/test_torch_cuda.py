@@ -1,5 +1,6 @@
-"""The CUDA kernels (scale_bias_act, conv3x3 forward and wgrad) against
-their plain PyTorch versions, on the card. Skips where there is no CUDA
+"""The CUDA kernels (scale_bias_act, conv3x3 forward and wgrad: float32
+from conv3x3.cu, bfloat16 from conv3x3_sm90.cu) against their plain
+PyTorch versions, on the card. Skips where there is no CUDA
 device (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -91,9 +92,16 @@ def _conv_limit(abs_ref, k, got, want):
 
 
 # (N, H, W, Cin, Cout, halo): C's first conv, a D conv with Cout <= 32 (the
-# narrow tile), a G phase conv, and a VALID conv with an odd size.
+# narrow tile), a G phase conv, and a VALID conv with an odd size. For the
+# bfloat16 kernels also: one 128-row tile (N=1, 8x8, 64 -> 64), Cin not a
+# multiple of 8 (3, 13, 42), Cin a multiple of 8 but not of 64 (32, 40),
+# Cout not a multiple of 8 (12, 13, 42), Cout over several 128-wide tiles
+# (512, and 200 with a ragged second tile), M = N·Ho·Wo not a multiple of
+# 128 (175, 297, 120, 17100), halo 0, 1, 2; and, in wgrad, K = 576 leaves
+# the second warpgroup of the last 128-row block of K idle.
 CONV_SHAPES = [(4, 32, 32, 3, 128, 1), (6, 16, 16, 42, 32, 1), (3, 8, 8, 256, 512, 1),
-               (5, 9, 7, 13, 12, 0)]
+               (5, 9, 7, 13, 12, 0), (1, 8, 8, 64, 64, 1), (3, 7, 9, 32, 42, 2),
+               (2, 10, 6, 40, 13, 1), (19, 30, 30, 64, 200, 1)]
 
 
 @pytest.mark.cuda
@@ -164,12 +172,62 @@ def test_conv_wrappers_raise_instead_of_falling_back(cuda):
 
 
 @pytest.mark.cuda
-def test_conv_wgrad_is_bitwise_repeatable(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_wgrad_is_bitwise_repeatable(dtype, cuda):
     rng = np.random.RandomState(3)
-    x = torch.from_numpy(rng.normal(size=(64, 16, 16, 42)).astype(np.float32)).to(cuda)
-    g = torch.from_numpy(rng.normal(size=(64, 16, 16, 64)).astype(np.float32)).to(cuda)
-    assert cv.wgrad_splits(64 * 16 * 16, 42, 64)[0] > 1  # the split reduction is exercised
+    x = torch.from_numpy(rng.normal(size=(64, 16, 16, 42)).astype(np.float32)).to(cuda, _DT[dtype])
+    g = torch.from_numpy(rng.normal(size=(64, 16, 16, 64)).astype(np.float32)).to(cuda, _DT[dtype])
+    # the split reduction is exercised
+    if dtype == "float32":
+        assert cv.wgrad_splits(64 * 16 * 16, 42, 64)[0] > 1
+    else:
+        assert cv.sm90_wgrad_plan(64 * 16 * 16, 48, 64)[1] > 1
     a = cv.conv3x3_wgrad(x, g, 1)
     b = cv.conv3x3_wgrad(x, g, 1)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_conv_raises_when_its_kernel_cannot_launch(cuda, monkeypatch):
+    # The C entry points refuse what they do not take, with cudaErrorInvalidValue.
+    fwd, wgrad = cv._lib_sm90()
+    x = torch.zeros(2, 6, 6, 8, device=cuda, dtype=torch.bfloat16)
+    wp = torch.zeros(48, 128, device=cuda, dtype=torch.bfloat16)
+    y = torch.empty(2, 6, 6, 40, device=cuda, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fwd(x.data_ptr(), wp.data_ptr(), y.data_ptr(), 2, 6, 6, 8, 40, 1, 48, 48, 128,
+               stream) == 1  # no block 48 wide
+    out = torch.empty(3, 3, 8, 40, device=cuda)
+    assert wgrad(x.data_ptr(), y.data_ptr(), out.data_ptr(), out.data_ptr(), 2, 6, 6, 8, 40, 8, 40,
+                 1, 64, 1, 100, stream) == 1  # chunk not a multiple of 64
+    # A bf16 call whose kernel refuses raises; it takes neither the float32
+    # kernel nor the plain version, and counts nothing.
+    monkeypatch.setattr(cv, "_lib_sm90", lambda: (lambda *a: 98, lambda *a: 98))
+    monkeypatch.setattr(cv, "_lib", lambda: pytest.fail("the float32 kernel was called"))
+    monkeypatch.setattr(cv, "reference_conv3x3_nopad", lambda *a: pytest.fail("plain version called"))
+    monkeypatch.setattr(cv, "reference_conv3x3_wgrad", lambda *a: pytest.fail("plain version called"))
+    before = (cv.fwd_launches.copy(), cv.wgrad_launches.copy())
+    wt = torch.zeros(3, 3, 8, 40, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError 98"):
+        cv.conv3x3_nopad(x, wt, 1)
+    with pytest.raises(RuntimeError, match="cudaError 98"):
+        cv.conv3x3_wgrad(x, torch.zeros(2, 6, 6, 40, device=cuda, dtype=torch.bfloat16), 1)
+    assert (cv.fwd_launches, cv.wgrad_launches) == before
+
+
+@pytest.mark.cuda
+def test_bf16_conv_takes_a_view_off_16_byte_alignment(cuda):
+    rng = np.random.RandomState(5)
+    n, h, w, cin, cout = 2, 8, 8, 64, 64
+    flat = torch.from_numpy(rng.normal(size=n * h * w * cin + 1).astype(np.float32)).to(cuda, torch.bfloat16)
+    x = flat[1:].view(n, h, w, cin)  # contiguous, 2 bytes past an aligned address
+    gflat = torch.from_numpy(rng.normal(size=n * h * w * cout + 3).astype(np.float32)).to(cuda, torch.bfloat16)
+    g = gflat[3:].view(n, h, w, cout)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    wt = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)).to(cuda, torch.bfloat16)
+    got, dw = cv.conv3x3_nopad(x, wt, 1), cv.conv3x3_wgrad(x, g, 1)
+    torch.cuda.synchronize()
+    xa, ga = x.clone(), g.clone()
+    assert torch.equal(got, cv.conv3x3_nopad(xa, wt, 1))
+    assert torch.equal(dw, cv.conv3x3_wgrad(xa, ga, 1))

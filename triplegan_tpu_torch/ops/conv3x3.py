@@ -1,13 +1,20 @@
 """3×3 stride-1 convolution of NHWC activations with hand-written Hopper
 forward and filter-gradient kernels, and its autograd Function.
 
-The CUDA source ``csrc/conv3x3.cu`` replaces the TPU kernels of
-``triplegan_tpu/ops/pallas_conv.py``: ``conv3x3_fwd`` replaces
-``_fwd_kernel`` (``conv3x3_nopad``) and also computes the input gradient,
-``conv3x3_wgrad`` replaces ``_wgrad_kernel``. Both are bound by operations
-at the training step's shapes (an implicit GEMM with M = N·H·W, N = Cout,
-K = 9·Cin, on the CUDA cores in float32 for now); design notes are in the
-source.
+Two CUDA sources replace the TPU kernels of
+``triplegan_tpu/ops/pallas_conv.py`` (``_fwd_kernel`` behind
+``conv3x3_nopad``, which also computes the input gradient, and
+``_wgrad_kernel`` behind ``conv3x3_wgrad``), one per dtype:
+
+* float32: ``csrc/conv3x3.cu``, an implicit GEMM on the CUDA cores;
+* bfloat16: ``csrc/conv3x3_sm90.cu``, an implicit GEMM on the tensor cores
+  (``wgmma``, fed by a ring of ``cp.async`` and TMA copies). The wrapper
+  packs the forward's weight into a K-major, zero-padded matrix
+  (``pack_weight_sm90``), pads a channel count that is not a multiple of 8
+  with zeros, and plans the filter gradient's split (``sm90_wgrad_plan``).
+
+Both are bound by operations at the training step's shapes (M = N·H·W,
+N = Cout, K = 9·Cin); design notes are in the sources.
 
 Semantics, as in the JAX package:
 
@@ -55,6 +62,11 @@ wgrad_launches: collections.Counter = collections.Counter()
 # wgrad splits its reduction so that about this many blocks fill the card.
 _WGRAD_TARGET_BLOCKS = 4 * 132
 _WGRAD_MIN_CHUNK = 256
+# The bfloat16 kernels: blocks of 128 rows, 64 of K (or of pixels) a
+# stage; two blocks fit on each of the H100's 132 SMs, so a wave is 264.
+_SM90_BM, _SM90_BK = 128, 64
+_SM90_WAVE = 2 * 132
+_SM90_MIN_CHUNK = 512
 
 
 def _pad_hw(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -107,6 +119,64 @@ def _lib():
     return fwd, wgrad
 
 
+def _lib_sm90():
+    lib = build.load("conv3x3_sm90")
+    fwd, wgrad = lib.conv3x3_fwd_sm90_launch, lib.conv3x3_wgrad_sm90_launch
+    if fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fwd.restype = i
+        wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
+        wgrad.restype = i
+    return fwd, wgrad
+
+
+def _ceil_to(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pad_channels(t: torch.Tensor, c: int) -> torch.Tensor:
+    """t with its last dimension zero-padded to c, in memory aligned to 16
+    bytes as the bfloat16 kernels' copies need (t itself if it is so)."""
+    if t.shape[-1] != c:
+        return torch.nn.functional.pad(t, (0, c - t.shape[-1]))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def sm90_fwd_block_n(cout: int) -> int:
+    """Columns of Cout per block of the bfloat16 forward kernel: Cout
+    rounded up to 16, 32 or 64, else tiles of 128."""
+    for bn in (16, 32, 64):
+        if cout <= bn:
+            return bn
+    return 128
+
+
+def pack_weight_sm90(w: torch.Tensor, cin8: int, bn: int) -> torch.Tensor:
+    """The bfloat16 forward kernel's B operand: HWIO w (3, 3, Cin, Cout) as
+    a K-major (Np, Kp) matrix, row co holding w[dy, dx, ci, co] at column
+    (dy·3 + dx)·cin8 + ci, with Cin padded to cin8 per tap, K = 9·cin8 to a
+    multiple of 64 and Cout to a multiple of bn, zeros in the padding."""
+    cin, cout = w.shape[2], w.shape[3]
+    k8 = 9 * cin8
+    wp = torch.zeros((_ceil_to(cout, bn), _ceil_to(k8, _SM90_BK)), dtype=w.dtype, device=w.device)
+    wp[:cout, :k8].view(cout, 9, cin8)[:, :, :cin] = w.reshape(9, cin, cout).permute(2, 0, 1)
+    return wp
+
+
+def sm90_wgrad_plan(m: int, cin8: int, cout8: int):
+    """(bn, splits, chunk) of the bfloat16 wgrad over m = N·Ho·Wo pixels:
+    blocks of 128 rows of K = 9·cin8 by bn columns (64 or 128), and the
+    reduction split so that the blocks come to at most one wave of the
+    card, in chunks of at least 512 pixels and a multiple of 64. A function
+    of the shapes alone, so results repeat."""
+    bn = 64 if cout8 <= 64 else 128
+    tiles = math.ceil(9 * cin8 / _SM90_BM) * math.ceil(cout8 / bn)
+    splits = max(1, min(_SM90_WAVE // tiles, math.ceil(m / _SM90_MIN_CHUNK)))
+    chunk = _ceil_to(math.ceil(m / splits), _SM90_BK)
+    return bn, math.ceil(m / chunk), chunk
+
+
 def _check_cuda(name: str, **tensors):
     x = next(iter(tensors.values()))
     if x.device.type != "cuda":
@@ -150,11 +220,20 @@ def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "f
         raise ValueError(f"w must be (3, 3, {cin}, Cout), got {tuple(w.shape)}")
     cout = w.shape[3]
     y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
-    fwd, _ = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, hin, win, cin, cout, pad,
-                 _DTYPES[x.dtype], stream)
+        if x.dtype == torch.bfloat16:
+            cin8 = _ceil_to(cin, 8)
+            xk = pad_channels(x, cin8)
+            bn = sm90_fwd_block_n(cout)
+            wp = pack_weight_sm90(w, cin8, bn)
+            fwd, _ = _lib_sm90()
+            rc = fwd(xk.data_ptr(), wp.data_ptr(), y.data_ptr(), n, hin, win, cin8, cout, pad,
+                     bn, wp.shape[0], wp.shape[1], stream)
+        else:
+            fwd, _ = _lib()
+            rc = fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, hin, win, cin, cout, pad,
+                     _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 forward kernel launch failed: cudaError {rc}")
     fwd_launches[role, n, hin, win, cin, cout, pad, _dtype_name(x)] += 1
@@ -162,9 +241,10 @@ def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "f
 
 
 def wgrad_splits(m: int, cin: int, cout: int):
-    """(splits, chunk) of the wgrad reduction over m = N·Ho·Wo pixels:
-    enough blocks to fill the card, chunks of at least 256 pixels and a
-    multiple of 16. A function of the shapes alone, so results repeat."""
+    """(splits, chunk) of the float32 wgrad's reduction over m = N·Ho·Wo
+    pixels: enough blocks to fill the card, chunks of at least 256 pixels
+    and a multiple of 16. A function of the shapes alone, so results
+    repeat."""
     tiles = math.ceil(9 * cin / 64) * math.ceil(cout / 64)
     splits = max(1, min(math.ceil(_WGRAD_TARGET_BLOCKS / tiles), math.ceil(m / _WGRAD_MIN_CHUNK)))
     chunk = math.ceil(math.ceil(m / splits) / 16) * 16
@@ -183,15 +263,26 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int = 0) -> torch.Tenso
     _check_cuda("conv3x3_wgrad", x=x, g=g)
     n, hin, win, cin = x.shape
     cout = g.shape[3]
-    splits, chunk = wgrad_splits(n * ho * wo, cin, cout)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        cin8, cout8 = _ceil_to(cin, 8), _ceil_to(cout, 8)
+        bn, splits, chunk = sm90_wgrad_plan(n * ho * wo, cin8, cout8)
+    else:
+        splits, chunk = wgrad_splits(n * ho * wo, cin, cout)
     out = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     ws = out if splits == 1 else torch.empty((splits, 9 * cin * cout), dtype=torch.float32,
                                              device=x.device)
-    _, wgrad = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(), n, hin, win, cin,
-                   cout, pad, splits, chunk, _DTYPES[x.dtype], stream)
+        if bf16:
+            xk, gk = pad_channels(x, cin8), pad_channels(g, cout8)
+            _, wgrad = _lib_sm90()
+            rc = wgrad(xk.data_ptr(), gk.data_ptr(), ws.data_ptr(), out.data_ptr(), n, hin, win,
+                       cin8, cout8, cin, cout, pad, bn, splits, chunk, stream)
+        else:
+            _, wgrad = _lib()
+            rc = wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(), n, hin, win,
+                       cin, cout, pad, splits, chunk, _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 wgrad kernel launch failed: cudaError {rc}")
     wgrad_launches["wgrad", n, hin, win, cin, cout, pad, _dtype_name(x)] += 1
