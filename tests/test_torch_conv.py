@@ -156,12 +156,93 @@ def test_wrappers_reject_what_they_cannot_take():
         cv.conv3x3_nopad(x.to("meta"), torch.zeros(3, 3, 2, 2, device="meta"), 1)
 
 
+# (M = N·Ho·Wo, Cin, Cout) of every float32 wgrad of the shipped train
+# step, and a few edges: one pixel short of a chunk, a tiny M, Cin 6.
+_F32_WGRAD_SHAPES = [(100 * 32 * 32, 3, 128), (100 * 32 * 32, 128, 128), (100 * 16 * 16, 128, 256),
+                     (100 * 16 * 16, 256, 256), (100 * 6 * 6, 256, 512), (300 * 32 * 32, 13, 32),
+                     (300 * 16 * 16, 42, 64), (300 * 8 * 8, 74, 128), (100 * 16 * 16, 128, 12),
+                     (100 * 8 * 8, 256, 512), (100 * 4 * 4, 512, 1024), (384 * 16 * 16, 256, 256),
+                     (1152 * 32 * 32, 13, 32), (17, 3, 12), (1023, 6, 33), (64 * 16 * 16, 42, 64)]
+
+
 def test_wgrad_splits_cover_the_reduction_exactly():
-    for m, cin, cout in [(100 * 32 * 32, 3, 128), (384 * 16 * 16, 256, 256),
-                         (1152 * 32 * 32, 13, 32), (100 * 6 * 6, 256, 512), (17, 3, 12)]:
-        splits, chunk = cv.wgrad_splits(m, cin, cout)
+    """The float32 wgrad plan: 32 rows of K where K <= 32 (128 columns),
+    else 128 rows and a block width that holds Cout (or tiles of 128),
+    chunks that cover the M reduction exactly, at most two waves of 264
+    blocks (four where the output tiles alone are more than one), chunks
+    of at least 512 pixels once split, and the same plan for the same
+    shapes."""
+    for m, cin, cout in _F32_WGRAD_SHAPES:
+        bm, bn, splits, chunk = cv.f32_wgrad_plan(m, cin, cout)
+        assert (bm, bn, splits, chunk) == cv.f32_wgrad_plan(m, cin, cout)  # the shape alone decides
+        if 9 * cin <= 32:
+            assert (bm, bn) == (32, 128)
+        else:
+            assert bm == 128 and bn in (32, 64, 128)
+            assert (bn >= cout or bn == 128) and (bn == 32 or bn // 2 < cout)
         assert chunk % 16 == 0 and splits >= 1
         assert splits * chunk >= m > (splits - 1) * chunk
+        tiles = -(-9 * cin // bm) * -(-cout // bn)
+        assert splits == 1 or splits * tiles <= (2 if tiles <= 264 else 4) * 264
+        assert splits == 1 or chunk >= 512
+
+
+def test_f32_wgrad_plan_fills_the_card():
+    """The shipped step's widest float32 wgrads, whose reductions are long
+    enough to split freely, fill at least 90% of the waves they take (C's
+    (100,32,32,128)->128: 9 output tiles of 128×128 split 29 ways, 261
+    blocks in one wave of 264)."""
+    assert cv.f32_wgrad_plan(100 * 32 * 32, 128, 128) == (128, 128, 29, 3536)
+    for m, cin, cout in [(100 * 32 * 32, 128, 128), (100 * 16 * 16, 128, 256),
+                         (100 * 16 * 16, 256, 256), (300 * 32 * 32, 13, 32), (300 * 16 * 16, 42, 64)]:
+        bm, bn, splits, _ = cv.f32_wgrad_plan(m, cin, cout)
+        blocks = splits * -(-9 * cin // bm) * -(-cout // bn)
+        assert blocks / (-(-blocks // 264) * 264) >= 0.9, (m, cin, cout, splits)
+
+
+# (M, Cin, Cout) of every float32 forward and dgrad of the shipped train
+# step and of serving, and a few edges.
+_F32_FWD_SHAPES = [(100 * 32 * 32, 3, 128), (100 * 32 * 32, 128, 128), (100 * 16 * 16, 128, 256),
+                   (100 * 16 * 16, 256, 256), (100 * 6 * 6, 256, 512), (100 * 32 * 32, 13, 32),
+                   (300 * 32 * 32, 13, 32), (100 * 16 * 16, 42, 64), (300 * 16 * 16, 42, 64),
+                   (100 * 8 * 8, 74, 128), (300 * 8 * 8, 74, 128), (100 * 16 * 16, 128, 12),
+                   (100 * 8 * 8, 256, 512), (100 * 4 * 4, 512, 1024), (100 * 16 * 16, 256, 128),
+                   (100 * 8 * 8, 512, 256), (100 * 32 * 32, 32, 13), (100 * 16 * 16, 64, 42),
+                   (300 * 16 * 16, 64, 42), (100 * 8 * 8, 128, 74), (300 * 8 * 8, 128, 74),
+                   (100 * 16 * 16, 12, 128), (100 * 4 * 4, 1024, 512), (17, 3, 12), (192, 256, 512),
+                   (17100, 64, 200)]
+
+
+def test_f32_forward_plan_covers_k_and_fills_the_card():
+    """The float32 forward plan: whole waves of output tiles run as they
+    are, one block a tile; the K tiles of the tiles left over are cut into
+    runs of at least 8 that save more than 16 K tiles against a whole
+    tile, in at most one wave of 264 blocks; the workspace holds every
+    partial tile a run can write; the same plan for the same shapes."""
+    for m, cin, cout in _F32_FWD_SHAPES:
+        bn, full, per, ws = cv.f32_fwd_plan(m, cin, cout)
+        assert (bn, full, per, ws) == cv.f32_fwd_plan(m, cin, cout)  # the shape alone decides
+        assert bn == cv.fwd_block_n(cout)
+        bm = 256 if bn <= 32 else 128
+        tiles = -(-m // bm) * -(-cout // bn)
+        ktiles = -(-9 * cin // 16)
+        if per == 0:
+            assert full == tiles and ws == 0
+            continue
+        assert full % 264 == 0 and 0 < tiles - full < 264
+        assert 8 <= per < ktiles - 16
+        iters = (tiles - full) * ktiles
+        blocks = -(-iters // per)
+        assert tiles - full < blocks <= 264 and blocks * per >= iters > (blocks - 1) * per
+        # the output tiles each run touches, counted one iteration at a time
+        most = max(len({it // ktiles for it in range(b * per, min(iters, (b + 1) * per))})
+                   for b in range(blocks))
+        assert ws >= blocks * most * bm * bn
+    # C's widest conv: 800 tiles of 128×128, 3 whole waves, and the 8 tiles
+    # left over (8 × 72 K tiles) shared by 72 blocks, 8 K tiles each
+    assert cv.f32_fwd_plan(100 * 32 * 32, 128, 128)[:3] == (128, 792, 8)
+    # (100,16,16,256)->256: 400 tiles, one whole wave, 136 × 144 K tiles in 262 runs of 75
+    assert cv.f32_fwd_plan(100 * 16 * 16, 256, 256)[:3] == (128, 264, 75)
 
 
 _SM90_SHAPES = [(100 * 32 * 32, 3, 128), (384 * 32 * 32, 128, 128), (384 * 16 * 16, 256, 256),
@@ -184,7 +265,7 @@ def test_sm90_wgrad_plan_covers_the_reduction_exactly():
 
 def test_sm90_forward_block_covers_cout():
     for cout in (1, 12, 13, 16, 17, 32, 42, 64, 65, 74, 128, 256, 512, 1024):
-        bn = cv.sm90_fwd_block_n(cout)
+        bn = cv.fwd_block_n(cout)
         assert bn in (16, 32, 64, 128) and (bn >= cout or bn == 128)
         assert bn == 128 or bn // 2 < cout or bn == 16  # the narrowest tile that holds Cout
 
@@ -197,7 +278,7 @@ def test_packed_weight_and_padded_channels_give_the_same_conv(cin, cout):
     x, wt, g = _inputs(2, 6, 7, cin, cout, "SAME", seed=cin + cout)
     x, wt, g = torch.from_numpy(x), torch.from_numpy(wt), torch.from_numpy(g)
     cin8 = -(-cin // 8) * 8
-    bn = cv.sm90_fwd_block_n(cout)
+    bn = cv.fwd_block_n(cout)
     wp = cv.pack_weight_sm90(wt, cin8, bn)
     assert wp.shape[0] % bn == 0 and wp.shape[0] >= cout and wp.shape[1] % 64 == 0
     assert wp.shape[1] - 64 < 9 * cin8 <= wp.shape[1]

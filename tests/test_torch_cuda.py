@@ -99,9 +99,20 @@ def _conv_limit(abs_ref, k, got, want):
 # (512, and 200 with a ragged second tile), M = N·Ho·Wo not a multiple of
 # 128 (175, 297, 120, 17100), halo 0, 1, 2; and, in wgrad, K = 576 leaves
 # the second warpgroup of the last 128-row block of K idle.
+# For the float32 kernels, every block width: Cout 1, 12, 13, 16 (16 wide),
+# 32 (32 wide), 33, 42, 64 (64 wide), 128, 130, 200 (a ragged second
+# tile), 512 (128 wide), and wgrad's 32-row block of K (Cin 2 and 3);
+# 4-byte copies where Cin (2, 3, 6, 13, 42) or Cout (1, 13, 33, 42, 130) is
+# not a multiple of 4, 16-byte ones elsewhere; Cin not a multiple of
+# the 16-deep K step (3, 4, 6, 12, 13, 40, 42), so one K tile spans two
+# taps; M not a multiple of the 128- or 256-row block; halo 0, 1, 2; and
+# split wgrads (M = 4096, 1536, 17100 and 3072), and forwards whose last
+# tiles are shared out stream-K (512 columns over M = 192; 200 over
+# M = 17100, after a whole wave of tiles).
 CONV_SHAPES = [(4, 32, 32, 3, 128, 1), (6, 16, 16, 42, 32, 1), (3, 8, 8, 256, 512, 1),
                (5, 9, 7, 13, 12, 0), (1, 8, 8, 64, 64, 1), (3, 7, 9, 32, 42, 2),
-               (2, 10, 6, 40, 13, 1), (19, 30, 30, 64, 200, 1)]
+               (2, 10, 6, 40, 13, 1), (19, 30, 30, 64, 200, 1), (12, 16, 16, 12, 16, 1),
+               (3, 11, 13, 6, 33, 1), (2, 5, 4, 4, 1, 2), (3, 9, 11, 2, 130, 1)]
 
 
 @pytest.mark.cuda
@@ -179,7 +190,7 @@ def test_conv_wgrad_is_bitwise_repeatable(dtype, cuda):
     g = torch.from_numpy(rng.normal(size=(64, 16, 16, 64)).astype(np.float32)).to(cuda, _DT[dtype])
     # the split reduction is exercised
     if dtype == "float32":
-        assert cv.wgrad_splits(64 * 16 * 16, 42, 64)[0] > 1
+        assert cv.f32_wgrad_plan(64 * 16 * 16, 42, 64)[2] > 1
     else:
         assert cv.sm90_wgrad_plan(64 * 16 * 16, 48, 64)[1] > 1
     a = cv.conv3x3_wgrad(x, g, 1)
@@ -230,4 +241,57 @@ def test_bf16_conv_takes_a_view_off_16_byte_alignment(cuda):
     torch.cuda.synchronize()
     xa, ga = x.clone(), g.clone()
     assert torch.equal(got, cv.conv3x3_nopad(xa, wt, 1))
+    assert torch.equal(dw, cv.conv3x3_wgrad(xa, ga, 1))
+
+
+@pytest.mark.cuda
+def test_f32_conv_raises_when_its_kernel_cannot_launch(cuda, monkeypatch):
+    # The C entry points refuse what they do not take, with cudaErrorInvalidValue.
+    fwd, wgrad = cv._lib()
+    x = torch.zeros(2, 6, 6, 8, device=cuda)
+    wt = torch.zeros(3, 3, 8, 40, device=cuda)
+    y = torch.empty(2, 6, 6, 40, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fwd(x.data_ptr(), wt.data_ptr(), y.data_ptr(), None, 2, 6, 6, 8, 40, 1, 48, 1, 0,
+               stream) == 1  # no block 48 wide
+    assert fwd(x.data_ptr(), wt.data_ptr(), y.data_ptr(), None, 2, 6, 6, 8, 40, 1, 64, 0, 2,
+               stream) == 1  # stream-K runs with no workspace
+    out = torch.empty(3, 3, 8, 40, device=cuda)
+    assert wgrad(x.data_ptr(), y.data_ptr(), out.data_ptr(), out.data_ptr(), 2, 6, 6, 8, 40, 1, 128, 64, 1,
+                 100, stream) == 1  # chunk not a multiple of 16
+    assert wgrad(x.data_ptr(), y.data_ptr(), out.data_ptr(), out.data_ptr(), 2, 6, 6, 8, 40, 1, 128, 16, 1,
+                 96, stream) == 1  # no block 16 wide
+    assert wgrad(x.data_ptr(), y.data_ptr(), out.data_ptr(), out.data_ptr(), 2, 6, 6, 8, 40, 1, 32, 64, 1,
+                 96, stream) == 1  # the 32-row block is 128 wide
+    # A float32 call whose kernel refuses raises; it takes neither the
+    # bfloat16 kernel nor the plain version, and counts nothing.
+    monkeypatch.setattr(cv, "_lib", lambda: (lambda *a: 98, lambda *a: 98))
+    monkeypatch.setattr(cv, "_lib_sm90", lambda: pytest.fail("the bfloat16 kernel was called"))
+    monkeypatch.setattr(cv, "reference_conv3x3_nopad", lambda *a: pytest.fail("plain version called"))
+    monkeypatch.setattr(cv, "reference_conv3x3_wgrad", lambda *a: pytest.fail("plain version called"))
+    before = (cv.fwd_launches.copy(), cv.wgrad_launches.copy())
+    with pytest.raises(RuntimeError, match="cudaError 98"):
+        cv.conv3x3_nopad(x, wt, 1)
+    with pytest.raises(RuntimeError, match="cudaError 98"):
+        cv.conv3x3_wgrad(x, torch.zeros(2, 6, 6, 40, device=cuda), 1)
+    assert (cv.fwd_launches, cv.wgrad_launches) == before
+
+
+@pytest.mark.cuda
+def test_f32_conv_takes_a_view_off_16_byte_alignment(cuda):
+    # A view 4 bytes past an aligned address takes the 4-byte copies; the
+    # products and their order are the same, so the bits are too.
+    rng = np.random.RandomState(6)
+    n, h, w, cin, cout = 2, 8, 8, 64, 64
+    flat = torch.from_numpy(rng.normal(size=n * h * w * cin + 1).astype(np.float32)).to(cuda)
+    x = flat[1:].view(n, h, w, cin)
+    gflat = torch.from_numpy(rng.normal(size=n * h * w * cout + 3).astype(np.float32)).to(cuda)
+    g = gflat[3:].view(n, h, w, cout)
+    wflat = torch.from_numpy((rng.normal(size=9 * cin * cout + 2) * 0.1).astype(np.float32)).to(cuda)
+    wt = wflat[2:].view(3, 3, cin, cout)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16 and wt.data_ptr() % 16
+    got, dw = cv.conv3x3_nopad(x, wt, 1), cv.conv3x3_wgrad(x, g, 1)
+    torch.cuda.synchronize()
+    xa, ga, wa = x.clone(), g.clone(), wt.clone()
+    assert torch.equal(got, cv.conv3x3_nopad(xa, wa, 1))
     assert torch.equal(dw, cv.conv3x3_wgrad(xa, ga, 1))

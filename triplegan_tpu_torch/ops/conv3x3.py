@@ -6,7 +6,15 @@ Two CUDA sources replace the TPU kernels of
 ``conv3x3_nopad``, which also computes the input gradient, and
 ``_wgrad_kernel`` behind ``conv3x3_wgrad``), one per dtype:
 
-* float32: ``csrc/conv3x3.cu``, an implicit GEMM on the CUDA cores;
+* float32: ``csrc/conv3x3.cu``, an implicit GEMM on the CUDA cores in
+  full float32 (256-thread blocks of up to 128×128 with 8×8 accumulators
+  a thread, fed by a ``cp.async`` ring). The wrapper plans the forward
+  (``f32_fwd_plan``: the block width, and a stream-K share-out of the
+  output tiles that would fill only part of a last wave of the card) and
+  the filter gradient's split over pixels (``f32_wgrad_plan``); both sum
+  their partials in a fixed order. The kernels read any channel count and alignment
+  (16-byte copies where they can, 4-byte ones elsewhere), so no operand is
+  padded or copied;
 * bfloat16: ``csrc/conv3x3_sm90.cu``, an implicit GEMM on the tensor cores
   (``wgmma``, fed by a ring of ``cp.async`` and TMA copies). The wrapper
   packs the forward's weight into a K-major, zero-padded matrix
@@ -21,7 +29,8 @@ Semantics, as in the JAX package:
 * ``conv3x3_nopad(x, w, pad)``: a VALID 3×3 conv of x read with a zero halo
   of ``pad`` pixels (0 = x is already padded, JAX's ``conv3x3_nopad``);
   the sum over the nine taps accumulates in float32 and the result is in
-  x's dtype. The kernel reads the halo with bounds checks instead of
+  x's dtype. Deterministic on the card: the same shapes take the same
+  plan, and a split's partial sums are added in a fixed order. The kernel reads the halo with bounds checks instead of
   materializing the padded copy.
 * ``conv3x3_wgrad(x, g, pad)``: dW[dy,dx] = Σ x_halo[n,h+dy,w+dx,:]ᵀ ·
   g[n,h,w,:], float32 (3, 3, Cin, Cout). Deterministic on the card: the
@@ -43,13 +52,15 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fractions
+import functools
 import math
 
 import torch
 
 from triplegan_tpu_torch.ops import build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _PAD = {"SAME": 1, "VALID": 0}
 
 # Kernel launches since the counts were last cleared: the forward kernel
@@ -59,9 +70,13 @@ _PAD = {"SAME": 1, "VALID": 0}
 fwd_launches: collections.Counter = collections.Counter()
 wgrad_launches: collections.Counter = collections.Counter()
 
-# wgrad splits its reduction so that about this many blocks fill the card.
-_WGRAD_TARGET_BLOCKS = 4 * 132
-_WGRAD_MIN_CHUNK = 256
+# The float32 kernels: 16 of K (forward) or pixels (wgrad) a stage; two
+# blocks fit on each of the H100's 132 SMs, so a wave is 264.
+_F32_BK = 16
+_F32_WAVE = 2 * 132
+_F32_MIN_CHUNK = 512
+_F32_MIN_RUN = 8  # K tiles of a forward stream-K run
+_F32_SK_SAVES = 16  # K tiles a run must save against a whole tile for stream-K to pay
 # The bfloat16 kernels: blocks of 128 rows, 64 of K (or of pixels) a
 # stage; two blocks fit on each of the H100's 132 SMs, so a wave is 264.
 _SM90_BM, _SM90_BK = 128, 64
@@ -112,9 +127,9 @@ def _lib():
     fwd, wgrad = lib.conv3x3_fwd_launch, lib.conv3x3_wgrad_launch
     if fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         fwd.restype = i
-        wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_longlong, i, p]
+        wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
         wgrad.restype = i
     return fwd, wgrad
 
@@ -143,9 +158,9 @@ def pad_channels(t: torch.Tensor, c: int) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def sm90_fwd_block_n(cout: int) -> int:
-    """Columns of Cout per block of the bfloat16 forward kernel: Cout
-    rounded up to 16, 32 or 64, else tiles of 128."""
+def fwd_block_n(cout: int) -> int:
+    """Columns of Cout per block of either forward kernel: Cout rounded
+    up to 16, 32 or 64, else tiles of 128."""
     for bn in (16, 32, 64):
         if cout <= bn:
             return bn
@@ -225,30 +240,82 @@ def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "f
         if x.dtype == torch.bfloat16:
             cin8 = _ceil_to(cin, 8)
             xk = pad_channels(x, cin8)
-            bn = sm90_fwd_block_n(cout)
+            bn = fwd_block_n(cout)
             wp = pack_weight_sm90(w, cin8, bn)
             fwd, _ = _lib_sm90()
             rc = fwd(xk.data_ptr(), wp.data_ptr(), y.data_ptr(), n, hin, win, cin8, cout, pad,
                      bn, wp.shape[0], wp.shape[1], stream)
         else:
+            bn, full, per, ws_len = f32_fwd_plan(n * ho * wo, cin, cout)
+            ws = torch.empty(ws_len, dtype=torch.float32, device=x.device) if ws_len else None
             fwd, _ = _lib()
-            rc = fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, hin, win, cin, cout, pad,
-                     _DTYPES[x.dtype], stream)
+            rc = fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(), n,
+                     hin, win, cin, cout, pad, bn, full, per, stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 forward kernel launch failed: cudaError {rc}")
     fwd_launches[role, n, hin, win, cin, cout, pad, _dtype_name(x)] += 1
     return y
 
 
-def wgrad_splits(m: int, cin: int, cout: int):
-    """(splits, chunk) of the float32 wgrad's reduction over m = N·Ho·Wo
-    pixels: enough blocks to fill the card, chunks of at least 256 pixels
-    and a multiple of 16. A function of the shapes alone, so results
-    repeat."""
-    tiles = math.ceil(9 * cin / 64) * math.ceil(cout / 64)
-    splits = max(1, min(math.ceil(_WGRAD_TARGET_BLOCKS / tiles), math.ceil(m / _WGRAD_MIN_CHUNK)))
-    chunk = math.ceil(math.ceil(m / splits) / 16) * 16
-    return math.ceil(m / chunk), chunk
+def _best_fill(tiles: int, most: int) -> int:
+    """The split count s in 1..most whose tiles·s blocks fill their last
+    wave of the card best; the smallest among equals."""
+    def key(s):
+        blocks = tiles * s
+        return fractions.Fraction(blocks, math.ceil(blocks / _F32_WAVE) * _F32_WAVE), -s
+
+    return max(range(1, max(1, most) + 1), key=key)
+
+
+def _f32_fwd_rows(bn: int) -> int:
+    """Rows of M per block of the float32 forward kernel of width bn."""
+    return 256 if bn <= 32 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def f32_fwd_plan(m: int, cin: int, cout: int):
+    """(bn, full, per, ws) of the float32 forward over m = N·Ho·Wo output
+    pixels: blocks of bn = ``fwd_block_n(cout)`` columns; the whole waves
+    of output tiles run as they are, one block a tile (``full`` tiles), and
+    the tiles left over, which would fill only part of a last wave, are
+    shared out stream-K: their K tiles of 16, taken tile by tile, are cut
+    into runs of ``per`` (at least 8), one block a run, at most one wave of
+    blocks, whose partial tiles (``ws`` floats of workspace) are summed in
+    a fixed order. per is 0 (and full every tile) where a run would save
+    16 K tiles or fewer against a whole tile: the extra partial tiles and
+    their sum cost about that much. A function of the shapes alone, so
+    results repeat."""
+    bn = fwd_block_n(cout)
+    bm = _f32_fwd_rows(bn)
+    tiles = math.ceil(m / bm) * math.ceil(cout / bn)
+    ktiles = math.ceil(9 * cin / _F32_BK)
+    full = tiles // _F32_WAVE * _F32_WAVE
+    iters = (tiles - full) * ktiles
+    blocks = min(_F32_WAVE, iters // _F32_MIN_RUN)
+    per = math.ceil(iters / blocks) if blocks else ktiles
+    if ktiles - per <= _F32_SK_SAVES:
+        return bn, tiles, 0, 0
+    segments = math.ceil(per / ktiles) + 1  # output tiles a run can touch
+    return bn, full, per, math.ceil(iters / per) * segments * bm * bn
+
+
+@functools.lru_cache(maxsize=None)
+def f32_wgrad_plan(m: int, cin: int, cout: int):
+    """(bm, bn, splits, chunk) of the float32 wgrad over m = N·Ho·Wo
+    pixels: blocks of bm rows of K = 9·cin (128, or 32 where K <= 32) by bn
+    columns (32, 64 or 128; 128 for the 32-row block), and the reduction
+    split into at most two waves of the card (four where the output tiles
+    alone are more than a wave), the split count that fills its last wave
+    best (the fewest splits among equals), in chunks of at least 512 pixels
+    and a multiple of 16. A function of the shapes alone,
+    so results repeat."""
+    bm = 32 if 9 * cin <= 32 else 128
+    bn = 128 if bm == 32 or cout > 64 else 64 if cout > 32 else 32
+    tiles = math.ceil(9 * cin / bm) * math.ceil(cout / bn)
+    waves = 2 if tiles <= _F32_WAVE else 4
+    splits = _best_fill(tiles, min(waves * _F32_WAVE // tiles, m // _F32_MIN_CHUNK))
+    chunk = _ceil_to(math.ceil(m / splits), _F32_BK)
+    return bm, bn, math.ceil(m / chunk), chunk
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int = 0) -> torch.Tensor:
@@ -268,7 +335,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int = 0) -> torch.Tenso
         cin8, cout8 = _ceil_to(cin, 8), _ceil_to(cout, 8)
         bn, splits, chunk = sm90_wgrad_plan(n * ho * wo, cin8, cout8)
     else:
-        splits, chunk = wgrad_splits(n * ho * wo, cin, cout)
+        bm, bn, splits, chunk = f32_wgrad_plan(n * ho * wo, cin, cout)
     out = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     ws = out if splits == 1 else torch.empty((splits, 9 * cin * cout), dtype=torch.float32,
                                              device=x.device)
@@ -282,7 +349,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int = 0) -> torch.Tenso
         else:
             _, wgrad = _lib()
             rc = wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(), n, hin, win,
-                       cin, cout, pad, splits, chunk, _DTYPES[x.dtype], stream)
+                       cin, cout, pad, bm, bn, splits, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 wgrad kernel launch failed: cudaError {rc}")
     wgrad_launches["wgrad", n, hin, win, cin, cout, pad, _dtype_name(x)] += 1

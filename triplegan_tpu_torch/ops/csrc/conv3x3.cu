@@ -1,91 +1,156 @@
-// 3x3 stride-1 convolution of NHWC activations, forward (also used for the
-// input gradient) and filter gradient, float32 or bfloat16 in, float32
-// accumulation.
+// 3x3 stride-1 convolution of NHWC float32 activations on Hopper's CUDA
+// cores: the forward (also used for the input gradient) and the filter
+// gradient, in full float32 (fmaf only: no TF32, no tensor cores).
 //
-// Replaces the TPU kernels of triplegan_tpu/ops/pallas_conv.py:
-//   conv3x3_fwd   <- _fwd_kernel    (launched by conv3x3_nopad)
-//   conv3x3_wgrad <- _wgrad_kernel  (launched by conv3x3_wgrad)
+// Replaces, for float32, the TPU kernels of triplegan_tpu/ops/pallas_conv.py:
+//   fwd_kernel   <- _fwd_kernel    (launched by conv3x3_nopad)
+//   wgrad_kernel <- _wgrad_kernel  (launched by conv3x3_wgrad)
+// bfloat16 calls go to conv3x3_sm90.cu.
 //
 // Semantics. x is (N, Hin, Win, Cin) row-major; it is read with a zero halo
-// of `pad` pixels (0, 1 or 2) on every side, checked per element, so that
+// of `pad` pixels (0, 1 or 2) on every side, checked per copy, so that
 // pad 0 on a pre-padded input is JAX's conv3x3_nopad and pad p on the raw
 // input equals JAX's pad-then-VALID. Ho = Hin + 2*pad - 2, Wo likewise.
 //   forward: y[n,h,w,co] = sum_{dy,dx,ci} xh[n,h+dy,w+dx,ci] * W[dy,dx,ci,co]
 //     W is HWIO (3, 3, Cin, Cout) row-major, i.e. a (9*Cin, Cout) matrix
-//     whose row k = (dy*3 + dx)*Cin + ci; y is written in x's type.
+//     whose row k = (dy*3 + dx)*Cin + ci.
 //   wgrad:   dW[dy,dx,ci,co] = sum_{n,h,w} xh[n,h+dy,w+dx,ci] * g[n,h,w,co]
-//     g is (N, Ho, Wo, Cout); dW is float32 (3, 3, Cin, Cout).
+//     g is (N, Ho, Wo, Cout); dW is (3, 3, Cin, Cout).
 //
-// Bound: operations at the shapes of the training step (arithmetic
-// intensity of hundreds of flops per byte at Cin >= 42), bytes only for
-// the Cin = 3 and 13 first layers.
+// Bound: operations (67 TFLOP/s float32 on an H100 SXM) at the training
+// step's shapes, hundreds of flops per byte at Cin >= 42; bytes only for
+// the Cin = 3 and 13 first layers. Measured (H100 SXM at 700 W,
+// tools/conv_sm90_breakdown.py): the FMA loops take 80% of the time at the
+// widest shapes and the copies none (removing them changes nothing); the
+// kernels run at 35-43 TFLOP/s, about cuBLAS's full-float32 SGEMM on the
+// same GEMM sizes on that card.
 //
-// Design: an implicit GEMM on the CUDA cores, M = N*Ho*Wo output pixels,
-// N = Cout, K = 9*Cin. A block computes a BM x BN tile of the output with
-// 256 threads, each holding a TM x TN float32 accumulator in registers.
-// Tiles of BK = 16 along K are staged in shared memory as float32 (bf16 is
-// widened on load); the next tile is loaded into registers while the
-// current one is multiplied. The im2col gather is never materialized: each
-// block keeps the (pixel offset, h, w) of its BM output rows in shared
-// memory, each thread decodes its K column into (dy, dx, ci) once per
-// tile, and out-of-image taps read as zero. Offsets are 64-bit.
-// wgrad is the same GEMM with the roles swapped (rows K, columns Cout,
-// reduction over M). It is deterministic: the M reduction is split over
-// `splits` blocks along grid z, each writes its partial tile to a float32
-// workspace, and a second kernel sums the partials in a fixed order. No
-// float atomics, so two runs give the same bits.
-// Tensor cores (wgmma), TMA and a deeper pipeline are later work.
+// Design: an implicit GEMM, M = N*Ho*Wo output pixels, N = Cout, K = 9*Cin
+// (wgrad: rows K, columns Cout, the reduction over M). A block of 256
+// threads computes a BM x BN tile, two blocks to an SM; each thread keeps
+// a TM x TN float32 accumulator (up to 8 x 8) in registers and reads its
+// operands from shared memory as float4s: 16 vector reads for 256 FMAs at
+// 8 x 8.
+// - Tiles of kBK = 16 along the reduction arrive through a ring of kStages
+//   slots in dynamic shared memory, filled by cp.async kStages-1 tiles
+//   ahead of the products, with one __syncthreads per tile.
+// - Copies are 16 bytes (four channels) where the channel count is a
+//   multiple of 4 and the base 16-byte aligned, else 4 bytes per element;
+//   a halo tap, a row past M or a column past K or Cout copies zeros
+//   (src-size 0). No padded copy of any operand is made.
+// - forward: A is the im2col tile, [m][k] (rows padded by 4 floats), each
+//   thread reading four k of a row at once; B is W's [k][co] tile. Blocks
+//   are 128 x 128, 128 x 64, 256 x 32 or 256 x 16 by Cout. Each block
+//   keeps the (pixel offset, h, w) of its rows in shared memory, and each
+//   copying thread walks K tap-major, carrying (dy, dx, ci) from tile to
+//   tile by additions: no division after the block's first decode.
+//   Whole waves of output tiles run one block a tile; the tiles left over,
+//   which would fill only part of a last wave, are shared out stream-K:
+//   their K tiles are cut into equal runs, one block a run, each writing a
+//   partial tile per output tile it touches, and a second kernel sums each
+//   tile's partials in block order.
+// - wgrad: A is [pixel][k], G is g's [pixel][co]; blocks are 128 rows of
+//   K by 32, 64 or 128 of Cout, or 32 x 128 where K <= 32. The taps of the
+//   block's K rows are decoded once, and each copying thread carries its
+//   pixels' (n, h, w) from tile to tile by additions. The M reduction is
+//   split over grid z into a float32 workspace (splits * K * Cout) and a
+//   second kernel sums the partials in a fixed order.
+// Both kernels are deterministic: the caller plans the splits from the
+// shapes alone, and no float atomics are used, so two runs give the same
+// bits. Offsets into x, g and y are 64-bit.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream
-// and returns cudaGetLastError().
+// and returns cudaGetLastError() (or the error of cudaFuncSetAttribute).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBK = 16;  // K depth (forward) or M depth (wgrad) of a tile
+constexpr int kBK = 16;       // reduction depth of a tile: K (forward) or pixels (wgrad)
+constexpr int kStages = 4;    // ring slots
+constexpr int kMinBlocks = 2; // blocks per SM that the register budget is cut for
+constexpr int kFar = -(1 << 29);  // an h or w that fails every bounds check
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+// vec flags: which operands move in 16-byte pieces
+constexpr int kVecX = 1;  // x: Cin % 4 == 0 and 16-byte aligned
+constexpr int kVecB = 2;  // W (forward) or g (wgrad): Cout % 4 == 0 and aligned
+constexpr int kVecY = 4;  // y (forward) or the workspace (wgrad): float4 stores
 
 struct Shape {
   int n, hin, win, cin, cout, pad, ho, wo, k;
   long long m;
 };
 
-constexpr int kFar = -(1 << 29);  // an h or w that fails every bounds check
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 or 4 bytes global -> shared; src-size 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
-// Multiply the staged tiles: acc[i][j] += A[kk][ty*TM+i] * B[kk][tx*TN+j].
-template <int BM, int BN, int TM, int TN>
-__device__ __forceinline__ void mma_tile(float (*As)[BM + 4], float (*Bs)[BN],
-                                         int ty, int tx, float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK; ++kk) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; i += 4) {
-      const float4 v = *reinterpret_cast<float4*>(&As[kk][ty * TM + i]);
-      a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
+// Moves (dy, dx, ci), a position in K = 9*Cin walked tap-major, `by` steps on.
+__device__ __forceinline__ void k_advance(int& dy, int& dx, int& ci, int by, int cin) {
+  ci += by;
+  while (ci >= cin) {
+    ci -= cin;
+    if (++dx == 3) {
+      dx = 0;
+      ++dy;
     }
-    if constexpr (TN == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
+  }
+}
+
+// The T values a thread owns of a width-W tile row: float4s at 4*t and,
+// for T = 8, at W/2 + 4*t (so that eight neighbouring threads read 128
+// consecutive bytes). col_of gives the column of value j.
+template <int W, int T>
+__device__ __forceinline__ int col_of(int t, int j) {
+  return j < 4 ? 4 * t + j : W / 2 + 4 * t + (j - 4);
+}
+template <int W, int T>
+__device__ __forceinline__ void read_owned(const float* row, int t, float (&v)[T]) {
+  static_assert(T == 4 || T == 8, "owned values come in float4s");
+#pragma unroll
+  for (int q = 0; q < T / 4; ++q) {
+    const float4 f = *reinterpret_cast<const float4*>(row + col_of<W, T>(t, 4 * q));
+    v[4 * q] = f.x; v[4 * q + 1] = f.y; v[4 * q + 2] = f.z; v[4 * q + 3] = f.w;
+  }
+}
+
+// Writes a thread's TN values of one output row (columns from col_of, from
+// n0 on) where they lie inside Cout.
+template <int BN, int TN>
+__device__ __forceinline__ void store_row(float* row, const float (&v)[TN], int n0, int tx,
+                                          int cout, bool vec) {
+#pragma unroll
+  for (int q = 0; q < TN / 4; ++q) {
+    const int col = n0 + col_of<BN, TN>(tx, 4 * q);
+    if (vec) {
+      if (col < cout) {
+        *reinterpret_cast<float4*>(row + col) =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      }
     } else {
-      const float2 v = *reinterpret_cast<const float2*>(&Bs[kk][tx * TN]);
-      b[0] = v.x; b[1] = v.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < cout) row[col + e] = v[4 * q + e];
+      }
     }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
@@ -93,132 +158,292 @@ __device__ __forceinline__ void mma_tile(float (*As)[BM + 4], float (*Bs)[BN],
 // forward: y = conv(xh, W)
 // ---------------------------------------------------------------------------
 
-template <typename T, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, Shape s) {
-  static_assert((BM / TM) * (BN / TN) == kThreads, "one accumulator tile per thread");
-  static_assert(TM % 4 == 0 && (TN == 4 || TN == 2), "vector loads from shared memory");
-  constexpr int kAPass = kThreads / kBK;   // rows of A loaded per pass
-  constexpr int kARows = BM / kAPass;      // A elements per thread
-  constexpr int kBPass = kThreads / BN;    // rows of B loaded per pass
-  constexpr int kBRows = kBK / kBPass;     // B elements per thread
-  static_assert(kBRows >= 1 && kBK % kBPass == 0, "B tile split");
+// Output row (of BM) of a forward thread's accumulator row i: a thread's
+// rows lie BM / TM apart, so the threads of a warp read neighbouring rows
+// of A (no two in one bank at the 16-wide tile).
+template <int BM, int TM>
+__device__ __forceinline__ int fwd_row(int ty, int i) { return i * (BM / TM) + ty; }
 
-  __shared__ __align__(16) float As[kBK][BM + 4];
-  __shared__ __align__(16) float Bs[kBK][BN];
-  __shared__ long long sBase[BM];  // x offset of (n, h, w, 0) for output row m
-  __shared__ int sH[BM], sW[BM];
+template <int BM, int BN>
+__host__ __device__ constexpr int fwd_stage_floats() { return BM * (kBK + 4) + kBK * BN; }
+
+// acc[i][j] += A[fwd_row(ty, i)][k] * B[k][col_of(tx, j)] over the tile's kBK k.
+template <int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void fwd_products(const float* sa, const float* sb, int ty, int tx,
+                                             float (&acc)[TM][TN]) {
+  constexpr int kAS = kBK + 4;
+#pragma unroll
+  for (int kq = 0; kq < kBK; kq += 4) {
+    float a[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 f = *reinterpret_cast<const float4*>(sa + fwd_row<BM, TM>(ty, i) * kAS + kq);
+      a[i][0] = f.x; a[i][1] = f.y; a[i][2] = f.z; a[i][3] = f.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float b[TN];
+      read_owned<BN, TN>(sb + (kq + e) * BN, tx, b);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i][e], b[j], acc[i][j]);
+    }
+  }
+}
+
+// Shared memory of a forward block beside its ring: the x offset of tap
+// (0, 0), channel 0, of each output row of the tile, and its h and w with
+// the halo applied.
+template <int BM>
+struct FwdRows {
+  long long base[BM];
+  int h[BM], w[BM];
+};
+
+// One output tile (row-major over (M / BM, Cout / BN)) summed over K tiles
+// kt0 .. kt1-1: into y if part is null, else the whole BM x BN partial
+// tile into part.
+template <int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void fwd_segment(const float* __restrict__ x, const float* __restrict__ w,
+                                            float* __restrict__ y, float* __restrict__ part,
+                                            const Shape& s, int vec, int tile, int kt0, int kt1,
+                                            float* smem, FwdRows<BM>& rows) {
+  static_assert((BM / TM) * (BN / TN) == kThreads, "one accumulator tile per thread");
+  constexpr int kAS = kBK + 4;               // A row stride (floats)
+  constexpr int kStage = fwd_stage_floats<BM, BN>();
+  constexpr int kAChunks = kBK / 4;          // 16-byte chunks of an A row
+  constexpr int kAPass = kThreads / kAChunks;
+  constexpr int kARows = BM / kAPass;        // A rows each thread copies
+  constexpr int kBChunks = kBK * BN / 4;
 
   const int tid = threadIdx.x;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int hw = s.ho * s.wo;
-
-  for (int r = tid; r < BM; r += kThreads) {
-    const long long m = m0 + r;
-    if (m < s.m) {
-      const int nn = (int)(m / hw);
-      const int rem = (int)(m - (long long)nn * hw);
-      const int h = rem / s.wo;
-      const int ww = rem - h * s.wo;
-      sBase[r] = (((long long)nn * s.hin + h) * s.win + ww) * s.cin;
-      sH[r] = h;
-      sW[r] = ww;
-    } else {
-      sBase[r] = 0;
-      sH[r] = kFar;
-      sW[r] = kFar;
+  const int ntn = (s.cout + BN - 1) / BN;
+  const long long m0 = (long long)(tile / ntn) * BM;
+  const int n0 = (tile % ntn) * BN;
+  {
+    const int hw = s.ho * s.wo;
+    for (int r = tid; r < BM; r += kThreads) {
+      const long long m = m0 + r;
+      if (m < s.m) {
+        const int nn = (int)(m / hw);
+        const int rem = (int)(m - (long long)nn * hw);
+        const int h = rem / s.wo;
+        const int ww = rem - h * s.wo;
+        rows.base[r] = (((long long)nn * s.hin + h - s.pad) * s.win + ww - s.pad) * s.cin;
+        rows.h[r] = h - s.pad;
+        rows.w[r] = ww - s.pad;
+      } else {
+        rows.base[r] = 0;
+        rows.h[r] = rows.w[r] = kFar;
+      }
     }
   }
   __syncthreads();
 
-  const int akk = tid % kBK, ar = tid / kBK;   // A: column akk, rows ar + kAPass*i
-  const int bc = tid % BN, br = tid / BN;      // B: column bc, rows br + kBPass*i
+  // This thread copies chunk ac (k = 4*ac .. 4*ac+3 of each tile) of rows
+  // ar + kAPass*i, walking K from tile kt0 in steps of kBK.
+  const int ac = tid % kAChunks, ar = tid / kAChunks;
+  int dy, dx, ci;
+  {
+    const int k = kt0 * kBK + 4 * ac;
+    const int tap = k / s.cin;
+    ci = k - tap * s.cin;
+    dy = tap / 3;
+    dx = tap - 3 * dy;
+  }
+  const bool vx = vec & kVecX, vb = vec & kVecB;
+
+  auto load = [&](int kt, int slot) {
+    float* sa = smem + slot * kStage;
+    float* sb = sa + BM * kAS;
+    if (vx) {
+      const int koff = (dy * s.win + dx) * s.cin + ci;
+#pragma unroll
+      for (int i = 0; i < kARows; ++i) {
+        const int r = ar + kAPass * i;
+        const int hi = rows.h[r] + dy, wi = rows.w[r] + dx;
+        const bool ok = dy < 3 && (unsigned)hi < (unsigned)s.hin && (unsigned)wi < (unsigned)s.win;
+        cp_async16(sa + r * kAS + 4 * ac, ok ? x + rows.base[r] + koff : x, ok);
+      }
+    } else {
+      int edy = dy, edx = dx, eci = ci;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int koff = (edy * s.win + edx) * s.cin + eci;
+#pragma unroll
+        for (int i = 0; i < kARows; ++i) {
+          const int r = ar + kAPass * i;
+          const int hi = rows.h[r] + edy, wi = rows.w[r] + edx;
+          const bool ok = edy < 3 && (unsigned)hi < (unsigned)s.hin && (unsigned)wi < (unsigned)s.win;
+          cp_async4(sa + r * kAS + 4 * ac + e, ok ? x + rows.base[r] + koff : x, ok);
+        }
+        k_advance(edy, edx, eci, 1, s.cin);
+      }
+    }
+    k_advance(dy, dx, ci, kBK, s.cin);
+    // B: W rows k0 .. k0+15, columns n0 .. n0+BN-1
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int c = 0; c < (kBChunks + kThreads - 1) / kThreads; ++c) {
+      const int idx = tid + c * kThreads;
+      if (kBChunks % kThreads != 0 && idx >= kBChunks) break;
+      const int kr = idx / (BN / 4), cc = idx % (BN / 4);
+      const int k = k0 + kr, col = n0 + 4 * cc;
+      const float* src = w + (long long)k * s.cout + col;
+      if (vb) {
+        const bool ok = k < s.k && col < s.cout;
+        cp_async16(sb + kr * BN + 4 * cc, ok ? src : w, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = k < s.k && col + e < s.cout;
+          cp_async4(sb + kr * BN + 4 * cc + e, ok ? src + e : w, ok);
+        }
+      }
+    }
+  };
+
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-
-  float ra[kARows], rb[kBRows];
-  auto load = [&](int k0) {
-    const int k = k0 + akk;
-    int dyp = kFar, dxp = kFar, koff = 0;
-    if (k < s.k) {
-      const int tap = k / s.cin;
-      const int ci = k - tap * s.cin;
-      const int dy = tap / 3;
-      dyp = dy - s.pad;
-      dxp = tap - 3 * dy - s.pad;
-      koff = (dyp * s.win + dxp) * s.cin + ci;
-    }
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      const int r = ar + kAPass * i;
-      const int hi = sH[r] + dyp, wi = sW[r] + dxp;
-      const bool ok = (unsigned)hi < (unsigned)s.hin && (unsigned)wi < (unsigned)s.win;
-      ra[i] = ok ? to_f(x[sBase[r] + koff]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kBRows; ++i) {
-      const int kr = k0 + br + kBPass * i;
-      const int col = n0 + bc;
-      rb[i] = (kr < s.k && col < s.cout) ? to_f(w[(long long)kr * s.cout + col]) : 0.f;
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) As[akk][ar + kAPass * i] = ra[i];
-#pragma unroll
-    for (int i = 0; i < kBRows; ++i) Bs[br + kBPass * i][bc] = rb[i];
-  };
-
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  load(0);
-  stage();
-  __syncthreads();
-  for (int k0 = 0; k0 < s.k; k0 += kBK) {
-    const bool more = k0 + kBK < s.k;
-    if (more) load(k0 + kBK);
-    mma_tile<BM, BN, TM, TN>(As, Bs, ty, tx, acc);
-    __syncthreads();
-    if (more) {
-      stage();
-      __syncthreads();
-    }
+  // The ring: K tile kt0 + t sits in slot t % kStages, copied kStages-1
+  // tiles ahead.
+  const int nt = kt1 - kt0;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nt) load(kt0 + t, t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();               // everyone's; and the products of tile t-1 are done
+    const int nk = t + kStages - 1;
+    if (nk < nt) load(kt0 + nk, nk % kStages);  // refills the slot of tile t-1
+    cp_async_commit();
+    const float* sa = smem + (t % kStages) * kStage;
+    fwd_products<BM, BN, TM, TN>(sa, sa + BM * kAS, ty, tx, acc);
   }
 
+  if (part == nullptr) {
+    const bool vy = vec & kVecY;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= s.m) continue;
+    for (int i = 0; i < TM; ++i) {
+      const long long m = m0 + fwd_row<BM, TM>(ty, i);
+      if (m < s.m) store_row<BN, TN>(y + m * s.cout, acc[i], n0, tx, s.cout, vy);
+    }
+  } else {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col < s.cout) y[m * s.cout + col] = from_f<T>(acc[i][j]);
+    for (int i = 0; i < TM; ++i) {
+      store_row<BN, TN>(part + fwd_row<BM, TM>(ty, i) * BN, acc[i], 0, tx, BN, true);
     }
   }
 }
 
+// Partial tiles a stream-K block may write: its `per` K tiles of 16 touch
+// at most this many output tiles of ktiles each.
+__host__ __device__ inline int sk_segments(int per, int ktiles) { return (per + ktiles - 1) / ktiles + 1; }
+
+// Blocks below `full` compute whole output tiles, one each. The tiles
+// after them, which would fill only part of a last wave, are shared out
+// stream-K: their K tiles, taken tile by tile, are cut into runs of `per`
+// and block full + b computes run b, one partial tile for each output
+// tile the run touches, at ws[(b * segments + j) * BM * BN] for its j-th.
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
+           float* __restrict__ ws, Shape s, int vec, int full, int per) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ FwdRows<BM> rows;
+  const int ktiles = (s.k + kBK - 1) / kBK;
+  if ((int)blockIdx.x < full) {
+    fwd_segment<BM, BN, TM, TN>(x, w, y, nullptr, s, vec, blockIdx.x, 0, ktiles, smem, rows);
+    return;
+  }
+  const int ntn = (s.cout + BN - 1) / BN;
+  const long long tiles = (s.m + BM - 1) / BM * ntn;
+  const long long total = (tiles - full) * ktiles;
+  const int b = blockIdx.x - full;
+  const int segments = sk_segments(per, ktiles);
+  long long it = (long long)b * per;
+  const long long end = min(total, it + per);
+  for (int j = 0; it < end; ++j) {
+    const int t = (int)(it / ktiles);
+    const int k0 = (int)(it - (long long)t * ktiles);
+    const int k1 = (int)min((long long)ktiles, k0 + (end - it));
+    fwd_segment<BM, BN, TM, TN>(x, w, y, ws + ((long long)b * segments + j) * BM * BN, s, vec,
+                                full + t, k0, k1, smem, rows);
+    it += k1 - k0;
+    __syncthreads();  // before the next segment reuses shared memory
+  }
+}
+
+// y's tiles after `full`: each the sum, in block order, of the partial
+// tiles that the stream-K blocks whose runs touch it wrote.
+__global__ void reduce_stream_k(const float* __restrict__ ws, float* __restrict__ y, Shape s,
+                                int bm, int bn, int full, int per) {
+  const int ntn = (s.cout + bn - 1) / bn;
+  const int ktiles = (s.k + kBK - 1) / kBK;
+  const int segments = sk_segments(per, ktiles);
+  const long long tsize = (long long)bm * bn;
+  const long long n = tsize * ((s.m + bm - 1) / bm * ntn - full);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const int t = (int)(i / tsize);
+    const int rc = (int)(i - (long long)t * tsize);
+    const int tile = full + t;
+    const long long m = (long long)(tile / ntn) * bm + rc / bn;
+    const int col = (tile % ntn) * bn + rc % bn;
+    if (m >= s.m || col >= s.cout) continue;
+    const long long it0 = (long long)t * ktiles, it1 = it0 + ktiles;
+    float sum = 0.f;
+    for (long long b = it0 / per; b * per < it1; ++b) {
+      const int j = t - (int)(b * per / ktiles);
+      sum += ws[(b * segments + j) * tsize + rc];
+    }
+    y[m * s.cout + col] = sum;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// wgrad: partial dW over the M range of this block's split
+// wgrad: partial dW over the pixel range of this block's split
 // ---------------------------------------------------------------------------
 
-template <typename T, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ ws,
-             Shape s, long long chunk) {
+template <int BM, int BN>
+__host__ __device__ constexpr int wgrad_stage_floats() { return kBK * (BM + BN); }
+
+// acc[i][j] += A[p][col_of(ty, i)] * G[p][col_of(tx, j)] over the tile's kBK pixels.
+template <int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void wgrad_products(const float* sa, const float* sg, int ty, int tx,
+                                               float (&acc)[TM][TN]) {
+#pragma unroll
+  for (int p = 0; p < kBK; ++p) {
+    float a[TM], b[TN];
+    read_owned<BM, TM>(sa + p * BM, ty, a);
+    read_owned<BN, TN>(sg + p * BN, tx, b);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ ws,
+             Shape s, long long chunk, int vec) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "one accumulator tile per thread");
-  static_assert(TM % 4 == 0 && (TN == 4 || TN == 2), "vector loads from shared memory");
-  constexpr int kAK = BM / kBK;         // A elements per thread (one m, kAK k's)
-  constexpr int kGPass = kThreads / BN;  // m rows of g loaded per pass
-  constexpr int kGRows = kBK / kGPass;   // g elements per thread
-  static_assert(kGRows >= 1 && kBK % kGPass == 0, "g tile split");
-
-  __shared__ __align__(16) float As[kBK][BM + 4];  // [m][k]: patch values
-  __shared__ __align__(16) float Gs[kBK][BN];      // [m][co]
-  __shared__ int sKoff[BM], sKdy[BM], sKdx[BM];
+  constexpr int kStage = wgrad_stage_floats<BM, BN>();
+  constexpr int kAChunks = BM / 4;             // 16-byte chunks of an A row (one pixel)
+  constexpr int kAPass = kThreads / kAChunks;  // pixels copied per pass (kBK at most)
+  constexpr int kAPix = kAPass <= kBK ? kBK / kAPass : 1;  // pixels each thread copies
+  constexpr int kGChunks = kBK * BN / 4;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int sKdy[BM], sKdx[BM], sKoff[BM];  // tap of each K row, halo applied
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BM;
@@ -236,96 +461,115 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict
       sKdx[r] = tap - 3 * dy - s.pad;
       sKoff[r] = (sKdy[r] * s.win + sKdx[r]) * s.cin + ci;
     } else {
-      sKdy[r] = kFar;
-      sKdx[r] = kFar;
+      sKdy[r] = sKdx[r] = kFar;
       sKoff[r] = 0;
     }
   }
   __syncthreads();
 
-  // A: this thread's row am of the tile and columns ak + kBK*j.
-  const int am = tid / kBK, ak = tid % kBK;
-  // g: column gc and rows gr + kGPass*i.
-  const int gc = tid % BN, gr = tid / BN;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-
-  // Output pixel of this thread's A row, advanced by kBK per tile.
-  long long m = mbeg + am;
-  int pn, ph, pw;
+  // This thread copies chunk ac (rows 4*ac .. 4*ac+3 of the block's K) of
+  // pixels ap + kAPass*i of each tile (none if ap >= kBK); their (n, h, w)
+  // advance by kBK pixels a tile.
+  const int ac = tid % kAChunks, ap = tid / kAChunks;
+  const bool copies_a = kAPass <= kBK || ap < kBK;
+  const int dyp = sKdy[4 * ac], dxp = sKdx[4 * ac], koff = sKoff[4 * ac];
+  int pn[kAPix], ph[kAPix], pw[kAPix];
+  const int q = kBK / s.wo;
+  const int step_w = kBK - q * s.wo, step_h = q % s.ho, step_n = q / s.ho;
   {
     const int hw = s.ho * s.wo;
-    pn = (int)(m / hw);
-    const int rem = (int)(m - (long long)pn * hw);
-    ph = rem / s.wo;
-    pw = rem - ph * s.wo;
+#pragma unroll
+    for (int i = 0; i < kAPix; ++i) {
+      const long long m = mbeg + ap + kAPass * i;
+      pn[i] = (int)(m / hw);
+      const int rem = (int)(m - (long long)pn[i] * hw);
+      ph[i] = rem / s.wo;
+      pw[i] = rem - ph[i] * s.wo;
+    }
   }
+  const bool vx = vec & kVecX, vg = vec & kVecB;
 
-  float ra[kAK], rg[kGRows];
-  long long mt = mbeg;  // first m of the tile being loaded
-  auto load = [&]() {
-    const long long base = (((long long)pn * s.hin + ph) * s.win + pw) * s.cin;
-    const bool mok = m < mend;
+  auto load = [&](long long mt, int slot) {
+    float* sa = smem + slot * kStage;
+    float* sg = sa + kBK * BM;
 #pragma unroll
-    for (int j = 0; j < kAK; ++j) {
-      const int r = ak + kBK * j;
-      const int hi = ph + sKdy[r], wi = pw + sKdx[r];
-      const bool ok = mok && (unsigned)hi < (unsigned)s.hin && (unsigned)wi < (unsigned)s.win;
-      ra[j] = ok ? to_f(x[base + sKoff[r]]) : 0.f;
+    for (int i = 0; i < kAPix && copies_a; ++i) {
+      const int p = ap + kAPass * i;
+      const bool mok = mt + p < mend;
+      const long long base = (((long long)pn[i] * s.hin + ph[i]) * s.win + pw[i]) * s.cin;
+      if (vx) {
+        const int hi = ph[i] + dyp, wi = pw[i] + dxp;
+        const bool ok = mok && (unsigned)hi < (unsigned)s.hin && (unsigned)wi < (unsigned)s.win;
+        cp_async16(sa + p * BM + 4 * ac, ok ? x + base + koff : x, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * ac + e;
+          const int hi = ph[i] + sKdy[r], wi = pw[i] + sKdx[r];
+          const bool ok = mok && (unsigned)hi < (unsigned)s.hin && (unsigned)wi < (unsigned)s.win;
+          cp_async4(sa + p * BM + r, ok ? x + base + sKoff[r] : x, ok);
+        }
+      }
+      pw[i] += step_w;
+      const int cw = pw[i] >= s.wo;
+      pw[i] -= cw ? s.wo : 0;
+      ph[i] += step_h + cw;
+      const int ch = ph[i] >= s.ho;
+      ph[i] -= ch ? s.ho : 0;
+      pn[i] += step_n + ch;
     }
+    // G: pixels mt .. mt+15, columns n0 .. n0+BN-1
 #pragma unroll
-    for (int i = 0; i < kGRows; ++i) {
-      const long long mm = mt + gr + kGPass * i;
-      const int col = n0 + gc;
-      rg[i] = (mm < mend && col < s.cout) ? to_f(g[mm * s.cout + col]) : 0.f;
+    for (int c = 0; c < (kGChunks + kThreads - 1) / kThreads; ++c) {
+      const int idx = tid + c * kThreads;
+      if (kGChunks % kThreads != 0 && idx >= kGChunks) break;
+      const int p = idx / (BN / 4), cc = idx % (BN / 4);
+      const long long mm = mt + p;
+      const int col = n0 + 4 * cc;
+      const float* src = g + mm * s.cout + col;
+      if (vg) {
+        const bool ok = mm < mend && col < s.cout;
+        cp_async16(sg + p * BN + 4 * cc, ok ? src : g, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = mm < mend && col + e < s.cout;
+          cp_async4(sg + p * BN + 4 * cc + e, ok ? src + e : g, ok);
+        }
+      }
     }
-    // advance this thread's A pixel and the tile start by kBK
-    m += kBK;
-    mt += kBK;
-    pw += kBK;
-    ph += pw / s.wo;
-    pw %= s.wo;
-    pn += ph / s.ho;
-    ph %= s.ho;
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int j = 0; j < kAK; ++j) As[am][ak + kBK * j] = ra[j];
-#pragma unroll
-    for (int i = 0; i < kGRows; ++i) Gs[gr + kGPass * i][gc] = rg[i];
   };
 
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  if (mbeg < mend) {
-    load();
-    stage();
+  // The ring as in fwd_segment.
+  const int tiles = mend > mbeg ? (int)((mend - mbeg + kBK - 1) / kBK) : 0;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < tiles) load(mbeg + (long long)t * kBK, t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    for (long long t0 = mbeg; t0 < mend; t0 += kBK) {
-      const bool more = t0 + kBK < mend;
-      if (more) load();
-      mma_tile<BM, BN, TM, TN>(As, Gs, ty, tx, acc);
-      __syncthreads();
-      if (more) {
-        stage();
-        __syncthreads();
-      }
-    }
+    const int nt = t + kStages - 1;
+    if (nt < tiles) load(mbeg + (long long)nt * kBK, nt % kStages);
+    cp_async_commit();
+    const float* sa = smem + (t % kStages) * kStage;
+    wgrad_products<BM, BN, TM, TN>(sa, sa + kBK * BM, ty, tx, acc);
   }
 
   float* out = ws + (long long)blockIdx.z * s.k * s.cout;
+  const bool vo = vec & kVecY;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int k = k0 + ty * TM + i;
-    if (k >= s.k) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col < s.cout) out[(long long)k * s.cout + col] = acc[i][j];
-    }
+    const int k = k0 + col_of<BM, TM>(ty, i);
+    if (k < s.k) store_row<BN, TN>(out + (long long)k * s.cout, acc[i], n0, tx, s.cout, vo);
   }
 }
 
@@ -341,7 +585,7 @@ __global__ void reduce_splits(const float* __restrict__ ws, float* __restrict__ 
 }
 
 bool make_shape(int n, int hin, int win, int cin, int cout, int pad, Shape* s) {
-  if (n <= 0 || cin <= 0 || cout <= 0 || pad < 0 || pad > 2) return false;
+  if (n <= 0 || hin <= 0 || win <= 0 || cin <= 0 || cout <= 0 || pad < 0 || pad > 2) return false;
   s->n = n; s->hin = hin; s->win = win; s->cin = cin; s->cout = cout; s->pad = pad;
   s->ho = hin + 2 * pad - 2;
   s->wo = win + 2 * pad - 2;
@@ -354,79 +598,112 @@ bool make_shape(int n, int hin, int win, int cin, int cout, int pad, Shape* s) {
   return true;
 }
 
-template <typename T, int BM, int BN, int TM, int TN>
-void launch_fwd(const void* x, const void* w, void* y, const Shape& s, cudaStream_t st) {
-  const long long gx = (s.m + BM - 1) / BM;
-  dim3 grid((unsigned)gx, (unsigned)((s.cout + BN - 1) / BN));
-  fwd_kernel<T, BM, BN, TM, TN><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), s);
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int BM, int BN, int TM, int TN>
+int launch_fwd(const float* x, const float* w, float* y, float* ws, const Shape& s, int vec,
+               int full, int per, cudaStream_t st) {
+  constexpr int smem = kStages * fwd_stage_floats<BM, BN>() * (int)sizeof(float);
+  const long long tiles = (s.m + BM - 1) / BM * ((s.cout + BN - 1) / BN);
+  const long long ktiles = (s.k + kBK - 1) / kBK;
+  const long long sk = full < tiles && per > 0 ? ((tiles - full) * ktiles + per - 1) / per : 0;
+  if (full < 0 || full > tiles || (full == tiles) != (per == 0) || per < 0 ||
+      full + sk > 0x7fffffffLL || (sk > 0 && (ws == nullptr || !aligned16(ws)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto kernel = fwd_kernel<BM, BN, TM, TN>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)(full + sk), kThreads, smem, st>>>(x, w, y, ws, s, vec, full, per);
+  if (sk == 0) return (int)cudaGetLastError();
+  const long long total = (tiles - full) * BM * BN;
+  long long rblocks = (total + 255) / 256;
+  if (rblocks > 132 * 8) rblocks = 132 * 8;
+  reduce_stream_k<<<(unsigned)rblocks, 256, 0, st>>>(ws, y, s, BM, BN, full, per);
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-void dispatch_fwd(const void* x, const void* w, void* y, const Shape& s, cudaStream_t st) {
-  if (s.cout <= 32) launch_fwd<T, 128, 32, 8, 2>(x, w, y, s, st);
-  else launch_fwd<T, 128, 64, 8, 4>(x, w, y, s, st);
-}
-
-template <typename T, int BM, int BN, int TM, int TN>
-void launch_wgrad(const void* x, const void* g, float* ws, const Shape& s, int splits,
-                  long long chunk, cudaStream_t st) {
+template <int BM, int BN, int TM, int TN>
+int launch_wgrad(const float* x, const float* g, float* ws, const Shape& s, int splits,
+                 long long chunk, int vec, cudaStream_t st) {
+  constexpr int smem = kStages * wgrad_stage_floats<BM, BN>() * (int)sizeof(float);
+  const auto kernel = wgrad_kernel<BM, BN, TM, TN>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)((s.k + BM - 1) / BM), (unsigned)((s.cout + BN - 1) / BN), (unsigned)splits);
-  wgrad_kernel<T, BM, BN, TM, TN><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), ws, s, chunk);
-}
-
-template <typename T>
-void dispatch_wgrad(const void* x, const void* g, float* ws, const Shape& s, int splits,
-                    long long chunk, cudaStream_t st) {
-  if (s.cout <= 32) launch_wgrad<T, 128, 32, 8, 2>(x, g, ws, s, splits, chunk, st);
-  else launch_wgrad<T, 64, 64, 4, 4>(x, g, ws, s, splits, chunk, st);
+  kernel<<<grid, kThreads, smem, st>>>(x, g, ws, s, chunk, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and y all of it).
-// Returns a cudaError_t as int: 0 on a good launch, cudaErrorInvalidValue
-// for arguments the kernel does not take.
-extern "C" int conv3x3_fwd_launch(const void* x, const void* w, void* y, int n, int hin,
-                                  int win, int cin, int cout, int pad, int dtype,
-                                  void* stream) {
+// Forward blocks by bn, the block's width in columns of Cout (the caller
+// picks it from Cout): 16 -> 256 x 16 rows/columns, 4 x 4 per thread;
+// 32 -> 256 x 32, 8 x 4; 64 -> 128 x 64, 8 x 4; 128 -> 128 x 128, 8 x 8.
+// Rings of 72 to 90 KB, two blocks to an SM.
+
+// x: (n, hin, win, cin); w: (3, 3, cin, cout); y: (n, ho, wo, cout); all
+// float32. The first `full` output tiles (row-major over (M / BM, Cout /
+// bn)) are computed whole, one block each; the K tiles (of 16) of the
+// later ones are cut into runs of `per`, one block each, whose partial
+// tiles go to ws (blocks x sk_segments(per, K tiles) x BM x bn floats,
+// 16-byte aligned) and are summed into y in a fixed order. per == 0
+// exactly when full is every tile; ws is then unused. Returns a
+// cudaError_t as int: 0 on a good launch, cudaErrorInvalidValue for
+// arguments the kernel does not take.
+extern "C" int conv3x3_fwd_launch(const float* x, const float* w, float* y, float* ws, int n,
+                                  int hin, int win, int cin, int cout, int pad, int bn, int full,
+                                  int per, void* stream) {
   Shape s;
-  if (!make_shape(n, hin, win, cin, cout, pad, &s) || dtype < 0 || dtype > 1) {
+  if (!make_shape(n, hin, win, cin, cout, pad, &s) || (s.m + 127) / 128 > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
-  if ((s.m + 127) / 128 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int vec = (cin % 4 == 0 && aligned16(x) ? kVecX : 0) |
+                  (cout % 4 == 0 && aligned16(w) ? kVecB : 0) |
+                  (cout % 4 == 0 && aligned16(y) ? kVecY : 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) dispatch_fwd<float>(x, w, y, s, st);
-  else dispatch_fwd<__nv_bfloat16>(x, w, y, s, st);
-  return (int)cudaGetLastError();
+  switch (bn) {
+    case 16: return launch_fwd<256, 16, 4, 4>(x, w, y, ws, s, vec, full, per, st);
+    case 32: return launch_fwd<256, 32, 8, 4>(x, w, y, ws, s, vec, full, per, st);
+    case 64: return launch_fwd<128, 64, 8, 4>(x, w, y, ws, s, vec, full, per, st);
+    case 128: return launch_fwd<128, 128, 8, 8>(x, w, y, ws, s, vec, full, per, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// x: (n, hin, win, cin); g: (n, ho, wo, cout) of the same dtype; out: the
-// float32 (3, 3, cin, cout) filter gradient. The M = n*ho*wo reduction is
-// split into `splits` ranges of `chunk` pixels (chunk a multiple of 16,
-// splits * chunk >= M); ws holds splits * 9*cin*cout floats, or is out
-// itself when splits == 1.
-extern "C" int conv3x3_wgrad_launch(const void* x, const void* g, float* ws, float* out,
-                                    int n, int hin, int win, int cin, int cout, int pad,
-                                    int splits, long long chunk, int dtype, void* stream) {
+// x: (n, hin, win, cin); g: (n, ho, wo, cout); out: the (3, 3, cin, cout)
+// filter gradient; all float32. Blocks of bm rows of K by bn columns of
+// Cout: 128 x 32 (4 x 4 per thread), 128 x 64 (8 x 4), 128 x 128 (8 x 8),
+// or 32 x 128 (4 x 4, for K = 9*cin <= 32). The M =
+// n*ho*wo reduction is split into `splits` ranges of `chunk` pixels (chunk
+// a multiple of 16, splits * chunk >= M > (splits - 1) * chunk); ws holds
+// splits * 9*cin*cout floats, or is out itself when splits == 1.
+extern "C" int conv3x3_wgrad_launch(const float* x, const float* g, float* ws, float* out,
+                                    int n, int hin, int win, int cin, int cout, int pad, int bm,
+                                    int bn, int splits, long long chunk, void* stream) {
   Shape s;
-  if (!make_shape(n, hin, win, cin, cout, pad, &s) || dtype < 0 || dtype > 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!make_shape(n, hin, win, cin, cout, pad, &s)) return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > 65535 || chunk <= 0 || chunk % kBK != 0 ||
       (long long)splits * chunk < s.m || (long long)(splits - 1) * chunk >= s.m ||
       (splits == 1 && ws != out) || (splits > 1 && ws == out)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int vec = (cin % 4 == 0 && aligned16(x) ? kVecX : 0) |
+                  (cout % 4 == 0 && aligned16(g) ? kVecB : 0) |
+                  (cout % 4 == 0 && aligned16(ws) ? kVecY : 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) dispatch_wgrad<float>(x, g, ws, s, splits, chunk, st);
-  else dispatch_wgrad<__nv_bfloat16>(x, g, ws, s, splits, chunk, st);
-  if (splits > 1) {
-    const long long total = (long long)s.k * s.cout;
-    long long blocks = (total + 255) / 256;
-    if (blocks > 132 * 8) blocks = 132 * 8;
-    reduce_splits<<<(unsigned)blocks, 256, 0, st>>>(ws, out, total, splits);
+  int rc;
+  switch (bm * 1000 + bn) {
+    case 128032: rc = launch_wgrad<128, 32, 4, 4>(x, g, ws, s, splits, chunk, vec, st); break;
+    case 128064: rc = launch_wgrad<128, 64, 8, 4>(x, g, ws, s, splits, chunk, vec, st); break;
+    case 128128: rc = launch_wgrad<128, 128, 8, 8>(x, g, ws, s, splits, chunk, vec, st); break;
+    case 32128: rc = launch_wgrad<32, 128, 4, 4>(x, g, ws, s, splits, chunk, vec, st); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+  if (rc != 0 || splits == 1) return rc;
+  const long long total = (long long)s.k * s.cout;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  reduce_splits<<<(unsigned)blocks, 256, 0, st>>>(ws, out, total, splits);
   return (int)cudaGetLastError();
 }
