@@ -22,8 +22,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
      plain, plain, kernel). The kernels' launch counts, keyed by the shape
      of each call, are cleared just before each arm's steps and read just
      after: the kernel arm must launch each conv kernel at exactly the
-     shapes and counts that the step's convs imply (``step_launches``) and
-     the epilogue kernel the count its layers imply, the plain arm nothing.
+     shapes and counts that the step's convs imply (``step_launches``), the
+     epilogue's forward kernel the count its layers imply and its backward
+     kernel the count of those in passes that carry a gradient (43 a step at
+     both settings), the plain arm nothing.
      Losses must be finite; the two arms' step-1 metrics must agree;
      ms/step and img/s are timed;
   4. card against CPU: two steps of a cut-down config (cifar10_4k's layers
@@ -37,13 +39,17 @@ Phases, each fatal on failure (exit code 1, and no result line):
      must launch 9 epilogues and 7 convs per classify chunk, 4 and 3 per
      generate chunk; outputs checked against each other and the CPU;
   6. kernels: at every (shape, dtype, activation) at which a kernel arm of
-     phases 3 and 5 launched a kernel, holds the kernel's wrapper to its
-     plain PyTorch version on fresh seeded inputs and times both with CUDA
-     events (L2 flushed before each run), and times the one PyTorch call
-     that computes the same function where there is one (F.conv2d for the
-     conv forward, torch.nn.grad.conv2d_input and conv2d_weight for dgrad
-     and wgrad; none for scale_bias_act). A float32 conv row times
-     conv3x3.cu's kernel, a bfloat16 row conv3x3_sm90.cu's.
+     phases 3 and 5 launched a kernel (for the epilogue's backward, also the
+     gradients it computed), holds the kernel's wrapper to its plain
+     PyTorch version on fresh seeded inputs and times both with CUDA events
+     (``time_ms``: the L2 flushed by a read and the device held by a spin
+     before each run, so that the timed window holds device work only;
+     epilogue rows take the median, p10 and p90 of 60 runs), and times the
+     one PyTorch call that computes the same function where there is one
+     (F.conv2d for the conv forward, torch.nn.grad.conv2d_input and
+     conv2d_weight for dgrad and wgrad; none for either scale_bias_act
+     kernel). A float32 conv row times conv3x3.cu's kernel, a bfloat16 row
+     conv3x3_sm90.cu's.
 
 The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
@@ -51,14 +57,22 @@ the source that serves the setting's dtype); its top-level numbers are
 the shipped setting's.
 
 With --profile, one extra step per train arm and 10 chunks per serving
-arm run under torch.profiler (device busy share, kernels by device time).
+arm run under torch.profiler (device busy share, kernels by device time,
+and each train arm's in-step device time of the epilogue kernels, forward
+and backward).
 
 The last three lines of standard output are the kernels' JSON summary,
 nvidia-smi's line again, and ``{"ok": true, "device": {...}}``.
 
 Tolerances.
 - scale_bias_act against plain, float32: |kernel − plain| ≤ 1e-6·(1 +
-  |plain|); bfloat16: one bfloat16 ulp.
+  |plain|); bfloat16: one bfloat16 ulp. Its backward: dx the same; dk
+  and db against the exact (float64) sums of the plain backward's terms
+  (t·x, t), within γ_n·Σ|terms|, γ_n = n·2⁻²⁴/(1 − n·2⁻²⁴) with n the
+  most float32 additions a term goes through in the kernel (its thread's
+  rows, its block's tree, the reduce; 99 and 173 at the widest training
+  shapes on an H100), plus one bfloat16 ulp of the value at bfloat16 (the float32
+  sum rounded once); ``bwd_sums_excess``.
 - conv3x3 against plain: |kernel − plain| ≤ 8·sqrt(K)·2⁻²⁴·(the plain op
   on |inputs|), K the length of each sum (both sum in float32, in other
   orders), plus one bfloat16 ulp of the value where the output is
@@ -104,6 +118,10 @@ SEED = 0
 BATCH = 100
 N_REQ = 250                   # images per request: chunks 100, 100, 50 (+50 pad)
 RAGGED_SHAPE = (7, 13, 11, 37)  # an epilogue off every path: odd C, scalar loads
+SBA_REPS = 60                 # cold repetitions of each epilogue row
+SPIN_CYCLES = 1_000_000       # ≈0.5 ms of device spin before each timed call
+# the epilogue kernels' names in a profile (in-step device time, --profile)
+EPILOGUE_KERNELS = {"epilogue_fwd": ("sba_fwd",), "epilogue_bwd": ("sba_bwd",)}
 TOTAL_STEPS = 10_000
 # (name, compute dtype, batch, share_pseudo_forward)
 SETTINGS = [("shipped", "float32", 100, False), ("bench", "bfloat16", 384, True)]
@@ -157,15 +175,25 @@ def max_excess(got, want, dtype) -> tuple:
 
 
 def time_ms(fn, flush, reps=30, warm=5) -> dict:
-    """Median device time of one call, L2 flushed before each (cold), and
-    the mean of a back-to-back loop of ``reps`` calls (warm L2)."""
+    """Device time of one call with L2 flushed before it (cold): median,
+    10th and 90th percentile of ``reps`` calls between CUDA events; and the
+    mean of a back-to-back loop of ``reps`` calls (warm L2; for small
+    kernels, the host's enqueue rate). The flush reads 256 MB (a sum), so
+    the L2 holds clean lines and no write-back of other data falls in the
+    timed window (a ``zero_`` flush left ≈50 MB dirty, and its write-back
+    added ≈6 µs to a wide epilogue on an H100: tools/sba_breakdown.py).
+    After each flush the device spins for about half a millisecond before
+    the start event, so the host has enqueued the whole call (the wrapper's
+    Python included) by the time the window opens: the window holds device
+    work only, and the launch and event latency (≈3 µs a call on an H100)."""
     import torch
 
     for _ in range(warm):
         fn()
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -177,17 +205,17 @@ def time_ms(fn, flush, reps=30, warm=5) -> dict:
         fn()
     e.record()
     torch.cuda.synchronize()
-    return {
-        "cold": statistics.median(a.elapsed_time(b) for a, b in pairs),
-        "warm": s.elapsed_time(e) / reps,
-    }
+    cold = [a.elapsed_time(b) for a, b in pairs]
+    deciles = statistics.quantiles(cold, n=10) if reps >= 2 else cold * 9
+    return {"cold": statistics.median(cold), "p10": deciles[0], "p90": deciles[-1],
+            "warm": s.elapsed_time(e) / reps}
 
 
 def counts_zero():
     from triplegan_tpu_torch.ops import conv3x3 as cv
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
-    for counter in (sba.launches, cv.fwd_launches, cv.wgrad_launches):
+    for counter in (sba.launches, sba.bwd_launches, cv.fwd_launches, cv.wgrad_launches):
         counter.clear()
 
 
@@ -196,8 +224,8 @@ def counts_read() -> dict:
     from triplegan_tpu_torch.ops import conv3x3 as cv
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
-    return {"scale_bias_act": sba.launches.copy(), "conv3x3_fwd": cv.fwd_launches.copy(),
-            "conv3x3_wgrad": cv.wgrad_launches.copy()}
+    return {"scale_bias_act": sba.launches.copy(), "scale_bias_act_bwd": sba.bwd_launches.copy(),
+            "conv3x3_fwd": cv.fwd_launches.copy(), "conv3x3_wgrad": cv.wgrad_launches.copy()}
 
 
 def totals(counts: dict) -> dict:
@@ -250,9 +278,10 @@ def step_launches(cfg):
     """Every kernel launch of one train step of ``cfg`` with use_pallas:
     (Counter of conv launches keyed as the conv wrappers key theirs, (role,
     n, h, w, cin, cout, halo, dtype), {key: the players it runs in},
-    epilogue launches). Role "fwd" is a forward conv, "dgrad" the forward
-    kernel on a cotangent (input (n, h, w, cin) the cotangent), "wgrad" the
-    filter gradient of a conv whose input is (n, h, w, cin)."""
+    epilogue forward launches, epilogue backward launches). Role "fwd" is
+    a forward conv, "dgrad" the forward kernel on a cotangent (input (n, h,
+    w, cin) the cotangent), "wgrad" the filter gradient of a conv whose
+    input is (n, h, w, cin)."""
     b, s, nc, dt = cfg.batch_size, cfg.image_size, cfg.num_classes, cfg.compute_dtype
     clf, h, cin = [], s, cfg.channels
     for block in cfg.clf.conv_blocks:
@@ -319,13 +348,22 @@ def step_launches(cfg):
     n_c = sum(len(bl) for bl in cfg.clf.conv_blocks) + len(cfg.clf.tail)
     n_d = len(widths)
     epilogues = (n_g + n_c + n_d) + (n_g + n_d) + (n_g + c_passes * n_c + n_d)
-    return convs, players, epilogues
+    # Backward through an epilogue wherever its pass carries a gradient: D's
+    # 3B-row pass in the D update; G and D in the G update; C's three passes
+    # in the C update (under share, one of them is the D update's kept
+    # unlabeled pass). The forwards without grad (G and C in the D update,
+    # G and D in the C update) have none.
+    epilogue_bwds = n_d + (n_g + n_d) + 3 * n_c
+    return convs, players, epilogues, epilogue_bwds
 
 
-def profile_calls(fn, reps: int, top: int) -> dict:
+def profile_calls(fn, reps: int, top: int, groups=None) -> dict:
     """torch.profiler over ``reps`` calls of ``fn``: wall and device time
-    per call, the device's busy share of the wall time, and the ``top``
-    kernels by device time (per call)."""
+    per call, the device's busy share of the wall time, the kernels
+    launched per call, the ``top`` kernels by device time (per call), and
+    for each of ``groups`` ({group: name fragments}) the device time and
+    launches per call of the kernels whose names hold one of its
+    fragments."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -339,7 +377,13 @@ def profile_calls(fn, reps: int, top: int) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    sums = {}
+    for group, frags in (groups or {}).items():
+        hit = [e for e in kernels if any(f in e.key for f in frags)]
+        sums[group] = {"us": sum(e.self_device_time_total for e in hit) / reps,
+                       "launches": sum(e.count for e in hit) / reps}
     return {"wall_us": wall_us / reps, "device_us": busy_us / reps, "device_busy_share": busy_us / wall_us,
+            "kernels": sum(e.count for e in kernels) / reps, "groups": sums,
             "top_device": [{"name": e.key[:80], "us": e.self_device_time_total / reps, "calls": e.count / reps}
                            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]]}
 
@@ -391,7 +435,7 @@ def train_arm(setting, use_pallas, data, zca, n_steps, profile) -> dict:
         check(sorted(m) == sorted(METRICS), f"metrics {sorted(m)}")
         check(all(math.isfinite(v) for v in m.values()), f"{name} arm {use_pallas}: step {t} {m}")
     if use_pallas:
-        convs, players, epilogues = step_launches(cfg)
+        convs, players, epilogues, epilogue_bwds = step_launches(cfg)
         want = collections.Counter({key: c * n_steps for key, c in convs.items()})
         got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
         check(got == want, f"{name} kernel arm: conv launches not implied by the step's convs "
@@ -399,11 +443,15 @@ def train_arm(setting, use_pallas, data, zca, n_steps, profile) -> dict:
         check(launches["scale_bias_act"] == epilogues * n_steps,
               f"{name} kernel arm launched {launches['scale_bias_act']} epilogues, "
               f"want {epilogues * n_steps}")
+        check(launches["scale_bias_act_bwd"] == epilogue_bwds * n_steps,
+              f"{name} kernel arm launched {launches['scale_bias_act_bwd']} epilogue backwards, "
+              f"want {epilogue_bwds * n_steps}")
         arm["_players"] = players
     else:
         check(not any(launches.values()), f"{name} plain arm launched kernels: {launches}")
     if profile:
-        arm["profile"] = profile_calls(lambda: float(step(state, dev_data)[1]["loss_c"]), reps=1, top=10)
+        arm["profile"] = profile_calls(lambda: float(step(state, dev_data)[1]["loss_c"]), reps=1, top=10,
+                                       groups=EPILOGUE_KERNELS)
     del state, step, dev_data
     torch.cuda.empty_cache()
     return arm
@@ -632,8 +680,10 @@ def start_arm(cfg, state, zca, images) -> dict:
     check('triplegan_requests_total{endpoint="classify"} 1' in metrics
           and 'triplegan_requests_total{endpoint="generate"} 2' in metrics, "/metrics counters")
     if cfg.use_pallas:
-        want_c = {"scale_bias_act": 9 * chunks, "conv3x3_fwd": 7 * chunks, "conv3x3_wgrad": 0}
-        want_g = {"scale_bias_act": 4 * chunks, "conv3x3_fwd": 3 * chunks, "conv3x3_wgrad": 0}
+        want_c = {"scale_bias_act": 9 * chunks, "scale_bias_act_bwd": 0, "conv3x3_fwd": 7 * chunks,
+                  "conv3x3_wgrad": 0}
+        want_g = {"scale_bias_act": 4 * chunks, "scale_bias_act_bwd": 0, "conv3x3_fwd": 3 * chunks,
+                  "conv3x3_wgrad": 0}
         check(n_classify == want_c, f"classify launched {n_classify}, want {want_c}")
         check(n_generate == want_g, f"generate launched {n_generate}, want {want_g}")
         want = {k: want_c[k] + 2 * want_g[k] for k in want_c}
@@ -852,24 +902,99 @@ def sba_case(shape, dtype, act, slope, gen, flush) -> dict:
 
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     c = shape[-1]
+    # k and b in x's dtype, as the layers pass them
     x = (torch.randn(shape, generator=gen, device=dev) * 2.0).to(dt)
-    k = torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0
-    b = torch.randn(c, generator=gen, device=dev) * 0.3
+    k = (torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0).to(dt)
+    b = (torch.randn(c, generator=gen, device=dev) * 0.3).to(dt)
     got = sba.scale_bias_act(x, k, b, act, slope)
     torch.cuda.synchronize()
     want = sba.reference_scale_bias_act(x, k, b, act, slope)
     check(got.dtype == dt and got.shape == x.shape, f"kernel output {got.dtype} {tuple(got.shape)}")
     err, excess = max_excess(got, want, dt)
     check(excess <= 0, f"scale_bias_act {act} {slope} {shape} {dtype}: max err {err} exceeds tolerance")
-    tk = time_ms(lambda: sba.scale_bias_act(x, k, b, act, slope), flush, reps=15)
-    tp = time_ms(lambda: sba.reference_scale_bias_act(x, k, b, act, slope), flush, reps=15)
+    tk = time_ms(lambda: sba.scale_bias_act(x, k, b, act, slope), flush, reps=SBA_REPS)
+    tp = time_ms(lambda: sba.reference_scale_bias_act(x, k, b, act, slope), flush, reps=SBA_REPS)
     esize = x.element_size()
     nbytes = 2 * x.numel() * esize + 2 * c * esize  # x read, y written, k and b read
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 3 * x.numel() / F32_FLOPS_PER_S * 1e3  # mul, add, activation
-    return {"max_abs_err": err, "ms": tk["cold"], "warm_ms": tk["warm"],
-            "plain_ms": tp["cold"], "plain_warm_ms": tp["warm"], "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return {"max_abs_err": err, "ms": tk["cold"], "p10_ms": tk["p10"], "p90_ms": tk["p90"],
+            "warm_ms": tk["warm"], "plain_ms": tp["cold"], "plain_warm_ms": tp["warm"],
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bwd_sums_excess(got, terms, depth) -> tuple:
+    """A backward's channel sums ``got`` (C,) against the exact (float64)
+    sums of their terms ``terms`` (M, C), the plain backward's t·x or t:
+    (max |got − exact|, the most by which it exceeds its limit, the largest
+    share of its limit it takes). The limit is γ_n·Σ|terms|, γ_n = n·u/(1 −
+    n·u) with u = 2⁻²⁴ and n = ``depth``, the most float32 additions a term
+    goes through in the kernel (its thread's rows, its block's tree, the
+    reduce: ``scale_bias_act.bwd_plan``), plus one bfloat16 ulp of the value
+    where ``got`` is bfloat16 (the float32 sum rounded once)."""
+    import torch
+
+    exact = terms.double().sum(0)
+    u = 2.0 ** -24
+    lim = depth * u / (1.0 - depth * u) * terms.double().abs().sum(0)
+    if got.dtype == torch.bfloat16:
+        lim = lim + bf16_ulp(torch.maximum(got.double().abs(), exact.abs()))
+    err = (got.double() - exact).abs()
+    return float(err.max()), float((err - lim).max()), float((err / lim.clamp_min(1e-300)).max())
+
+
+def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush) -> dict:
+    """Check and time one call of the scale_bias_act backward kernel
+    (computing the gradients ``needs`` names: "x", "k", "b") against the
+    plain backward on seeded inputs of the given shape."""
+    import torch
+
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) * 2.0).to(dt)
+    g = torch.randn(shape, generator=gen, device=dev).to(dt)
+    k = (torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0).to(dt)
+    b = (torch.randn(c, generator=gen, device=dev) * 0.3).to(dt)
+    mask = tuple(n in needs for n in "xkb")
+    run = lambda: sba._backward(x, k, b, g, act, slope, mask)  # noqa: E731
+    plain = lambda: sba.reference_scale_bias_act_bwd(x, k, b, g, act, slope, mask)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    check(all(v.data_ptr() % 16 == 0 for v in (x, g)), "seeded inputs off 16-byte alignment")
+    m, flags = x.numel() // c, sum(1 << i for i, n in enumerate(mask) if n)
+    depth = sba.bwd_plan(m, c, dt, act, flags, True)[1] if flags & 6 else 0
+    t = sba.reference_bwd_t(x, k, b, g, act, slope)
+    errs, shares = [], []
+    for name, i, terms in (("dx", 0, None), ("dk", 1, t * x), ("db", 2, t)):
+        if not mask[i]:
+            check(got[i] is None, f"scale_bias_act backward computed {name}, not asked for")
+            continue
+        check(got[i].dtype == dt and got[i].shape == want[i].shape, f"backward {name}: {got[i].dtype}")
+        if i == 0:  # bitwise, as it rounds where the plain backward does
+            e, excess = max_excess(got[i], want[i], dt)
+        else:  # against the exact sums of the plain backward's terms
+            e, excess, share = bwd_sums_excess(got[i], terms.reshape(m, c), depth)
+            shares.append(share)
+        check(excess <= 0, f"scale_bias_act backward {name} {act} {slope} {shape} {dtype}: max err {e} "
+                           f"exceeds tolerance by {excess}")
+        errs.append(float((got[i].double() - want[i].double()).abs().max()))
+    del got, want, t
+    tk = time_ms(run, flush, reps=SBA_REPS)
+    tp = time_ms(plain, flush, reps=SBA_REPS)
+    esize = x.element_size()
+    # x and g read, dx written where asked, k and b read, dk and db written
+    nbytes = (2 + mask[0]) * x.numel() * esize + (2 + mask[1] + mask[2]) * c * esize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10 * x.numel() / F32_FLOPS_PER_S * 1e3  # z, act', t, dx, two sums
+    return {"max_abs_err": max(errs), "sum_depth": depth, "sum_err_share": max(shares, default=None),
+            "ms": tk["cold"], "p10_ms": tk["p10"], "p90_ms": tk["p90"],
+            "warm_ms": tk["warm"], "plain_ms": tp["cold"], "plain_warm_ms": tp["warm"],
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def path_launches(train_arms, serve_arms) -> list:
@@ -891,18 +1016,22 @@ def path_launches(train_arms, serve_arms) -> list:
 
 def kernel_phase(sources) -> tuple:
     """Every kernel against its plain version at each (shape, dtype,
-    activation) that a main path launched it at, plus one ragged epilogue
-    (odd channel count) in each dtype."""
+    activation) that a main path launched it at (the epilogue's backward
+    also at the gradients it computed there), plus one ragged epilogue (odd
+    channel count) in each dtype, forward and backward."""
     import torch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    flush = torch.zeros(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     sba_keys = {(RAGGED_SHAPE, dt, "linear", 0.1): {} for dt in ("float32", "bfloat16")}
+    bwd_keys = {(RAGGED_SHAPE, dt, "tanh", 0.1, "xkb"): {} for dt in ("float32", "bfloat16")}
     conv_keys, players = {}, collections.defaultdict(set)
     for source, counts, where in sources:
         for key, c in counts["scale_bias_act"].items():
             sba_keys.setdefault(key, {})[source] = c
+        for key, c in counts["scale_bias_act_bwd"].items():
+            bwd_keys.setdefault(key, {})[source] = c
         for name in ("conv3x3_fwd", "conv3x3_wgrad"):
             for key, c in counts[name].items():
                 conv_keys.setdefault(key, {})[source] = c
@@ -913,6 +1042,12 @@ def kernel_phase(sources) -> tuple:
                **sba_case(shape, dtype, act, slope, gen, flush)}
         sba_rows.append(row)
         emit("scale_bias_act", row)
+    bwd_rows = []
+    for (shape, dtype, act, slope, needs), launches in sorted(bwd_keys.items()):
+        row = {"shape": list(shape), "dtype": dtype, "act": act, "slope": slope, "needs": needs,
+               "launches": launches, **sba_bwd_case(shape, dtype, act, slope, needs, gen, flush)}
+        bwd_rows.append(row)
+        emit("scale_bias_act_bwd", row)
     conv_rows = []
     for key, launches in sorted(conv_keys.items()):
         op, n, h, w, cin, cout, pad, dtype = key
@@ -922,7 +1057,7 @@ def kernel_phase(sources) -> tuple:
         conv_rows.append(row)
         emit("conv3x3", row)
     del flush
-    return sba_rows, conv_rows
+    return sba_rows, bwd_rows, conv_rows
 
 
 # ---------------------------------------------------------------------------
@@ -930,7 +1065,7 @@ def kernel_phase(sources) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def summary(sba_rows, conv_rows, train_arms, serve_arms) -> list:
+def summary(sba_rows, bwd_rows, conv_rows, train_arms, serve_arms) -> list:
     """One line per kernel: launches over every main path, and times and
     bounds summed over one train step's launches at each setting
     (``per_step``), the shipped setting's also at the top level."""
@@ -943,6 +1078,7 @@ def summary(sba_rows, conv_rows, train_arms, serve_arms) -> list:
     kernels = []
     for name, rows, sources, replaces in (
         ("scale_bias_act", sba_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:59"),
+        ("scale_bias_act_bwd", bwd_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:117"),
         ("conv3x3_fwd", [r for r in conv_rows if r["op"] != "wgrad"], conv_src,
          "triplegan_tpu/ops/pallas_conv.py:54"),
         ("conv3x3_wgrad", [r for r in conv_rows if r["op"] == "wgrad"], conv_src,
@@ -1026,16 +1162,17 @@ def main():
     phases["serve"] = time.perf_counter() - t_start
 
     # 6. kernels, at the shapes the main paths launched them at
-    sba_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms))
+    sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms))
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
 
-    kernels = summary(sba_rows, conv_rows, train_arms, serve_arms)
+    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms, serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
-                       "sba_rows": sba_rows, "conv_rows": conv_rows, "train": [public(a) for a in train_arms],
+                       "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "conv_rows": conv_rows,
+                       "train": [public(a) for a in train_arms],
                        "card_vs_cpu": card_cpu,
                        "serve": [public(a) for a in serve_arms],
                        "kernels": kernels}, f, indent=1)

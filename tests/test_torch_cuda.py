@@ -9,7 +9,11 @@ This file imports no JAX, so it also runs on a machine without it:
 
 Tolerance, scale_bias_act: float32 |kernel − plain| ≤ 1e-6·(1 + |plain|);
 bfloat16 within one bfloat16 ulp (the kernel rounds as the plain version
-does, so both are met with room). conv3x3: |kernel − plain| ≤
+does, so both are met with room). Its backward: dx bitwise equal to the
+plain backward's (it rounds every intermediate where that does); dk and db
+against the exact sums of the plain backward's terms within γ_n·Σ|terms|,
+n the kernel's summation depth, plus one bfloat16 ulp at bfloat16
+(chip_smoke.py's ``bwd_sums_excess``). conv3x3: |kernel − plain| ≤
 8·sqrt(K)·2⁻²⁴·(the plain op on |inputs|), K the length of each sum (the
 two take float32 sums in different orders), plus one bfloat16 ulp of the
 value where the output is bfloat16 (both round a float32 sum once).
@@ -82,6 +86,198 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
 def _bf16_ulp(v):
     mag = torch.clamp_min(v.abs().double(), 2.0 ** -126)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _elementwise_ok(got, want):
+    """float32 within 1e-6·(1 + |plain|), bfloat16 within one ulp."""
+    err = (got.double() - want.double()).abs()
+    if got.dtype == torch.float32:
+        lim = 1e-6 * (1.0 + want.double().abs())
+    else:
+        lim = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    return bool((err <= lim).all()), float(err.max())
+
+
+def _sums_ok(got, x, k, b, g, act, slope, which, flags=7, aligned=True):
+    """dk (which = 1) or db (2) against the exact sums of the plain
+    backward's terms, within chip_smoke.py's limit for the depth of the
+    kernel's sums (``bwd_sums_excess``)."""
+    import chip_smoke
+
+    c = x.shape[-1]
+    m = x.numel() // c
+    t = sba.reference_bwd_t(x, k, b, g, act, slope)
+    terms = (t * x if which == 1 else t).reshape(m, c)
+    depth = sba.bwd_plan(m, c, x.dtype, act, flags, aligned)[1]
+    err, excess, _ = chip_smoke.bwd_sums_excess(got, terms, depth)
+    return excess <= 0, err
+
+
+def _sba_case(shape, dtype, dev, seed=0):
+    x, k, b = _inputs(shape, dev, seed)
+    g = torch.from_numpy(np.random.RandomState(seed + 7).normal(size=shape).astype(np.float32)).to(dev)
+    return x.to(dtype), k.to(dtype), b.to(dtype), g.to(dtype)
+
+
+# C = 3 takes the 3-vector groups, C = 12 (bfloat16) and 37 the scalar rows,
+# 12 (float32), 128 and 512 the 16-byte rows; 3600 rows spread over many
+# blocks, 231 rows over few.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [3, 12, 37, 128, 512])
+def test_sba_backward_kernel_matches_plain_on_card(c, dtype, cuda):
+    for act in sba.ACTS:
+        for rows in ((40, 9, 10), (3, 7, 11)):
+            x, k, b, g = _sba_case(rows + (c,), _DT[dtype], cuda)
+            y = sba.scale_bias_act(x, k, b, act, 0.2)
+            ok, err = _elementwise_ok(y, sba.reference_scale_bias_act(x, k, b, act, 0.2))
+            assert ok, ("forward", act, rows, err)
+            before = sba.bwd_launches.total()
+            got = sba._backward(x, k, b, g, act, 0.2, (True, True, True))
+            torch.cuda.synchronize()
+            assert sba.bwd_launches.total() == before + 1
+            assert sba.bwd_launches[rows + (c,), dtype, act, 0.2, "xkb"] >= 1
+            want = sba.reference_scale_bias_act_bwd(x, k, b, g, act, 0.2)
+            assert [t.dtype for t in got] == [x.dtype] * 3
+            # the kernel rounds as the plain backward does: dx is bitwise equal
+            assert torch.equal(got[0], want[0]), (act, rows, float((got[0].float() - want[0].float()).abs().max()))
+            ok, err = _elementwise_ok(got[0], want[0])
+            assert ok, ("dx", act, rows, err)
+            for name, i in (("dk", 1), ("db", 2)):
+                ok, err = _sums_ok(got[i], x, k, b, g, act, 0.2, i)
+                assert ok, (name, act, rows, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sba_kernels_take_a_view_off_16_byte_alignment(dtype, cuda):
+    # A view 2 or 4 bytes past an aligned address takes the scalar rows;
+    # each element's arithmetic is the same, so y and dx are bitwise equal
+    # to an aligned copy's, and dk, db agree with the plain sums.
+    dt = _DT[dtype]
+    rng = np.random.RandomState(8)
+    shape = (6, 8, 8, 128)
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.normal(size=2 * n + 2).astype(np.float32)).to(cuda, dt)
+    x, g = flat[1:n + 1].view(shape), flat[n + 2:].view(shape)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    _, k, b, _ = _sba_case(shape, dt, cuda)
+    xa, ga = x.clone(), g.clone()
+    assert torch.equal(sba.scale_bias_act(x, k, b, "leaky_relu", 0.1),
+                       sba.scale_bias_act(xa, k, b, "leaky_relu", 0.1))
+    got = sba._backward(x, k, b, g, "leaky_relu", 0.1, (True, True, True))
+    aligned = sba._backward(xa, k, b, ga, "leaky_relu", 0.1, (True, True, True))
+    want = sba.reference_scale_bias_act_bwd(xa, k, b, ga, "leaky_relu", 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], aligned[0]) and torch.equal(got[0], want[0])
+    for i in (1, 2):
+        assert _sums_ok(got[i], xa, k, b, ga, "leaky_relu", 0.1, i, aligned=False)[0]
+
+
+_MASKS = [(a, b_, c) for a in (False, True) for b_ in (False, True) for c in (False, True) if a or b_ or c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", _MASKS, ids=["".join("xkb"[i] for i in range(3) if m[i]) for m in _MASKS])
+def test_sba_function_launches_the_backward_kernel_for_each_mask(needs, cuda):
+    for c in (3, 64):
+        x, k, b, g = _sba_case((5, 6, 7, c), torch.bfloat16, cuda, seed=2)
+        ins = [t.clone().requires_grad_(n) for t, n in zip((x, k, b), needs)]
+        before = sba.bwd_launches.copy()
+        y = sba.scale_bias_act(*ins, "relu", 0.1)
+        grads = torch.autograd.grad(y, [t for t in ins if t.requires_grad], g)
+        torch.cuda.synchronize()
+        mask = "".join(n for n, want in zip("xkb", needs) if want)
+        assert sba.bwd_launches - before == {((5, 6, 7, c), "bfloat16", "relu", 0.1, mask): 1}
+        full = sba.reference_scale_bias_act_bwd(x, k, b, g, "relu", 0.1)
+        flags = sum(1 << i for i in range(3) if needs[i])
+        for got, want, i in zip(grads, [f for f, n in zip(full, needs) if n], [i for i in range(3) if needs[i]]):
+            if i == 0:
+                assert torch.equal(got, want)
+            else:
+                assert _sums_ok(got, x, k, b, g, "relu", 0.1, i, flags)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sba_backward_sums_are_bitwise_repeatable(dtype, cuda):
+    for shape in ((64, 16, 16, 128), (100, 32, 32, 3), (30, 7, 9, 37)):
+        x, k, b, g = _sba_case(shape, _DT[dtype], cuda, seed=3)
+        a = sba._backward(x, k, b, g, "tanh", 0.1, (True, True, True))
+        c = sba._backward(x, k, b, g, "tanh", 0.1, (True, True, True))
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(a, c)), shape
+
+
+# The widest epilogue backwards of the two train settings, whose dk and db
+# sum the most rows (102,400 and 1,179,648).
+_WIDE = {"float32": (100, 32, 32, 128), "bfloat16": (1152, 32, 32, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["one block", "a tenth"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sba_sum_limit_fails_a_backward_that_drops_rows(dtype, fault, cuda):
+    # chip_smoke.py's limit on dk and db passes the kernel's sums at the
+    # main path's widest shapes and fails the sums a kernel would give that
+    # dropped one block's rows, or a tenth of all rows: the kernel's own
+    # output with those rows' cotangents zeroed.
+    import chip_smoke
+
+    shape = _WIDE[dtype]
+    x, k, b, g = _sba_case(shape, _DT[dtype], cuda, seed=5)
+    c = shape[-1]
+    m = x.numel() // c
+    blocks, depth = sba.bwd_plan(m, c, x.dtype, "leaky_relu", 7, True)
+    t = sba.reference_bwd_t(x, k, b, g, "leaky_relu", 0.1)
+    terms = {1: (t * x).reshape(m, c), 2: t.reshape(m, c)}
+    good = sba._backward(x, k, b, g, "leaky_relu", 0.1, (True, True, True))
+    drop = -(-m // blocks) if fault == "one block" else m // 10
+    g_bad = g.clone()
+    g_bad.view(m, c)[m // 3:m // 3 + drop] = 0
+    bad = sba._backward(x, k, b, g_bad, "leaky_relu", 0.1, (True, True, True))
+    torch.cuda.synchronize()
+    for i in (1, 2):
+        assert chip_smoke.bwd_sums_excess(good[i], terms[i], depth)[1] <= 0, i
+        err, excess, share = chip_smoke.bwd_sums_excess(bad[i], terms[i], depth)
+        assert excess > 0, (i, err, share)
+
+
+@pytest.mark.cuda
+def test_sba_raises_when_its_backward_kernel_cannot_launch(cuda, monkeypatch):
+    # The C entry point refuses what it does not take, with cudaErrorInvalidValue.
+    fwd, bwd, plan = sba._lib()
+    x, k, b, g = _sba_case((4, 8), torch.float32, cuda)
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [x.data_ptr(), k.data_ptr(), b.data_ptr(), g.data_ptr(), dx.data_ptr(), None, None, None, 0,
+            4, 8, 0, 2, 0.1]
+    assert bwd(*args, 0, stream) == 1  # no gradient asked for
+    assert bwd(*args, 2, stream) == 1  # dk asked for with no workspace
+    # A workspace smaller than the grid the C side plans is refused, not
+    # met by a smaller grid.
+    x2, k2, b2, g2 = _sba_case((4096, 128), torch.float32, cuda)
+    blocks = sba.bwd_plan(4096, 128, torch.float32, "leaky_relu", 7, True)[0]
+    assert blocks > 1
+    ws, kb, dx2 = torch.empty((blocks, 256), device=cuda), torch.empty((2, 128), device=cuda), torch.empty_like(x2)
+    args2 = [x2.data_ptr(), k2.data_ptr(), b2.data_ptr(), g2.data_ptr(), dx2.data_ptr(),
+             kb[0].data_ptr(), kb[1].data_ptr(), ws.data_ptr()]
+    assert bwd(*args2, blocks - 1, 4096, 128, 0, 2, 0.1, 7, stream) == 1
+    assert bwd(*args2, blocks, 4096, 128, 0, 2, 0.1, 7, stream) == 0
+    torch.cuda.synchronize()
+    # A CUDA backward whose kernel refuses raises; it does not take the
+    # plain backward, and counts nothing.
+    monkeypatch.setattr(sba, "_lib", lambda: (fwd, lambda *a: 98, plan))
+    monkeypatch.setattr(sba, "reference_scale_bias_act_bwd", lambda *a: pytest.fail("plain backward called"))
+    xg = x.clone().requires_grad_()
+    y = sba.scale_bias_act(xg, k, b, "leaky_relu", 0.1)
+    before = sba.bwd_launches.copy()
+    with pytest.raises(RuntimeError, match="cudaError 98"):
+        torch.autograd.grad(y, xg, g)
+    assert sba.bwd_launches == before
+    monkeypatch.setattr(sba, "_lib", lambda: (lambda *a: 98, bwd, plan))
+    with pytest.raises(RuntimeError, match="cudaError 98"):
+        sba.scale_bias_act(x, k, b, "relu")
 
 
 def _conv_limit(abs_ref, k, got, want):

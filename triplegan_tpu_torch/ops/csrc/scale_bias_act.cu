@@ -1,44 +1,73 @@
-// Per-channel scale, bias and activation over a (M, C) row-major tensor:
-//     y[m, c] = act(x[m, c] * k[c] + b[c])
-// with the math in float32 and y written in x's type (float32 or bfloat16).
+// Per-channel scale, bias and activation over a (M, C) row-major tensor,
+//     y[m, c] = act(x[m, c] * k[c] + b[c]),
+// and its gradient, the custom VJP of the JAX package:
+//     z = x·k + b,  t = g·act'(z),  dx = t·k,  dk = Σ_m t·x,  db = Σ_m t.
 //
 // Replaces the TPU kernel triplegan_tpu/ops/pallas_fused.py::_kernel
-// (launched by _pallas_rows). On the serving path it is every batch-norm
-// epilogue of the Generator and Classifier and the Generator's weight-norm
-// + tanh output.
+// (launched by _pallas_rows) and its custom VJP _bwd (pallas_fused.py:117),
+// which is jnp there because XLA fuses it into the surrounding backward
+// graph; eager PyTorch fuses nothing, so here it is one kernel (plus a small
+// fixed-order reduce of the per-block sums). It follows every conv of the
+// three networks: batch norm folded into (k, b) in C and G, the weight-norm
+// scale g/|v| in D's convs and G's output deconv.
 //
-// Bound: bytes. Each element is read once and written once and takes three
-// flops, far below the card's ratio of flops to bytes, so the least time is
-// (bytes of x + bytes of y) / 3.35 TB/s.
+// Bound: bytes. The forward reads x and writes y once; the backward reads x
+// and g and writes dx once (dk and db are C values). A few flops an element,
+// far below the card's ratio of flops to bytes, so the least time is those
+// bytes / 3.35 TB/s.
 //
-// Design: one grid-stride loop over the elements, channel = index mod C.
-// Where C and the pointers allow, each thread moves 16 bytes at a time
-// (4 floats or 8 bfloat16s), which all fall in one row because C is a
-// multiple of the vector width. k and b are tiny and stay in L1/L2.
-// Products and sums use __fmul_rn/__fadd_rn so the compiler does not
-// contract them into an FMA: the result then rounds exactly as the plain
-// PyTorch version (a multiply, then an add) does. tanh is the accurate
-// tanhf, not a fast approximation.
+// Design, for this card:
+// - No division in any loop. A thread owns a fixed group of channels for the
+//   whole launch: in the row kernels one unit of W channels (W = 16 bytes
+//   of elements where C is a multiple of W and x is 16-byte aligned, else
+//   W = 1) and walks rows by addition; at C = 3 (the Generator's RGB
+//   output) a thread owns whole groups of three 16-byte vectors, 3·W
+//   elements or W rows, whose channel pattern is the same in every group
+//   and known at compile time. k and b are read once per thread into
+//   registers.
+// - One row (group) a thread and iteration, but U = 4 rows in flight in the
+//   float32 backward, whose small shapes would otherwise need many blocks,
+//   and so many partial sums. Plain loads and stores: a streaming hint on
+//   the loads of x and g measured 2-5% slower at the wide shapes on an H100
+//   (tools/sba_breakdown.py).
+// - The grid sweeps the tensor together: thread t of the grid takes rows
+//   (groups) t, t + T, t + 2T, ... (T threads in the grid), so every
+//   thread's share is within one row of every other's and the whole grid
+//   reads one region of memory at a time. The grid is one wave of the card
+//   at the occupancy the kernel reaches, or fewer blocks where the tensor
+//   has fewer rows; the backward's also so few that its partial sums stay
+//   under 1/16 of the bytes it streams. The backward's grid is chosen here
+//   alone (bwd_plan), and the caller sizes the workspace by asking for it.
+// - Rounding. The forward computes in float32 with __fmul_rn/__fadd_rn (no
+//   FMA contraction) and the accurate tanhf, and rounds y once to x's type:
+//   bit-identical to the plain version. The backward rounds each
+//   intermediate to x's type exactly where the plain backward (which, like
+//   _bwd, computes in x's dtype) rounds it, so dx is bit-identical to it;
+//   dk and db are float32 sums rounded once, differing from the plain ones
+//   only by summation order.
+// - Deterministic. Each block sums its rows in a fixed order (a fixed tree
+//   across its threads) into its own row of a float32 workspace; a second
+//   launch adds those rows in block order. No float atomics: two runs are
+//   bitwise equal.
 //
-// Plain C interface, loaded with ctypes; launches on the caller's stream
-// and returns cudaGetLastError().
+// Plain C interface, loaded with ctypes; launches on the caller's stream and
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
 enum Act { kLinear = 0, kRelu = 1, kLeakyRelu = 2, kTanh = 3 };
+enum Need { kDx = 1, kDk = 2, kDb = 4 };
 
-template <int ACT>
-__device__ __forceinline__ float apply(float x, float k, float b, float slope) {
-  float z = __fadd_rn(__fmul_rn(x, k), b);
-  if (ACT == kRelu) return z < 0.f ? 0.f : z;  // NaN passes through
-  if (ACT == kLeakyRelu) return z >= 0.f ? z : __fmul_rn(slope, z);
-  if (ACT == kTanh) return tanhf(z);
-  return z;
-}
+constexpr int kThreads = 256;
+// Rows in flight per thread and iteration of the backward's row kernel.
+template <typename T> constexpr int bwd_unroll() { return sizeof(T) == 4 ? 4 : 1; }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -47,94 +76,558 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+// v rounded to T (the identity for float).
+template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
-// One element per iteration.
-template <typename T, int ACT>
-__global__ void sba_scalar(const T* __restrict__ x, const T* __restrict__ k,
-                           const T* __restrict__ b, T* __restrict__ y,
-                           int64_t n, int c, float slope) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int ch = (int)(i % c);
-    y[i] = from_f<T>(apply<ACT>(to_f(x[i]), to_f(k[ch]), to_f(b[ch]), slope));
-  }
-}
-
-// 16 bytes per iteration: V = 16 / sizeof(T) elements of one row
-// (requires c % V == 0 and 16-byte aligned x and y).
-template <typename T, int ACT>
-__global__ void sba_vec16(const T* __restrict__ x, const T* __restrict__ k,
-                          const T* __restrict__ b, T* __restrict__ y,
-                          int64_t nvec, int c, float slope) {
-  constexpr int V = 16 / sizeof(T);
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
-  uint4* yv = reinterpret_cast<uint4*>(y);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nvec; i += stride) {
-    const int ch0 = (int)((i * V) % c);
-    uint4 in = xv[i];
-    uint4 out;
-    const T* xe = reinterpret_cast<const T*>(&in);
-    T* ye = reinterpret_cast<T*>(&out);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      ye[j] = from_f<T>(apply<ACT>(to_f(xe[j]), to_f(k[ch0 + j]), to_f(b[ch0 + j]), slope));
-    }
-    yv[i] = out;
-  }
-}
-
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // enough to fill every SM; the loop covers the rest
-
-template <typename T, int ACT>
-void launch(const void* x, const void* k, const void* b, void* y, int64_t m, int c,
-            float slope, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const int64_t n = m * (int64_t)c;
-  const bool vec = (c % V == 0) && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0);
-  const int64_t work = vec ? n / V : n;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  const T* xt = static_cast<const T*>(x);
-  const T* kt = static_cast<const T*>(k);
-  const T* bt = static_cast<const T*>(b);
-  T* yt = static_cast<T*>(y);
-  if (vec) {
-    sba_vec16<T, ACT><<<(unsigned)blocks, kThreads, 0, stream>>>(xt, kt, bt, yt, work, c, slope);
+// W consecutive elements of T at p as floats; one 16-byte load where
+// W·sizeof(T) == 16 (p then 16-byte aligned).
+template <typename T, int W>
+__device__ __forceinline__ void load(const T* __restrict__ p, float (&f)[W]) {
+  if constexpr (W == 1 && sizeof(T) == 4) {
+    f[0] = *reinterpret_cast<const float*>(p);
+  } else if constexpr (W == 1) {
+    f[0] = __bfloat162float(__ushort_as_bfloat16(*reinterpret_cast<const unsigned short*>(p)));
+  } else if constexpr (sizeof(T) == 4) {
+    static_assert(W == 4, "a 16-byte unit");
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
   } else {
-    sba_scalar<T, ACT><<<(unsigned)blocks, kThreads, 0, stream>>>(xt, kt, bt, yt, work, c, slope);
+    static_assert(W == 8, "a 16-byte unit");
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h;
+      memcpy(&h, &w[i], 4);
+      const float2 t = __bfloat1622float2(h);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
   }
 }
 
-template <typename T>
-void dispatch_act(int act, const void* x, const void* k, const void* b, void* y,
-                  int64_t m, int c, float slope, cudaStream_t s) {
-  switch (act) {
-    case kLinear: launch<T, kLinear>(x, k, b, y, m, c, slope, s); break;
-    case kRelu: launch<T, kRelu>(x, k, b, y, m, c, slope, s); break;
-    case kLeakyRelu: launch<T, kLeakyRelu>(x, k, b, y, m, c, slope, s); break;
-    default: launch<T, kTanh>(x, k, b, y, m, c, slope, s); break;
+// f rounded to T and stored as W consecutive elements at p.
+template <typename T, int W>
+__device__ __forceinline__ void store(T* __restrict__ p, const float (&f)[W]) {
+  if constexpr (W == 1) {
+    *p = from_f<T>(f[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      memcpy(&w[i], &h, 4);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
+}
+
+// act(x·k + b) in float32, a multiply then an add, as the plain version.
+template <int ACT>
+__device__ __forceinline__ float apply(float x, float k, float b, float slope) {
+  const float z = __fadd_rn(__fmul_rn(x, k), b);
+  if (ACT == kRelu) return z < 0.f ? 0.f : z;  // NaN passes through
+  if (ACT == kLeakyRelu) return z >= 0.f ? z : __fmul_rn(slope, z);
+  if (ACT == kTanh) return tanhf(z);
+  return z;
+}
+
+// t = g·act'(z) with z = x·k + b, every step rounded to T where the plain
+// backward rounds it (x*k, +b, tanh, t*t, 1-, g*); slope_t is the slope
+// rounded to T, as full_like makes it.
+template <typename T, int ACT>
+__device__ __forceinline__ float grad_t(float x, float g, float k, float b, float slope_t) {
+  if (ACT == kLinear) return g;
+  const float z = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(x, k)), b));
+  float a;
+  if (ACT == kRelu) {
+    a = z >= 0.f ? 1.f : 0.f;
+  } else if (ACT == kLeakyRelu) {
+    a = z >= 0.f ? 1.f : slope_t;
+  } else {
+    const float th = rnd<T>(tanhf(z));
+    a = rnd<T>(__fsub_rn(1.f, rnd<T>(__fmul_rn(th, th))));
+  }
+  return rnd<T>(__fmul_rn(g, a));
+}
+
+// ---------------------------------------------------------------------------
+// Row kernels: (M, C) as rows of C/W units of W channels. Block (ux, ry):
+// thread (tx, ty) owns unit tx (and tx + ux, ... where C/W > ux) and walks
+// the rows blockIdx.x·ry + ty + i·gridDim.x·ry.
+// ---------------------------------------------------------------------------
+
+template <typename T, int W, int ACT>
+__global__ void __launch_bounds__(kThreads)
+sba_fwd_rows(const T* __restrict__ x, const T* __restrict__ k, const T* __restrict__ b,
+             T* __restrict__ y, long long m, int c, float slope) {
+  const int units = c / W;
+  const long long rs = (long long)gridDim.x * blockDim.y;  // rows between a thread's rows
+  const long long estep = rs * c;                          // elements between them
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int ch = u * W;
+    float kf[W], bf[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      kf[i] = to_f(k[ch + i]);
+      bf[i] = to_f(b[ch + i]);
+    }
+    long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+    for (long long off = r * c + ch; r < m; r += rs, off += estep) {
+      float v[W];
+      load<T, W>(x + off, v);
+#pragma unroll
+      for (int i = 0; i < W; ++i) v[i] = apply<ACT>(v[i], kf[i], bf[i], slope);
+      store<T, W>(y + off, v);
+    }
+  }
+}
+
+// The backward over the same layout, U rows an iteration. Each thread sums
+// t·x and t for its channels over its rows, in order; the block adds its
+// threads' sums over ty in order and writes them to its row of `part` (dk
+// sums, then db sums).
+template <typename T, int W, int ACT, int U>
+__global__ void __launch_bounds__(kThreads)
+sba_bwd_rows(const T* __restrict__ x, const T* __restrict__ k, const T* __restrict__ b,
+             const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
+             long long m, int c, float slope, int flags) {
+  __shared__ float red[2 * kThreads * W];
+  const bool want_dx = flags & kDx;
+  const bool want_sums = flags & (kDk | kDb);
+  const float slope_t = rnd<T>(slope);
+  const int units = c / W;
+  const int ry = blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const long long rs = (long long)gridDim.x * ry;
+  const long long estep = rs * c;
+  for (int u0 = 0; u0 < units; u0 += blockDim.x) {
+    const int u = u0 + threadIdx.x;
+    float sk[W], sb[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) sk[i] = sb[i] = 0.f;
+    if (u < units) {
+      const int ch = u * W;
+      float kf[W], bf[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        kf[i] = to_f(k[ch + i]);
+        bf[i] = to_f(b[ch + i]);
+      }
+      long long r = (long long)blockIdx.x * ry + threadIdx.y;
+      for (long long off = r * c + ch; r < m; r += U * rs, off += U * estep) {
+        float xv[U][W], gv[U][W];
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          if (r + j * rs < m) {
+            load<T, W>(x + off + j * estep, xv[j]);
+            load<T, W>(g + off + j * estep, gv[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          if (r + j * rs < m) {
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              const float t = grad_t<T, ACT>(xv[j][i], gv[j][i], kf[i], bf[i], slope_t);
+              sk[i] = __fadd_rn(sk[i], rnd<T>(__fmul_rn(t, xv[j][i])));
+              sb[i] = __fadd_rn(sb[i], t);
+              gv[j][i] = rnd<T>(__fmul_rn(t, kf[i]));
+            }
+            if (want_dx) store<T, W>(dx + off + j * estep, gv[j]);
+          }
+        }
+      }
+    }
+    if (want_sums) {
+      const int cw = min((int)blockDim.x, units - u0) * W;  // channels of this pass
+      float* rk = red;
+      float* rb = red + ry * cw;
+      if (u < units) {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          rk[threadIdx.y * cw + threadIdx.x * W + i] = sk[i];
+          rb[threadIdx.y * cw + threadIdx.x * W + i] = sb[i];
+        }
+      }
+      __syncthreads();
+      for (int l = tid; l < 2 * cw; l += nthreads) {
+        const int which = l >= cw ? 1 : 0;
+        const int col = l - which * cw;
+        const float* src = (which ? rb : rk) + col;
+        float s = 0.f;
+        for (int r = 0; r < ry; ++r) s = __fadd_rn(s, src[r * cw]);
+        part[(long long)blockIdx.x * 2 * c + which * c + u0 * W + col] = s;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// C = 3: a group of 3 16-byte vectors holds L = 3·W elements, L/3 whole rows,
+// element e of every group in channel e mod 3. Thread t of the grid owns the
+// groups t, t + T, ...; the elements after the last whole group (fewer than
+// L) go to the last block's thread 0.
+// ---------------------------------------------------------------------------
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads)
+sba_fwd_c3(const T* __restrict__ x, const T* __restrict__ k, const T* __restrict__ b,
+           T* __restrict__ y, long long n, long long groups, float slope) {
+  constexpr int W = 16 / sizeof(T), L = 3 * W;
+  float kf[3], bf[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    kf[i] = to_f(k[i]);
+    bf[i] = to_f(b[i]);
+  }
+  const long long qs = (long long)gridDim.x * blockDim.x;  // groups between a thread's groups
+  long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long off = q * L; q < groups; q += qs, off += qs * L) {
+    float v[3][W];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) load<T, W>(x + off + s * W, v[s]);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const int ch = (s * W + i) % 3;  // constant once unrolled
+        v[s][i] = apply<ACT>(v[s][i], kf[ch], bf[ch], slope);
+      }
+      store<T, W>(y + off + s * W, v[s]);
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+    const long long base = groups * L;
+#pragma unroll
+    for (int e = 0; e < L; ++e) {
+      if (base + e < n) y[base + e] = from_f<T>(apply<ACT>(to_f(x[base + e]), kf[e % 3], bf[e % 3], slope));
+    }
+  }
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads)
+sba_bwd_c3(const T* __restrict__ x, const T* __restrict__ k, const T* __restrict__ b,
+           const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
+           long long n, long long groups, float slope, int flags) {
+  constexpr int W = 16 / sizeof(T), L = 3 * W;
+  __shared__ float red[kThreads / 32][6];
+  const bool want_dx = flags & kDx;
+  const float slope_t = rnd<T>(slope);
+  float kf[3], bf[3], sk[3], sb[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    kf[i] = to_f(k[i]);
+    bf[i] = to_f(b[i]);
+    sk[i] = sb[i] = 0.f;
+  }
+  const long long qs = (long long)gridDim.x * blockDim.x;  // groups between a thread's groups
+  long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long off = q * L; q < groups; q += qs, off += qs * L) {
+    float xv[3][W], gv[3][W];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      load<T, W>(x + off + s * W, xv[s]);
+      load<T, W>(g + off + s * W, gv[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const int ch = (s * W + i) % 3;
+        const float t = grad_t<T, ACT>(xv[s][i], gv[s][i], kf[ch], bf[ch], slope_t);
+        sk[ch] = __fadd_rn(sk[ch], rnd<T>(__fmul_rn(t, xv[s][i])));
+        sb[ch] = __fadd_rn(sb[ch], t);
+        gv[s][i] = rnd<T>(__fmul_rn(t, kf[ch]));
+      }
+      if (want_dx) store<T, W>(dx + off + s * W, gv[s]);
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+    const long long base = groups * L;
+#pragma unroll
+    for (int e = 0; e < L; ++e) {
+      if (base + e < n) {
+        const float xe = to_f(x[base + e]);
+        const float t = grad_t<T, ACT>(xe, to_f(g[base + e]), kf[e % 3], bf[e % 3], slope_t);
+        sk[e % 3] = __fadd_rn(sk[e % 3], rnd<T>(__fmul_rn(t, xe)));
+        sb[e % 3] = __fadd_rn(sb[e % 3], t);
+        if (want_dx) dx[base + e] = from_f<T>(__fmul_rn(t, kf[e % 3]));
+      }
+    }
+  }
+  if (flags & (kDk | kDb)) {
+    // a fixed xor tree across the warp, then the warps in order
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        sk[i] = __fadd_rn(sk[i], __shfl_xor_sync(0xffffffffu, sk[i], o));
+        sb[i] = __fadd_rn(sb[i], __shfl_xor_sync(0xffffffffu, sb[i], o));
+      }
+    }
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        red[warp][i] = sk[i];
+        red[warp][3 + i] = sb[i];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 6) {
+      float s = 0.f;
+      for (int w = 0; w < (int)blockDim.x / 32; ++w) s = __fadd_rn(s, red[w][threadIdx.x]);
+      part[(long long)blockIdx.x * 6 + threadIdx.x] = s;  // dk0 dk1 dk2 db0 db1 db2
+    }
+  }
+}
+
+// dk[c] = Σ_p part[p][c], db[c] = Σ_p part[p][C + c] over the p blocks, in a
+// fixed order: thread (tx, ty) of a (32, 8) block adds the rows p ≡ ty
+// (mod 8) of column 32·blockIdx.x + tx in order, then row ty = 0 adds the 8.
+template <typename T>
+__global__ void __launch_bounds__(256)
+sba_bwd_reduce(const float* __restrict__ part, int p, int c, T* __restrict__ dk, T* __restrict__ db) {
+  __shared__ float s[8][33];
+  const int width = 2 * c;
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float a = 0.f;
+  if (col < width) {
+    for (int q = threadIdx.y; q < p; q += 8) a = __fadd_rn(a, part[(long long)q * width + col]);
+  }
+  s[threadIdx.y][threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < width) {
+    float t = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) t = __fadd_rn(t, s[r][threadIdx.x]);
+    if (col < c) {
+      if (dk) dk[col] = from_f<T>(t);
+    } else if (db) {
+      db[col - c] = from_f<T>(t);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+template <typename K>
+int blocks_per_sm(K kernel) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0);
+  return n > 0 ? n : 1;
+}
+
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// Blocks for `items` rows (groups), `per_block` of them a block and an
+// iteration: at most `cap` (one wave of the card), at least 1.
+unsigned grid(long long items, long long per_block, long long cap) {
+  long long blocks = ceil_div(items, per_block);
+  if (blocks > cap) blocks = cap;
+  return (unsigned)(blocks < 1 ? 1 : blocks);
+}
+
+// Block (ux, ry) of the row kernels for rows of `units` units.
+dim3 row_block(int units) {
+  const int ux = units < kThreads ? units : kThreads;
+  return dim3(ux, kThreads / ux);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// f(T*, integral_constant<ACT>) for the run-time dtype and act.
+template <typename T, typename F>
+void with_act(int act, F&& f) {
+  switch (act) {
+    case kLinear: f((T*)nullptr, std::integral_constant<int, kLinear>()); break;
+    case kRelu: f((T*)nullptr, std::integral_constant<int, kRelu>()); break;
+    case kLeakyRelu: f((T*)nullptr, std::integral_constant<int, kLeakyRelu>()); break;
+    default: f((T*)nullptr, std::integral_constant<int, kTanh>()); break;
+  }
+}
+
+template <typename F>
+void with_types(int dtype, int act, F&& f) {
+  if (dtype == 0) {
+    with_act<float>(act, f);
+  } else {
+    with_act<__nv_bfloat16>(act, f);
+  }
+}
+
+template <typename T, int ACT>
+void fwd(const T* x, const T* k, const T* b, T* y, long long m, int c, float slope, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const long long cap = (long long)sm_count();
+  if (aligned16(x) && aligned16(y) && c % V == 0) {
+    static const int occ = blocks_per_sm(sba_fwd_rows<T, V, ACT>);
+    const dim3 blk = row_block(c / V);
+    sba_fwd_rows<T, V, ACT><<<grid(m, blk.y, cap * occ), blk, 0, s>>>(x, k, b, y, m, c, slope);
+  } else if (aligned16(x) && aligned16(y) && c == 3) {
+    static const int occ = blocks_per_sm(sba_fwd_c3<T, ACT>);
+    const long long n = m * 3, groups = n / (3 * V);
+    sba_fwd_c3<T, ACT><<<grid(groups, kThreads, cap * occ), kThreads, 0, s>>>(x, k, b, y, n, groups, slope);
+  } else {
+    static const int occ = blocks_per_sm(sba_fwd_rows<T, 1, ACT>);
+    const dim3 blk = row_block(c);
+    sba_fwd_rows<T, 1, ACT><<<grid(m, blk.y, cap * occ), blk, 0, s>>>(x, k, b, y, m, c, slope);
+  }
+}
+
+enum Layout { kRowsVec = 0, kGroups3 = 1, kRowsScalar = 2 };
+
+struct BwdPlan {
+  Layout layout;
+  dim3 block;
+  unsigned blocks;  // of the pass, and rows of the workspace it fills
+  long long depth;  // the most float32 additions on any term's way into dk or db
+};
+
+// The backward's grid: one wave of the card at the kernel's occupancy, or
+// fewer blocks where each thread would otherwise sum so few rows that the
+// blocks' 2·c partial sums exceed 1/16 of the bytes they stream (x, g, dx:
+// 3·sizeof(T) a channel).
+template <typename T, int ACT>
+BwdPlan bwd_plan(long long m, int c, int flags, bool aligned) {
+  constexpr int V = 16 / sizeof(T), U = bwd_unroll<T>();
+  const long long cap = (long long)sm_count();
+  const bool sums = flags & (kDk | kDb);
+  const auto min_rows = [&](int ry) {
+    const long long r = ceil_div(16 * 2 * 4, 3LL * ry * (long long)sizeof(T));
+    return sums && r > U ? r : (long long)U;
+  };
+  BwdPlan p;
+  long long chain;  // additions in the pass: a thread's own, then its block's
+  if (aligned && (c % V == 0 || c == 3)) {
+    if (c % V == 0) {
+      static const int occ = blocks_per_sm(sba_bwd_rows<T, V, ACT, U>);
+      p.layout = kRowsVec;
+      p.block = row_block(c / V);
+      p.blocks = grid(m, p.block.y * min_rows(p.block.y), cap * occ);
+      chain = ceil_div(m, (long long)p.blocks * p.block.y) + p.block.y;
+    } else {
+      static const int occ = blocks_per_sm(sba_bwd_c3<T, ACT>);
+      const long long groups = m / V;  // m·3 elements, 3·V a group
+      p.layout = kGroups3;
+      p.block = dim3(kThreads);
+      p.blocks = grid(groups, kThreads, cap * occ);
+      // V terms a channel and group, the tail's fewer than V more, the
+      // warp's xor tree, the warps in order
+      chain = (ceil_div(groups, (long long)p.blocks * kThreads) + 1) * V + 5 + kThreads / 32;
+    }
+  } else {
+    static const int occ = blocks_per_sm(sba_bwd_rows<T, 1, ACT, U>);
+    p.layout = kRowsScalar;
+    p.block = row_block(c);
+    p.blocks = grid(m, p.block.y * min_rows(p.block.y), cap * occ);
+    chain = ceil_div(m, (long long)p.blocks * p.block.y) + p.block.y;
+  }
+  // the reduce: each of 8 threads adds every 8th block's row in order, then the 8
+  p.depth = sums ? chain + ceil_div(p.blocks, 8) + 8 : 0;
+  return p;
+}
+
+template <typename T, int ACT>
+int bwd(const T* x, const T* k, const T* b, const T* g, T* dx, T* dk, T* db, float* ws,
+        int ws_blocks, long long m, int c, float slope, int flags, cudaStream_t s) {
+  constexpr int U = bwd_unroll<T>();
+  const bool sums = flags & (kDk | kDb);
+  const bool aligned = aligned16(x) && aligned16(g) && (!(flags & kDx) || aligned16(dx));
+  const BwdPlan p = bwd_plan<T, ACT>(m, c, flags, aligned);
+  if (sums && (long long)p.blocks > ws_blocks) return (int)cudaErrorInvalidValue;
+  if (p.layout == kRowsVec) {
+    sba_bwd_rows<T, 16 / sizeof(T), ACT, U><<<p.blocks, p.block, 0, s>>>(x, k, b, g, dx, ws, m, c, slope, flags);
+  } else if (p.layout == kGroups3) {
+    const long long n = m * 3;
+    sba_bwd_c3<T, ACT><<<p.blocks, p.block, 0, s>>>(x, k, b, g, dx, ws, n, n / (3 * (16 / sizeof(T))), slope,
+                                                     flags);
+  } else {
+    sba_bwd_rows<T, 1, ACT, U><<<p.blocks, p.block, 0, s>>>(x, k, b, g, dx, ws, m, c, slope, flags);
+  }
+  if (sums) {
+    const unsigned cols = (unsigned)ceil_div(2LL * c, 32);
+    sba_bwd_reduce<T><<<cols, dim3(32, 8), 0, s>>>(ws, (int)p.blocks, c, (flags & kDk) ? dk : nullptr,
+                                                  (flags & kDb) ? db : nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
+bool bad_args(long long m, int c, int dtype, int act) {
+  return m <= 0 || c <= 0 || act < 0 || act > 3 || dtype < 0 || dtype > 1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. act: 0 linear, 1 relu, 2 leaky_relu, 3 tanh.
-// Returns a cudaError_t as int: 0 on a good launch, cudaErrorInvalidValue
-// for arguments the kernel does not take.
+// y = act(x·k + b) over m rows of c channels. dtype: 0 = float32,
+// 1 = bfloat16 (x, k, b and y all of it). act: 0 linear, 1 relu,
+// 2 leaky_relu, 3 tanh. Returns a cudaError_t as int: 0 on a good launch,
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int scale_bias_act_launch(const void* x, const void* k, const void* b, void* y,
                                      long long m, int c, int dtype, int act, float slope,
                                      void* stream) {
-  if (m <= 0 || c <= 0 || act < 0 || act > 3 || dtype < 0 || dtype > 1) {
+  if (bad_args(m, c, dtype, act) || !x || !k || !b || !y) return (int)cudaErrorInvalidValue;
+  with_types(dtype, act, [&](auto* t, auto a) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    fwd<T, decltype(a)::value>(static_cast<const T*>(x), static_cast<const T*>(k), static_cast<const T*>(b),
+                               static_cast<T*>(y), m, c, slope, static_cast<cudaStream_t>(stream));
+  });
+  return (int)cudaGetLastError();
+}
+
+// The backward's grid for m rows of c channels, the flags below, and
+// whether x, g and dx are all 16-byte aligned: `blocks`, the rows of 2·c
+// floats the workspace needs where dk or db is asked for, and `depth`, the
+// most float32 additions any term goes through on its way into dk or db
+// (for an error bound of the sums). Returns a cudaError_t as int.
+extern "C" int scale_bias_act_bwd_plan(long long m, int c, int dtype, int act, int flags, int aligned,
+                                       int* blocks, long long* depth) {
+  if (bad_args(m, c, dtype, act) || flags <= 0 || flags > 7 || !blocks || !depth) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dispatch_act<float>(act, x, k, b, y, (int64_t)m, c, slope, s);
-  } else {
-    dispatch_act<__nv_bfloat16>(act, x, k, b, y, (int64_t)m, c, slope, s);
-  }
+  with_types(dtype, act, [&](auto* t, auto a) {
+    const BwdPlan p = bwd_plan<std::remove_pointer_t<decltype(t)>, decltype(a)::value>(m, c, flags, aligned != 0);
+    *blocks = (int)p.blocks;
+    *depth = p.depth;
+  });
   return (int)cudaGetLastError();
+}
+
+// The backward for the output cotangent g (all of x's dtype): flags say
+// which of dx (1), dk (2) and db (4) to write; dk and db need a float32
+// workspace `ws` of ws_blocks rows of 2·c floats, at least the blocks that
+// scale_bias_act_bwd_plan reports. Returns a cudaError_t as int, as above.
+extern "C" int scale_bias_act_bwd_launch(const void* x, const void* k, const void* b, const void* g,
+                                         void* dx, void* dk, void* db, void* ws, int ws_blocks,
+                                         long long m, int c, int dtype, int act, float slope,
+                                         int flags, void* stream) {
+  if (bad_args(m, c, dtype, act) || flags <= 0 || flags > 7 || !x || !k || !b || !g ||
+      ((flags & kDx) && !dx) || ((flags & kDk) && !dk) || ((flags & kDb) && !db) ||
+      ((flags & (kDk | kDb)) && (!ws || ws_blocks < 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int rc = 0;
+  with_types(dtype, act, [&](auto* t, auto a) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    rc = bwd<T, decltype(a)::value>(static_cast<const T*>(x), static_cast<const T*>(k), static_cast<const T*>(b),
+                                    static_cast<const T*>(g), static_cast<T*>(dx), static_cast<T*>(dk),
+                                    static_cast<T*>(db), static_cast<float*>(ws), ws_blocks, m, c, slope, flags,
+                                    static_cast<cudaStream_t>(stream));
+  });
+  return rc;
 }

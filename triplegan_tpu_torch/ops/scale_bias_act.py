@@ -1,27 +1,30 @@
-"""Fused per-channel scale, bias and activation: ``act(x·k + b)``.
+"""Fused per-channel scale, bias and activation: ``act(x·k + b)``, and its
+gradient.
 
-The hand-written Hopper kernel ``csrc/scale_bias_act.cu`` replaces the TPU
-kernel ``triplegan_tpu/ops/pallas_fused.py::_kernel`` (launched by
-``_pallas_rows``). It is bound by bytes: it reads x and writes y once, so
-its least time is (bytes of x + bytes of y) / 3.35 TB/s on an H100. Design
-(details in the source): one grid-stride loop, 16-byte vector loads where
-the channel count allows, float32 math without FMA contraction so it rounds
-exactly as the plain version does.
+The hand-written Hopper kernels of ``csrc/scale_bias_act.cu`` replace the
+TPU kernel ``triplegan_tpu/ops/pallas_fused.py::_kernel`` (launched by
+``_pallas_rows``) and its custom VJP ``_bwd``: a forward kernel, and a
+backward kernel that computes dx, dk and db in one pass over x and the
+cotangent g (plus a small fixed-order reduce of its per-block sums). Both
+are bound by bytes: the forward reads x and writes y once, the backward
+reads x and g and writes dx once, so their least times are those bytes /
+3.35 TB/s on an H100. Design notes are in the source.
 
 Semantics, as in the JAX package: ``k`` and ``b`` are (C,) per-channel
-vectors over the last axis of x, first cast to x's dtype; the math is
-float32 and the result is written in x's dtype (float32 or bfloat16).
-``act`` is linear, relu, leaky_relu (``z >= 0`` keeps z, else slope·z) or
-tanh.
-
-A tensor on the CPU goes to ``reference_scale_bias_act``, the plain
-version. A CUDA tensor launches the kernel or raises.
+vectors over the last axis of x, first cast to x's dtype; the forward's
+math is float32 and its result is written in x's dtype (float32 or
+bfloat16). ``act`` is linear, relu, leaky_relu (``z >= 0`` keeps z, else
+slope·z) or tanh.
 
 ``scale_bias_act`` is differentiable: a ``torch.autograd.Function`` whose
-backward is plain PyTorch, as the JAX package's custom VJP is jnp
-(``pallas_fused.py::_bwd``). Like ``_bwd`` it recomputes z = x·k + b in
-x's dtype (not in float32 as the forward does), and returns dk and db in
-k's and b's dtypes; callers pass k and b already cast to x's dtype.
+backward is ``pallas_fused.py::_bwd``. Like ``_bwd`` it recomputes
+z = x·k + b in x's dtype (not in float32 as the forward does), and returns
+dk and db in k's and b's dtypes; callers pass k and b already cast to x's
+dtype. Only the gradients autograd asks for are computed.
+
+A tensor on the CPU takes the plain versions (``reference_scale_bias_act``,
+``reference_scale_bias_act_bwd``). A CUDA tensor launches the kernel or
+raises, in the forward and in the backward.
 """
 
 from __future__ import annotations
@@ -35,10 +38,15 @@ from triplegan_tpu_torch.ops import build
 
 ACTS = {"linear": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+_NEEDS = "xkb"  # dx, dk, db: bit 1, 2, 4 of the backward kernel's flags
 
-# Kernel launches since the counts were last cleared, keyed by (x's shape,
-# x's dtype, act, slope): the shapes each path runs the kernel at.
+# Launches since the counts were last cleared. The forward kernel's are
+# keyed by (x's shape, x's dtype, act, slope): the shapes each path runs it
+# at. The backward kernel's are keyed the same way plus the gradients it
+# computed, a string of "x", "k", "b" (dx, dk, db).
 launches: collections.Counter = collections.Counter()
+bwd_launches: collections.Counter = collections.Counter()
 
 
 def apply_act(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
@@ -69,29 +77,75 @@ def act_grad(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
 
 
 def reference_scale_bias_act(x, k, b, act="leaky_relu", slope=0.1):
-    """The plain PyTorch version: the same function with the same casts."""
+    """The plain PyTorch version: the same function with the same casts
+    (float32 math for float32 and bfloat16 x; float64 x, which only the CPU
+    takes, keeps float64)."""
     kc, bc = k.to(x.dtype), b.to(x.dtype)
-    z = x.float() * kc.float() + bc.float()
+    ct = torch.promote_types(x.dtype, torch.float32)
+    z = x.to(ct) * kc.to(ct) + bc.to(ct)
     return apply_act(z, act, slope).to(x.dtype)
 
 
+def reference_bwd_t(x, k, b, g, act="leaky_relu", slope=0.1):
+    """t = g·act'(x·k + b) in x's dtype, as the plain backward computes it:
+    dx = t·k, dk = Σ t·x, db = Σ t."""
+    return g * act_grad(x * k.to(x.dtype) + b.to(x.dtype), act, slope)
+
+
+def reference_scale_bias_act_bwd(x, k, b, g, act="leaky_relu", slope=0.1, needs=(True, True, True)):
+    """The plain backward, ``pallas_fused.py::_bwd`` in x's dtype: (dx, dk,
+    db) for the output cotangent g, each None where ``needs`` (dx, dk, db)
+    does not ask for it."""
+    t = reference_bwd_t(x, k, b, g, act, slope)
+    axes = tuple(range(x.dim() - 1))
+    dx = (t * k.to(x.dtype)).to(x.dtype) if needs[0] else None
+    dk = torch.sum(t * x, dim=axes).to(k.dtype) if needs[1] else None
+    db = torch.sum(t, dim=axes).to(b.dtype) if needs[2] else None
+    return dx, dk, db
+
+
+_bound = None  # (forward, backward, backward's plan) entry points, bound once
+_plans: dict = {}
+
+
 def _lib():
-    lib = build.load("scale_bias_act")
-    fn = lib.scale_bias_act_launch
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+    """The bound C entry points (forward, backward, backward's plan), built
+    and bound at the first call."""
+    global _bound
+    if _bound is None:
+        lib = build.load("scale_bias_act")
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        fwd, bwd, plan = lib.scale_bias_act_launch, lib.scale_bias_act_bwd_launch, lib.scale_bias_act_bwd_plan
+        fwd.argtypes = [p, p, p, p, ll, i, i, i, f, p]
+        bwd.argtypes = [p, p, p, p, p, p, p, p, i, ll, i, i, i, f, i, p]
+        plan.argtypes = [ll, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+        fwd.restype = bwd.restype = plan.restype = i
+        _bound = (fwd, bwd, plan)
+    return _bound
+
+
+def bwd_plan(m, c, dtype, act, flags, aligned, lib=None):
+    """The backward kernel's grid for m rows of c channels (what the C side
+    chooses): (blocks, the workspace rows of 2·c floats that dk and db
+    need; depth, the most float32 additions any term goes through on its
+    way into dk or db). ``flags`` as the kernel's (dx 1, dk 2, db 4);
+    ``aligned`` whether x, g and dx are all 16-byte aligned."""
+    fn = (lib or _lib())[2]
+    key = (m, c, dtype, act, flags, aligned, id(fn))
+    plan = _plans.get(key)
+    if plan is None:
+        blocks, depth = ctypes.c_int(), ctypes.c_longlong()
+        rc = fn(m, c, _DTYPES[dtype], ACTS[act], flags, int(aligned), ctypes.byref(blocks), ctypes.byref(depth))
+        if rc != 0:
+            raise RuntimeError(f"scale_bias_act backward plan failed: cudaError {rc}")
+        plan = _plans[key] = (blocks.value, depth.value)
+    return plan
 
 
 def scale_bias_act(x, k, b, act="leaky_relu", slope=0.1):
     """``act(x·k + b)`` per channel (last axis), differentiable in x, k and
-    b. CPU tensors take the plain version; CUDA tensors take the Hopper
-    kernel."""
+    b. CPU tensors take the plain versions; CUDA tensors take the Hopper
+    kernels."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; expected one of {sorted(ACTS)}")
     return _ScaleBiasAct.apply(x, k, b, act, float(slope))
@@ -109,20 +163,17 @@ class _ScaleBiasAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, k, b = ctx.saved_tensors
-        kc, bc = k.to(x.dtype), b.to(x.dtype)
-        t = g * act_grad(x * kc + bc, ctx.act, ctx.slope)
-        axes = tuple(range(x.dim() - 1))
-        dx = (t * kc).to(x.dtype) if ctx.needs_input_grad[0] else None
-        dk = torch.sum(t * x, dim=axes).to(k.dtype) if ctx.needs_input_grad[1] else None
-        db = torch.sum(t, dim=axes).to(b.dtype) if ctx.needs_input_grad[2] else None
+        needs = tuple(ctx.needs_input_grad[:3])
+        if x.device.type == "cpu":
+            dx, dk, db = reference_scale_bias_act_bwd(x, k, b, g, ctx.act, ctx.slope, needs)
+        else:
+            dx, dk, db = _backward(x, k, b, g, ctx.act, ctx.slope, needs)
         return dx, dk, db, None, None
 
 
-def _forward(x, k, b, act, slope):
-    """The forward alone: the plain version for a CPU tensor, else one
-    launch of the kernel."""
-    if x.device.type == "cpu":
-        return reference_scale_bias_act(x, k, b, act, slope)
+def _check_cuda(x, k, b):
+    """What both kernels take: a non-empty contiguous float32 or bfloat16 x
+    on a CUDA device and (C,) k and b on the same device."""
     if x.device.type != "cuda":
         raise ValueError(f"scale_bias_act takes cpu or cuda tensors, got {x.device}")
     if x.dtype not in _DTYPES:
@@ -135,19 +186,73 @@ def _forward(x, k, b, act, slope):
     for name, v in (("k", k), ("b", b)):
         if v.device != x.device:
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
-        if tuple(v.shape) != (c,):
+        if v.shape != (c,):
             raise ValueError(f"{name} must have shape ({c},), got {tuple(v.shape)}")
+    return c
+
+
+def _launch(fn, dev: torch.device, *args) -> int:
+    """Call a C entry point with ``dev``'s current stream as its last
+    argument, on ``dev`` (a device switch only where ``dev`` is not the
+    current device)."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
+
+
+def _forward(x, k, b, act, slope, lib=None):
+    """The forward alone: the plain version for a CPU tensor, else one
+    launch of the kernel (of ``lib``'s entry points where given, as
+    ``_lib()`` returns them)."""
+    if x.device.type == "cpu":
+        return reference_scale_bias_act(x, k, b, act, slope)
+    c = _check_cuda(x, k, b)
     kc = k.to(x.dtype).contiguous()
     bc = b.to(x.dtype).contiguous()
     y = torch.empty_like(x)
-    fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(
-            x.data_ptr(), kc.data_ptr(), bc.data_ptr(), y.data_ptr(),
-            x.numel() // c, c, _DTYPES[x.dtype], ACTS[act], float(slope), stream,
-        )
+    rc = _launch((lib or _lib())[0], x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(), y.data_ptr(),
+                 x.numel() // c, c, _DTYPES[x.dtype], ACTS[act], slope)
     if rc != 0:
         raise RuntimeError(f"scale_bias_act kernel launch failed: cudaError {rc}")
-    launches[tuple(x.shape), str(x.dtype).split(".")[-1], act, float(slope)] += 1
+    launches[tuple(x.shape), _DTYPE_NAMES[x.dtype], act, slope] += 1
     return y
+
+
+def _backward(x, k, b, g, act, slope, needs, lib=None):
+    """(dx, dk, db) of a CUDA x for the cotangent g, by one launch of the
+    backward kernel (with its reduce where dk or db is asked for); None
+    where ``needs`` does not ask. ``lib`` as for ``_forward``."""
+    c = _check_cuda(x, k, b)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must match x ({tuple(x.shape)} {x.dtype}), got {tuple(g.shape)} {g.dtype}")
+    flags = sum(1 << i for i, n in enumerate(needs) if n)
+    if not flags:
+        return None, None, None
+    lib = lib or _lib()
+    m = x.numel() // c
+    g = g.contiguous()
+    kc = k.to(x.dtype).contiguous()
+    bc = b.to(x.dtype).contiguous()
+    dx = torch.empty_like(x) if needs[0] else None
+    kb = ws = None
+    ws_blocks = 0
+    if needs[1] or needs[2]:
+        aligned = (x.data_ptr() | g.data_ptr() | (0 if dx is None else dx.data_ptr())) % 16 == 0
+        ws_blocks = bwd_plan(m, c, x.dtype, act, flags, aligned, lib)[0]
+        kb = torch.empty((2, c), dtype=x.dtype, device=x.device)
+        ws = torch.empty((ws_blocks, 2 * c), dtype=torch.float32, device=x.device)
+    kb_ptr = None if kb is None else kb.data_ptr()
+    rc = _launch(lib[1], x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(), g.data_ptr(),
+                 None if dx is None else dx.data_ptr(), kb_ptr,
+                 None if kb is None else kb_ptr + c * x.element_size(),
+                 None if ws is None else ws.data_ptr(), ws_blocks, m, c,
+                 _DTYPES[x.dtype], ACTS[act], slope, flags)
+    if rc != 0:
+        raise RuntimeError(f"scale_bias_act backward kernel launch failed: cudaError {rc}")
+    bwd_launches[tuple(x.shape), _DTYPE_NAMES[x.dtype], act, slope,
+                 "".join(n for n, want in zip(_NEEDS, needs) if want)] += 1
+    dk = kb[0].to(k.dtype) if needs[1] else None
+    db = kb[1].to(b.dtype) if needs[2] else None
+    return dx, dk, db
