@@ -32,14 +32,33 @@ Phases, each fatal on failure (exit code 1, and no result line):
      at a few channels, no noise, dropout or augmentation, argmax
      pseudo-labels) on the card with the kernels and on the CPU with their
      plain versions, on the same batches;
-  5. serve: as in slice 1: cifar10_4k at full width from seeded weights
+  5. driver: the train driver (train/loop.py) at cifar10_4k's full width,
+     float32, batch 100, kernel arm, on a seeded synthetic cifar10 written
+     in the layout ``prepare`` writes (4096 train, 1000 test images, ZCA
+     stats beside them), 4 steps an epoch with an eval, a sample grid and
+     a checkpoint each epoch: through ``python -m triplegan_tpu_torch.cli``,
+     an 8-step run (metrics logged at steps 2, 4, 6, 8, test errors at 4
+     and 8, grids at 4 and 8, checkpoints 4 and 8 kept); a 4-step run
+     resumed for 4 more, whose step-8 checkpoint must equal the 8-step
+     run's bitwise; ``eval``, which must print the 8-step run's final
+     error; ``sample`` (an RGB PNG 160 wide, 320 high); a run stopped by a
+     STOP file (exit 75, a checkpoint under its 40 steps, a re-run resumes
+     from it). Then one ``train(cfg, max_steps=4)`` in this process, its
+     launches counted from just before to just after: the conv launches
+     must be 4 × ``step_launches`` plus its eval's (10 test batches) and
+     sample grid's, key for key, the epilogue counts their implied
+     numbers, every shape one that phase 3 launched (so phase 7 holds it
+     against the plain versions); the plain arm launches nothing. Times an
+     eval and a checkpoint save, and what cuDNN's deterministic algorithms
+     (which the driver turns on) cost a shipped step;
+  6. serve: as in slice 1: cifar10_4k at full width from seeded weights
      (written and read back in the JAX package's npz export format), per
      compute dtype and arm, an HTTP server on an ephemeral port driven
      through /healthz, /classify, /generate and /metrics; the kernel arm
      must launch 9 epilogues and 7 convs per classify chunk, 4 and 3 per
      generate chunk; outputs checked against each other and the CPU;
-  6. kernels: at every (shape, dtype, activation) at which a kernel arm of
-     phases 3 and 5 launched a kernel (for the epilogue's backward, also the
+  7. kernels: at every (shape, dtype, activation) at which a kernel arm of
+     phases 3 and 6 launched a kernel (for the epilogue's backward, also the
      gradients it computed), holds the kernel's wrapper to its plain
      PyTorch version on fresh seeded inputs and times both with CUDA events
      (``time_ms``: the L2 flushed by a read and the device held by a spin
@@ -102,6 +121,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -114,6 +134,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
+REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BATCH = 100
 N_REQ = 250                   # images per request: chunks 100, 100, 50 (+50 pad)
@@ -274,15 +295,11 @@ def train_cfg(dtype: str, batch: int, share: bool, use_pallas: bool):
     return cfg
 
 
-def step_launches(cfg):
-    """Every kernel launch of one train step of ``cfg`` with use_pallas:
-    (Counter of conv launches keyed as the conv wrappers key theirs, (role,
-    n, h, w, cin, cout, halo, dtype), {key: the players it runs in},
-    epilogue forward launches, epilogue backward launches). Role "fwd" is
-    a forward conv, "dgrad" the forward kernel on a cotangent (input (n, h,
-    w, cin) the cotangent), "wgrad" the filter gradient of a conv whose
-    input is (n, h, w, cin)."""
-    b, s, nc, dt = cfg.batch_size, cfg.image_size, cfg.num_classes, cfg.compute_dtype
+def conv_layers(cfg):
+    """The 3×3 stride-1 convs the kernels take in each network, as (h,
+    cin, cout, halo) lists: (Generator's phase convs, Discriminator's,
+    Classifier's)."""
+    s, nc = cfg.image_size, cfg.num_classes
     clf, h, cin = [], s, cfg.channels
     for block in cfg.clf.conv_blocks:
         for w in block:
@@ -306,7 +323,25 @@ def step_launches(cfg):
         gen.append((h, gw[i], 4 * gw[i + 1], 1))
         h *= 2
     gen.append((h, gw[-1], 4 * cfg.channels, 1))
+    return gen, disc, clf
 
+
+def fwd_launches(cfg, n, layers) -> collections.Counter:
+    """The forward conv launches of one pass over ``layers`` at batch n."""
+    return collections.Counter(("fwd", n, h, h, ci, co, p, cfg.compute_dtype) for h, ci, co, p in layers)
+
+
+def step_launches(cfg):
+    """Every kernel launch of one train step of ``cfg`` with use_pallas:
+    (Counter of conv launches keyed as the conv wrappers key theirs, (role,
+    n, h, w, cin, cout, halo, dtype), {key: the players it runs in},
+    epilogue forward launches, epilogue backward launches). Role "fwd" is
+    a forward conv, "dgrad" the forward kernel on a cotangent (input (n, h,
+    w, cin) the cotangent), "wgrad" the filter gradient of a conv whose
+    input is (n, h, w, cin)."""
+    b, dt = cfg.batch_size, cfg.compute_dtype
+    gen, disc, clf = conv_layers(cfg)
+    widths, gw = cfg.disc.widths, cfg.gen.widths
     convs, players = collections.Counter(), collections.defaultdict(set)
 
     def add(where, *key):
@@ -557,7 +592,331 @@ def card_vs_cpu_phase(data, zca) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving end to end
+# phase 5: the train driver, checkpoints and resume, through the CLI
+# ---------------------------------------------------------------------------
+
+DRIVER_SETS = ["steps_per_epoch=4", "eval_every_epochs=1", "ckpt_every_epochs=1", "log_every=2"]
+DRIVER_TEST = 1000  # test images: 10 eval batches of 100
+
+
+def write_prepared(data_dir: str) -> str:
+    """A seeded synthetic cifar10 in the layout ``prepare`` writes
+    ({data_dir}/cifar10/{train,test}.npz: uint8 NHWC ``images``, int32
+    ``labels``; class-dependent blobs as ``synthetic_dataset`` draws them),
+    4096 train images so that ZCA has more samples than its 3072 dims, and
+    the ZCA stats fitted once beside the shards (zca_stats.npz), which each
+    run then loads instead of fitting its own."""
+    from triplegan_tpu_torch.data.zca import fit_zca
+
+    rng = np.random.RandomState(SEED)
+
+    def make(n):
+        y = rng.randint(0, 10, size=n).astype(np.int32)
+        x = (y[:, None, None, None].astype(np.float32) + 1.0) * (255.0 / 11) + \
+            rng.normal(0, 24.0, size=(n, 32, 32, 3))
+        return np.clip(x, 0, 255).astype(np.uint8), y
+
+    ddir = os.path.join(data_dir, "cifar10")
+    os.makedirs(ddir)
+    for split, n in (("train", 4096), ("test", DRIVER_TEST)):
+        x, y = make(n)
+        np.savez(os.path.join(ddir, f"{split}.npz"), images=x, labels=y)
+        if split == "train":
+            fit_zca(x).save(os.path.join(ddir, "zca_stats.npz"))
+    return ddir
+
+
+def cli(*args, timeout=600) -> tuple:
+    """Run ``python -m triplegan_tpu_torch.cli`` with these arguments from
+    this checkout: (seconds, standard output); fails unless it exits 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "triplegan_tpu_torch.cli", *args], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"cli {' '.join(args[:1])} exited {out.returncode}:\n"
+                               f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return secs, out.stdout
+
+
+def train_args(workdir, data_dir, max_steps, *sets) -> list:
+    args = ["train", "--config", "cifar10_4k", "--workdir", workdir, "--data-dir", data_dir]
+    for kv in DRIVER_SETS + list(sets):
+        args += ["--set", kv]
+    return args + ["--max-steps", str(max_steps)]
+
+
+def done_line(stdout: str) -> str:
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("done: ")]
+    check(len(lines) == 1, f"no 'done:' line in\n{stdout[-2000:]}")
+    return lines[0]
+
+
+def ckpt_flat(path: str) -> dict:
+    """A checkpoint file's leaves by path, on the CPU."""
+    import torch
+
+    def walk(tree, prefix=""):
+        for k in sorted(tree):
+            v = tree[k]
+            yield from walk(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+
+    return dict(walk(torch.load(path, map_location="cpu", weights_only=True)))
+
+
+def ckpt_equal(a: str, b: str) -> list:
+    """The leaves in which two checkpoint files differ (bitwise)."""
+    import torch
+
+    fa, fb = ckpt_flat(a), ckpt_flat(b)
+    if sorted(fa) != sorted(fb):
+        return ["<keys>"]
+    return [k for k in fa if not (torch.equal(fa[k], fb[k]) if isinstance(fa[k], torch.Tensor)
+                                  else fa[k] == fb[k])]
+
+
+def png_size(path: str) -> tuple:
+    """(width, height, bit depth, color type) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path} is not a PNG")
+    w, h, depth, color = struct.unpack(">IIBB", head[16:26])
+    return w, h, depth, color
+
+
+def preempt_run(workdir, data_dir) -> dict:
+    """``cli train`` for up to 40 steps, stopped by a STOP file once its
+    first step line appears: it must exit 75 having checkpointed a step
+    under 40, and a re-run must resume from that step."""
+    args = [sys.executable, "-m", "triplegan_tpu_torch.cli", *train_args(workdir, data_dir, 40)]
+    run_dir = os.path.join(workdir, "cifar10_4k")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("step "):
+                open(os.path.join(run_dir, "STOP"), "w").close()
+                break
+        rest, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t0
+    out = "".join(lines) + rest
+    check(proc.returncode == 75, f"stopped train exited {proc.returncode}, want 75:\n{out[-3000:]}")
+    check("preempted" in out, "stopped train printed no 'preempted' line")
+    steps = sorted(int(n) for n in os.listdir(os.path.join(run_dir, "ckpt")) if n.isdigit())
+    check(bool(steps) and steps[-1] < 40, f"stopped train checkpointed {steps}")
+    resume_s, out2 = cli(*train_args(workdir, data_dir, 2))
+    check(f"resumed from step {steps[-1]}" in out2, f"re-run did not resume from step {steps[-1]}")
+    return {"stop_seconds": secs, "stopped_at": steps[-1], "resume_seconds": resume_s,
+            "resumed_done": done_line(out2)}
+
+
+def driver_inprocess(data_dir, workdir, train_arms) -> dict:
+    """One ``train_loop.train(cfg, max_steps=4)`` of cifar10_4k (float32,
+    batch 100, kernel arm) in this process, its launches counted from just
+    before to just after: the conv launches of its 4 steps must be 4 ×
+    step_launches(cfg) key for key, plus those of its eval (10 test batches
+    through the Classifier) and sample grid (100 images through the
+    Generator); the epilogue counts their implied numbers; every launch at
+    a shape the shipped train arm of phase 3 launched (so phase 7 holds it
+    against the plain versions). Then the plain arm must launch nothing.
+    Also times one eval and one checkpoint save of the final state."""
+    import torch
+
+    from triplegan_tpu_torch.ckpt.manager import CheckpointManager
+    from triplegan_tpu_torch.cli import _apply_overrides
+    from triplegan_tpu_torch.configs import get_config, make_networks
+    from triplegan_tpu_torch.data.pipeline import BatchSampler
+    from triplegan_tpu_torch.eval.metrics import evaluate_error
+    from triplegan_tpu_torch.train import loop as train_loop
+    from triplegan_tpu_torch.train.step import make_eval_step
+
+    def cfg_for(name, *sets):
+        cfg = _apply_overrides(get_config("cifar10_4k"), DRIVER_SETS + list(sets))
+        cfg.workdir, cfg.data_dir = os.path.join(workdir, name), data_dir
+        return cfg
+
+    cfg = cfg_for("kernel")
+    n_batches = -(-DRIVER_TEST // cfg.batch_size)
+    gen, _, clf = conv_layers(cfg)
+    convs, _, epilogues, epilogue_bwds = step_launches(cfg)
+    n_g, n_c = len(cfg.gen.widths) + 1, sum(len(b) for b in cfg.clf.conv_blocks) + len(cfg.clf.tail)
+    want = collections.Counter({k: 4 * c for k, c in convs.items()})
+    for _ in range(n_batches):
+        want.update(fwd_launches(cfg, cfg.batch_size, clf))
+    want.update(fwd_launches(cfg, cfg.num_classes * 10, gen))
+    det = torch.backends.cudnn.deterministic
+    try:
+        counts_zero()  # the main path starts here
+        res = train_loop.train(cfg, max_steps=4, verbose=False, device="cuda")
+        counts = counts_read()  # the main path ends here
+        got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+        check(got == want, f"driver conv launches not implied by its steps, eval and grid: "
+                           f"{dict(got - want)}; implied and not launched {dict(want - got)}")
+        launches = totals(counts)
+        want_sba = 4 * epilogues + n_batches * n_c + n_g
+        check(launches["scale_bias_act"] == want_sba,
+              f"driver launched {launches['scale_bias_act']} epilogues, want {want_sba}")
+        check(launches["scale_bias_act_bwd"] == 4 * epilogue_bwds,
+              f"driver launched {launches['scale_bias_act_bwd']} epilogue backwards, want {4 * epilogue_bwds}")
+        shipped = next(a for a in train_arms if a["setting"] == "shipped" and a["use_pallas"])["_counts"]
+        for name, c in counts.items():
+            unseen = set(c) - set(shipped[name])
+            check(not unseen, f"driver launched {name} at shapes phase 3 did not: {sorted(unseen)}")
+        check(res["steps"] == 4 and not res["preempted"], f"driver in-process: {res['steps']} steps")
+
+        state = res["state"]
+        sampler = BatchSampler(train_loop._resolve_data(cfg), cfg.batch_size)
+        zca = train_loop._resolve_zca(cfg, sampler.data, os.path.join(cfg.workdir, cfg.name))
+        eval_step = make_eval_step(cfg, make_networks(cfg), zca)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err = evaluate_error(eval_step, state, train_loop._test_stream(sampler, torch.device("cuda")))
+        eval_s = time.perf_counter() - t0
+        check(err == res["test_error"], f"re-evaluated error {err} != the run's {res['test_error']}")
+        t0 = time.perf_counter()
+        saver = CheckpointManager(os.path.join(workdir, "save_timing"))
+        saver.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(saver.directory, str(state.step)))
+
+        counts_zero()
+        plain = train_loop.train(cfg_for("plain", "use_pallas=false"), max_steps=2, verbose=False,
+                                 device="cuda")
+        plain_launches = totals(counts_read())
+        check(not any(plain_launches.values()), f"the plain arm's driver launched {plain_launches}")
+        check(plain["steps"] == 2, "plain driver run")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return {"launches": launches, "_counts": counts, "test_error": res["test_error"],
+            "eval_seconds": eval_s, "ckpt_save_seconds": save_s, "ckpt_bytes": ckpt_bytes}
+
+
+def cudnn_determinism(data, zca, n_steps=6) -> dict:
+    """What cuDNN's deterministic algorithms cost the shipped kernel arm's
+    step (the convs the kernels do not take: stride 2, 1×1), and whether
+    two runs without them end in the same state: ms/step with the flag off
+    and on, in turns (off, on, on, off), each run ``n_steps`` steps from one
+    seeded state, the first untimed."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+    from triplegan_tpu_torch.train.step import make_device_train_step, upload_device_data
+
+    cfg = train_cfg("float32", BATCH, False, True)
+    nets = make_networks(cfg)
+    opts = make_optimizers(cfg, TOTAL_STEPS)
+    dev_data = upload_device_data(data, "cuda")
+    step = make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca)
+    saved = torch.backends.cudnn.deterministic
+    ms, finals = {False: [], True: []}, {False: [], True: []}
+    try:
+        for det in (False, True, True, False):
+            torch.backends.cudnn.deterministic = det
+            state = create_state(cfg, nets, opts, device="cuda")
+            secs = []
+            for _ in range(n_steps):
+                t0 = time.perf_counter()
+                state, m = step(state, dev_data)
+                float(m["loss_c"])
+                secs.append(time.perf_counter() - t0)
+            ms[det].append(1e3 * statistics.mean(secs[1:]))
+            finals[det].append({p: {k: t.clone() for a in state.params[p].values() for k, t in a.items()}
+                                for p in state.params})
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+    def same(a, b):
+        return all(torch.equal(a[p][k], b[p][k]) for p in a for k in a[p])
+
+    return {"ms_per_step_off": ms[False], "ms_per_step_on": ms[True],
+            "cost_ms_per_step": statistics.mean(ms[True]) - statistics.mean(ms[False]),
+            "off_runs_bitwise_equal": same(*finals[False]), "on_runs_bitwise_equal": same(*finals[True])}
+
+
+def driver_phase(train_arms, data, zca) -> dict:
+    """The train driver end to end, through the CLI as a user calls it, on
+    cifar10_4k at full width (float32, batch 100, kernel arm; 4 steps an
+    epoch, an eval, a sample grid and a checkpoint each epoch, a log every
+    2 steps): a straight 8-step run; a run of 4 steps resumed for 4 more,
+    whose step-8 checkpoint must equal the straight run's bitwise; ``cli
+    eval`` of the straight run, which must print its final test error;
+    ``cli sample``; a run stopped by a STOP file; then the in-process run
+    whose launches are counted, and the cost of cuDNN's deterministic
+    algorithms."""
+    bare = next(a for a in train_arms if a["setting"] == "shipped" and a["use_pallas"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    try:
+        data_dir = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_prepared(data_dir)
+        prepare_s = time.perf_counter() - t0
+        w1, w2, w3 = (os.path.join(tmp, w) for w in ("w1", "w2", "w3"))
+        run1 = os.path.join(w1, "cifar10_4k")
+
+        straight_s, out = cli(*train_args(w1, data_dir, 8))
+        done = done_line(out)
+        check(done.startswith("done: step=8 "), f"straight run: {done}")
+        with open(os.path.join(run1, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        logged = [r["step"] for r in recs if "loss_c" in r]
+        evals = {r["step"]: r["test_error"] for r in recs if "test_error" in r}
+        check(logged == [2, 4, 6, 8], f"metrics logged at steps {logged}")
+        check(sorted(evals) == [4, 8], f"test errors logged at steps {sorted(evals)}")
+        for it in (4, 8):
+            check(os.path.exists(os.path.join(run1, f"samples_{it:08d}.png")), f"no sample grid at {it}")
+        kept = sorted(int(n) for n in os.listdir(os.path.join(run1, "ckpt")) if n.isdigit())
+        check(kept == [4, 8], f"checkpoints kept {kept}")
+        # ms/step by log record; the records at steps 4 and 8 time steps 3-4
+        # and 7-8 alone (the one at 6 also holds step 4's eval, grid and
+        # checkpoint, the one at 2 the first step)
+        loop_ms = {r["step"]: 1e3 * BATCH / r["images_per_sec"] for r in recs if "images_per_sec" in r}
+
+        resume_s = []
+        for i in range(2):
+            secs, out2 = cli(*train_args(w2, data_dir, 4))
+            resume_s.append(secs)
+        check("resumed from step 4" in out2, "second 4-step run did not resume from step 4")
+        check(done_line(out2) == done, f"resumed run: {done_line(out2)}; straight: {done}")
+        diff = ckpt_equal(os.path.join(run1, "ckpt", "8"), os.path.join(w2, "cifar10_4k", "ckpt", "8"))
+        check(not diff, f"4+4 resumed checkpoint differs from the straight run's at {diff[:10]}")
+
+        eval_s, out = cli("eval", "--config", "cifar10_4k", "--workdir", w1, "--data-dir", data_dir)
+        err_line = out.strip().splitlines()[-1]
+        check(err_line == "test error: " + done.split("test_error=")[1],
+              f"cli eval printed {err_line!r}, train {done!r}")
+
+        grid = os.path.join(tmp, "grid.png")
+        sample_s, _ = cli("sample", "--config", "cifar10_4k", "--workdir", w1, "--data-dir", data_dir,
+                          "--out", grid, "--n-per-class", "5")
+        check(png_size(grid) == (160, 320, 8, 2), f"sample grid IHDR {png_size(grid)}")
+
+        stop = preempt_run(w3, data_dir)
+        inproc = driver_inprocess(data_dir, os.path.join(tmp, "w4"), train_arms)
+        det = cudnn_determinism(data, zca)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"config": "cifar10_4k float32 batch 100 kernel arm", "prepare_seconds": prepare_s,
+           "straight_8_seconds": straight_s, "resume_4_4_seconds": resume_s, "eval_seconds_cli": eval_s,
+           "sample_seconds_cli": sample_s, **stop, "final": done,
+           "loop_ms_per_step_by_log": loop_ms, "loop_ms_per_step": statistics.mean([loop_ms[4], loop_ms[8]]),
+           "bare_step_ms_per_step": bare["ms_per_step"], "resume_bitwise": True,
+           **inproc, "cudnn_determinism": det}
+    emit("driver", public(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving end to end
 # ---------------------------------------------------------------------------
 
 
@@ -824,7 +1183,7 @@ def serve_phase(profile: bool) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: each kernel against its plain version at the paths' shapes
+# phase 7: each kernel against its plain version at the paths' shapes
 # ---------------------------------------------------------------------------
 
 
@@ -1065,12 +1424,13 @@ def kernel_phase(sources) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def summary(sba_rows, bwd_rows, conv_rows, train_arms, serve_arms) -> list:
-    """One line per kernel: launches over every main path, and times and
+def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
+    """One line per kernel: launches over every main path (the train arms,
+    the driver's counted run, the serving arms), and times and
     bounds summed over one train step's launches at each setting
     (``per_step``), the shipped setting's also at the top level."""
     launched = collections.Counter()
-    for arm in train_arms + serve_arms:
+    for arm in train_runs + serve_arms:
         launched.update(arm["launches"])
     csrc = "triplegan_tpu_torch/ops/csrc/"
     conv_src = {"float32": csrc + "conv3x3.cu", "bfloat16": csrc + "conv3x3_sm90.cu"}
@@ -1156,24 +1516,28 @@ def main():
     card_cpu = card_vs_cpu_phase(data, zca)
     phases["card_vs_cpu"] = time.perf_counter() - t_start
 
-    # 5. serve
+    # 5. the train driver through the CLI
+    driver = driver_phase(train_arms, data, zca)
+    phases["driver"] = time.perf_counter() - t_start
+
+    # 6. serve
     serve_arms = serve_phase(args.profile)
     torch.cuda.synchronize(dev)
     phases["serve"] = time.perf_counter() - t_start
 
-    # 6. kernels, at the shapes the main paths launched them at
+    # 7. kernels, at the shapes the main paths launched them at
     sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms))
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
 
-    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms, serve_arms)
+    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + [driver], serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "conv_rows": conv_rows,
                        "train": [public(a) for a in train_arms],
-                       "card_vs_cpu": card_cpu,
+                       "card_vs_cpu": card_cpu, "driver": public(driver),
                        "serve": [public(a) for a in serve_arms],
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

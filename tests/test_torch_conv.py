@@ -293,3 +293,92 @@ def test_packed_weight_and_padded_channels_give_the_same_conv(cin, cout):
     gk = cv.pad_channels(g, -(-cout // 8) * 8)
     got_dw = cv.reference_conv3x3_wgrad(xkp, gk)[:, :, :cin, :cout]
     torch.testing.assert_close(got_dw, cv.reference_conv3x3_wgrad(xp, g), rtol=1e-5, atol=1e-5)
+
+
+def _unit_norm_kernel(rng, shape):
+    """A weight-norm kernel with one tap of ±1 in each output channel, the
+    rest 0: ‖v‖ = 1 exactly, and the norm's own gradient, Σ dw·v over the
+    channel's taps, is one product. So the norm and its gradient, float32
+    sums that torch and XLA take in other orders, come out the same in
+    both packages, and what the test sees is the conv's filter gradient,
+    which is dense all the same."""
+    k = int(np.prod(shape[:-1]))
+    out = np.zeros((k, shape[-1]), np.float32)
+    out[rng.randint(0, k, shape[-1]), np.arange(shape[-1])] = rng.choice([-1.0, 1.0], shape[-1])
+    return out.reshape(shape)
+
+
+_LAYER_SEEDS = {"SAME": 11, "VALID": 12, "weight_norm": 20, "deconv": 21}
+
+
+def _bits(a):
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("route", ["SAME", "VALID", "weight_norm", "deconv"])
+def test_bf16_layer_filter_gradient_equals_jax_bitwise(route, use_pallas):
+    """At bfloat16 the JAX layers convolve with the kernel cast to
+    bfloat16 (``w.astype(x.dtype)``: ``conv2d_apply``,
+    ``conv2d_wn_act_apply``, ``_deconv_raw``), so their filter gradient is
+    the wgrad's float32 sum rounded to bfloat16 once. The port's layers,
+    in both arms, give the same gradient bit for bit: SAME and VALID
+    ``conv2d_apply``, the weight-norm conv with its epilogue (the kernel
+    arm convolves raw v and folds g/‖v‖ into the epilogue; the plain arm
+    convolves g·v/‖v‖), and the k = 5 stride-2 ``deconv2d_apply``. The
+    cotangents are bfloat16, as in a bfloat16 step. (Sums in another order
+    could round one coordinate the other way at a tie; on these seeded
+    inputs none does.)"""
+    from triplegan_tpu.nn import layers as JL
+    from triplegan_tpu_torch.nn import layers as TL
+
+    rng = np.random.RandomState(_LAYER_SEEDS[route])
+    cin, cout = 16, 32
+    size = 4 if route == "deconv" else 8
+    x = rng.normal(size=(4, size, size, cin)).astype(np.float32)
+    b = (rng.normal(size=cout) * 0.1).astype(np.float32)
+    jx, tx = jnp.asarray(x).astype(jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+    if route == "deconv":
+        w = (rng.normal(size=(5, 5, cin, cout)) * 0.1).astype(np.float32)
+
+        def jfn(w_):
+            return JL.deconv2d_apply({"w": w_, "b": jnp.asarray(b)}, jx)
+
+        def tfn(w_):
+            return TL.deconv2d_apply({"w": w_, "b": torch.from_numpy(b)}, tx, use_pallas=use_pallas)
+
+        to_port, from_port = (lambda a: a), (lambda a: a)  # (k, k, in, out) in both
+    elif route == "weight_norm":
+        w = _unit_norm_kernel(rng, (3, 3, cin, cout))
+        g = (1.0 + rng.normal(size=cout) * 0.2).astype(np.float32)
+
+        def jfn(v_):
+            return JL.conv2d_wn_act_apply({"v": v_, "g": jnp.asarray(g), "b": jnp.asarray(b)}, jx,
+                                          act="leaky_relu", slope=0.2, use_pallas=use_pallas)
+
+        def tfn(v_):
+            return TL.conv2d_wn_act_apply({"v": v_, "g": torch.from_numpy(g), "b": torch.from_numpy(b)},
+                                          tx, act="leaky_relu", slope=0.2, use_pallas=use_pallas)
+
+        to_port, from_port = (lambda a: a.transpose(3, 2, 0, 1)), (lambda a: a.transpose(2, 3, 1, 0))
+    else:
+        w = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
+
+        def jfn(w_):
+            return JL.conv2d_apply({"w": w_, "b": jnp.asarray(b)}, jx, padding=route)
+
+        def tfn(w_):
+            return TL.conv2d_apply({"w": w_, "b": torch.from_numpy(b)}, tx, padding=route,
+                                   use_pallas=use_pallas)
+
+        to_port, from_port = (lambda a: a.transpose(3, 2, 0, 1)), (lambda a: a.transpose(2, 3, 1, 0))
+
+    y_j, vjp = jax.vjp(jfn, jnp.asarray(w))
+    cot = rng.normal(size=y_j.shape).astype(np.float32)
+    (dw_j,) = vjp(jnp.asarray(cot).astype(jnp.bfloat16))
+    tw = torch.from_numpy(np.ascontiguousarray(to_port(w))).requires_grad_()
+    y_t = tfn(tw)
+    (dw_t,) = torch.autograd.grad(y_t, tw, torch.from_numpy(cot).to(torch.bfloat16))
+    assert y_t.dtype == torch.bfloat16 and dw_t.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(y_t.detach().float().numpy()), _bits(y_j.astype(jnp.float32)))
+    np.testing.assert_array_equal(_bits(from_port(dw_t.numpy())), _bits(dw_j))

@@ -363,6 +363,40 @@ def test_conv_function_grads_match_plain_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["SAME", "VALID", "weight_norm", "deconv"])
+def test_bf16_layer_filter_gradients_are_bf16_on_card(route, cuda):
+    """At bfloat16 the kernel arm's layers convolve with the kernel cast to
+    bfloat16 first, as the JAX layers do, so the filter gradient that
+    reaches the float32 weight is a bfloat16 value (the wgrad kernel's
+    float32 sum rounded once): every coordinate of dW is representable in
+    bfloat16, and the kernels launched."""
+    from triplegan_tpu_torch.nn import layers as L
+
+    rng = np.random.RandomState(4)
+    cin, cout = 16, 32
+    x = torch.from_numpy(rng.normal(size=(4, 8, 8, cin)).astype(np.float32)).to(cuda, torch.bfloat16)
+    if route == "deconv":
+        w = torch.from_numpy((rng.normal(size=(5, 5, cin, cout)) * 0.1).astype(np.float32)).to(cuda)
+        p = {"w": w.requires_grad_()}
+        y = L.deconv2d_apply(p, x, use_pallas=True)
+    elif route == "weight_norm":
+        v = torch.from_numpy((rng.normal(size=(cout, cin, 3, 3)) * 0.1).astype(np.float32)).to(cuda)
+        p = {"v": v.requires_grad_(), "g": torch.ones(cout, device=cuda), "b": torch.zeros(cout, device=cuda)}
+        y = L._conv(x, p["v"], 1, "SAME", True)  # the weight-norm route's conv, as conv2d_wn_act_apply calls it
+    else:
+        w = torch.from_numpy((rng.normal(size=(cout, cin, 3, 3)) * 0.1).astype(np.float32)).to(cuda)
+        p = {"w": w.requires_grad_()}
+        y = L.conv2d_apply(p, x, padding=route, use_pallas=True)
+    leaf = p["w"] if "w" in p else p["v"]
+    before = cv.wgrad_launches.total()
+    (dw,) = torch.autograd.grad(y, leaf, torch.randn_like(y))
+    torch.cuda.synchronize()
+    assert cv.wgrad_launches.total() == before + 1
+    assert dw.dtype == torch.float32 and bool(torch.isfinite(dw).all())
+    assert torch.equal(dw, dw.bfloat16().float())
+
+
+@pytest.mark.cuda
 def test_conv_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.zeros(2, 6, 6, 8, device=cuda)
     wt = torch.zeros(3, 3, 8, 4, device=cuda)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of triplegan_tpu_torch
-pulls in no jax, no ml_collections and nothing of triplegan_tpu, and it
-asks for the card unless told to use the CPU."""
+pulls in no jax, no ml_collections, nothing of triplegan_tpu and no PIL
+(sample grids are written without it), and it asks for the card unless
+told to use the CPU."""
 
 import os
 import pkgutil
@@ -27,7 +28,8 @@ def _all_modules():
 def test_every_module_imports_without_jax_or_the_jax_package():
     modules = _all_modules()
     for m in ("ops.scale_bias_act", "ops.conv3x3", "train.step", "train.losses",
-              "train.schedule", "train.state", "data.datasets", "cli"):
+              "train.schedule", "train.state", "data.datasets", "cli", "train.loop",
+              "ckpt.manager", "eval.metrics", "eval.sample", "data.pipeline", "utils.logging"):
         assert f"triplegan_tpu_torch.{m}" in modules
     # A fresh interpreter: this test process has imported jax already.
     code = (
@@ -35,7 +37,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ml_collections' or m.startswith('ml_collections.')\n"
-        "             or m == 'triplegan_tpu' or m.startswith('triplegan_tpu.'))\n"
+        "             or m == 'triplegan_tpu' or m.startswith('triplegan_tpu.')\n"
+        "             or m == 'PIL' or m.startswith('PIL.'))\n"
         "print(json.dumps(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -61,6 +64,19 @@ def test_resolve_device_pins_float32():
     resolve_device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+
+
+def test_sample_grid_module_imports_no_imaging_package():
+    """eval.sample writes PNGs with zlib and struct: in a fresh interpreter
+    it imports no PIL, whatever else is installed."""
+    code = ("import sys, triplegan_tpu_torch.eval.sample, triplegan_tpu_torch.train.loop\n"
+            "print(any(m == 'PIL' or m.startswith('PIL.') for m in sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def test_serving_defaults_to_the_card(tmp_path):

@@ -159,3 +159,87 @@ def test_discriminator_train_mode(name, use_pallas, reconcat, tmp_path):
     with torch.no_grad():
         np.testing.assert_allclose(tnets[1](torch.from_numpy(x), torch.from_numpy(y)).numpy(),
                                    np.asarray(out_j), rtol=TOL, atol=TOL)
+
+
+# Tolerance of the bfloat16 gradients against JAX's, relative to max(|JAX's|, 1):
+# measured worst 3.1e-3 (kernel arm) and 7.1e-2 (plain arm), both on per-
+# channel sums of a bfloat16 cotangent (biases, BN scale and bias, weight-norm
+# g), which XLA sums on the CPU in bfloat16 in the backward and the port in
+# float32; the conv and dense kernels' gradients were within 5e-4 and 1.1e-2.
+BF16_GRAD_TOL = {True: 5e-3, False: 1.5e-1}
+
+
+def _pre_bn_bias(player, layer, name):
+    """The Generator's dense and inner deconv biases feed a batch norm,
+    which removes each channel's mean: their exact gradient is 0, and what
+    either package computes is the rounding of a cancelling bfloat16 sum."""
+    return player == "gen" and name == "b" and layer != "deconv_out"
+
+
+def _compare_bf16(player, use_pallas, out_t, out_j, stats_t, stats_j, gp_t, gp_j):
+    np.testing.assert_array_equal(out_t.detach().float().numpy(), np.asarray(out_j.astype(jnp.float32)))
+    for layer, arrays in stats_j.items():
+        for k, v in arrays.items():
+            np.testing.assert_allclose(stats_t[layer][k].numpy(), np.asarray(v), rtol=2e-6, atol=2e-6)
+    tflat = bridge.to_jax({player: bridge.flat(gp_t, {})})[0][player]
+    tol = BF16_GRAD_TOL[use_pallas]
+    for layer, arrays in gp_j.items():
+        for k, want in arrays.items():
+            if _pre_bn_bias(player, layer, k):
+                continue
+            want = np.asarray(want, np.float64)
+            err = np.max(np.abs(tflat[layer][k] - want))
+            assert err <= tol * max(float(np.max(np.abs(want))), 1.0), (player, layer, k, err)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_generator_and_discriminator_train_mode_bf16(name, use_pallas, tmp_path):
+    """The Generator and the Discriminator in train mode at bfloat16 (inputs
+    and cotangents in bfloat16, float32 weights), the port's arm against
+    the JAX nets with the same ``use_pallas`` (the JAX epilogue in Pallas
+    interpret mode for the kernel arm): outputs bitwise equal, BN running
+    stats within 2e-6, D's input gradient within 1e-6 of max(|dx|, 1), and
+    every parameter gradient within ``BF16_GRAD_TOL`` (but the Generator's
+    pre-BN biases, ``_pre_bn_bias``)."""
+    jcfg, _, params, bn, tnets, trees = _setup(name, use_pallas, True, tmp_path)
+    jcfg.use_pallas = use_pallas
+    jnets = jax_make_networks(jcfg)
+    rng = np.random.RandomState(2)
+    z = rng.normal(size=(4, jcfg.z_dim)).astype(np.float32)
+    y = rng.randint(0, 10, 4).astype(np.int32)
+
+    def jgen(p):
+        return jnets[0].apply(p, bn["gen"], jnp.asarray(z).astype(jnp.bfloat16), jnp.asarray(y), train=True)
+
+    out_j, vjp, st_j = jax.vjp(jgen, params["gen"], has_aux=True)
+    cot = rng.normal(size=out_j.shape).astype(np.float32)
+    (gp_j,) = vjp(jnp.asarray(cot).astype(jnp.bfloat16))
+    pg = _with_grad(trees["gen"][0])
+    out_t, st_t = tnets[0].apply(pg, trees["gen"][1], torch.from_numpy(z).to(torch.bfloat16),
+                                 torch.from_numpy(y), train=True)
+    assert out_t.dtype == torch.bfloat16
+    leaves = [t for arrays in pg.values() for t in arrays.values()]
+    grads = iter(torch.autograd.grad(out_t, leaves, torch.from_numpy(cot).to(torch.bfloat16)))
+    gp_t = {layer: {k: next(grads) for k in arrays} for layer, arrays in pg.items()}
+    _compare_bf16("gen", use_pallas, out_t, out_j, st_t, st_j, gp_t, gp_j)
+
+    x = rng.normal(size=(6, jcfg.image_size, jcfg.image_size, 3)).astype(np.float32)
+    yd = rng.randint(0, 10, 6).astype(np.int32)
+
+    def jdisc(p, xx):
+        return jnets[1].apply(p, {}, xx, jnp.asarray(yd), train=True)[0]
+
+    out_j, vjp = jax.vjp(jdisc, params["disc"], jnp.asarray(x).astype(jnp.bfloat16))
+    cot = rng.normal(size=out_j.shape).astype(np.float32)
+    gp_j, gx_j = vjp(jnp.asarray(cot).astype(jnp.bfloat16))
+    pd = _with_grad(trees["disc"][0])
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    out_t, _ = tnets[1].apply(pd, {}, tx, torch.from_numpy(yd), train=True)
+    leaves = [t for arrays in pd.values() for t in arrays.values()]
+    grads = torch.autograd.grad(out_t, leaves + [tx], torch.from_numpy(cot).to(torch.bfloat16))
+    it = iter(grads[:-1])
+    gp_t = {layer: {k: next(it) for k in arrays} for layer, arrays in pd.items()}
+    _compare_bf16("disc", use_pallas, out_t, out_j, {}, {}, gp_t, gp_j)
+    gx_j = np.asarray(gx_j.astype(jnp.float32))
+    assert np.max(np.abs(grads[-1].float().numpy() - gx_j)) <= 1e-6 * max(float(np.max(np.abs(gx_j))), 1.0)

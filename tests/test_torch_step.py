@@ -224,3 +224,71 @@ def test_synthetic_data_and_zca_fit_match_jax():
     za, zb = fit_zca(a.x_unlabel), jax_fit_zca(b.x_unlabel)
     np.testing.assert_array_equal(za.mean, zb.mean)
     np.testing.assert_array_equal(za.whiten, zb.whiten)
+
+
+@pytest.fixture(scope="module")
+def jax_bench_run():
+    """The JAX reference at bench's knob set: bfloat16 compute over float32
+    weights, share_pseudo_forward on, JAX's default plain path; 3 steps."""
+    cfg = _jcfg(True)
+    cfg.compute_dtype = "bfloat16"
+    data = _data(cfg)
+    zca = jax_fit_zca(data.x_unlabel)
+    nets = jax_make_networks(cfg)
+    opts = jax_make_optimizers(cfg, TOTAL)
+    state = jax_create_state(cfg, nets, opts)
+    init = (_np(state.params), _np(state.bn))
+    step = jax.jit(jax_make_train_step(cfg, nets, opts, TOTAL, zca_stats=zca,
+                                       pseudo_label_mode="argmax"))
+    batches = _batches(cfg, data, True)
+    metrics = []
+    for batch in batches:
+        state, m = step(state, jax.tree.map(jnp.asarray, batch))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return dict(cfg=cfg, zca=zca, init=init, batches=batches, metrics=metrics,
+                params=_np(state.params), bn=_np(state.bn))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "kernel"])
+def test_three_bf16_bench_steps_match_jax(jax_bench_run, use_pallas, tmp_path):
+    """Three steps at bench's knob set (bfloat16 over float32 weights,
+    share_pseudo_forward on) in each arm of the port, against JAX's
+    ``make_train_step`` on the same batches from the same weights.
+
+    Tolerances, measured on these inputs and set with room: every metric
+    at every step within 1.5e-2·(1 + |m|) (measured ≤ 6.8e-3, loss_d of
+    the kernel arm: its epilogues compute in float32 where JAX's plain
+    path rounds each op to bfloat16); after 3 steps each player's
+    parameters with every coordinate within 3·N·lr (measured ≤ 6.1·lr),
+    at least 90% within lr (measured ≥ 96.8%) and a mean difference under
+    lr/2 (measured ≤ 0.21·lr): bfloat16 gradients that differ in their
+    last bits flip Adam's ±lr steps of near-zero coordinates; BN running
+    stats within 2e-2·max(1, |s|) (measured ≤ 5e-3)."""
+    run = jax_bench_run
+    cfg = _port_cfg(run["cfg"], use_pallas, tmp_path)
+    assert cfg.compute_dtype == "bfloat16" and cfg.share_pseudo_forward
+    nets = port_base.make_networks(cfg)
+    opts = make_optimizers(cfg, TOTAL)
+    p0, b0 = _port_trees(*run["init"])
+    state = create_state(cfg, nets, opts, device="cpu", params=p0, bn=b0)
+    step = S.make_train_step(cfg, nets, opts, TOTAL, zca_stats=run["zca"], pseudo_label_mode="argmax")
+    for t, batch in enumerate(run["batches"]):
+        tb = {s: {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()} for s, d in batch.items()}
+        state, m = step(state, tb)
+        for k in S.METRICS:
+            want = run["metrics"][t][k]
+            assert abs(float(m[k]) - want) <= 1.5e-2 * (1 + abs(want)), (t, k, float(m[k]), want)
+    params, bn = bridge.to_jax({p: bridge.flat(state.params[p], state.bn[p])
+                                for p in ("gen", "disc", "clf")})
+    lr = float(cfg.lr_c)
+    for player in ("gen", "disc", "clf"):
+        errs = np.concatenate([np.abs(params[player][layer][name] - want).ravel()
+                               for layer, arrays in run["params"][player].items()
+                               for name, want in arrays.items()])
+        assert errs.max() <= 3 * N_STEPS * lr, (player, errs.max() / lr)
+        assert np.mean(errs <= lr) >= 0.9, (player, np.mean(errs <= lr))
+        assert errs.mean() <= lr / 2, (player, errs.mean() / lr)
+        for layer, arrays in run["bn"][player].items():
+            for name, want in arrays.items():
+                err = np.abs(bn[player][layer][name] - want) / np.maximum(1.0, np.abs(want))
+                assert err.max() <= 2e-2, (player, layer, name, err.max())

@@ -1,14 +1,26 @@
-"""Command-line entry point of the port:
+"""Command-line entry points of the port:
 
-    python -m triplegan_tpu_torch.cli serve --config cifar10_4k --workdir runs [--port 8000]
-    python -m triplegan_tpu_torch.cli serve --config cifar10_4k --params params.npz --zca zca_stats.npz
+    python -m triplegan_tpu_torch.cli train  --config cifar10_4k --workdir runs --data-dir data [--max-steps N]
+    python -m triplegan_tpu_torch.cli eval   --config cifar10_4k --workdir runs --data-dir data [--step N]
+    python -m triplegan_tpu_torch.cli sample --config cifar10_4k --workdir runs --out grid.png
+    python -m triplegan_tpu_torch.cli serve  --config cifar10_4k --workdir runs [--port 8000]
+    python -m triplegan_tpu_torch.cli serve  --config cifar10_4k --params params.npz --zca zca_stats.npz
 
-Weights come from the JAX package's framework-free export
+``train`` runs the train driver (``train/loop.py``) in ``<workdir>/<name>``:
+metrics, sample grids, checkpoints, and ``config.json``; run again, it
+resumes from the newest checkpoint. A run stopped by SIGTERM or a
+``<workdir>/<name>/STOP`` file checkpoints and exits with code 75. ``eval``
+and ``sample`` restore a checkpoint of that run dir (the newest, or
+``--step``). ``serve`` serves weights exported by the JAX package
 (``python -m triplegan_tpu.cli export --format npz``, which writes
-``<workdir>/<name>/export/params.npz``), the ZCA statistics from the run
-dir's ``zca_stats.npz``, and the run's ``config.json`` is merged over the
-named config as the JAX CLI does. ``--set key=value`` overrides any config
-field, e.g. ``--set use_pallas=false`` for the plain PyTorch epilogues.
+``<workdir>/<name>/export/params.npz``) with the run dir's
+``zca_stats.npz``.
+
+The run dir's ``config.json`` is merged over the named config as the JAX
+CLI does, and ``--set key=value`` overrides any config field, e.g.
+``--set use_pallas=false`` for plain PyTorch in place of the Hopper
+kernels. Every command runs on the card; ``--device cpu`` runs it on the
+CPU.
 """
 
 from __future__ import annotations
@@ -39,22 +51,98 @@ def _apply_overrides(cfg, overrides):
     return cfg
 
 
+def _resolve_paths(cfg, args):
+    if getattr(args, "workdir", None):
+        cfg.workdir = args.workdir
+    if getattr(args, "data_dir", None):
+        cfg.data_dir = args.data_dir
+    return cfg
+
+
 def _load_cfg(args):
-    """The named config, the run dir's ``config.json`` merged over it (if
-    there is one), then ``--set`` overrides."""
+    """The named config with the run dir's ``config.json`` merged over it
+    (if there is one), then ``--workdir``, ``--data-dir`` and ``--set``. The
+    run dir is found with those already applied, as the JAX CLI finds it,
+    so ``--set name=...`` or ``--set workdir=...`` merges that run's saved
+    config, not the named config's."""
     from triplegan_tpu_torch.configs import get_config
     from triplegan_tpu_torch.configs.base import merge_saved
 
+    overrides = getattr(args, "set", None)
     try:
+        probe = _apply_overrides(_resolve_paths(get_config(args.config), args), overrides)
         cfg = get_config(args.config)
     except KeyError as e:
         sys.exit(str(e))
-    if args.workdir:
-        cfg.workdir = args.workdir
-        saved = os.path.join(args.workdir, cfg.name, "config.json")
-        if os.path.exists(saved):
-            merge_saved(cfg, saved)
-    return _apply_overrides(cfg, args.set)
+    saved = os.path.join(probe.workdir, probe.name, "config.json")
+    if os.path.exists(saved):
+        merge_saved(cfg, saved)
+    return _apply_overrides(_resolve_paths(cfg, args), overrides)
+
+
+def cmd_train(args):
+    from triplegan_tpu_torch.train.loop import train
+
+    result = train(_load_cfg(args), max_steps=args.max_steps, device=args.device)
+    if result["preempted"]:
+        # Stopped and checkpointed, not finished: EX_TEMPFAIL, so that a
+        # restart policy runs the same command again (which resumes).
+        sys.exit(75)
+    print(f"done: step={result['steps']} test_error={100 * result['test_error']:.2f}%")
+
+
+def _restore_at(ckpt, state, args, workdir):
+    """The newest checkpoint, or the one ``--step`` names."""
+    try:
+        restored = ckpt.restore(state, step=getattr(args, "step", None))
+    except FileNotFoundError as e:
+        sys.exit(f"{e} under {workdir}/ckpt")
+    if restored is None:
+        sys.exit(f"no checkpoint under {workdir}/ckpt")
+    return restored
+
+
+def _restore_run(args):
+    """(cfg, networks, restored state, run dir, device) of the run dir that
+    ``args`` names, on ``args.device``."""
+    from triplegan_tpu_torch.ckpt.manager import CheckpointManager
+    from triplegan_tpu_torch.configs.base import apply_runtime, make_networks
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+    from triplegan_tpu_torch.utils.platform import resolve_device
+
+    cfg = apply_runtime(_load_cfg(args))
+    dev = resolve_device(args.device)
+    workdir = os.path.join(cfg.workdir, cfg.name)
+    nets = make_networks(cfg)
+    template = create_state(cfg, nets, make_optimizers(cfg, 1), device=dev)
+    ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), write=False)
+    return cfg, nets, _restore_at(ckpt, template, args, workdir), workdir, dev
+
+
+def cmd_eval(args):
+    from triplegan_tpu_torch.data.pipeline import BatchSampler
+    from triplegan_tpu_torch.eval.metrics import evaluate_error
+    from triplegan_tpu_torch.train.loop import _resolve_data, _resolve_zca, _test_stream
+    from triplegan_tpu_torch.train.step import make_eval_step
+
+    cfg, nets, state, workdir, dev = _restore_run(args)
+    data = _resolve_data(cfg)
+    zca = _resolve_zca(cfg, data, workdir)
+    sampler = BatchSampler(data, cfg.batch_size)
+    err = evaluate_error(make_eval_step(cfg, nets, zca), state, _test_stream(sampler, dev))
+    print(f"test error: {100 * err:.2f}%")
+
+
+def cmd_sample(args):
+    from triplegan_tpu_torch.eval.sample import class_grid_inputs, make_sample_fn, save_png, to_uint8_grid
+
+    cfg, nets, state, _, _ = _restore_run(args)
+    z, labels = class_grid_inputs(cfg, n_per_class=args.n_per_class, seed=args.seed)
+    grid = to_uint8_grid(make_sample_fn(cfg, nets)(state, z, labels), cfg.num_classes,
+                         args.n_per_class)
+    save_png(grid, args.out)
+    print(f"wrote {args.out}")
 
 
 def cmd_serve(args):
@@ -108,12 +196,43 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="triplegan_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def common(sp):
+        sp.add_argument("--config", required=True, help="config name, e.g. cifar10_4k")
+        sp.add_argument("--workdir", default=None, help="run root: the run dir is <workdir>/<name>")
+        sp.add_argument("--data-dir", default=None,
+                        help="prepared shards: <data-dir>/<dataset>/{train,test}.npz")
+        sp.add_argument("--set", action="append", metavar="KEY=VALUE")
+        sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+
+    def step_arg(sp):
+        sp.add_argument("--step", type=int, default=None,
+                        help="checkpoint step to restore (default: the newest kept)")
+
+    sp = sub.add_parser("train", help="train a Triple-GAN (resumes a run dir's newest checkpoint)")
+    common(sp)
+    sp.add_argument("--max-steps", type=int, default=None)
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("eval", help="the classifier's test error from a checkpoint")
+    common(sp)
+    step_arg(sp)
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("sample", help="a class-conditional sample grid from a checkpoint")
+    common(sp)
+    step_arg(sp)
+    sp.add_argument("--out", default="samples.png")
+    sp.add_argument("--n-per-class", type=int, default=10)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_sample)
+
     sp = sub.add_parser("serve", help="HTTP inference server on the port's networks")
     sp.add_argument("--config", required=True, help="config name, e.g. cifar10_4k")
     sp.add_argument("--workdir", default=None,
                     help="run root: reads <workdir>/<name>/{config.json,export/params.npz,zca_stats.npz}")
     sp.add_argument("--params", default=None, help="params.npz from `triplegan_tpu.cli export --format npz`")
     sp.add_argument("--zca", default=None, help="zca_stats.npz (for zca configs)")
+    sp.add_argument("--data-dir", default=None)
     sp.add_argument("--set", action="append", metavar="KEY=VALUE")
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     sp.add_argument("--batch-size", type=int, default=None,

@@ -13,6 +13,7 @@ package's non-Pallas branch computes, and ``F.conv2d`` for every conv.
 from __future__ import annotations
 
 import json
+import os
 import warnings
 
 
@@ -132,6 +133,17 @@ EXEC_KEYS = frozenset({
 })
 
 
+def save_config(cfg: ConfigDict, path: str) -> None:
+    """Write the resolved config as JSON, keys sorted and tuples as lists,
+    as the JAX package's ``save_config`` does: the train driver writes
+    ``<workdir>/<name>/config.json`` so that eval, sample and a resume
+    rebuild the checkpoint's template without the ``--set`` overrides, and
+    either package's ``merge_saved`` reads the file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=2, default=list, sort_keys=True)
+
+
 def merge_saved(cfg: ConfigDict, path: str) -> ConfigDict:
     """Overlay a saved ``config.json`` onto ``cfg`` in place, skipping
     ``EXEC_KEYS``. Tuple fields are re-coerced from JSON lists; keys this
@@ -160,6 +172,39 @@ def merge_saved(cfg: ConfigDict, path: str) -> ConfigDict:
 
     _merge(cfg, saved, True)
     return cfg
+
+
+def apply_runtime(cfg: ConfigDict) -> ConfigDict:
+    """Set the process-wide runtime a run needs before any state is built:
+    the matmul precision pins of ``utils/platform.py``, and cuDNN in its
+    deterministic algorithms (autotuning off), so that the convs the Hopper
+    kernels do not take (stride 2, 1×1, and every conv of the plain arm)
+    compute the same bits on every run and a resumed run equals an
+    uninterrupted one. ``prng_impl`` is kept in the config and recorded in
+    ``config.json`` but has no effect here: the port's random streams are
+    PyTorch's generators, seeded from (seed, step), not JAX's keys."""
+    import torch
+
+    from triplegan_tpu_torch.utils.platform import pin_precision
+
+    pin_precision()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return cfg
+
+
+def display(cfg: ConfigDict) -> str:
+    """A readable dump of the config, one field a line, as the JAX
+    package's ``display``."""
+    lines = ["Configuration:"]
+    for k in sorted(cfg.keys()):
+        v = cfg[k]
+        if isinstance(v, ConfigDict):
+            for kk in sorted(v.keys()):
+                lines.append(f"  {k}.{kk:<24} {v[kk]}")
+        else:
+            lines.append(f"  {k:<26} {v}")
+    return "\n".join(lines)
 
 
 def make_networks(cfg: ConfigDict):

@@ -1,10 +1,12 @@
-"""The labeled/unlabeled split and the synthetic no-network dataset: numpy
-copies of ``triplegan_tpu/data/datasets.py``'s ``semi_split`` and
-``synthetic_dataset`` that give the same arrays for the same seed."""
+"""The labeled/unlabeled split, the synthetic no-network dataset and the
+loader of prepared shards: numpy copies of
+``triplegan_tpu/data/datasets.py``'s ``semi_split``, ``synthetic_dataset``
+and ``load_dataset`` that give the same arrays for the same inputs."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import numpy as np
@@ -53,5 +55,27 @@ def synthetic_dataset(image_size: int = 32, channels: int = 3, num_classes: int 
 
     x_tr, y_tr = make(n_train)
     x_te, y_te = make(n_test)
+    x_l, y_l, x_u = semi_split(x_tr, y_tr, num_labeled, num_classes, seed)
+    return SemiSupervisedData(x_l, y_l, x_u, x_te, y_te, num_classes)
+
+
+def load_dataset(data_dir: str, dataset: str, num_labeled: int, num_classes: int = 10,
+                 seed: int = 0) -> SemiSupervisedData:
+    """Read the prepared shards ``{data_dir}/{dataset}/train.npz`` and
+    ``test.npz`` (uint8 NHWC ``images``, integer ``labels``), as the JAX
+    package's ``prepare`` writes them, and split them with ``semi_split``:
+    the same arrays as the JAX package's ``load_dataset``."""
+    ddir = os.path.join(data_dir, dataset)
+    if not os.path.exists(os.path.join(ddir, "train.npz")):
+        raise FileNotFoundError(
+            f"no prepared dataset at {ddir}/train.npz: run `python -m triplegan_tpu.cli "
+            f"prepare --dataset {dataset} --raw-dir <raw> --data-dir {data_dir}` first"
+        )
+    with np.load(os.path.join(ddir, "train.npz"), allow_pickle=False) as train, \
+            np.load(os.path.join(ddir, "test.npz"), allow_pickle=False) as test:
+        x_tr = np.ascontiguousarray(train["images"], dtype=np.uint8)
+        y_tr = np.asarray(train["labels"], dtype=np.int32)
+        x_te = np.ascontiguousarray(test["images"], dtype=np.uint8)
+        y_te = np.asarray(test["labels"], dtype=np.int32)
     x_l, y_l, x_u = semi_split(x_tr, y_tr, num_labeled, num_classes, seed)
     return SemiSupervisedData(x_l, y_l, x_u, x_te, y_te, num_classes)

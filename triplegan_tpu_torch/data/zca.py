@@ -4,6 +4,7 @@ as one matmul. Mirrors ``triplegan_tpu/data/zca.py``."""
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 
 import numpy as np
@@ -16,6 +17,13 @@ class ZCAStats:
 
     mean: np.ndarray
     whiten: np.ndarray
+
+    def save(self, path: str) -> None:
+        """Publish atomically: write ``<path>.<pid>.tmp.npz`` and rename it
+        to ``path``, so a reader never sees a torn file."""
+        tmp = f"{path}.{os.getpid()}.tmp.npz"  # the .npz suffix, or np.savez appends one
+        np.savez(tmp, mean=self.mean, whiten=self.whiten)
+        os.replace(tmp, path)
 
     @staticmethod
     def load(path: str) -> "ZCAStats":

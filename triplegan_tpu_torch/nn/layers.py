@@ -49,8 +49,10 @@ def _normal(gen: torch.Generator, shape, stddev: float) -> torch.Tensor:
 
 def _wn_kernel(v: torch.Tensor, g: torch.Tensor, reduce_axes: Tuple[int, ...]) -> torch.Tensor:
     """w = g · v / ‖v‖ per output channel, the norm sqrt(Σv² + 1e-12) taken
-    over ``reduce_axes`` (every axis but the output axis)."""
-    norm = torch.sqrt(torch.sum(v * v, dim=reduce_axes, keepdim=True) + 1e-12)
+    over ``reduce_axes`` (every axis but the output axis). ``torch.square``,
+    not ``v * v``: autograd then gives v one gradient term, 2·v·g, as
+    ``jnp.square`` does, not two that round apart."""
+    norm = torch.sqrt(torch.sum(torch.square(v), dim=reduce_axes, keepdim=True) + 1e-12)
     return v * (g.reshape(norm.shape) / norm)
 
 
@@ -119,9 +121,12 @@ def _conv_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, stride: int, padding: str)
 def _conv(x: torch.Tensor, w_oihw: torch.Tensor, stride: int, padding: str,
           use_pallas: bool) -> torch.Tensor:
     """The conv itself, in x's dtype: the Hopper 3×3 kernel for a 3×3
-    stride-1 conv under ``use_pallas``, else ``F.conv2d``."""
+    stride-1 conv under ``use_pallas``, else ``F.conv2d``. Either way the
+    kernel is cast to x's dtype first, as the JAX layers convolve with
+    ``w.astype(x.dtype)``, so a bfloat16 conv's filter gradient reaches the
+    float32 weight rounded to bfloat16 as it does there."""
     if use_pallas and stride == 1 and tuple(w_oihw.shape[2:]) == (3, 3):
-        return conv3x3(x.contiguous(), w_oihw.permute(2, 3, 1, 0), padding)
+        return conv3x3(x.contiguous(), w_oihw.permute(2, 3, 1, 0).to(x.dtype), padding)
     return _conv_nhwc(x, w_oihw.to(x.dtype), stride, padding)
 
 
@@ -207,7 +212,7 @@ def _deconv2d_subpixel(x: torch.Tensor, wp: torch.Tensor, k: int, stride: int,
     _, d_min, d_max = _subpixel_plan(k, s)
     cout = wp.shape[-1] // (s * s)
     if use_pallas and -d_min == d_max == 1:
-        y = conv3x3(x.contiguous(), wp, "SAME")
+        y = conv3x3(x.contiguous(), wp.to(x.dtype), "SAME")
     else:
         xc = x.permute(0, 3, 1, 2)
         w_oihw = wp.permute(3, 2, 0, 1).to(x.dtype)
@@ -256,7 +261,7 @@ def _moments(p: Params, s: Params, x: torch.Tensor, train: bool, momentum: float
     axes = tuple(range(x.dim() - 1))
     xf = x.float()
     mean = torch.mean(xf, dim=axes)
-    mean_sq = torch.mean(xf * xf, dim=axes)
+    mean_sq = torch.mean(torch.square(xf), dim=axes)
     var = torch.clamp_min(mean_sq - mean * mean, 0.0)
     with torch.no_grad():
         new_s = {
@@ -307,7 +312,7 @@ def conv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 1, padding:
     if "v" not in p or not use_pallas:
         return apply_act(conv2d_apply(p, x, stride=stride, padding=padding), act or "linear", slope)
     v, g = p["v"], p["g"]
-    norm = torch.sqrt(torch.sum(v * v, dim=(1, 2, 3)) + 1e-12)
+    norm = torch.sqrt(torch.sum(torch.square(v), dim=(1, 2, 3)) + 1e-12)
     k = (g / norm).to(x.dtype)
     b = p["b"].to(x.dtype) if "b" in p else torch.zeros_like(k)
     y = _conv(x, v, stride, padding, True).to(x.dtype)
@@ -326,7 +331,7 @@ def deconv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
     if "v" not in p or not use_pallas:
         return apply_act(deconv2d_apply(p, x, stride=stride, wp=wp), act or "linear", slope)
     v, g = p["v"], p["g"]
-    norm = torch.sqrt(torch.sum(v * v, dim=(0, 1, 2)) + 1e-12)
+    norm = torch.sqrt(torch.sum(torch.square(v), dim=(0, 1, 2)) + 1e-12)
     k = (g / norm).to(x.dtype)
     b = p["b"].to(x.dtype) if "b" in p else torch.zeros_like(k)
     if wp is None:

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -50,15 +51,24 @@ bwd_launches: collections.Counter = collections.Counter()
 
 
 def apply_act(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
+    """``act(z)`` in z's dtype. The leaky slope is rounded to z's dtype
+    first, as JAX rounds a Python constant to a bfloat16 operand's dtype
+    (0.1 becomes 0.10009765625), so that ``slope·z`` and its gradient match
+    the JAX package's plain path bit for bit at bfloat16."""
     if act == "linear":
         return z
     if act == "relu":
-        return torch.clamp_min(z, 0.0)
+        return torch.relu(z)
     if act == "leaky_relu":
-        return torch.where(z >= 0, z, z * slope)
+        return torch.where(z >= 0, z, z * _rounded(slope, z.dtype))
     if act == "tanh":
         return torch.tanh(z)
     raise ValueError(f"unknown act {act!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def act_grad(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:

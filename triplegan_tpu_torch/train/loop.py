@@ -1,0 +1,292 @@
+"""The training driver: the port of ``triplegan_tpu/train/loop.py``, on one
+device with the dataset resident there.
+
+``train`` builds the networks, the three Adams and the state, resumes from
+the run's newest checkpoint if it has one, and runs the three-player step
+(``train/step.py::make_device_train_step``) on the JAX loop's schedule:
+
+* every ``log_every`` steps (and at the last), the step's metrics are read
+  to the host, logged with the images per second since the last log
+  (``utils/logging.py``) and printed; the loop reads nothing from the
+  device between logs;
+* at each ``eval_every_epochs`` boundary, the test error
+  (``eval/metrics.py``) and a class grid of samples, written as
+  ``samples_<step>.png``; at each ``ckpt_every_epochs`` boundary, a
+  checkpoint (``ckpt/manager.py``);
+* at the end, the test error again if the last one is stale, and a final
+  checkpoint.
+
+A run stops early on SIGTERM or when ``<run dir>/STOP`` exists (a stale
+one is removed at start). The stop is checked at the top of each
+iteration, after the step at an epoch boundary, and before each test
+batch; a stop skips the rest of that epoch's tail and the final
+re-evaluation, still checkpoints, and the result says ``preempted``.
+Running the same command again resumes from that checkpoint: the step's
+random streams depend only on (seed, step), so the resumed run computes
+what an uninterrupted one would.
+
+Options of the JAX loop that the port does not have yet raise
+``NotImplementedError`` naming their ROADMAP item: host-streamed data
+(``data_on_device=False``), ``scan_steps > 1``, ``ddinit`` and meshes of
+more than one device (or ``multihost``).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import signal
+import time
+from typing import Optional
+
+import torch
+
+from triplegan_tpu_torch.ckpt.manager import CheckpointManager
+from triplegan_tpu_torch.configs.base import apply_runtime, display, make_networks, save_config
+from triplegan_tpu_torch.data.datasets import SemiSupervisedData, load_dataset, synthetic_dataset
+from triplegan_tpu_torch.data.pipeline import BatchSampler
+from triplegan_tpu_torch.data.zca import ZCAStats, fit_zca
+from triplegan_tpu_torch.eval.metrics import evaluate_error
+from triplegan_tpu_torch.eval.sample import class_grid_inputs, make_sample_fn, save_png, to_uint8_grid
+from triplegan_tpu_torch.train.schedule import make_optimizers
+from triplegan_tpu_torch.train.state import create_state, param_count
+from triplegan_tpu_torch.train.step import make_device_train_step, make_eval_step, upload_device_data
+from triplegan_tpu_torch.utils.logging import MetricsLogger
+from triplegan_tpu_torch.utils.platform import resolve_device
+
+
+def check_ported(cfg) -> None:
+    """Raise ``NotImplementedError`` for an option of the JAX loop that the
+    port does not have yet, naming its ROADMAP Queue 1 item."""
+    missing = []
+    if not bool(cfg.data_on_device):
+        missing.append("data_on_device=False (host-streamed batches: item 4)")
+    if int(cfg.get("scan_steps", 1)) > 1:
+        missing.append("scan_steps > 1 (several steps a dispatch: item 3)")
+    if bool(cfg.ddinit):
+        missing.append("ddinit=True (data-dependent weight-norm init: item 7)")
+    if math.prod(cfg.mesh_shape) > 1 or bool(cfg.get("multihost", False)):
+        missing.append(f"mesh_shape={tuple(cfg.mesh_shape)} / multihost (data parallelism: item 8)")
+    if missing:
+        raise NotImplementedError("not ported yet (ROADMAP Queue 1): " + "; ".join(missing))
+
+
+def _resolve_data(cfg) -> SemiSupervisedData:
+    if cfg.dataset == "synthetic":
+        return synthetic_dataset(image_size=cfg.image_size, channels=cfg.channels,
+                                 num_classes=cfg.num_classes, num_labeled=cfg.num_labeled,
+                                 seed=cfg.seed)
+    data = load_dataset(cfg.data_dir, cfg.dataset, cfg.num_labeled, cfg.num_classes, cfg.seed)
+    want = (cfg.image_size, cfg.image_size, cfg.channels)
+    got = tuple(data.x_test.shape[1:])
+    if got != want:
+        raise ValueError(
+            f"dataset '{cfg.dataset}' images are {got}, but the config expects {want}: set "
+            f"--set image_size={got[0]} / --set channels={got[-1]} (networks are shape-generic)"
+        )
+    ymax = int(data.y_test.max())
+    if ymax >= cfg.num_classes:
+        raise ValueError(f"dataset '{cfg.dataset}' has label {ymax} but num_classes="
+                         f"{cfg.num_classes}: set --set num_classes={ymax + 1}")
+    return data
+
+
+def _resolve_zca(cfg, data: SemiSupervisedData, workdir: str) -> Optional[ZCAStats]:
+    """The run dir's copy, else the stats fitted when the data was
+    prepared (``{data_dir}/{dataset}/zca_stats.npz``), else a fresh fit on
+    the unlabeled pool; the stats chosen are published into the run dir,
+    so that eval and sample whiten as training did."""
+    if not cfg.zca:
+        return None
+    cache = os.path.join(workdir, "zca_stats.npz")
+    if os.path.exists(cache):
+        return ZCAStats.load(cache)
+    prepared = os.path.join(cfg.data_dir, cfg.dataset, "zca_stats.npz")
+    if cfg.dataset != "synthetic" and os.path.exists(prepared):
+        stats = ZCAStats.load(prepared)
+    else:
+        stats = fit_zca(data.x_unlabel)
+    os.makedirs(workdir, exist_ok=True)
+    stats.save(cache)
+    return stats
+
+
+class _EvalInterrupted(Exception):
+    """A stop (SIGTERM or the STOP file) came during an evaluation, which
+    is abandoned."""
+
+
+def _test_stream(sampler: BatchSampler, device, stop_check=None):
+    """The sampler's test batches as tensors on ``device``; ``stop_check``
+    is asked before each batch and raises ``_EvalInterrupted`` if true."""
+    for batch in sampler.test_batches():
+        if stop_check is not None and stop_check():
+            raise _EvalInterrupted()
+        yield {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[int] = None,
+          verbose: bool = True, device=None) -> dict:
+    """A training run on ``device`` (default the card); returns ``steps``,
+    ``test_error``, ``metrics`` (the last logged), ``workdir``, ``state``
+    and ``preempted``. ``max_steps`` caps the steps this call takes without
+    changing the schedule, which follows ``epochs``."""
+    check_ported(cfg)
+    apply_runtime(cfg)
+    dev = resolve_device(device)
+    workdir = os.path.join(cfg.workdir, cfg.name)
+    os.makedirs(workdir, exist_ok=True)
+    say = print if verbose else (lambda *a, **k: None)
+    say(display(cfg))
+
+    if data is None:
+        data = _resolve_data(cfg)
+    zca = _resolve_zca(cfg, data, workdir)
+    steps_per_epoch = int(cfg.steps_per_epoch) or max(len(data.x_unlabel) // cfg.batch_size, 1)
+    total_steps = int(cfg.epochs) * steps_per_epoch
+
+    nets = make_networks(cfg)
+    optimizers = make_optimizers(cfg, total_steps)
+    state = create_state(cfg, nets, optimizers, device=dev)
+    say("param counts:", param_count(state))
+    step = make_device_train_step(cfg, nets, optimizers, total_steps, zca,
+                                  pseudo_label_mode=cfg.get("pseudo_label_mode", "sample"))
+    eval_step = make_eval_step(cfg, nets, zca)
+
+    ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=cfg.ckpt_keep)
+    restored = ckpt.restore(state)
+    if restored is not None:
+        state = restored
+        say(f"resumed from step {state.step}", flush=True)
+    # Written only after the restore decision: a resume whose config does
+    # not fit the checkpoint fails above and leaves the good record alone.
+    save_config(cfg, os.path.join(workdir, "config.json"))
+
+    sampler = BatchSampler(data, cfg.batch_size)
+    device_data = upload_device_data(data, dev)
+    sample_fn = make_sample_fn(cfg, nets)
+
+    start_step = state.step
+    end_step = total_steps if max_steps is None else min(total_steps, start_step + max_steps)
+    last_metrics: dict = {}
+    test_error = None
+    eval_at = -1
+    profile_dir = str(cfg.get("profile_dir", "") or "")
+    profiler = None
+    profile_start = start_step + 2
+    profile_stop = profile_start + max(int(cfg.get("profile_steps", 10)), 1)
+
+    stop = {"sig": None}
+    stop_file = os.path.join(workdir, "STOP")
+    if os.path.exists(stop_file):
+        os.remove(stop_file)  # left by an earlier stopped run
+
+    def _on_sigterm(signum, frame):
+        stop["sig"] = signum
+
+    def _stopping() -> bool:
+        return stop["sig"] is not None or os.path.exists(stop_file)
+
+    def _evaluate() -> float:
+        return evaluate_error(eval_step, state, _test_stream(sampler, dev, stop_check=_stopping))
+
+    def _end_profile():
+        nonlocal profile_dir
+        _sync(dev)
+        profiler.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        say(f"wrote profile trace to {profile_dir}", flush=True)
+        profile_dir = ""
+
+    try:
+        prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:  # not the main thread: no handler
+        prev_sigterm = None
+
+    logger = MetricsLogger(workdir)
+    t_log = time.perf_counter()
+    steps_since_log = 0
+    it = start_step
+    stopping = False
+    try:
+        while it < end_step:
+            stopping = _stopping()
+            if stopping:
+                break
+            if profile_dir and profiler is None and it >= profile_start:
+                _sync(dev)
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if dev.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=acts)
+                profiler.start()
+            state, metrics = step(state, device_data)
+            prev, it = it, it + 1
+            steps_since_log += 1
+            if profiler is not None and profile_dir and it >= profile_stop:
+                _end_profile()
+
+            log_hit = cfg.log_every and (it // cfg.log_every) > (prev // cfg.log_every)
+            if log_hit or it == end_step:
+                last_metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                dt = time.perf_counter() - t_log
+                t_log = time.perf_counter()
+                imgs_per_sec = steps_since_log * cfg.batch_size / max(dt, 1e-9)
+                steps_since_log = 0
+                logger.scalars(it, {**last_metrics, "images_per_sec": imgs_per_sec})
+                terms = " ".join(f"{k}={v:.4f}" for k, v in sorted(last_metrics.items()))
+                say(f"step {it}/{total_steps} [{imgs_per_sec:.0f} img/s] {terms}", flush=True)
+
+            epoch_done = (it // steps_per_epoch) > (prev // steps_per_epoch)
+            epoch = it // steps_per_epoch
+            if epoch_done and (cfg.eval_every_epochs or cfg.ckpt_every_epochs):
+                stopping = _stopping()  # a stop during the step skips the tail
+            if (epoch_done and not stopping and cfg.eval_every_epochs
+                    and epoch % cfg.eval_every_epochs == 0):
+                try:
+                    test_error = _evaluate()
+                except _EvalInterrupted:
+                    stopping = True
+                else:
+                    eval_at = it
+                    logger.scalars(it, {"test_error": test_error})
+                    say(f"epoch {epoch}: test error {100 * test_error:.2f}%", flush=True)
+                    z, labels = class_grid_inputs(cfg, n_per_class=10, seed=cfg.seed)
+                    grid = to_uint8_grid(sample_fn(state, z, labels), cfg.num_classes, 10)
+                    logger.image(it, "samples", grid)
+                    save_png(grid, os.path.join(workdir, f"samples_{it:08d}.png"))
+            if (epoch_done and not stopping and cfg.ckpt_every_epochs
+                    and epoch % cfg.ckpt_every_epochs == 0):
+                ckpt.save(it, state)
+
+        preempted = stopping or _stopping()
+        if profiler is not None and profile_dir:  # the run ended inside the window
+            _end_profile()
+        if not preempted and (test_error is None or eval_at != it):
+            # The error reported must be the final state's, the one that
+            # `cli eval` computes from the last checkpoint.
+            try:
+                test_error = _evaluate()
+            except _EvalInterrupted:
+                preempted = True
+            else:
+                logger.scalars(it, {"test_error": test_error})
+        ckpt.save(state.step, state)
+        ckpt.close()
+    finally:
+        # The handler stays through the save: a second SIGTERM during it
+        # must not kill the process before the checkpoint is published.
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+        logger.close()
+    if preempted:
+        say(f"preempted (SIGTERM/STOP): checkpointed at step {state.step}; "
+            f"re-run the same command to resume", flush=True)
+    return {"steps": state.step, "test_error": test_error, "metrics": last_metrics,
+            "workdir": workdir, "state": state, "preempted": preempted}

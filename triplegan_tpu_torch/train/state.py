@@ -51,3 +51,9 @@ def create_state(cfg, nets, optimizers, seed: Optional[int] = None, device=None,
     opt = {p: optimizers[p].init(params[p]) for p in PLAYERS}
     return TrainState(params=params, bn=bn, opt=opt, step=0, seed=seed)
 
+
+def param_count(state: TrainState) -> Dict[str, int]:
+    """Parameters per player (batch-norm statistics not counted)."""
+    return {p: sum(t.numel() for arrays in tree.values() for t in arrays.values())
+            for p, tree in state.params.items()}
+
