@@ -28,6 +28,23 @@ Phases, each fatal on failure (exit code 1, and no result line):
      both settings), the plain arm nothing.
      Losses must be finite; the two arms' step-1 metrics must agree;
      ms/step and img/s are timed;
+  3b. graph: the same two settings and both arms through
+     make_scan_device_train_step, 4 steps a chunk captured as one CUDA
+     graph, cuDNN deterministic (the eager reference too); 64 steps in the
+     schedule, 1 an epoch, so that α_P switches on inside the first chunk
+     and the lr decays inside the second. Per arm: two chunks from a seeded
+     state must equal 8 eager steps from it bitwise (every parameter, BN
+     stat, Adam moment and the reduced metrics), in both metrics modes
+     ("last", "mean"); the wrappers' counts over the first chunk (the
+     capture and its warm-up step) must be 5 × step_launches key for key,
+     and replays add none; then eager and graphed ms/step and img/s (host
+     clock, each ending in a device→host read), the host µs a chunk takes to
+     dispatch and device ms/step (CUDA events after a device spin), in
+     turns (kernel, plain, plain, kernel); the graph's nodes,
+     capture-and-instantiate seconds and pool bytes; one chunk of each
+     kernel arm under torch.profiler, whose device records must hold each
+     hand-written kernel 4 × the count a step runs (from the wrappers'
+     counts and the plans): the kernels run inside the graph;
   4. card against CPU: two steps of a cut-down config (cifar10_4k's layers
      at a few channels, no noise, dropout or augmentation, argmax
      pseudo-labels) on the card with the kernels and on the CPU with their
@@ -42,15 +59,20 @@ Phases, each fatal on failure (exit code 1, and no result line):
      resumed for 4 more, whose step-8 checkpoint must equal the 8-step
      run's bitwise; ``eval``, which must print the 8-step run's final
      error; ``sample`` (an RGB PNG 160 wide, 320 high); a run stopped by a
-     STOP file (exit 75, a checkpoint under its 40 steps, a re-run resumes
-     from it). Then one ``train(cfg, max_steps=4)`` in this process, its
+     STOP file (exit 75, a checkpoint at a step N ≤ 4), then re-run with
+     ``--set scan_steps=4`` to step 8 (it resumes from N; a chunk of 4
+     steps as a CUDA graph, then single steps), whose step-8 checkpoint
+     must equal the 8-step run's bitwise. Then one ``train(cfg, max_steps=10)`` with scan_steps=4 in
+     this process (one capture, two replays, two single steps), its
      launches counted from just before to just after: the conv launches
-     must be 4 × ``step_launches`` plus its eval's (10 test batches) and
-     sample grid's, key for key, the epilogue counts their implied
-     numbers, every shape one that phase 3 launched (so phase 7 holds it
-     against the plain versions); the plain arm launches nothing. Times an
-     eval and a checkpoint save, and what cuDNN's deterministic algorithms
-     (which the driver turns on) cost a shipped step;
+     must be (4 captured + 1 warm-up + 2 single) × ``step_launches`` plus
+     its three evals' (10 test batches each) and two sample grids', key for
+     key, the epilogue counts their implied numbers, every shape one that
+     phase 3 launched (so phase 7 holds it against the plain versions); the
+     plain arm launches nothing. Times an eval and a checkpoint save, the
+     loop's pace eager and graphed (16 steps, a log every 4), and what
+     cuDNN's deterministic algorithms (which the driver turns on) cost a
+     shipped step;
   6. serve: as in slice 1: cifar10_4k at full width from seeded weights
      (written and read back in the JAX package's npz export format), per
      compute dtype and arm, an HTTP server on an ephemeral port driven
@@ -73,7 +95,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
 The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
 the source that serves the setting's dtype); its top-level numbers are
-the shipped setting's.
+the shipped setting's. Its launches are the wrappers' counts over every
+main path plus, for a CUDA graph, the kernels each replay ran again.
 
 With --profile, one extra step per train arm and 10 chunks per serving
 arm run under torch.profiler (device busy share, kernels by device time,
@@ -392,6 +415,14 @@ def step_launches(cfg):
     return convs, players, epilogues, epilogue_bwds
 
 
+def step_totals(cfg) -> dict:
+    """Each wrapper's launches in one train step of ``cfg`` with use_pallas."""
+    convs, _, epilogues, epilogue_bwds = step_launches(cfg)
+    return {"scale_bias_act": epilogues, "scale_bias_act_bwd": epilogue_bwds,
+            "conv3x3_fwd": sum(c for key, c in convs.items() if key[0] != "wgrad"),
+            "conv3x3_wgrad": sum(c for key, c in convs.items() if key[0] == "wgrad")}
+
+
 def profile_calls(fn, reps: int, top: int, groups=None) -> dict:
     """torch.profiler over ``reps`` calls of ``fn``: wall and device time
     per call, the device's busy share of the wall time, the kernels
@@ -532,6 +563,233 @@ def train_phase(n_steps: int, profile: bool):
         for k in a:
             check(diffs[k] <= lims[k], f"{setting[0]}: step-1 {k} differs between arms: {a[k]} vs {b[k]}")
     return arms, data, zca
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: K train steps a dispatch, as a CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_K = 4
+# 1 step an epoch: α_P switches on at step 2 (inside the first chunk), the
+# lr decays from count 7 (inside the second); 64 steps cover every chunk run
+GRAPH_TOTAL, GRAPH_WARMUP_EPOCHS, GRAPH_DECAY_FRAC = 64, 2, 6 / 64
+# the hand-written kernels as the profiler names them
+HAND_KERNELS = {"sba_fwd": ("sba_fwd_rows", "sba_fwd_c3"), "sba_bwd": ("sba_bwd_rows", "sba_bwd_c3"),
+                "sba_bwd_reduce": ("sba_bwd_reduce",), "conv_fwd": ("fwd_kernel",),
+                "conv_wgrad": ("wgrad_kernel",), "conv_reduce": ("reduce_stream_k", "reduce_splits")}
+
+
+def graph_cfg(setting, use_pallas):
+    name, dtype, batch, share = setting
+    cfg = train_cfg(dtype, batch, share, use_pallas)
+    cfg.epochs, cfg.alpha_p_warmup_epochs, cfg.lr_decay_start_frac = GRAPH_TOTAL, GRAPH_WARMUP_EPOCHS, GRAPH_DECAY_FRAC
+    return cfg
+
+
+def with_replays(launches: dict, runner, cfg) -> dict:
+    """A run's launches with a chunk runner: the wrappers' counts (which
+    take the capture, not the replays) plus the kernels each replay ran
+    again; none for the plain arm."""
+    per_step = step_totals(cfg) if cfg.use_pallas else dict.fromkeys(launches, 0)
+    return {k: v + runner.replays * runner.n * per_step[k] for k, v in launches.items()}
+
+
+def graph_arm(setting, use_pallas, data, zca) -> dict:
+    """One (setting, arm): 2·K eager steps from a seeded state, and two
+    chunks of K steps through ``make_scan_device_train_step`` from the same
+    state, in each metrics mode: the graphed chunks must equal the eager
+    steps bitwise (every parameter, BN stat, Adam moment and the reduced
+    metrics), with α_P and the lr changing inside the chunks. The "last"
+    runner's wrapper counts, zeroed just before its first call and read
+    just after, must be (K + its warm-up step) × ``step_launches``, key for
+    key, and replays add none. Leaves the "last" runner and its state for
+    the timing turns."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    name, dtype, batch, share = setting
+    cfg = graph_cfg(setting, use_pallas)
+    nets = make_networks(cfg)
+    opts = make_optimizers(cfg, GRAPH_TOTAL)
+    dev_data = S.upload_device_data(data, "cuda")
+    step = S.make_device_train_step(cfg, nets, opts, GRAPH_TOTAL, zca_stats=zca)
+    state0 = create_state(cfg, nets, opts, device="cuda")
+    k = GRAPH_K
+
+    eager, ms, secs = S._clone_state(state0), [], []
+    for _ in range(2 * k):
+        t0 = time.perf_counter()
+        eager, m = step(eager, dev_data)
+        float(m["loss_c"])  # waits for the step
+        secs.append(time.perf_counter() - t0)
+        ms.append(m)
+    alpha = [float(m["alpha_p"]) for m in ms]
+    lr = [float(m["lr_frac"]) for m in ms]
+    check(alpha[1] == 0.0 < alpha[2] and lr[k + 2] == 1.0 > lr[k + 3],
+          f"{name}: α_P {alpha} and lr fraction {lr} do not change inside the chunks")
+    want_tensors = list(S._state_tensors(eager))
+
+    arm = {"setting": name, "dtype": dtype, "batch": batch, "use_pallas": use_pallas, "k": k,
+           "eager_ms_per_step": 1e3 * statistics.mean(secs[1:])}
+    arm["eager_img_s"] = batch * 1e3 / arm["eager_ms_per_step"]
+    for mode in ("last", "mean"):
+        runner = S.make_scan_device_train_step(cfg, nets, opts, GRAPH_TOTAL, k, zca_stats=zca,
+                                               metrics_mode=mode, log=lambda *a, **kw: None)
+        state = S._clone_state(state0)
+        counts_zero()  # the main path starts here
+        for c in range(2):
+            state, m = runner(state, dev_data)
+            if c == 0:
+                counts = counts_read()  # the capture (and its warm-up step) ends here
+            want = S._reduce_scan_metrics(S._stacked(ms[c * k:(c + 1) * k]), mode)
+            bad = [key for key in S.METRICS if not torch.equal(m[key], want[key])]
+            check(not bad, f"{name} use_pallas={use_pallas} {mode}: chunk {c} metrics {bad} differ from "
+                           f"the eager steps'")
+        after = counts_read()
+        check(after == counts, f"{name} {mode}: a replay counted launches: {totals(after)} vs {totals(counts)}")
+        got = list(S._state_tensors(state))
+        diff = sum(not torch.equal(a, b) for a, b in zip(got, want_tensors))
+        check(state.step == eager.step and diff == 0,
+              f"{name} use_pallas={use_pallas} {mode}: {diff} of {len(got)} state tensors differ from the "
+              f"eager steps' after {2 * k} steps")
+        check(runner.captures == 1 and runner.replays == 2, f"{name} {mode}: {runner.captures} captures")
+        arm[f"bitwise_{mode}"] = True
+        if mode == "mean":
+            del runner, state
+            continue
+        launches = totals(counts)
+        n = k + runner.warmup_steps
+        if use_pallas:
+            convs, _, epilogues, epilogue_bwds = step_launches(cfg)
+            want_c = collections.Counter({key: c * n for key, c in convs.items()})
+            got_c = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+            check(got_c == want_c, f"{name} graph: conv launches at capture {dict(got_c - want_c)}; "
+                                   f"implied and not launched {dict(want_c - got_c)}")
+            check(launches["scale_bias_act"] == epilogues * n and launches["scale_bias_act_bwd"] == epilogue_bwds * n,
+                  f"{name} graph: epilogue launches at capture {launches}, want {epilogues}/{epilogue_bwds} × {n}")
+        else:
+            check(not any(launches.values()), f"{name} plain graph arm launched kernels: {launches}")
+        arm.update({"graph": dict(runner.graph_stats), "launches_at_capture": launches,
+                    "_runner": runner, "_state": state, "_data": dev_data, "_counts": counts})
+    return arm
+
+
+def time_graph_turn(arm, chunks=3) -> dict:
+    """One timing turn of a graph arm: ``chunks`` chunks on the host clock,
+    each ending in a device→host read, the host µs each call takes to
+    return (its dispatch), and one chunk between CUDA events after a device
+    spin (so the window holds device work only): device ms/step."""
+    import torch
+
+    runner, data, k = arm["_runner"], arm["_data"], arm["k"]
+    state = arm["_state"]
+    torch.cuda.synchronize()
+    secs, dispatch = [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        state, m = runner(state, data)
+        t1 = time.perf_counter()
+        float(m["loss_c"])
+        secs.append(time.perf_counter() - t0)
+        dispatch.append(t1 - t0)
+    torch.cuda._sleep(4 * SPIN_CYCLES)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    state, m = runner(state, data)
+    e.record()
+    torch.cuda.synchronize()
+    arm["_state"] = state
+    return {"ms_per_step": 1e3 * statistics.mean(secs) / k, "dispatch_us": 1e6 * statistics.mean(dispatch),
+            "device_ms_per_step": s.elapsed_time(e) / k}
+
+
+def hand_kernels_per_step(counts: dict, n_steps: int) -> dict:
+    """The hand-written kernels one step runs, by ``HAND_KERNELS`` group,
+    from the wrappers' counts over ``n_steps`` steps and the plans: a
+    backward that computes dk or db runs ``sba_bwd_reduce`` after it; a
+    float32 forward whose plan shares tiles out stream-K runs
+    ``reduce_stream_k``; a filter gradient split over pixels runs
+    ``reduce_splits``."""
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+
+    conv_reduce = 0
+    for (role, n, h, w, cin, cout, pad, dt), c in (counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]).items():
+        m = n * (h + 2 * pad - 2) * (w + 2 * pad - 2)
+        if role == "wgrad":
+            splits = (cv.f32_wgrad_plan(m, cin, cout)[2] if dt == "float32" else
+                      cv.sm90_wgrad_plan(m, -(-cin // 8) * 8, -(-cout // 8) * 8)[1])
+            conv_reduce += c * (splits > 1)
+        elif dt == "float32":
+            conv_reduce += c * (cv.f32_fwd_plan(m, cin, cout)[2] > 0)
+    bwd = counts["scale_bias_act_bwd"]
+    return {"sba_fwd": counts["scale_bias_act"].total() / n_steps, "sba_bwd": bwd.total() / n_steps,
+            "sba_bwd_reduce": sum(c for key, c in bwd.items() if set(key[-1]) & set("kb")) / n_steps,
+            "conv_fwd": counts["conv3x3_fwd"].total() / n_steps,
+            "conv_wgrad": counts["conv3x3_wgrad"].total() / n_steps, "conv_reduce": conv_reduce / n_steps}
+
+
+def profile_graph_arm(arm) -> dict:
+    """One graphed chunk of a kernel arm under torch.profiler, the
+    hand-written kernels counted by name in its device records: each must
+    be there K × the count one step runs (``hand_kernels_per_step``, from
+    the wrappers' counts at capture), so the kernels ran inside the graph
+    and not beside it."""
+    runner, data, k = arm["_runner"], arm["_data"], arm["k"]
+    holder = {"state": arm["_state"]}
+
+    def one_chunk():
+        holder["state"], m = runner(holder["state"], data)
+        float(m["loss_c"])
+
+    prof = profile_calls(one_chunk, reps=1, top=10, groups=HAND_KERNELS)
+    arm["_state"] = holder["state"]
+    per_step = hand_kernels_per_step(arm["_counts"], k + runner.warmup_steps)
+    in_chunk = {g: v["launches"] for g, v in prof["groups"].items()}
+    check(all(in_chunk[g] == k * per_step[g] for g in HAND_KERNELS),
+          f"{arm['setting']}: the profiled chunk ran {in_chunk}, want {k} × {per_step}")
+    return {"chunk": prof, "kernels_per_step": per_step, "kernels_in_chunk": in_chunk,
+            "device_ms_per_step_profiled": prof["device_us"] / k / 1e3}
+
+
+def graph_phase(data, zca) -> list:
+    """cifar10_4k at full width, both settings and both arms, with cuDNN in
+    its deterministic algorithms (as the driver runs; the eager reference
+    runs with the same setting): per arm the bitwise check of
+    ``graph_arm``; then timing in turns (kernel, plain, plain, kernel),
+    and one profiled chunk of each kernel arm."""
+    import torch
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = []
+    try:
+        for setting in SETTINGS:
+            arms = {p: graph_arm(setting, p, data, zca) for p in (True, False)}
+            turns = {True: [], False: []}
+            for p in (True, False, False, True):
+                turns[p].append(time_graph_turn(arms[p]))
+            for p, arm in arms.items():
+                for key in ("ms_per_step", "dispatch_us", "device_ms_per_step"):
+                    arm[key + "_turns"] = [t[key] for t in turns[p]]
+                    arm["graph_" + key] = statistics.mean(arm[key + "_turns"])
+                arm["graph_img_s"] = arm["batch"] * 1e3 / arm["graph_ms_per_step"]
+                if p:
+                    arm["profile"] = profile_graph_arm(arm)
+                check(arm["_runner"].captures == 1, f"{setting[0]}: captured {arm['_runner'].captures} times")
+                arm["replays"] = arm["_runner"].replays
+                arm["launches"] = with_replays(totals(arm["_counts"]), arm["_runner"],
+                                               graph_cfg(setting, arm["use_pallas"]))
+                emit("graph", public(arm))
+                out.append({k: v for k, v in arm.items() if k not in ("_runner", "_state", "_data")})
+            del arms
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -683,10 +941,13 @@ def png_size(path: str) -> tuple:
     return w, h, depth, color
 
 
-def preempt_run(workdir, data_dir) -> dict:
+def preempt_run(workdir, data_dir, straight_dir, straight_done) -> dict:
     """``cli train`` for up to 40 steps, stopped by a STOP file once its
     first step line appears: it must exit 75 having checkpointed a step
-    under 40, and a re-run must resume from that step."""
+    N ≤ 4; a re-run with ``--set scan_steps=4`` must resume from step N and
+    run to step 8 (a chunk of 4 steps as a CUDA graph, captured after the
+    restore, then single steps), and its step-8 checkpoint must equal the
+    straight eager run's bitwise."""
     args = [sys.executable, "-m", "triplegan_tpu_torch.cli", *train_args(workdir, data_dir, 40)]
     run_dir = os.path.join(workdir, "cifar10_4k")
     t0 = time.perf_counter()
@@ -709,23 +970,32 @@ def preempt_run(workdir, data_dir) -> dict:
     check(proc.returncode == 75, f"stopped train exited {proc.returncode}, want 75:\n{out[-3000:]}")
     check("preempted" in out, "stopped train printed no 'preempted' line")
     steps = sorted(int(n) for n in os.listdir(os.path.join(run_dir, "ckpt")) if n.isdigit())
-    check(bool(steps) and steps[-1] < 40, f"stopped train checkpointed {steps}")
-    resume_s, out2 = cli(*train_args(workdir, data_dir, 2))
+    check(bool(steps) and steps[-1] <= 8 - GRAPH_K, f"stopped train checkpointed {steps}")
+    resume_s, out2 = cli(*train_args(workdir, data_dir, 8 - steps[-1], f"scan_steps={GRAPH_K}"))
     check(f"resumed from step {steps[-1]}" in out2, f"re-run did not resume from step {steps[-1]}")
+    check(done_line(out2) == straight_done, f"graphed re-run: {done_line(out2)}; straight: {straight_done}")
+    captured = [ln for ln in out2.splitlines() if ln.startswith(f"graph: captured {GRAPH_K} steps")]
+    check(len(captured) == 1, "the graphed re-run printed no capture line")
+    diff = ckpt_equal(os.path.join(straight_dir, "ckpt", "8"), os.path.join(run_dir, "ckpt", "8"))
+    check(not diff, f"the graphed re-run's step-8 checkpoint differs from the eager run's at {diff[:10]}")
     return {"stop_seconds": secs, "stopped_at": steps[-1], "resume_seconds": resume_s,
-            "resumed_done": done_line(out2)}
+            "resumed_done": done_line(out2), "graphed_bitwise": True, "graphed_capture": captured[0]}
 
 
 def driver_inprocess(data_dir, workdir, train_arms) -> dict:
-    """One ``train_loop.train(cfg, max_steps=4)`` of cifar10_4k (float32,
-    batch 100, kernel arm) in this process, its launches counted from just
-    before to just after: the conv launches of its 4 steps must be 4 ×
-    step_launches(cfg) key for key, plus those of its eval (10 test batches
-    through the Classifier) and sample grid (100 images through the
-    Generator); the epilogue counts their implied numbers; every launch at
-    a shape the shipped train arm of phase 3 launched (so phase 7 holds it
-    against the plain versions). Then the plain arm must launch nothing.
-    Also times one eval and one checkpoint save of the final state."""
+    """One ``train_loop.train(cfg, max_steps=10)`` of cifar10_4k (float32,
+    batch 100, kernel arm) with ``scan_steps=4`` in this process, its
+    launches counted from just before to just after: two chunks of 4 steps
+    (one capture, two replays) and 2 single steps. The wrappers count at
+    capture, in the chunk's warm-up step and in the eager steps, so the
+    conv launches must be (4 + 1 + 2) × step_launches(cfg) key for key,
+    plus those of its three evals (10 test batches each through the
+    Classifier, at steps 4, 8 and 10) and two sample grids (100 images
+    through the Generator); the epilogue counts their implied numbers;
+    every launch at a shape the shipped train arm of phase 3 launched (so
+    phase 7 holds it against the plain versions). Then the plain arm must
+    launch nothing. Also times one eval and one checkpoint save of the
+    final state."""
     import torch
 
     from triplegan_tpu_torch.ckpt.manager import CheckpointManager
@@ -741,34 +1011,54 @@ def driver_inprocess(data_dir, workdir, train_arms) -> dict:
         cfg.workdir, cfg.data_dir = os.path.join(workdir, name), data_dir
         return cfg
 
-    cfg = cfg_for("kernel")
+    cfg = cfg_for("kernel", f"scan_steps={GRAPH_K}")
     n_batches = -(-DRIVER_TEST // cfg.batch_size)
     gen, _, clf = conv_layers(cfg)
     convs, _, epilogues, epilogue_bwds = step_launches(cfg)
     n_g, n_c = len(cfg.gen.widths) + 1, sum(len(b) for b in cfg.clf.conv_blocks) + len(cfg.clf.tail)
-    want = collections.Counter({k: 4 * c for k, c in convs.items()})
-    for _ in range(n_batches):
-        want.update(fwd_launches(cfg, cfg.batch_size, clf))
-    want.update(fwd_launches(cfg, cfg.num_classes * 10, gen))
+    n_steps, n_evals, n_grids = 10, 3, 2
+    runners = []
+    real_scan = train_loop.make_scan_device_train_step
+
+    def keep_runner(*args, **kwargs):
+        runners.append(real_scan(*args, **kwargs))
+        return runners[-1]
+
     det = torch.backends.cudnn.deterministic
+    train_loop.make_scan_device_train_step = keep_runner
     try:
         counts_zero()  # the main path starts here
-        res = train_loop.train(cfg, max_steps=4, verbose=False, device="cuda")
+        res = train_loop.train(cfg, max_steps=n_steps, verbose=False, device="cuda")
         counts = counts_read()  # the main path ends here
+        train_loop.make_scan_device_train_step = real_scan
+        check(len(runners) == 1, f"the driver made {len(runners)} chunk runners")
+        runner = runners[0]
+        check((runner.captures, runner.replays, runner.warmup_steps) == (1, 2, 1),
+              f"driver graph: {runner.captures} captures, {runner.replays} replays")
+        counted = runner.captured_steps + runner.warmup_steps + n_steps - runner.n * runner.replays
+        want = collections.Counter({k: counted * c for k, c in convs.items()})
+        for _ in range(n_evals * n_batches):
+            want.update(fwd_launches(cfg, cfg.batch_size, clf))
+        for _ in range(n_grids):
+            want.update(fwd_launches(cfg, cfg.num_classes * 10, gen))
         got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-        check(got == want, f"driver conv launches not implied by its steps, eval and grid: "
+        check(got == want, f"driver conv launches not implied by its steps, evals and grids: "
                            f"{dict(got - want)}; implied and not launched {dict(want - got)}")
         launches = totals(counts)
-        want_sba = 4 * epilogues + n_batches * n_c + n_g
+        want_sba = counted * epilogues + n_evals * n_batches * n_c + n_grids * n_g
         check(launches["scale_bias_act"] == want_sba,
               f"driver launched {launches['scale_bias_act']} epilogues, want {want_sba}")
-        check(launches["scale_bias_act_bwd"] == 4 * epilogue_bwds,
-              f"driver launched {launches['scale_bias_act_bwd']} epilogue backwards, want {4 * epilogue_bwds}")
+        check(launches["scale_bias_act_bwd"] == counted * epilogue_bwds,
+              f"driver launched {launches['scale_bias_act_bwd']} epilogue backwards, "
+              f"want {counted * epilogue_bwds}")
         shipped = next(a for a in train_arms if a["setting"] == "shipped" and a["use_pallas"])["_counts"]
         for name, c in counts.items():
             unseen = set(c) - set(shipped[name])
             check(not unseen, f"driver launched {name} at shapes phase 3 did not: {sorted(unseen)}")
-        check(res["steps"] == 4 and not res["preempted"], f"driver in-process: {res['steps']} steps")
+        check(res["steps"] == n_steps and not res["preempted"], f"driver in-process: {res['steps']} steps")
+        graph = {"counted_steps": counted, "captures": runner.captures, "replays": runner.replays,
+                 **runner.graph_stats}
+        launches = with_replays(launches, runner, cfg)
 
         state = res["state"]
         sampler = BatchSampler(train_loop._resolve_data(cfg), cfg.batch_size)
@@ -791,13 +1081,40 @@ def driver_inprocess(data_dir, workdir, train_arms) -> dict:
         plain_launches = totals(counts_read())
         check(not any(plain_launches.values()), f"the plain arm's driver launched {plain_launches}")
         check(plain["steps"] == 2, "plain driver run")
+        timing = loop_timing(cfg_for)
     finally:
+        train_loop.make_scan_device_train_step = real_scan
         torch.backends.cudnn.deterministic = det
-    return {"launches": launches, "_counts": counts, "test_error": res["test_error"],
-            "eval_seconds": eval_s, "ckpt_save_seconds": save_s, "ckpt_bytes": ckpt_bytes}
+    return {"launches": launches, "_counts": counts, "test_error": res["test_error"], "graph": graph,
+            "eval_seconds": eval_s, "ckpt_save_seconds": save_s, "ckpt_bytes": ckpt_bytes,
+            "loop_timing": timing}
 
 
-def cudnn_determinism(data, zca, n_steps=6) -> dict:
+def loop_timing(cfg_for, n_steps=16) -> dict:
+    """The loop's own pace, eager and graphed: two in-process runs of
+    ``n_steps`` steps (shipped setting, kernel arm, cuDNN deterministic as
+    the driver runs), a log every 4 steps and no eval, grid or checkpoint
+    before the end, ``scan_steps`` 1 and 4; ms/step from the log records
+    after the first 8 steps (each window 4 steps, ending in the read of
+    the metrics)."""
+    from triplegan_tpu_torch.train import loop as train_loop
+
+    out = {}
+    for chunk in (1, GRAPH_K):
+        cfg = cfg_for(f"pace{chunk}", f"scan_steps={chunk}", "log_every=4", "eval_every_epochs=0",
+                      "ckpt_every_epochs=0")
+        res = train_loop.train(cfg, max_steps=n_steps, verbose=False, device="cuda")
+        check(res["steps"] == n_steps, f"loop timing run: {res['steps']} steps")
+        with open(os.path.join(res["workdir"], "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        ms = {r["step"]: 1e3 * cfg.batch_size / r["images_per_sec"] for r in recs if "images_per_sec" in r}
+        check(sorted(ms) == list(range(4, n_steps + 1, 4)), f"loop timing logged at {sorted(ms)}")
+        out[f"scan_steps={chunk}"] = {"ms_per_step_by_log": ms,
+                                      "ms_per_step": statistics.mean(v for st, v in ms.items() if st > 8)}
+    return out
+
+
+def cudnn_determinism(data, zca, n_steps=4) -> dict:
     """What cuDNN's deterministic algorithms cost the shipped kernel arm's
     step (the convs the kernels do not take: stride 2, 1×1), and whether
     two runs without them end in the same state: ms/step with the flag off
@@ -848,8 +1165,10 @@ def driver_phase(train_arms, data, zca) -> dict:
     2 steps): a straight 8-step run; a run of 4 steps resumed for 4 more,
     whose step-8 checkpoint must equal the straight run's bitwise; ``cli
     eval`` of the straight run, which must print its final test error;
-    ``cli sample``; a run stopped by a STOP file; then the in-process run
-    whose launches are counted, and the cost of cuDNN's deterministic
+    ``cli sample``; a run stopped by a STOP file and resumed to step 8 as
+    a CUDA graph (``--set scan_steps=4``), bitwise equal to the straight
+    run; then the in-process graphed run whose launches are counted, the
+    loop's pace eager and graphed, and the cost of cuDNN's deterministic
     algorithms."""
     bare = next(a for a in train_arms if a["setting"] == "shipped" and a["use_pallas"])
     tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
@@ -898,7 +1217,7 @@ def driver_phase(train_arms, data, zca) -> dict:
                           "--out", grid, "--n-per-class", "5")
         check(png_size(grid) == (160, 320, 8, 2), f"sample grid IHDR {png_size(grid)}")
 
-        stop = preempt_run(w3, data_dir)
+        stop = preempt_run(w3, data_dir, run1, done)
         inproc = driver_inprocess(data_dir, os.path.join(tmp, "w4"), train_arms)
         det = cudnn_determinism(data, zca)
     finally:
@@ -1426,7 +1745,8 @@ def kernel_phase(sources) -> tuple:
 
 def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
     """One line per kernel: launches over every main path (the train arms,
-    the driver's counted run, the serving arms), and times and
+    the graph arms and the driver's counted run with their replays, the
+    serving arms), and times and
     bounds summed over one train step's launches at each setting
     (``per_step``), the shipped setting's also at the top level."""
     launched = collections.Counter()
@@ -1480,7 +1800,7 @@ def main():
     ap.add_argument("--out", default=None, help="also write every result as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="also trace each train and serving arm with torch.profiler")
-    ap.add_argument("--steps", type=int, default=8,
+    ap.add_argument("--steps", type=int, default=5,
                     help="train steps per arm (the first is not timed)")
     args = ap.parse_args()
     check(args.steps >= 2, "--steps must be at least 2")
@@ -1512,6 +1832,10 @@ def main():
     train_arms, data, zca = train_phase(args.steps, args.profile)
     phases["train"] = time.perf_counter() - t_start
 
+    # 3b. K train steps a dispatch, as a CUDA graph
+    graph_arms = graph_phase(data, zca)
+    phases["graph"] = time.perf_counter() - t_start
+
     # 4. card against CPU
     card_cpu = card_vs_cpu_phase(data, zca)
     phases["card_vs_cpu"] = time.perf_counter() - t_start
@@ -1530,13 +1854,14 @@ def main():
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
 
-    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + [driver], serve_arms)
+    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver], serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "conv_rows": conv_rows,
                        "train": [public(a) for a in train_arms],
+                       "graph": [public(a) for a in graph_arms],
                        "card_vs_cpu": card_cpu, "driver": public(driver),
                        "serve": [public(a) for a in serve_arms],
                        "kernels": kernels}, f, indent=1)

@@ -525,3 +525,94 @@ def test_f32_conv_takes_a_view_off_16_byte_alignment(cuda):
     xa, ga, wa = x.clone(), g.clone(), wt.clone()
     assert torch.equal(got, cv.conv3x3_nopad(xa, wa, 1))
     assert torch.equal(dw, cv.conv3x3_wgrad(xa, ga, 1))
+
+
+def _small_train(dtype="float32"):
+    """cifar10_4k's layers at a few channels, every stochastic layer and
+    augmentation on, 16 steps in all (1 an epoch: α_P switches on at step
+    1, the lr decays from count 8); a seeded state, the data on the card."""
+    from triplegan_tpu_torch.configs import get_config, make_networks
+    from triplegan_tpu_torch.configs.base import apply_runtime
+    from triplegan_tpu_torch.data.datasets import synthetic_dataset
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    cfg = get_config("cifar10_4k")
+    cfg.gen.widths = (16, 8, 8)
+    cfg.disc.widths = (8, 8, 16, 16, 16, 16)
+    cfg.clf.conv_blocks = ((16, 16, 16), (16, 16, 16))
+    cfg.clf.tail = (16, 16, 16)
+    cfg.batch_size, cfg.z_dim, cfg.compute_dtype = 8, 16, dtype
+    cfg.epochs, cfg.alpha_p_warmup_epochs, cfg.lr_decay_start_frac = 16, 1, 0.5
+    apply_runtime(cfg)
+    data = synthetic_dataset(32, 3, 10, n_train=256, n_test=8, num_labeled=40)
+    nets = make_networks(cfg)
+    opts = make_optimizers(cfg, 16)
+    state = create_state(cfg, nets, opts, device="cuda")
+    return cfg, nets, opts, state, S.upload_device_data(data, "cuda"), S
+
+
+def _state_tensors(state):
+    from triplegan_tpu_torch.train import step as S
+
+    return list(S._state_tensors(state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_step_equals_eager_step_bitwise_on_card(dtype, cuda):
+    """A chunk of one step captured as a CUDA graph and replayed twice
+    equals two eager steps from the same state, bitwise: parameters, BN
+    stats, Adam moments and metrics (the lr and α_P change between them);
+    the kernels count at capture (and in the warm-up step), not at
+    replays."""
+    cfg, nets, opts, state, data, S = _small_train(dtype)
+    eager = S._clone_state(state)
+    step = S.make_device_train_step(cfg, nets, opts, 16)
+    chunk = S.make_scan_device_train_step(cfg, nets, opts, 16, 1, log=lambda *a, **k: None)
+    want = []
+    for _ in range(2):
+        eager, m = step(eager, data)
+        want.append(m)
+    sba.launches.clear()
+    got = []
+    for _ in range(2):
+        state, m = chunk(state, data)
+        got.append(m)
+    torch.cuda.synchronize()
+    assert (chunk.captures, chunk.replays, chunk.warmup_steps) == (1, 2, 1)
+    assert chunk.graph_stats["nodes"] > 0 and chunk.graph_stats["pool_bytes"] > 0
+    assert sba.launches.total() > 0 and sba.launches.total() % 2 == 0  # warm-up + capture: 2 steps' worth
+    assert float(want[0]["alpha_p"]) == 0.0 < float(want[1]["alpha_p"])
+    for g, w in zip(got, want):
+        for k in S.METRICS:
+            assert torch.equal(g[k], w[k]), k
+    assert state.step == eager.step == 2
+    for a, b in zip(_state_tensors(state), _state_tensors(eager)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_a_host_sync_in_a_captured_step_raises_and_runs_nothing(cuda):
+    """A step that reads a device value on the host cannot be captured: the
+    chunk raises GraphCaptureError naming the line, leaves the state as it
+    was (nothing ran eagerly in the graph's place) and restores the sync
+    debug mode."""
+    cfg, nets, opts, state, data, S = _small_train()
+    step = S.make_device_train_step(cfg, nets, opts, 16)
+
+    def syncing_body(st, d, gens, step_t):
+        new, m = step.body(st, d, gens, step_t)
+        float(m["loss_d"])  # a host read inside the step
+        return new, m
+
+    chunk = S.ScanChunk(S.TrainStep(syncing_body, step.tables, step.domains), 2, log=lambda *a, **k: None)
+    before = [t.clone() for t in _state_tensors(state)]
+    with pytest.raises(S.GraphCaptureError, match=r"test_torch_cuda\.py:\d+ \(float\(m\[\"loss_d\"\]\)"):
+        chunk(state, data)
+    torch.cuda.synchronize()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert chunk.captures == chunk.replays == 0 and state.step == 0
+    for a, b in zip(_state_tensors(state), before):
+        assert torch.equal(a, b)

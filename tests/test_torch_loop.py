@@ -305,7 +305,6 @@ def test_a_stop_checkpoints_skips_the_final_eval_and_resumes(how, tmp_path, monk
 
 @pytest.mark.parametrize("knob,value,item", [
     ("data_on_device", False, "item 4"),
-    ("scan_steps", 4, "item 3"),
     ("ddinit", True, "item 7"),
     ("mesh_shape", (2,), "item 8"),
     ("multihost", True, "item 8"),
@@ -316,6 +315,27 @@ def test_options_not_ported_raise(knob, value, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1.*{item}"):
         loop.train(cfg, max_steps=1, verbose=False, device="cpu")
     assert not os.path.exists(os.path.join(cfg.workdir, cfg.name))  # raised before any work
+
+
+@pytest.mark.parametrize("var,value", [
+    ("TRIPLEGAN_DROPOUT_BITS", "8"),
+    ("TRIPLEGAN_MAXPOOL", "maskbwd"),
+    ("TRIPLEGAN_SMALLCIN", "patches"),
+    ("TRIPLEGAN_DECONV", "transpose"),
+])
+def test_env_variants_not_ported_raise(var, value, tmp_path, monkeypatch):
+    """A layer variant the JAX package reads from the environment, set to
+    another value than its default, makes the port refuse where it builds
+    its networks (train here; eval, sample and serve build them the same
+    way), naming the ROADMAP item; its default value is accepted."""
+    _, cfg = _driver_cfg(tmp_path, "run")
+    monkeypatch.setenv(var, port_base.ENV_VARIANTS[var])
+    port_base.make_networks(cfg)
+    monkeypatch.setenv(var, value)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item 6.*{var}='{value}'"):
+        port_base.make_networks(cfg)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item 6.*{var}"):
+        loop.train(cfg, max_steps=1, verbose=False, device="cpu")
 
 
 def test_profile_window_writes_a_trace(tmp_path):

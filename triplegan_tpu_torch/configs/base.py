@@ -207,10 +207,34 @@ def display(cfg: ConfigDict) -> str:
     return "\n".join(lines)
 
 
+# Layer variants the JAX package reads from the environment
+# (``triplegan_tpu/nn/layers.py``), with their defaults, which the port
+# computes; it has none of the other values yet.
+ENV_VARIANTS = {"TRIPLEGAN_DROPOUT_BITS": "32", "TRIPLEGAN_MAXPOOL": "window",
+                "TRIPLEGAN_SMALLCIN": "conv", "TRIPLEGAN_DECONV": "subpixel"}
+
+
+def check_env_variants() -> None:
+    """Raise ``NotImplementedError`` if one of ``ENV_VARIANTS`` is set to
+    another value than its default: the JAX package would compute another
+    layer, and the port would silently not."""
+    set_ = {k: os.environ[k] for k, default in ENV_VARIANTS.items()
+            if os.environ.get(k, default) != default}
+    if set_:
+        raise NotImplementedError(
+            "not ported yet (ROADMAP Queue 1 item 6, the env variants): "
+            + ", ".join(f"{k}={v!r} (the port computes {k}={ENV_VARIANTS[k]!r})" for k, v in set_.items())
+            + "; unset it to run the port")
+
+
 def make_networks(cfg: ConfigDict):
     """Build the (Generator, Discriminator, Classifier) modules of a
-    config, in the JAX package's order."""
+    config, in the JAX package's order. Raises for a layer variant chosen
+    in the environment that the port does not have (``check_env_variants``),
+    so that train, eval, sample and serve all refuse it."""
     from triplegan_tpu_torch.nn.networks import Classifier, Discriminator, Generator
+
+    check_env_variants()
 
     gen = Generator(
         image_size=cfg.image_size,

@@ -170,21 +170,23 @@ def _subpixel_plan(k: int, s: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _phase_index(k: int, s: int) -> torch.Tensor:
+def _phase_index(k: int, s: int, device: torch.device) -> torch.Tensor:
     """(kk, kk, s, s) index of the tap of a k×k kernel (row-major, k·k for
-    none) at each position of the phase kernel. Built outside inference
-    mode even when first asked for inside it (serving), so that a later
-    train step can save it for backward."""
+    none) at each position of the phase kernel, on ``device``: made once a
+    device, so that a step copies nothing from the host (a CUDA graph could
+    not capture the copy). Built outside inference mode even when first
+    asked for inside it (serving), so that a later train step can save it
+    for backward."""
     phases, d_min, d_max = _subpixel_plan(k, s)
     kk = d_max - d_min + 1
     with torch.inference_mode(False):
         idx = torch.full((kk, kk, s, s), k * k, dtype=torch.long)
-    for a in range(s):
-        for b in range(s):
-            for pu, du in phases[a]:
-                for pv, dv in phases[b]:
-                    idx[du - d_min, dv - d_min, a, b] = pu * k + pv
-    return idx
+        for a in range(s):
+            for b in range(s):
+                for pu, du in phases[a]:
+                    for pv, dv in phases[b]:
+                        idx[du - d_min, dv - d_min, a, b] = pu * k + pv
+        return idx.to(device)
 
 
 def phase_kernel(w: torch.Tensor, stride: int) -> torch.Tensor:
@@ -194,7 +196,7 @@ def phase_kernel(w: torch.Tensor, stride: int) -> torch.Tensor:
     and differentiable in w."""
     k, _, cin, cout = w.shape
     s = stride
-    idx = _phase_index(k, s).to(w.device)
+    idx = _phase_index(k, s, w.device)
     taps = torch.cat([w.reshape(k * k, cin, cout), w.new_zeros((1, cin, cout))])
     kk = idx.shape[0]
     wp = taps[idx]  # (kk, kk, s, s, cin, cout)

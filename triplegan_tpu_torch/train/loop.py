@@ -5,6 +5,12 @@ device with the dataset resident there.
 the run's newest checkpoint if it has one, and runs the three-player step
 (``train/step.py::make_device_train_step``) on the JAX loop's schedule:
 
+* with ``scan_steps`` = K > 1, K steps a call while a whole chunk fits
+  before the end (``make_scan_device_train_step``: one CUDA graph replay on
+  the card, the same steps eagerly on the CPU; its metrics per
+  ``scan_metrics``, "last" or "mean"), and single steps for the rest, as
+  the JAX loop's ``lax.scan`` chunks; the logs, evals, checkpoints and the
+  stop check below then come at chunk boundaries;
 * every ``log_every`` steps (and at the last), the step's metrics are read
   to the host, logged with the images per second since the last log
   (``utils/logging.py``) and printed; the loop reads nothing from the
@@ -27,8 +33,8 @@ what an uninterrupted one would.
 
 Options of the JAX loop that the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item: host-streamed data
-(``data_on_device=False``), ``scan_steps > 1``, ``ddinit`` and meshes of
-more than one device (or ``multihost``).
+(``data_on_device=False``), ``ddinit`` and meshes of more than one device
+(or ``multihost``).
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ from triplegan_tpu_torch.eval.metrics import evaluate_error
 from triplegan_tpu_torch.eval.sample import class_grid_inputs, make_sample_fn, save_png, to_uint8_grid
 from triplegan_tpu_torch.train.schedule import make_optimizers
 from triplegan_tpu_torch.train.state import create_state, param_count
-from triplegan_tpu_torch.train.step import make_device_train_step, make_eval_step, upload_device_data
+from triplegan_tpu_torch.train.step import (make_device_train_step, make_eval_step,
+                                            make_scan_device_train_step, upload_device_data)
 from triplegan_tpu_torch.utils.logging import MetricsLogger
 from triplegan_tpu_torch.utils.platform import resolve_device
 
@@ -61,8 +68,6 @@ def check_ported(cfg) -> None:
     missing = []
     if not bool(cfg.data_on_device):
         missing.append("data_on_device=False (host-streamed batches: item 4)")
-    if int(cfg.get("scan_steps", 1)) > 1:
-        missing.append("scan_steps > 1 (several steps a dispatch: item 3)")
     if bool(cfg.ddinit):
         missing.append("ddinit=True (data-dependent weight-norm init: item 7)")
     if math.prod(cfg.mesh_shape) > 1 or bool(cfg.get("multihost", False)):
@@ -156,6 +161,15 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
     say("param counts:", param_count(state))
     step = make_device_train_step(cfg, nets, optimizers, total_steps, zca,
                                   pseudo_label_mode=cfg.get("pseudo_label_mode", "sample"))
+    # K steps a call: a CUDA graph on the card. It overwrites the state's
+    # tensors in place (the loop keeps no older state).
+    chunk = max(int(cfg.get("scan_steps", 1)), 1)
+    scan = None
+    if chunk > 1:
+        scan = make_scan_device_train_step(
+            cfg, nets, optimizers, total_steps, chunk, zca,
+            pseudo_label_mode=cfg.get("pseudo_label_mode", "sample"),
+            metrics_mode=str(cfg.get("scan_metrics", "last")), log=say)
     eval_step = make_eval_step(cfg, nets, zca)
 
     ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=cfg.ckpt_keep)
@@ -178,8 +192,8 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
     eval_at = -1
     profile_dir = str(cfg.get("profile_dir", "") or "")
     profiler = None
-    profile_start = start_step + 2
-    profile_stop = profile_start + max(int(cfg.get("profile_steps", 10)), 1)
+    profile_start = start_step + 2 * chunk
+    profile_stop = profile_start + max(int(cfg.get("profile_steps", 10)), chunk)
 
     stop = {"sig": None}
     stop_file = os.path.join(workdir, "STOP")
@@ -226,9 +240,14 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=acts)
                 profiler.start()
-            state, metrics = step(state, device_data)
-            prev, it = it, it + 1
-            steps_since_log += 1
+            if scan is not None and it + chunk <= end_step:
+                state, metrics = scan(state, device_data)
+                taken = chunk
+            else:
+                state, metrics = step(state, device_data)
+                taken = 1
+            prev, it = it, it + taken
+            steps_since_log += taken
             if profiler is not None and profile_dir and it >= profile_stop:
                 _end_profile()
 

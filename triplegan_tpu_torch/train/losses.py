@@ -90,9 +90,13 @@ def c_adversarial_loss(logit_d_on_cla, logits_c, y_c, alpha: float) -> torch.Ten
 
 def c_loss(logits_c_labeled, y_l, logit_d_on_cla, logits_c_unlabeled, y_c, logits_c_gen, y_g,
            alpha: float, alpha_p):
-    """Full L_C and its terms (``c_sup``, ``c_adv``, ``c_pseudo``)."""
+    """Full L_C and its terms (``c_sup``, ``c_adv``, ``c_pseudo``).
+    ``alpha_p`` is a float or a 0-d float32 tensor (the train step's, read
+    at the device step); either way α_P·R_P is taken in float32 and
+    rounded once to R_P's dtype, as a Python float multiplies."""
     r_l = cross_entropy(logits_c_labeled, y_l)
     l_adv = c_adversarial_loss(logit_d_on_cla, logits_c_unlabeled, y_c, alpha)
     r_p = cross_entropy(logits_c_gen, y_g)
-    total = r_l + l_adv + alpha_p * r_p
-    return total, {"c_sup": r_l, "c_adv": l_adv, "c_pseudo": alpha_p * r_p}
+    pseudo = (alpha_p * r_p.float()).to(r_p.dtype)
+    total = r_l + l_adv + pseudo
+    return total, {"c_sup": r_l, "c_adv": l_adv, "c_pseudo": pseudo}

@@ -29,18 +29,32 @@ Randomness (noise, dropout, augmentation, pseudo-label sampling) comes from
 one device generator per step, seeded from (state.seed, state.step); the
 batch sampler has its own, seeded from (state.seed, state.step, 0x5A5A).
 The streams are PyTorch's, not JAX's threefry bits.
+
+A step is a ``TrainStep``: its ``body(state, x, gens, step_t)`` takes the
+step's generators and the step as a 0-d integer tensor on the device from
+its caller and reads nothing of the step on the host (α_P, the lr fraction
+and each Adam's lr and bias corrections come from ``StepTable``s read at
+step_t). Called as ``step(state, x)``, it makes both on the host from
+(state.seed, state.step); the chunk of ``make_scan_device_train_step``
+passes generators that a CUDA graph has registered and re-seeds them
+before each replay, and a step tensor that it sets, so the graph replays
+exactly what the eager steps compute.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+import os
+import time
+import traceback
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
 from triplegan_tpu_torch.data import ondevice
 from triplegan_tpu_torch.data.zca import apply_zca
 from triplegan_tpu_torch.train import losses
-from triplegan_tpu_torch.train.schedule import alpha_p_schedule, linear_decay_schedule
+from triplegan_tpu_torch.train.schedule import AdamState, StepTable, alpha_p_schedule, linear_decay_schedule
 from triplegan_tpu_torch.train.state import TrainState
 
 METRICS = ("loss_d", "loss_g", "loss_c", "d_real", "d_cla", "d_gen", "c_sup", "c_adv",
@@ -52,11 +66,20 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def _mixed_seed(seed: int, step: int, domain: int) -> int:
+    return ((seed * 1_000_003 + step) * 0x9E3779B1 + domain) % (1 << 63)
+
+
 def step_generator(device: torch.device, seed: int, step: int, domain: int = 0) -> torch.Generator:
     """A generator on ``device`` whose stream depends only on (seed, step,
     domain)."""
-    mixed = ((seed * 1_000_003 + step) * 0x9E3779B1 + domain) % (1 << 63)
-    return torch.Generator(device=device).manual_seed(mixed)
+    return torch.Generator(device=device).manual_seed(_mixed_seed(seed, step, domain))
+
+
+def step_scalar(device: torch.device, step: int) -> torch.Tensor:
+    """``step`` as a 0-d int64 tensor on ``device``, written there by a
+    fill (no copy from the host)."""
+    return torch.full((), step, dtype=torch.int64, device=device)
 
 
 def _with_grad(tree):
@@ -77,6 +100,31 @@ def _device(state: TrainState) -> torch.device:
     return next(t for arrays in state.params["clf"].values() for t in arrays.values()).device
 
 
+class TrainStep:
+    """``step(state, x) -> (state, metrics)``, one update of the three
+    players. ``body(state, x, gens, step_t)`` is the step itself: ``gens``
+    its generators, one per entry of ``domains``, and ``step_t`` the step as
+    a 0-d int64 tensor on the state's device; the body reads neither the
+    step nor any device value on the host. ``tables`` are the StepTables it
+    reads at step_t, which ``cover`` extends to a step count."""
+
+    def __init__(self, body: Callable, tables: Sequence[StepTable], domains: Sequence[int]):
+        self.body, self.tables, self.domains = body, tuple(tables), tuple(domains)
+
+    def cover(self, n: int) -> None:
+        for t in self.tables:
+            t.cover(n)
+
+    def generators(self, device: torch.device, seed: int, step: int) -> List[torch.Generator]:
+        return [step_generator(device, seed, step, d) for d in self.domains]
+
+    def __call__(self, state: TrainState, x):
+        dev = _device(state)
+        self.cover(state.step + 1)
+        return self.body(state, x, self.generators(dev, state.seed, state.step),
+                         step_scalar(dev, state.step))
+
+
 class _Zca:
     """The ZCA arrays on the step's device, made once per device."""
 
@@ -94,12 +142,13 @@ class _Zca:
 
 
 def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
-                    pseudo_label_mode: str = "sample"):
+                    pseudo_label_mode: str = "sample") -> TrainStep:
     """``(state, batch) -> (state, metrics)``. ``batch`` is the nested dict
     of ``_make_batch_sampler``: streams "d" and "c" with uint8 ``x_l``,
     ``x_u`` (none in "c" under ``share_pseudo_forward``), int ``y_l``, float
     ``z`` and int ``y_g``; stream "g" with ``z`` and ``y_g``. ``metrics``
-    holds the 11 scalars of ``METRICS`` as 0-d tensors."""
+    holds the 11 scalars of ``METRICS`` as 0-d float32 tensors on the
+    state's device. Its body takes one generator."""
     gen, disc, clf = nets
     opt_g, opt_d, opt_c = optimizers["gen"], optimizers["disc"], optimizers["clf"]
     alpha = float(cfg.alpha)
@@ -111,16 +160,20 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         int(cfg.get("alpha_p_ramp_epochs", 0)) * steps_per_epoch,
     )
     lr_now = linear_decay_schedule(1.0, int(cfg.lr_decay_start_frac * total_steps), total_steps)
+    table = StepTable((ap_sched, lr_now), total_steps + 1)  # α_P and the lr fraction, by step
     zca = _Zca(zca_stats)
     share_fwd = bool(cfg.get("share_pseudo_forward", False))
     if bool(cfg.get("fused_clf_forward", False)):
         raise NotImplementedError("fused_clf_forward is not ported yet (ROADMAP Queue 1)")
     non_saturating = bool(cfg.non_saturating_g)
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def body(state: TrainState, batch, gens, step_t) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         dev = _device(state)
-        rng = step_generator(dev, state.seed, state.step)
-        alpha_p_now = ap_sched(state.step)
+        (rng,) = gens
+        alpha_p_now, lr_frac = table.at(step_t)
+        # each Adam's count as a tensor: the step plus the (fixed) host offset
+        counts = {p: step_t if o.count == state.step else step_t + (o.count - state.step)
+                  for p, o in state.opt.items()}
         params, bn = state.params, state.bn
         zm, zw = zca.get(dev)
 
@@ -159,7 +212,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         d_total = losses.d_loss(lr_real, lr_cla, lr_gen, alpha)
         d_terms = losses.d_loss_terms(lr_real, lr_cla, lr_gen, alpha)
         gd = _like(pd, torch.autograd.grad(d_total, _leaves(pd)))
-        pd_new, opt_d_new = opt_d.update(params["disc"], gd, state.opt["disc"])
+        pd_new, opt_d_new = opt_d.update(params["disc"], gd, state.opt["disc"], counts["disc"])
 
         # ================= G update (scored by the new D) ====================
         bg = batch["g"]
@@ -170,7 +223,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
                                 generator=rng)
         g_total = losses.g_loss(logit_g, alpha, non_saturating)
         gg = _like(pg, torch.autograd.grad(g_total, _leaves(pg)))
-        pg_new, opt_g_new = opt_g.update(params["gen"], gg, state.opt["gen"])
+        pg_new, opt_g_new = opt_g.update(params["gen"], gg, state.opt["gen"], counts["gen"])
 
         # ================= C update (sees the new D and G) ===================
         bc = batch["c"]
@@ -195,7 +248,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         c_total, c_terms = losses.c_loss(log_l, y_l_c, logit_d_cla, log_u, y_c2, log_g, y_gc,
                                          alpha, alpha_p_now)
         gc = _like(pc, torch.autograd.grad(c_total, _leaves(pc)))
-        pc_new, opt_c_new = opt_c.update(params["clf"], gc, state.opt["clf"])
+        pc_new, opt_c_new = opt_c.update(params["clf"], gc, state.opt["clf"], counts["clf"])
 
         new_state = TrainState(
             params={"gen": pg_new, "disc": pd_new, "clf": pc_new},
@@ -207,11 +260,10 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         metrics = {"loss_d": d_total, "loss_g": g_total, "loss_c": c_total, **d_terms,
                    **c_terms}
         metrics = {k: v.detach().float() for k, v in metrics.items()}
-        metrics["alpha_p"] = torch.tensor(float(alpha_p_now))
-        metrics["lr_frac"] = torch.tensor(float(lr_now(state.step)))
+        metrics["alpha_p"], metrics["lr_frac"] = alpha_p_now, lr_frac
         return new_state, metrics
 
-    return step
+    return TrainStep(body, [table] + [o.table for o in (opt_g, opt_d, opt_c)], (0,))
 
 
 def _make_batch_sampler(cfg):
@@ -221,13 +273,23 @@ def _make_batch_sampler(cfg):
     ``share_pseudo_forward`` the "c" stream's x_u is not gathered (the C
     update reuses D's); its indices are still drawn, so the flag leaves
     every used field's sequence unchanged."""
+    draw = _make_batch_draw(cfg)
+
+    def sample(seed: int, step_no: int, data):
+        return draw(step_generator(data["x_l"].device, seed, step_no, _SAMPLER_DOMAIN), data)
+
+    return sample
+
+
+def _make_batch_draw(cfg):
+    """``(generator, device_data) -> batch``: ``_make_batch_sampler``'s
+    draw from a given generator."""
     b = int(cfg.batch_size)
     z_dim, n_classes = int(cfg.z_dim), int(cfg.num_classes)
     share_fwd = bool(cfg.get("share_pseudo_forward", False))
 
-    def sample(seed: int, step_no: int, data):
+    def draw(g: torch.Generator, data):
         dev = data["x_l"].device
-        g = step_generator(dev, seed, step_no, _SAMPLER_DOMAIN)
 
         def noise():
             return {"z": torch.randn((b, z_dim), generator=g, device=dev),
@@ -243,7 +305,7 @@ def _make_batch_sampler(cfg):
 
         return {"d": stream(), "c": stream(with_unlabeled=not share_fwd), "g": noise()}
 
-    return sample
+    return draw
 
 
 def upload_device_data(data, device=None) -> Dict[str, torch.Tensor]:
@@ -258,17 +320,281 @@ def upload_device_data(data, device=None) -> Dict[str, torch.Tensor]:
 
 
 def make_device_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
-                           pseudo_label_mode: str = "sample"):
+                           pseudo_label_mode: str = "sample") -> TrainStep:
     """``(state, device_data) -> (state, metrics)``: the dataset stays on
     the device (``upload_device_data``) and each step draws its own
-    sub-batches there."""
+    sub-batches there. Its body takes two generators: the core step's and
+    the sampler's (domain 0x5A5A)."""
     core = make_train_step(cfg, nets, optimizers, total_steps, zca_stats, pseudo_label_mode)
-    sample = _make_batch_sampler(cfg)
+    draw = _make_batch_draw(cfg)
 
-    def step(state: TrainState, data):
-        return core(state, sample(state.seed, state.step, data))
+    def body(state: TrainState, data, gens, step_t):
+        rng, rng_batch = gens
+        return core.body(state, draw(rng_batch, data), (rng,), step_t)
 
-    return step
+    return TrainStep(body, core.tables, (0, _SAMPLER_DOMAIN))
+
+
+# ---------------------------------------------------------------------------
+# Several steps a call: JAX's lax.scan chunk
+# ---------------------------------------------------------------------------
+
+
+def _reduce_scan_metrics(ms: Dict[str, torch.Tensor], mode: str) -> Dict[str, torch.Tensor]:
+    """Collapse a chunk's metrics stacked per step ({name: (K,) tensor}):
+    ``"last"`` is what a per-step log interval would read; ``"mean"``
+    averages over the chunk, so a loss curve keeps every step's
+    information."""
+    if mode == "mean":
+        return {k: torch.mean(v, dim=0) for k, v in ms.items()}
+    if mode == "last":
+        return {k: v[-1] for k, v in ms.items()}
+    raise ValueError(f"scan_metrics must be last|mean, got {mode!r}")
+
+
+def _stacked(ms: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+
+def make_scan_train_step(step_fn, n_steps: int, metrics_mode: str = "last"):
+    """``n_steps`` calls of ``step_fn(state, data)`` on the same ``data`` as
+    one call, metrics reduced per ``metrics_mode``: JAX's ``lax.scan``
+    chunk, as a loop on the host. The driver's chunk is
+    ``make_scan_device_train_step``, a CUDA graph on the card."""
+
+    def scanned(state, data):
+        ms = []
+        for _ in range(n_steps):
+            state, m = step_fn(state, data)
+            ms.append(m)
+        return state, _reduce_scan_metrics(_stacked(ms), metrics_mode)
+
+    return scanned
+
+
+def make_scan_device_train_step(cfg, nets, optimizers, total_steps: int, n_steps: int, zca_stats=None,
+                                pseudo_label_mode: str = "sample", metrics_mode: str = "last",
+                                log=print) -> "ScanChunk":
+    """``(state, device_data) -> (state, metrics)``: ``n_steps`` steps of
+    ``make_device_train_step`` a call, as a ``ScanChunk`` (a CUDA graph on
+    the card). ``log`` takes the line that describes each capture."""
+    step = make_device_train_step(cfg, nets, optimizers, total_steps, zca_stats, pseudo_label_mode)
+    return ScanChunk(step, n_steps, metrics_mode, log)
+
+
+class GraphCaptureError(RuntimeError):
+    """A chunk could not be captured as a CUDA graph: its step did
+    something on the host that a replay cannot repeat."""
+
+
+def _tree_tensors(tree):
+    for v in tree.values():
+        yield from _tree_tensors(v) if isinstance(v, dict) else (v,)
+
+
+def _state_tensors(state: TrainState):
+    for tree in (state.params, state.bn, *(o.mu for o in state.opt.values()),
+                 *(o.nu for o in state.opt.values())):
+        yield from _tree_tensors(tree)
+
+
+def _copy_tree(dst, src) -> None:
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _copy_tree(d, src[k])
+        else:
+            d.copy_(src[k])
+
+
+def _copy_into(dst: TrainState, src: TrainState) -> None:
+    """Write ``src``'s values into ``dst``'s tensors, matched by name."""
+    with torch.no_grad():
+        _copy_tree(dst.params, src.params)
+        _copy_tree(dst.bn, src.bn)
+        for p, o in dst.opt.items():
+            _copy_tree(o.mu, src.opt[p].mu)
+            _copy_tree(o.nu, src.opt[p].nu)
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _clone_state(state: TrainState) -> TrainState:
+    return dataclasses.replace(state, params=_clone_tree(state.params), bn=_clone_tree(state.bn),
+                               opt={p: AdamState(o.count, _clone_tree(o.mu), _clone_tree(o.nu))
+                                    for p, o in state.opt.items()})
+
+
+# Frames a failed capture's message skips: torch's and the Python library's
+_LIBRARY_DIRS = (os.path.dirname(torch.__file__), os.path.dirname(os.__file__))
+
+
+def _capture_failure(exc: BaseException, n_steps: int) -> str:
+    """What a failed capture says: the innermost line outside torch, the
+    Python library and the chunk's own frames that the first error went
+    through, and that error."""
+    chain = []
+    e = exc
+    while e is not None and e not in chain:
+        chain.append(e)
+        e = e.__cause__ or e.__context__
+    where = "an unknown line"
+    for e in reversed(chain):
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if not f.filename.startswith(_LIBRARY_DIRS)
+                  and not (f.filename == os.path.abspath(__file__) and f.name in ("_capture", "_chunk"))]
+        if frames:
+            f = frames[-1]
+            where = f"{os.path.basename(f.filename)}:{f.lineno} ({f.line})"
+            break
+    root = chain[-1]
+    text = " ".join(str(root).split("\n")[:3])
+    return (f"capturing {n_steps} train steps as a CUDA graph failed at {where}: "
+            f"{type(root).__name__}: {text}. A captured step may not read a device value on the host "
+            f"(.item(), float(), int(), bool() of a tensor), copy a host tensor to the card, or draw "
+            f"from a generator the graph has not registered. Nothing ran eagerly in its place.")
+
+
+def _graph_nodes(graph) -> int:
+    """The node count of a captured (not yet destroyed) CUDA graph, from
+    the driver's ``cuGraphGetNodes``."""
+    import ctypes
+
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = fn(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return n.value
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in a graph's private pool."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+class ScanChunk:
+    """``(state, device_data) -> (state, metrics)``: ``n_steps`` steps of a
+    device-data ``TrainStep`` a call, each step computing exactly what the
+    eager step at its step number computes; the metrics reduced per
+    ``metrics_mode`` (``_reduce_scan_metrics``).
+
+    On the card the chunk is one CUDA graph. The first call warms the step
+    up on a clone of the state on a side stream (one eager step, so lazy
+    set-up happens outside the capture), then captures the n steps into
+    one graph, their 2·n generators registered with it and the step a
+    static 0-d tensor, and instantiates it. Every call re-seeds the
+    generators on the host to the seeds the eager steps would draw from,
+    sets the step tensor and replays the graph: one dispatch for n steps.
+    A call whose state or data tensors lie elsewhere in memory, whose
+    tables grew, or under another ``cudnn.deterministic`` captures anew.
+    A capture that fails raises ``GraphCaptureError`` naming the op; the
+    chunk never runs eagerly in its place. The kernel wrappers count their
+    launches at capture (and in the warm-up step), not at replays.
+    ``captures``, ``replays``, ``captured_steps``, ``warmup_steps`` and
+    ``graph_stats`` (the current graph's nodes, seconds to capture and
+    instantiate, and pool bytes) say what happened.
+
+    On the CPU the same chunk runs eagerly, through the same code.
+
+    Donation, as JAX's ``donate_argnums=0``: the chunk writes the new
+    values into the state's own tensors, and the state it returns holds
+    those tensors (step and Adam counts advanced by n). A caller that keeps
+    an older state must clone it first. The metrics are fresh tensors."""
+
+    def __init__(self, step: TrainStep, n_steps: int, metrics_mode: str = "last", log=print):
+        if n_steps < 1:
+            raise ValueError(f"a chunk needs at least one step, got {n_steps}")
+        _reduce_scan_metrics({}, metrics_mode)  # a bad mode raises here
+        self.step, self.n, self.mode, self.log = step, int(n_steps), metrics_mode, log
+        self.captures = self.replays = self.captured_steps = self.warmup_steps = 0
+        self.graph_stats: Dict[str, float] = {}
+        self._graph = self._key = None
+
+    def _chunk(self, state, data, gens, step_t):
+        """The chunk's work, eager on the CPU and captured on the card."""
+        ms = []
+        for i in range(self.n):
+            state, m = self.step.body(state, data, gens[i], step_t + i)
+            ms.append(m)
+        return state, _reduce_scan_metrics(_stacked(ms), self.mode)
+
+    def _advanced(self, state: TrainState) -> TrainState:
+        return dataclasses.replace(state, step=state.step + self.n,
+                                   opt={p: AdamState(o.count + self.n, o.mu, o.nu) for p, o in state.opt.items()})
+
+    def _key_of(self, state: TrainState, data) -> tuple:
+        return (tuple(t.data_ptr() for t in _state_tensors(state)),
+                tuple((t.data_ptr(), tuple(t.shape)) for t in data.values()),
+                tuple(t.version for t in self.step.tables),
+                tuple(o.count - state.step for o in state.opt.values()),
+                torch.backends.cudnn.deterministic)
+
+    def __call__(self, state: TrainState, data):
+        dev = _device(state)
+        self.step.cover(state.step + self.n)
+        if dev.type != "cuda":
+            gens = [self.step.generators(dev, state.seed, state.step + i) for i in range(self.n)]
+            new, metrics = self._chunk(state, data, gens, step_scalar(dev, state.step))
+            _copy_into(state, new)
+            return self._advanced(state), metrics
+        key = self._key_of(state, data)
+        if key != self._key:
+            self._capture(state, data, key)
+        for i, gens in enumerate(self._gens):
+            for g, domain in zip(gens, self.step.domains):
+                g.manual_seed(_mixed_seed(state.seed, state.step + i, domain))
+        self._step_t.fill_(state.step)
+        self._graph.replay()
+        self.replays += 1
+        out = self._metrics.clone()
+        return self._advanced(state), {k: out[j] for j, k in enumerate(METRICS)}
+
+    def _capture(self, state: TrainState, data, key) -> None:
+        dev = _device(state)
+        self._graph = self._key = self._metrics = None  # the old graph's pool goes first
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.step.body(_clone_state(state), data, self.step.generators(dev, state.seed, state.step),
+                           step_scalar(dev, state.step))
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.warmup_steps += 1
+
+        gens = [[torch.Generator(device=dev) for _ in self.step.domains] for _ in range(self.n)]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for g in (g for pair in gens for g in pair):
+            graph.register_generator_state(g)
+        step_t = step_scalar(dev, state.step)  # a static input, outside the graph's pool
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")  # a host sync raises where it is
+                try:
+                    new, metrics = self._chunk(state, data, gens, step_t)
+                    _copy_into(state, new)
+                    vec = torch.stack([metrics[k] for k in METRICS])
+                    del new, metrics
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+        except Exception as e:  # any failure inside the capture: name it, never fall back
+            raise GraphCaptureError(_capture_failure(e, self.n)) from e
+        nodes = _graph_nodes(graph)
+        graph.instantiate()
+        seconds = time.perf_counter() - t0
+        self._graph, self._gens, self._step_t, self._metrics, self._key = graph, gens, step_t, vec, key
+        self.captures += 1
+        self.captured_steps += self.n
+        self.graph_stats = {"steps": self.n, "nodes": nodes, "capture_s": seconds,
+                            "pool_bytes": _pool_bytes(graph.pool())}
+        self.log(f"graph: captured {self.n} steps as one CUDA graph: {nodes} nodes, "
+                 f"{seconds:.3f} s to capture and instantiate, {self.graph_stats['pool_bytes']} bytes "
+                 f"of pool", flush=True)
 
 
 def make_eval_step(cfg, nets, zca_stats=None):
