@@ -32,19 +32,21 @@ Phases, each fatal on failure (exit code 1, and no result line):
      make_scan_device_train_step, 4 steps a chunk captured as one CUDA
      graph, cuDNN deterministic (the eager reference too); 64 steps in the
      schedule, 1 an epoch, so that α_P switches on inside the first chunk
-     and the lr decays inside the second. Per arm: two chunks from a seeded
-     state must equal 8 eager steps from it bitwise (every parameter, BN
-     stat, Adam moment and the reduced metrics), in both metrics modes
-     ("last", "mean"); the wrappers' counts over the first chunk (the
-     capture and its warm-up step) must be 5 × step_launches key for key,
-     and replays add none; then eager and graphed ms/step and img/s (host
-     clock, each ending in a device→host read), the host µs a chunk takes to
+     and the lr decays inside the second. Per arm, the main path is the
+     capture and two chunks from a seeded state: the wrappers' counts over
+     it must be 5 × step_launches key for key (the capture and its warm-up
+     step; replays add none); the two replays run under torch.profiler,
+     whose device records must hold each hand-written kernel 4 × the count
+     a step runs in each chunk (the kernels run inside the graph; the plain
+     arm's none) and give the launches the replays made; the chunks must
+     equal 8 eager steps from the same state bitwise (every parameter, BN
+     stat, Adam moment, and every step's metrics: both reductions, "last"
+     and "mean"). Then eager and graphed ms/step and img/s (host clock,
+     each ending in a device→host read), the host µs a chunk takes to
      dispatch and device ms/step (CUDA events after a device spin), in
      turns (kernel, plain, plain, kernel); the graph's nodes,
-     capture-and-instantiate seconds and pool bytes; one chunk of each
-     kernel arm under torch.profiler, whose device records must hold each
-     hand-written kernel 4 × the count a step runs (from the wrappers'
-     counts and the plans): the kernels run inside the graph;
+     capture-and-instantiate seconds and pool bytes; and for the shipped
+     kernel arm, a turn with cuDNN's deterministic algorithms off;
   4. card against CPU: two steps of a cut-down config (cifar10_4k's layers
      at a few channels, no noise, dropout or augmentation, argmax
      pseudo-labels) on the card with the kernels and on the CPU with their
@@ -54,25 +56,26 @@ Phases, each fatal on failure (exit code 1, and no result line):
      in the layout ``prepare`` writes (4096 train, 1000 test images, ZCA
      stats beside them), 4 steps an epoch with an eval, a sample grid and
      a checkpoint each epoch: through ``python -m triplegan_tpu_torch.cli``,
-     an 8-step run (metrics logged at steps 2, 4, 6, 8, test errors at 4
-     and 8, grids at 4 and 8, checkpoints 4 and 8 kept); a 4-step run
-     resumed for 4 more, whose step-8 checkpoint must equal the 8-step
-     run's bitwise; ``eval``, which must print the 8-step run's final
-     error; ``sample`` (an RGB PNG 160 wide, 320 high); a run stopped by a
-     STOP file (exit 75, a checkpoint at a step N ≤ 4), then re-run with
-     ``--set scan_steps=4`` to step 8 (it resumes from N; a chunk of 4
-     steps as a CUDA graph, then single steps), whose step-8 checkpoint
-     must equal the 8-step run's bitwise. Then one ``train(cfg, max_steps=10)`` with scan_steps=4 in
+     an 8-step run, alone (metrics logged at steps 2, 4, 6, 8, test errors
+     at 4 and 8, grids at 4 and 8, checkpoints 4 and 8 kept; the eager
+     loop's pace). Then side by side: ``eval``, which must print the 8-step
+     run's final error; ``sample`` (an RGB PNG 160 wide, 320 high); a
+     4-step run resumed for 4 more, whose step-8 checkpoint must equal the
+     8-step run's bitwise; a run stopped by a STOP file (exit 75, a
+     checkpoint at a step N ≤ 4), then re-run with ``--set scan_steps=4``
+     to step 8 (it resumes from N; a chunk of 4 steps as a CUDA graph, then
+     single steps), whose step-8 checkpoint must equal the 8-step run's
+     bitwise; and one ``train(cfg, max_steps=10)`` with scan_steps=4 in
      this process (one capture, two replays, two single steps), its
      launches counted from just before to just after: the conv launches
      must be (4 captured + 1 warm-up + 2 single) × ``step_launches`` plus
      its three evals' (10 test batches each) and two sample grids', key for
      key, the epilogue counts their implied numbers, every shape one that
-     phase 3 launched (so phase 7 holds it against the plain versions); the
-     plain arm launches nothing. Times an eval and a checkpoint save, the
-     loop's pace eager and graphed (16 steps, a log every 4), and what
-     cuDNN's deterministic algorithms (which the driver turns on) cost a
-     shipped step;
+     phase 3 launched (so phase 7 holds it against the plain versions);
+     each replay under torch.profiler must run each wrapper's kernel 4 ×
+     its launches a step; the plain arm launches nothing. Then, alone,
+     an eval and a checkpoint save timed and the graphed loop's pace (12
+     steps, a log every 4);
   6. serve: as in slice 1: cifar10_4k at full width from seeded weights
      (written and read back in the JAX package's npz export format), per
      compute dtype and arm, an HTTP server on an ephemeral port driven
@@ -96,7 +99,9 @@ The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
 the source that serves the setting's dtype); its top-level numbers are
 the shipped setting's. Its launches are the wrappers' counts over every
-main path plus, for a CUDA graph, the kernels each replay ran again.
+main path (``launches_counted``) plus the launches that the CUDA graph
+replays of those paths made, counted by kernel name in their profiles
+(``launches_replayed``).
 
 With --profile, one extra step per train arm and 10 chunks per serving
 arm run under torch.profiler (device busy share, kernels by device time,
@@ -415,14 +420,6 @@ def step_launches(cfg):
     return convs, players, epilogues, epilogue_bwds
 
 
-def step_totals(cfg) -> dict:
-    """Each wrapper's launches in one train step of ``cfg`` with use_pallas."""
-    convs, _, epilogues, epilogue_bwds = step_launches(cfg)
-    return {"scale_bias_act": epilogues, "scale_bias_act_bwd": epilogue_bwds,
-            "conv3x3_fwd": sum(c for key, c in convs.items() if key[0] != "wgrad"),
-            "conv3x3_wgrad": sum(c for key, c in convs.items() if key[0] == "wgrad")}
-
-
 def profile_calls(fn, reps: int, top: int, groups=None) -> dict:
     """torch.profiler over ``reps`` calls of ``fn``: wall and device time
     per call, the device's busy share of the wall time, the kernels
@@ -571,12 +568,22 @@ def train_phase(n_steps: int, profile: bool):
 
 GRAPH_K = 4
 # 1 step an epoch: α_P switches on at step 2 (inside the first chunk), the
-# lr decays from count 7 (inside the second); 64 steps cover every chunk run
+# lr decays from count 7 (inside the second)
 GRAPH_TOTAL, GRAPH_WARMUP_EPOCHS, GRAPH_DECAY_FRAC = 64, 2, 6 / 64
-# the hand-written kernels as the profiler names them
-HAND_KERNELS = {"sba_fwd": ("sba_fwd_rows", "sba_fwd_c3"), "sba_bwd": ("sba_bwd_rows", "sba_bwd_c3"),
-                "sba_bwd_reduce": ("sba_bwd_reduce",), "conv_fwd": ("fwd_kernel",),
-                "conv_wgrad": ("wgrad_kernel",), "conv_reduce": ("reduce_stream_k", "reduce_splits")}
+# the hand-written kernels as the profiler names them (all in an anonymous
+# namespace of their sources; "<" after a template's name, "(" otherwise)
+HAND_KERNELS = {"sba_fwd": ("sba_fwd_rows<", "sba_fwd_c3<"), "sba_bwd": ("sba_bwd_rows<", "sba_bwd_c3<"),
+                "sba_bwd_reduce": ("sba_bwd_reduce<",), "conv_fwd": ("fwd_kernel<",),
+                "conv_wgrad": ("wgrad_kernel<",), "conv_reduce": ("reduce_stream_k(", "reduce_splits(")}
+# Kineto keeps only the device records that lie inside its capture window,
+# which is taken on the host's clock; a card timestamp converted to that
+# clock can land a little past it (a profile that stopped right after its
+# synchronize once lacked a few kernels of the kinds that end a step), so
+# each profile of replays leaves this much idle time on both sides of them
+PROFILE_MARGIN_S = 0.2
+# the group whose launches are each wrapper's own (one a call)
+WRAPPER_GROUP = {"scale_bias_act": "sba_fwd", "scale_bias_act_bwd": "sba_bwd", "conv3x3_fwd": "conv_fwd",
+                 "conv3x3_wgrad": "conv_wgrad"}
 
 
 def graph_cfg(setting, use_pallas):
@@ -586,23 +593,58 @@ def graph_cfg(setting, use_pallas):
     return cfg
 
 
-def with_replays(launches: dict, runner, cfg) -> dict:
-    """A run's launches with a chunk runner: the wrappers' counts (which
-    take the capture, not the replays) plus the kernels each replay ran
-    again; none for the plain arm."""
-    per_step = step_totals(cfg) if cfg.use_pallas else dict.fromkeys(launches, 0)
-    return {k: v + runner.replays * runner.n * per_step[k] for k, v in launches.items()}
+def device_kernels(fn, reps: int) -> dict:
+    """torch.profiler, device activity only, over ``reps`` calls of ``fn``
+    (with ``PROFILE_MARGIN_S`` before and after them): from its raw device
+    records, the launches and device µs of each
+    ``HAND_KERNELS`` group, the device µs in all, and the 10 kernels with
+    the most device time (names cut to 80 characters)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            rec = by_name[e.name()]
+            rec[0] += 1
+            rec[1] += (e.end_ns() - e.start_ns()) / 1e3
+    groups = {}
+    for group, frags in HAND_KERNELS.items():
+        hit = [rec for name, rec in by_name.items()
+               if any("(anonymous namespace)::" + f in name for f in frags)]
+        groups[group] = {"launches": sum(r[0] for r in hit), "us": sum(r[1] for r in hit)}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"reps": reps, "groups": groups, "device_us": sum(r[1] for r in by_name.values()),
+            "top_device": [{"name": n[:80], "launches": r[0], "us": r[1]} for n, r in top]}
+
+
+def replayed_launches(prof: dict) -> dict:
+    """Each wrapper's kernel launches that ``device_kernels`` counted."""
+    return {name: prof["groups"][group]["launches"] for name, group in WRAPPER_GROUP.items()}
 
 
 def graph_arm(setting, use_pallas, data, zca) -> dict:
     """One (setting, arm): 2·K eager steps from a seeded state, and two
     chunks of K steps through ``make_scan_device_train_step`` from the same
-    state, in each metrics mode: the graphed chunks must equal the eager
-    steps bitwise (every parameter, BN stat, Adam moment and the reduced
-    metrics), with α_P and the lr changing inside the chunks. The "last"
-    runner's wrapper counts, zeroed just before its first call and read
-    just after, must be (K + its warm-up step) × ``step_launches``, key for
-    key, and replays add none. Leaves the "last" runner and its state for
+    state. The main path is the capture (``prepare``: a warm-up step and
+    the capture) and the two chunks. The wrappers' counts, zeroed just
+    before it, must be (K + 1) × ``step_launches`` key for key after the
+    capture and unchanged after the chunks, whose replays run under
+    torch.profiler: its device records, counted by kernel name, must hold
+    each hand-written kernel K × the count a step runs in each chunk (the
+    kernels run inside the graph), and give the launches the replays made.
+    The graphed chunks must equal the eager steps bitwise (every
+    parameter, BN stat, Adam moment, and every step's metrics, so both
+    reductions, "last" and "mean", which run after a replay), with α_P and
+    the lr changing inside the chunks. Leaves the runner and its state for
     the timing turns."""
     import torch
 
@@ -617,10 +659,10 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
     opts = make_optimizers(cfg, GRAPH_TOTAL)
     dev_data = S.upload_device_data(data, "cuda")
     step = S.make_device_train_step(cfg, nets, opts, GRAPH_TOTAL, zca_stats=zca)
-    state0 = create_state(cfg, nets, opts, device="cuda")
+    state = create_state(cfg, nets, opts, device="cuda")
     k = GRAPH_K
 
-    eager, ms, secs = S._clone_state(state0), [], []
+    eager, ms, secs = S._clone_state(state), [], []
     for _ in range(2 * k):
         t0 = time.perf_counter()
         eager, m = step(eager, dev_data)
@@ -631,50 +673,65 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
     lr = [float(m["lr_frac"]) for m in ms]
     check(alpha[1] == 0.0 < alpha[2] and lr[k + 2] == 1.0 > lr[k + 3],
           f"{name}: α_P {alpha} and lr fraction {lr} do not change inside the chunks")
-    want_tensors = list(S._state_tensors(eager))
 
+    runner = S.make_scan_device_train_step(cfg, nets, opts, GRAPH_TOTAL, k, zca_stats=zca,
+                                           log=lambda *a, **kw: None)
+    chunks, holder = [], {"state": state}
+
+    def one_chunk():
+        holder["state"], m = runner(holder["state"], dev_data)
+        chunks.append((m, runner.step_metrics))
+
+    counts_zero()  # the main path starts here
+    runner.prepare(state, dev_data)
+    counts = counts_read()  # the warm-up step and the capture
+    prof = device_kernels(one_chunk, reps=2)
+    after = counts_read()  # the main path ends here
+    state = holder["state"]
+    check(after == counts, f"{name}: a replay counted launches: {totals(after)} vs {totals(counts)}")
+    for c, (m, per_step) in enumerate(chunks):
+        want = S._stacked(ms[c * k:(c + 1) * k])
+        bad = [key for key in S.METRICS if not torch.equal(per_step[key], want[key])]
+        for mode in ("last", "mean"):
+            got_r, want_r = S._reduce_scan_metrics(per_step, mode), S._reduce_scan_metrics(want, mode)
+            bad += [f"{mode} {key}" for key in S.METRICS if not torch.equal(got_r[key], want_r[key])]
+        bad += [f"returned {key}" for key in S.METRICS if not torch.equal(m[key], want[key][-1])]
+        check(not bad, f"{name} use_pallas={use_pallas}: chunk {c} metrics {bad} differ from the eager steps'")
+    got = list(S._state_tensors(state))
+    want_tensors = list(S._state_tensors(eager))
+    diff = sum(not torch.equal(a, b) for a, b in zip(got, want_tensors))
+    check(state.step == eager.step and diff == 0,
+          f"{name} use_pallas={use_pallas}: {diff} of {len(got)} state tensors differ from the eager "
+          f"steps' after {2 * k} steps")
+    check((runner.captures, runner.replays, runner.warmup_steps) == (1, 2, 1),
+          f"{name}: {runner.captures} captures, {runner.replays} replays")
+
+    launches = totals(counts)
+    n = k + runner.warmup_steps
+    per_step = hand_kernels_per_step(counts, n)
+    in_chunk = {g: v["launches"] / prof["reps"] for g, v in prof["groups"].items()}
+    check(all(in_chunk[g] == k * per_step[g] for g in HAND_KERNELS),
+          f"{name} use_pallas={use_pallas}: a replayed chunk ran {in_chunk}, want {k} × {per_step}")
+    if use_pallas:
+        convs, _, epilogues, epilogue_bwds = step_launches(cfg)
+        want_c = collections.Counter({key: c * n for key, c in convs.items()})
+        got_c = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+        check(got_c == want_c, f"{name} graph: conv launches at capture {dict(got_c - want_c)}; "
+                               f"implied and not launched {dict(want_c - got_c)}")
+        check(launches["scale_bias_act"] == epilogues * n and launches["scale_bias_act_bwd"] == epilogue_bwds * n,
+              f"{name} graph: epilogue launches at capture {launches}, want {epilogues}/{epilogue_bwds} × {n}")
+    else:
+        check(not any(launches.values()), f"{name} plain graph arm launched kernels: {launches}")
+    replayed = replayed_launches(prof)
     arm = {"setting": name, "dtype": dtype, "batch": batch, "use_pallas": use_pallas, "k": k,
-           "eager_ms_per_step": 1e3 * statistics.mean(secs[1:])}
+           "eager_ms_per_step": 1e3 * statistics.mean(secs[1:]), "bitwise_last": True, "bitwise_mean": True,
+           "graph": dict(runner.graph_stats), "launches_counted": launches, "launches_replayed": replayed,
+           "launches": {key: launches[key] + replayed[key] for key in launches},
+           "replayed_chunks": {"kernels_per_step": per_step, "kernels_in_chunk": in_chunk,
+                               "device_ms_per_step": prof["device_us"] / prof["reps"] / k / 1e3,
+                               "groups": prof["groups"], "top_device": prof["top_device"]},
+           "_runner": runner, "_state": state, "_data": dev_data, "_counts": counts}
     arm["eager_img_s"] = batch * 1e3 / arm["eager_ms_per_step"]
-    for mode in ("last", "mean"):
-        runner = S.make_scan_device_train_step(cfg, nets, opts, GRAPH_TOTAL, k, zca_stats=zca,
-                                               metrics_mode=mode, log=lambda *a, **kw: None)
-        state = S._clone_state(state0)
-        counts_zero()  # the main path starts here
-        for c in range(2):
-            state, m = runner(state, dev_data)
-            if c == 0:
-                counts = counts_read()  # the capture (and its warm-up step) ends here
-            want = S._reduce_scan_metrics(S._stacked(ms[c * k:(c + 1) * k]), mode)
-            bad = [key for key in S.METRICS if not torch.equal(m[key], want[key])]
-            check(not bad, f"{name} use_pallas={use_pallas} {mode}: chunk {c} metrics {bad} differ from "
-                           f"the eager steps'")
-        after = counts_read()
-        check(after == counts, f"{name} {mode}: a replay counted launches: {totals(after)} vs {totals(counts)}")
-        got = list(S._state_tensors(state))
-        diff = sum(not torch.equal(a, b) for a, b in zip(got, want_tensors))
-        check(state.step == eager.step and diff == 0,
-              f"{name} use_pallas={use_pallas} {mode}: {diff} of {len(got)} state tensors differ from the "
-              f"eager steps' after {2 * k} steps")
-        check(runner.captures == 1 and runner.replays == 2, f"{name} {mode}: {runner.captures} captures")
-        arm[f"bitwise_{mode}"] = True
-        if mode == "mean":
-            del runner, state
-            continue
-        launches = totals(counts)
-        n = k + runner.warmup_steps
-        if use_pallas:
-            convs, _, epilogues, epilogue_bwds = step_launches(cfg)
-            want_c = collections.Counter({key: c * n for key, c in convs.items()})
-            got_c = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-            check(got_c == want_c, f"{name} graph: conv launches at capture {dict(got_c - want_c)}; "
-                                   f"implied and not launched {dict(want_c - got_c)}")
-            check(launches["scale_bias_act"] == epilogues * n and launches["scale_bias_act_bwd"] == epilogue_bwds * n,
-                  f"{name} graph: epilogue launches at capture {launches}, want {epilogues}/{epilogue_bwds} × {n}")
-        else:
-            check(not any(launches.values()), f"{name} plain graph arm launched kernels: {launches}")
-        arm.update({"graph": dict(runner.graph_stats), "launches_at_capture": launches,
-                    "_runner": runner, "_state": state, "_data": dev_data, "_counts": counts})
     return arm
 
 
@@ -682,11 +739,13 @@ def time_graph_turn(arm, chunks=3) -> dict:
     """One timing turn of a graph arm: ``chunks`` chunks on the host clock,
     each ending in a device→host read, the host µs each call takes to
     return (its dispatch), and one chunk between CUDA events after a device
-    spin (so the window holds device work only): device ms/step."""
+    spin (so the window holds device work only): device ms/step. A capture
+    that the runner needs first (``prepare``) is not timed."""
     import torch
 
     runner, data, k = arm["_runner"], arm["_data"], arm["k"]
     state = arm["_state"]
+    runner.prepare(state, data)
     torch.cuda.synchronize()
     secs, dispatch = [], []
     for _ in range(chunks):
@@ -732,35 +791,28 @@ def hand_kernels_per_step(counts: dict, n_steps: int) -> dict:
             "conv_wgrad": counts["conv3x3_wgrad"].total() / n_steps, "conv_reduce": conv_reduce / n_steps}
 
 
-def profile_graph_arm(arm) -> dict:
-    """One graphed chunk of a kernel arm under torch.profiler, the
-    hand-written kernels counted by name in its device records: each must
-    be there K × the count one step runs (``hand_kernels_per_step``, from
-    the wrappers' counts at capture), so the kernels ran inside the graph
-    and not beside it."""
-    runner, data, k = arm["_runner"], arm["_data"], arm["k"]
-    holder = {"state": arm["_state"]}
+def cudnn_cost_graphed(arm) -> dict:
+    """What cuDNN's deterministic algorithms (which the driver turns on)
+    cost a graphed step: one timing turn of the arm with them off (a
+    capture of its own), against its turns with them on."""
+    import torch
 
-    def one_chunk():
-        holder["state"], m = runner(holder["state"], data)
-        float(m["loss_c"])
-
-    prof = profile_calls(one_chunk, reps=1, top=10, groups=HAND_KERNELS)
-    arm["_state"] = holder["state"]
-    per_step = hand_kernels_per_step(arm["_counts"], k + runner.warmup_steps)
-    in_chunk = {g: v["launches"] for g, v in prof["groups"].items()}
-    check(all(in_chunk[g] == k * per_step[g] for g in HAND_KERNELS),
-          f"{arm['setting']}: the profiled chunk ran {in_chunk}, want {k} × {per_step}")
-    return {"chunk": prof, "kernels_per_step": per_step, "kernels_in_chunk": in_chunk,
-            "device_ms_per_step_profiled": prof["device_us"] / k / 1e3}
+    torch.backends.cudnn.deterministic = False
+    try:
+        off = time_graph_turn(arm)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    return {"ms_per_step_off": off["ms_per_step"], "device_ms_per_step_off": off["device_ms_per_step"],
+            "cost_device_ms_per_step": arm["graph_device_ms_per_step"] - off["device_ms_per_step"]}
 
 
 def graph_phase(data, zca) -> list:
     """cifar10_4k at full width, both settings and both arms, with cuDNN in
     its deterministic algorithms (as the driver runs; the eager reference
-    runs with the same setting): per arm the bitwise check of
-    ``graph_arm``; then timing in turns (kernel, plain, plain, kernel),
-    and one profiled chunk of each kernel arm."""
+    runs with the same setting): per arm the main path of ``graph_arm``;
+    then timing in turns (kernel, plain, plain, kernel), whose replays are
+    outside the counted main path; then, for the shipped kernel arm, the
+    cost of cuDNN's deterministic algorithms under the graph."""
     import torch
 
     det = torch.backends.cudnn.deterministic
@@ -777,12 +829,10 @@ def graph_phase(data, zca) -> list:
                     arm[key + "_turns"] = [t[key] for t in turns[p]]
                     arm["graph_" + key] = statistics.mean(arm[key + "_turns"])
                 arm["graph_img_s"] = arm["batch"] * 1e3 / arm["graph_ms_per_step"]
-                if p:
-                    arm["profile"] = profile_graph_arm(arm)
                 check(arm["_runner"].captures == 1, f"{setting[0]}: captured {arm['_runner'].captures} times")
                 arm["replays"] = arm["_runner"].replays
-                arm["launches"] = with_replays(totals(arm["_counts"]), arm["_runner"],
-                                               graph_cfg(setting, arm["use_pallas"]))
+                if p and setting[0] == "shipped":
+                    arm["cudnn_deterministic_cost"] = cudnn_cost_graphed(arm)
                 emit("graph", public(arm))
                 out.append({k: v for k, v in arm.items() if k not in ("_runner", "_state", "_data")})
             del arms
@@ -941,13 +991,13 @@ def png_size(path: str) -> tuple:
     return w, h, depth, color
 
 
-def preempt_run(workdir, data_dir, straight_dir, straight_done) -> dict:
+def stop_and_resume(workdir, data_dir) -> dict:
     """``cli train`` for up to 40 steps, stopped by a STOP file once its
     first step line appears: it must exit 75 having checkpointed a step
-    N ≤ 4; a re-run with ``--set scan_steps=4`` must resume from step N and
-    run to step 8 (a chunk of 4 steps as a CUDA graph, captured after the
-    restore, then single steps), and its step-8 checkpoint must equal the
-    straight eager run's bitwise."""
+    N ≤ 4; then a re-run with ``--set scan_steps=4`` must resume from step
+    N and run to step 8 (a chunk of 4 steps as a CUDA graph, captured after
+    the restore, then single steps). The caller holds its step-8
+    checkpoint to the straight run's."""
     args = [sys.executable, "-m", "triplegan_tpu_torch.cli", *train_args(workdir, data_dir, 40)]
     run_dir = os.path.join(workdir, "cifar10_4k")
     t0 = time.perf_counter()
@@ -973,13 +1023,45 @@ def preempt_run(workdir, data_dir, straight_dir, straight_done) -> dict:
     check(bool(steps) and steps[-1] <= 8 - GRAPH_K, f"stopped train checkpointed {steps}")
     resume_s, out2 = cli(*train_args(workdir, data_dir, 8 - steps[-1], f"scan_steps={GRAPH_K}"))
     check(f"resumed from step {steps[-1]}" in out2, f"re-run did not resume from step {steps[-1]}")
-    check(done_line(out2) == straight_done, f"graphed re-run: {done_line(out2)}; straight: {straight_done}")
     captured = [ln for ln in out2.splitlines() if ln.startswith(f"graph: captured {GRAPH_K} steps")]
     check(len(captured) == 1, "the graphed re-run printed no capture line")
-    diff = ckpt_equal(os.path.join(straight_dir, "ckpt", "8"), os.path.join(run_dir, "ckpt", "8"))
-    check(not diff, f"the graphed re-run's step-8 checkpoint differs from the eager run's at {diff[:10]}")
     return {"stop_seconds": secs, "stopped_at": steps[-1], "resume_seconds": resume_s,
-            "resumed_done": done_line(out2), "graphed_bitwise": True, "graphed_capture": captured[0]}
+            "resumed_done": done_line(out2), "graphed_capture": captured[0]}
+
+
+def resume_4_4(workdir, data_dir) -> tuple:
+    """``cli train`` for 4 steps, then the same command again: it must
+    resume from step 4. (seconds of each run, the second's stdout)."""
+    secs = []
+    for _ in range(2):
+        t, out = cli(*train_args(workdir, data_dir, 4))
+        secs.append(t)
+    check("resumed from step 4" in out, "second 4-step run did not resume from step 4")
+    return secs, out
+
+
+def driver_cfg(workdir, data_dir, name, *sets):
+    from triplegan_tpu_torch.cli import _apply_overrides
+    from triplegan_tpu_torch.configs import get_config
+
+    cfg = _apply_overrides(get_config("cifar10_4k"), DRIVER_SETS + list(sets))
+    cfg.workdir, cfg.data_dir = os.path.join(workdir, name), data_dir
+    return cfg
+
+
+class ProfiledRunner:
+    """A chunk runner of the loop whose every replay runs under
+    ``device_kernels`` (its capture, when it needs one, before and outside
+    the profile): ``profiles`` holds one per replay."""
+
+    def __init__(self, runner):
+        self.runner, self.profiles = runner, []
+
+    def __call__(self, state, data):
+        self.runner.prepare(state, data)
+        out = []
+        self.profiles.append(device_kernels(lambda: out.append(self.runner(state, data)), reps=1))
+        return out[0]
 
 
 def driver_inprocess(data_dir, workdir, train_arms) -> dict:
@@ -993,25 +1075,15 @@ def driver_inprocess(data_dir, workdir, train_arms) -> dict:
     Classifier, at steps 4, 8 and 10) and two sample grids (100 images
     through the Generator); the epilogue counts their implied numbers;
     every launch at a shape the shipped train arm of phase 3 launched (so
-    phase 7 holds it against the plain versions). Then the plain arm must
-    launch nothing. Also times one eval and one checkpoint save of the
-    final state."""
+    phase 7 holds it against the plain versions). Each replay runs under
+    torch.profiler (``ProfiledRunner``): its device records must hold each
+    wrapper's kernel 4 × its launches a step, and they are the launches
+    the replays made. Then the plain arm must launch nothing."""
     import torch
 
-    from triplegan_tpu_torch.ckpt.manager import CheckpointManager
-    from triplegan_tpu_torch.cli import _apply_overrides
-    from triplegan_tpu_torch.configs import get_config, make_networks
-    from triplegan_tpu_torch.data.pipeline import BatchSampler
-    from triplegan_tpu_torch.eval.metrics import evaluate_error
     from triplegan_tpu_torch.train import loop as train_loop
-    from triplegan_tpu_torch.train.step import make_eval_step
 
-    def cfg_for(name, *sets):
-        cfg = _apply_overrides(get_config("cifar10_4k"), DRIVER_SETS + list(sets))
-        cfg.workdir, cfg.data_dir = os.path.join(workdir, name), data_dir
-        return cfg
-
-    cfg = cfg_for("kernel", f"scan_steps={GRAPH_K}")
+    cfg = driver_cfg(workdir, data_dir, "kernel", f"scan_steps={GRAPH_K}")
     n_batches = -(-DRIVER_TEST // cfg.batch_size)
     gen, _, clf = conv_layers(cfg)
     convs, _, epilogues, epilogue_bwds = step_launches(cfg)
@@ -1021,7 +1093,7 @@ def driver_inprocess(data_dir, workdir, train_arms) -> dict:
     real_scan = train_loop.make_scan_device_train_step
 
     def keep_runner(*args, **kwargs):
-        runners.append(real_scan(*args, **kwargs))
+        runners.append(ProfiledRunner(real_scan(*args, **kwargs)))
         return runners[-1]
 
     det = torch.backends.cudnn.deterministic
@@ -1032,7 +1104,7 @@ def driver_inprocess(data_dir, workdir, train_arms) -> dict:
         counts = counts_read()  # the main path ends here
         train_loop.make_scan_device_train_step = real_scan
         check(len(runners) == 1, f"the driver made {len(runners)} chunk runners")
-        runner = runners[0]
+        runner = runners[0].runner
         check((runner.captures, runner.replays, runner.warmup_steps) == (1, 2, 1),
               f"driver graph: {runner.captures} captures, {runner.replays} replays")
         counted = runner.captured_steps + runner.warmup_steps + n_steps - runner.n * runner.replays
@@ -1056,121 +1128,103 @@ def driver_inprocess(data_dir, workdir, train_arms) -> dict:
             unseen = set(c) - set(shipped[name])
             check(not unseen, f"driver launched {name} at shapes phase 3 did not: {sorted(unseen)}")
         check(res["steps"] == n_steps and not res["preempted"], f"driver in-process: {res['steps']} steps")
+        per_step = step_totals(cfg)
+        replayed = collections.Counter()
+        for prof in runners[0].profiles:
+            got_r = replayed_launches(prof)
+            check(got_r == {k: runner.n * v for k, v in per_step.items()},
+                  f"a driver replay ran {got_r}, want {runner.n} × {per_step}")
+            replayed.update(got_r)
         graph = {"counted_steps": counted, "captures": runner.captures, "replays": runner.replays,
                  **runner.graph_stats}
-        launches = with_replays(launches, runner, cfg)
-
-        state = res["state"]
-        sampler = BatchSampler(train_loop._resolve_data(cfg), cfg.batch_size)
-        zca = train_loop._resolve_zca(cfg, sampler.data, os.path.join(cfg.workdir, cfg.name))
-        eval_step = make_eval_step(cfg, make_networks(cfg), zca)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        err = evaluate_error(eval_step, state, train_loop._test_stream(sampler, torch.device("cuda")))
-        eval_s = time.perf_counter() - t0
-        check(err == res["test_error"], f"re-evaluated error {err} != the run's {res['test_error']}")
-        t0 = time.perf_counter()
-        saver = CheckpointManager(os.path.join(workdir, "save_timing"))
-        saver.save(state.step, state)
-        save_s = time.perf_counter() - t0
-        ckpt_bytes = os.path.getsize(os.path.join(saver.directory, str(state.step)))
 
         counts_zero()
-        plain = train_loop.train(cfg_for("plain", "use_pallas=false"), max_steps=2, verbose=False,
-                                 device="cuda")
+        plain = train_loop.train(driver_cfg(workdir, data_dir, "plain", "use_pallas=false"), max_steps=2,
+                                 verbose=False, device="cuda")
         plain_launches = totals(counts_read())
         check(not any(plain_launches.values()), f"the plain arm's driver launched {plain_launches}")
         check(plain["steps"] == 2, "plain driver run")
-        timing = loop_timing(cfg_for)
     finally:
         train_loop.make_scan_device_train_step = real_scan
         torch.backends.cudnn.deterministic = det
-    return {"launches": launches, "_counts": counts, "test_error": res["test_error"], "graph": graph,
-            "eval_seconds": eval_s, "ckpt_save_seconds": save_s, "ckpt_bytes": ckpt_bytes,
-            "loop_timing": timing}
+    return {"launches_counted": launches, "launches_replayed": dict(replayed),
+            "launches": {k: launches[k] + replayed[k] for k in launches}, "_counts": counts,
+            "test_error": res["test_error"], "graph": graph, "_res": res, "_cfg": cfg}
 
 
-def loop_timing(cfg_for, n_steps=16) -> dict:
-    """The loop's own pace, eager and graphed: two in-process runs of
-    ``n_steps`` steps (shipped setting, kernel arm, cuDNN deterministic as
-    the driver runs), a log every 4 steps and no eval, grid or checkpoint
-    before the end, ``scan_steps`` 1 and 4; ms/step from the log records
-    after the first 8 steps (each window 4 steps, ending in the read of
-    the metrics)."""
-    from triplegan_tpu_torch.train import loop as train_loop
-
-    out = {}
-    for chunk in (1, GRAPH_K):
-        cfg = cfg_for(f"pace{chunk}", f"scan_steps={chunk}", "log_every=4", "eval_every_epochs=0",
-                      "ckpt_every_epochs=0")
-        res = train_loop.train(cfg, max_steps=n_steps, verbose=False, device="cuda")
-        check(res["steps"] == n_steps, f"loop timing run: {res['steps']} steps")
-        with open(os.path.join(res["workdir"], "metrics.jsonl")) as f:
-            recs = [json.loads(ln) for ln in f]
-        ms = {r["step"]: 1e3 * cfg.batch_size / r["images_per_sec"] for r in recs if "images_per_sec" in r}
-        check(sorted(ms) == list(range(4, n_steps + 1, 4)), f"loop timing logged at {sorted(ms)}")
-        out[f"scan_steps={chunk}"] = {"ms_per_step_by_log": ms,
-                                      "ms_per_step": statistics.mean(v for st, v in ms.items() if st > 8)}
-    return out
+def step_totals(cfg) -> dict:
+    """Each wrapper's launches in one train step of ``cfg`` with use_pallas."""
+    convs, _, epilogues, epilogue_bwds = step_launches(cfg)
+    return {"scale_bias_act": epilogues, "scale_bias_act_bwd": epilogue_bwds,
+            "conv3x3_fwd": sum(c for key, c in convs.items() if key[0] != "wgrad"),
+            "conv3x3_wgrad": sum(c for key, c in convs.items() if key[0] == "wgrad")}
 
 
-def cudnn_determinism(data, zca, n_steps=4) -> dict:
-    """What cuDNN's deterministic algorithms cost the shipped kernel arm's
-    step (the convs the kernels do not take: stride 2, 1×1), and whether
-    two runs without them end in the same state: ms/step with the flag off
-    and on, in turns (off, on, on, off), each run ``n_steps`` steps from one
-    seeded state, the first untimed."""
+def driver_timing(data_dir, workdir, inproc, n_steps=12) -> dict:
+    """With nothing else running: one eval and one checkpoint save of the
+    in-process run's final state, timed; and the graphed loop's own pace:
+    an in-process run of ``n_steps`` steps (shipped setting, kernel arm,
+    cuDNN deterministic as the driver runs) with ``scan_steps=4``, a log
+    every 4 steps and no eval, grid or checkpoint before the end; ms/step
+    from the log records after the first 4 steps (each window one chunk,
+    ending in the read of the metrics)."""
     import torch
 
+    from triplegan_tpu_torch.ckpt.manager import CheckpointManager
     from triplegan_tpu_torch.configs import make_networks
-    from triplegan_tpu_torch.train.schedule import make_optimizers
-    from triplegan_tpu_torch.train.state import create_state
-    from triplegan_tpu_torch.train.step import make_device_train_step, upload_device_data
+    from triplegan_tpu_torch.data.pipeline import BatchSampler
+    from triplegan_tpu_torch.eval.metrics import evaluate_error
+    from triplegan_tpu_torch.train import loop as train_loop
+    from triplegan_tpu_torch.train.step import make_eval_step
 
-    cfg = train_cfg("float32", BATCH, False, True)
-    nets = make_networks(cfg)
-    opts = make_optimizers(cfg, TOTAL_STEPS)
-    dev_data = upload_device_data(data, "cuda")
-    step = make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca)
-    saved = torch.backends.cudnn.deterministic
-    ms, finals = {False: [], True: []}, {False: [], True: []}
+    res, cfg = inproc["_res"], inproc["_cfg"]
+    state = res["state"]
+    sampler = BatchSampler(train_loop._resolve_data(cfg), cfg.batch_size)
+    zca = train_loop._resolve_zca(cfg, sampler.data, os.path.join(cfg.workdir, cfg.name))
+    eval_step = make_eval_step(cfg, make_networks(cfg), zca)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    err = evaluate_error(eval_step, state, train_loop._test_stream(sampler, torch.device("cuda")))
+    eval_s = time.perf_counter() - t0
+    check(err == res["test_error"], f"re-evaluated error {err} != the run's {res['test_error']}")
+    t0 = time.perf_counter()
+    saver = CheckpointManager(os.path.join(workdir, "save_timing"))
+    saver.save(state.step, state)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(os.path.join(saver.directory, str(state.step)))
+
+    det = torch.backends.cudnn.deterministic
     try:
-        for det in (False, True, True, False):
-            torch.backends.cudnn.deterministic = det
-            state = create_state(cfg, nets, opts, device="cuda")
-            secs = []
-            for _ in range(n_steps):
-                t0 = time.perf_counter()
-                state, m = step(state, dev_data)
-                float(m["loss_c"])
-                secs.append(time.perf_counter() - t0)
-            ms[det].append(1e3 * statistics.mean(secs[1:]))
-            finals[det].append({p: {k: t.clone() for a in state.params[p].values() for k, t in a.items()}
-                                for p in state.params})
+        cfg = driver_cfg(workdir, data_dir, "pace", f"scan_steps={GRAPH_K}", "log_every=4",
+                         "eval_every_epochs=0", "ckpt_every_epochs=0")
+        run = train_loop.train(cfg, max_steps=n_steps, verbose=False, device="cuda")
     finally:
-        torch.backends.cudnn.deterministic = saved
+        torch.backends.cudnn.deterministic = det
+    check(run["steps"] == n_steps, f"loop timing run: {run['steps']} steps")
+    with open(os.path.join(run["workdir"], "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    ms = {r["step"]: 1e3 * cfg.batch_size / r["images_per_sec"] for r in recs if "images_per_sec" in r}
+    check(sorted(ms) == list(range(4, n_steps + 1, 4)), f"loop timing logged at {sorted(ms)}")
+    return {"eval_seconds": eval_s, "ckpt_save_seconds": save_s, "ckpt_bytes": ckpt_bytes,
+            "graphed_loop_ms_per_step_by_log": ms,
+            "graphed_loop_ms_per_step": statistics.mean(v for st, v in ms.items() if st > 4)}
 
-    def same(a, b):
-        return all(torch.equal(a[p][k], b[p][k]) for p in a for k in a[p])
 
-    return {"ms_per_step_off": ms[False], "ms_per_step_on": ms[True],
-            "cost_ms_per_step": statistics.mean(ms[True]) - statistics.mean(ms[False]),
-            "off_runs_bitwise_equal": same(*finals[False]), "on_runs_bitwise_equal": same(*finals[True])}
-
-
-def driver_phase(train_arms, data, zca) -> dict:
+def driver_phase(train_arms, graph_arms) -> dict:
     """The train driver end to end, through the CLI as a user calls it, on
     cifar10_4k at full width (float32, batch 100, kernel arm; 4 steps an
     epoch, an eval, a sample grid and a checkpoint each epoch, a log every
-    2 steps): a straight 8-step run; a run of 4 steps resumed for 4 more,
-    whose step-8 checkpoint must equal the straight run's bitwise; ``cli
-    eval`` of the straight run, which must print its final test error;
-    ``cli sample``; a run stopped by a STOP file and resumed to step 8 as
-    a CUDA graph (``--set scan_steps=4``), bitwise equal to the straight
-    run; then the in-process graphed run whose launches are counted, the
-    loop's pace eager and graphed, and the cost of cuDNN's deterministic
-    algorithms."""
+    2 steps): a straight 8-step run, alone (the eager loop's pace comes
+    from its log records); then, side by side (four threads, each running
+    its CLI processes in turn, and this process): ``cli eval`` of the
+    straight run, which must print its final test error; ``cli sample``; a
+    run of 4 steps resumed for 4 more, whose step-8 checkpoint must equal
+    the straight run's bitwise; a run stopped by a STOP file and resumed to
+    step 8 as a CUDA graph (``--set scan_steps=4``), bitwise equal to the
+    straight run; and the in-process graphed run whose launches are
+    counted. Then, alone again, ``driver_timing``."""
     bare = next(a for a in train_arms if a["setting"] == "shipped" and a["use_pallas"])
+    bare_graph = next(a for a in graph_arms if a["setting"] == "shipped" and a["use_pallas"])
     tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
     try:
         data_dir = os.path.join(tmp, "data")
@@ -1198,39 +1252,43 @@ def driver_phase(train_arms, data, zca) -> dict:
         # checkpoint, the one at 2 the first step)
         loop_ms = {r["step"]: 1e3 * BATCH / r["images_per_sec"] for r in recs if "images_per_sec" in r}
 
-        resume_s = []
-        for i in range(2):
-            secs, out2 = cli(*train_args(w2, data_dir, 4))
-            resume_s.append(secs)
-        check("resumed from step 4" in out2, "second 4-step run did not resume from step 4")
-        check(done_line(out2) == done, f"resumed run: {done_line(out2)}; straight: {done}")
-        diff = ckpt_equal(os.path.join(run1, "ckpt", "8"), os.path.join(w2, "cifar10_4k", "ckpt", "8"))
-        check(not diff, f"4+4 resumed checkpoint differs from the straight run's at {diff[:10]}")
-
-        eval_s, out = cli("eval", "--config", "cifar10_4k", "--workdir", w1, "--data-dir", data_dir)
+        grid = os.path.join(tmp, "grid.png")
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            f_eval = ex.submit(cli, "eval", "--config", "cifar10_4k", "--workdir", w1, "--data-dir", data_dir)
+            f_sample = ex.submit(cli, "sample", "--config", "cifar10_4k", "--workdir", w1, "--data-dir", data_dir,
+                                 "--out", grid, "--n-per-class", "5")
+            f_resume = ex.submit(resume_4_4, w2, data_dir)
+            f_stop = ex.submit(stop_and_resume, w3, data_dir)
+            inproc = driver_inprocess(data_dir, os.path.join(tmp, "w4"), train_arms)
+            eval_s, out = f_eval.result()
+            sample_s, _ = f_sample.result()
+            resume_s, out2 = f_resume.result()
+            stop = f_stop.result()
+        side_by_side_s = time.perf_counter() - t0
         err_line = out.strip().splitlines()[-1]
         check(err_line == "test error: " + done.split("test_error=")[1],
               f"cli eval printed {err_line!r}, train {done!r}")
-
-        grid = os.path.join(tmp, "grid.png")
-        sample_s, _ = cli("sample", "--config", "cifar10_4k", "--workdir", w1, "--data-dir", data_dir,
-                          "--out", grid, "--n-per-class", "5")
         check(png_size(grid) == (160, 320, 8, 2), f"sample grid IHDR {png_size(grid)}")
-
-        stop = preempt_run(w3, data_dir, run1, done)
-        inproc = driver_inprocess(data_dir, os.path.join(tmp, "w4"), train_arms)
-        det = cudnn_determinism(data, zca)
+        check(done_line(out2) == done, f"resumed run: {done_line(out2)}; straight: {done}")
+        diff = ckpt_equal(os.path.join(run1, "ckpt", "8"), os.path.join(w2, "cifar10_4k", "ckpt", "8"))
+        check(not diff, f"4+4 resumed checkpoint differs from the straight run's at {diff[:10]}")
+        check(stop["resumed_done"] == done, f"graphed re-run: {stop['resumed_done']}; straight: {done}")
+        diff = ckpt_equal(os.path.join(run1, "ckpt", "8"), os.path.join(w3, "cifar10_4k", "ckpt", "8"))
+        check(not diff, f"the graphed re-run's step-8 checkpoint differs from the eager run's at {diff[:10]}")
+        timing = driver_timing(data_dir, os.path.join(tmp, "w5"), inproc)
     finally:
         import shutil
 
         shutil.rmtree(tmp, ignore_errors=True)
     res = {"config": "cifar10_4k float32 batch 100 kernel arm", "prepare_seconds": prepare_s,
-           "straight_8_seconds": straight_s, "resume_4_4_seconds": resume_s, "eval_seconds_cli": eval_s,
-           "sample_seconds_cli": sample_s, **stop, "final": done,
+           "straight_8_seconds": straight_s, "side_by_side_seconds": side_by_side_s,
+           "resume_4_4_seconds": resume_s, "eval_seconds_cli": eval_s, "sample_seconds_cli": sample_s,
+           **stop, "graphed_bitwise": True, "final": done,
            "loop_ms_per_step_by_log": loop_ms, "loop_ms_per_step": statistics.mean([loop_ms[4], loop_ms[8]]),
-           "bare_step_ms_per_step": bare["ms_per_step"], "resume_bitwise": True,
-           **inproc, "cudnn_determinism": det}
-    emit("driver", public(res))
+           "bare_step_ms_per_step": bare["ms_per_step"], "bare_graphed_ms_per_step": bare_graph["graph_ms_per_step"],
+           "resume_bitwise": True, **{k: v for k, v in inproc.items() if not k.startswith("_")}, **timing}
+    emit("driver", res)
     return res
 
 
@@ -1745,13 +1803,17 @@ def kernel_phase(sources) -> tuple:
 
 def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
     """One line per kernel: launches over every main path (the train arms,
-    the graph arms and the driver's counted run with their replays, the
-    serving arms), and times and
-    bounds summed over one train step's launches at each setting
-    (``per_step``), the shipped setting's also at the top level."""
-    launched = collections.Counter()
+    the graph arms' and the driver's counted runs, the serving arms): the
+    wrappers' counts (``launches_counted``: each launch, or each capture
+    of one into a graph) plus the launches that the replays of those runs
+    made, counted by kernel name in their profiles
+    (``launches_replayed``); and times and bounds summed over one train
+    step's launches at each setting (``per_step``), the shipped setting's
+    also at the top level."""
+    counted, replayed = collections.Counter(), collections.Counter()
     for arm in train_runs + serve_arms:
-        launched.update(arm["launches"])
+        counted.update(arm.get("launches_counted", arm["launches"]))
+        replayed.update(arm.get("launches_replayed", {}))
     csrc = "triplegan_tpu_torch/ops/csrc/"
     conv_src = {"float32": csrc + "conv3x3.cu", "bfloat16": csrc + "conv3x3_sm90.cu"}
     sba_src = {"float32": csrc + "scale_bias_act.cu", "bfloat16": csrc + "scale_bias_act.cu"}
@@ -1784,7 +1846,9 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
             "source": top["source"],
             "sources": sources,
             "replaces": replaces,
-            "launches": launched[name],
+            "launches": counted[name] + replayed[name],
+            "launches_counted": counted[name],
+            "launches_replayed": replayed[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "basis": "top level: sum over one train step's launches at the shipped setting "
@@ -1841,7 +1905,7 @@ def main():
     phases["card_vs_cpu"] = time.perf_counter() - t_start
 
     # 5. the train driver through the CLI
-    driver = driver_phase(train_arms, data, zca)
+    driver = driver_phase(train_arms, graph_arms)
     phases["driver"] = time.perf_counter() - t_start
 
     # 6. serve

@@ -602,12 +602,12 @@ def test_a_host_sync_in_a_captured_step_raises_and_runs_nothing(cuda):
     cfg, nets, opts, state, data, S = _small_train()
     step = S.make_device_train_step(cfg, nets, opts, 16)
 
-    def syncing_body(st, d, gens, step_t):
-        new, m = step.body(st, d, gens, step_t)
+    def syncing_body(st, d, gens, sc):
+        new, m = step.body(st, d, gens, sc)
         float(m["loss_d"])  # a host read inside the step
         return new, m
 
-    chunk = S.ScanChunk(S.TrainStep(syncing_body, step.tables, step.domains), 2, log=lambda *a, **k: None)
+    chunk = S.ScanChunk(S.TrainStep(syncing_body, step.values, step.domains), 2, log=lambda *a, **k: None)
     before = [t.clone() for t in _state_tensors(state)]
     with pytest.raises(S.GraphCaptureError, match=r"test_torch_cuda\.py:\d+ \(float\(m\[\"loss_d\"\]\)"):
         chunk(state, data)

@@ -320,22 +320,45 @@ def test_options_not_ported_raise(knob, value, item, tmp_path):
 @pytest.mark.parametrize("var,value", [
     ("TRIPLEGAN_DROPOUT_BITS", "8"),
     ("TRIPLEGAN_MAXPOOL", "maskbwd"),
+    ("TRIPLEGAN_MAXPOOL", "reshape"),
     ("TRIPLEGAN_SMALLCIN", "patches"),
     ("TRIPLEGAN_DECONV", "transpose"),
 ])
 def test_env_variants_not_ported_raise(var, value, tmp_path, monkeypatch):
-    """A layer variant the JAX package reads from the environment, set to
-    another value than its default, makes the port refuse where it builds
-    its networks (train here; eval, sample and serve build them the same
-    way), naming the ROADMAP item; its default value is accepted."""
+    """A layer variant the JAX package reads from the environment, set to a
+    value with which it computes another layer, makes the port refuse where
+    it builds its networks (train here; eval, sample and serve build them
+    the same way), naming the ROADMAP item; its default value is accepted."""
     _, cfg = _driver_cfg(tmp_path, "run")
-    monkeypatch.setenv(var, port_base.ENV_VARIANTS[var])
+    monkeypatch.setenv(var, port_base.ENV_VARIANTS[var][0])
     port_base.make_networks(cfg)
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item 6.*{var}='{value}'"):
         port_base.make_networks(cfg)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item 6.*{var}"):
         loop.train(cfg, max_steps=1, verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("var,value", [
+    ("TRIPLEGAN_DROPOUT_BITS", "16"),
+    ("TRIPLEGAN_MAXPOOL", "windows"),
+    ("TRIPLEGAN_SMALLCIN", "conv"),
+    ("TRIPLEGAN_DECONV", "conv_transpose"),
+])
+def test_env_values_the_jax_layers_ignore_are_accepted(var, value, tmp_path, monkeypatch):
+    """A value of a layer variable with which the JAX package still
+    computes its default layer leaves the port building its networks; for
+    the dropout, JAX's mask under it equals its default mask."""
+    _, cfg = _driver_cfg(tmp_path, "run")
+    monkeypatch.setenv(var, value)
+    port_base.make_networks(cfg)
+    if var == "TRIPLEGAN_DROPOUT_BITS":
+        from triplegan_tpu.nn.layers import dropout
+
+        x, key = jnp.ones((4, 64)), jax.random.PRNGKey(3)
+        under = np.asarray(dropout(key, x, 0.5, train=True))
+        monkeypatch.delenv(var)
+        np.testing.assert_array_equal(under, np.asarray(dropout(key, x, 0.5, train=True)))
 
 
 def test_profile_window_writes_a_trace(tmp_path):

@@ -23,11 +23,11 @@ captures as a CUDA graph.
 - ``_reduce_scan_metrics`` against JAX's on the same stacked metrics
   (float32, within 1e-7 relative: a mean of 4 in another order), and both
   raise ValueError for a bad mode.
-- A probe step tensor that raises when the host reads it (``int``,
-  ``float``, ``bool``, ``.item()``, ``.tolist()``) goes through the step body
-  and the schedules and gives the eager step's result bitwise: nothing the
-  step computes from the step number is read on the host, so nothing would
-  be baked into a graph.
+- A probe scalars tensor (α_P, the lr fraction, each Adam's lr and bias
+  corrections) that raises when the host reads it (``int``, ``float``,
+  ``bool``, ``.item()``, ``.tolist()``) goes through the step body and gives
+  the eager step's result bitwise: the body reads nothing of what depends
+  on the step number on the host, so nothing would be baked into a graph.
 - ``loop.train`` with ``scan_steps=4`` ends in the checkpoint that
   ``scan_steps=1`` ends in, bitwise, and at ``scan_steps=3`` (which does
   not divide the 4-step epoch) logs, evaluates and checkpoints at the
@@ -249,7 +249,7 @@ class _HostReadProbe(torch.Tensor):
     from it is a probe too."""
 
     def _refuse(self, *args, **kwargs):
-        raise RuntimeError("the host read a value computed from the step tensor")
+        raise RuntimeError("the host read a value computed from the step's scalars")
 
     __int__ = __float__ = __bool__ = __index__ = item = tolist = numpy = _refuse
 
@@ -265,9 +265,10 @@ def test_step_body_reads_nothing_of_the_step_on_the_host(share, tmp_path):
         state = create_state(cfg, nets, opts, device="cpu")
         step = S.make_device_train_step(cfg, nets, opts, 8)
     state = dataclasses.replace(state, step=3, opt={p: AdamState(3, o.mu, o.nu) for p, o in state.opt.items()})
-    probe = torch.full((), 3, dtype=torch.int64).as_subclass(_HostReadProbe)
+    probe = step.scalars(state)[0].as_subclass(_HostReadProbe)
+    assert probe.shape == (len(S.SCALARS),)
     with pytest.raises(RuntimeError, match="host read"):
-        float(probe + 1)
+        float(probe[0] + 1)
     new, m = step.body(_clone(state), data, step.generators(torch.device("cpu"), state.seed, 3), probe)
     # the schedules' values came from the probe, and equal the eager step's
     assert isinstance(m["alpha_p"], _HostReadProbe) and isinstance(m["lr_frac"], _HostReadProbe)

@@ -208,22 +208,22 @@ def display(cfg: ConfigDict) -> str:
 
 
 # Layer variants the JAX package reads from the environment
-# (``triplegan_tpu/nn/layers.py``), with their defaults, which the port
-# computes; it has none of the other values yet.
-ENV_VARIANTS = {"TRIPLEGAN_DROPOUT_BITS": "32", "TRIPLEGAN_MAXPOOL": "window",
-                "TRIPLEGAN_SMALLCIN": "conv", "TRIPLEGAN_DECONV": "subpixel"}
+# (``triplegan_tpu/nn/layers.py``): the layer the port computes, and the
+# values with which the JAX package computes another one (any other value
+# leaves it on its default layer too).
+ENV_VARIANTS = {"TRIPLEGAN_DROPOUT_BITS": ("32", {"8"}), "TRIPLEGAN_MAXPOOL": ("window", {"reshape", "maskbwd"}),
+                "TRIPLEGAN_SMALLCIN": ("conv", {"patches"}), "TRIPLEGAN_DECONV": ("subpixel", {"transpose"})}
 
 
 def check_env_variants() -> None:
-    """Raise ``NotImplementedError`` if one of ``ENV_VARIANTS`` is set to
-    another value than its default: the JAX package would compute another
-    layer, and the port would silently not."""
-    set_ = {k: os.environ[k] for k, default in ENV_VARIANTS.items()
-            if os.environ.get(k, default) != default}
+    """Raise ``NotImplementedError`` if one of ``ENV_VARIANTS`` is set to a
+    value with which the JAX package would compute another layer, which the
+    port would silently not."""
+    set_ = {k: os.environ[k] for k, (_, other) in ENV_VARIANTS.items() if os.environ.get(k) in other}
     if set_:
         raise NotImplementedError(
             "not ported yet (ROADMAP Queue 1 item 6, the env variants): "
-            + ", ".join(f"{k}={v!r} (the port computes {k}={ENV_VARIANTS[k]!r})" for k, v in set_.items())
+            + ", ".join(f"{k}={v!r} (the port computes {k}={ENV_VARIANTS[k][0]!r})" for k, v in set_.items())
             + "; unset it to run the port")
 
 

@@ -8,13 +8,11 @@ rate read from the schedule at the count before the update (t − 1). It is
 functional, like optax: ``update`` returns new parameters and a new state
 and changes neither input.
 
-The schedules are Python functions of a host int. The train step reads
-them through ``StepTable``s instead: their values for every step, computed
-once on the host in float64 as the functions compute them and rounded to
-float32, then read on the device at a 0-d step tensor. Nothing of the step
-is then read on the host, so a CUDA graph that captures the step reads each
-replay's own step (a Python float would be baked in at capture), and the
-eager step runs the same code.
+The train step does not read the schedules or the bias corrections in its
+body: its caller computes them on the host in float64, as here, rounds
+them once to float32 and hands them to the step on the device
+(``train/step.py::TrainStep.scalars``), so a CUDA graph that captures the
+step reads each replay's own values, and the eager step runs the same code.
 """
 
 from __future__ import annotations
@@ -58,38 +56,6 @@ def anneal_every_schedule(base_sched: Callable, factor: float, every_steps: int)
     return sched
 
 
-class StepTable:
-    """``fns``' values at the steps 0, 1, … as float32 tensors read on the
-    device at a step tensor: ``at(t)`` is ``tuple(float32(f(t)) for f in
-    fns)`` for a 0-d integer tensor ``t``, without reading t on the host.
-    The table is computed on the host in float64 and copied to each device
-    at its first read there. ``cover(n)`` makes it reach step n − 1; growing
-    it drops the device copies and bumps ``version``, so that a captured
-    graph that read the old copy is captured again."""
-
-    def __init__(self, fns: Sequence[Callable], length: int):
-        self.fns = tuple(fns)
-        self.length = max(int(length), 1)
-        self.version = 0
-        self._on: Dict[torch.device, torch.Tensor] = {}
-
-    def cover(self, n: int) -> None:
-        if n > self.length:
-            self.length = max(int(n), 2 * self.length)
-            self._on.clear()
-            self.version += 1
-
-    def at(self, t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        tab = self._on.get(t.device)
-        if tab is None:
-            vals = [[float(f(i)) for i in range(self.length)] for f in self.fns]
-            tab = self._on[t.device] = torch.tensor(vals, dtype=torch.float64).float().to(t.device)
-        # clamped so that a step past the table reads its last entry, not
-        # memory beyond it; callers cover the steps they run
-        col = tab.index_select(1, t.clamp(max=self.length - 1).reshape(1))
-        return tuple(col.reshape(len(self.fns)).unbind())
-
-
 @dataclasses.dataclass
 class AdamState:
     count: int
@@ -108,28 +74,26 @@ class Adam:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
-    horizon: int = 1  # counts the tables hold at first (they grow on demand)
-    # lr(count), 1 − b1^(count+1), 1 − b2^(count+1), by count
-    table: StepTable = dataclasses.field(init=False, repr=False, compare=False)
-
-    def __post_init__(self):
-        b1, b2 = self.b1, self.b2
-        object.__setattr__(self, "table", StepTable(
-            (self.lr, lambda c: 1.0 - b1 ** (c + 1), lambda c: 1.0 - b2 ** (c + 1)), self.horizon))
 
     def init(self, params: Tree) -> AdamState:
         return AdamState(0, _map(torch.zeros_like, params), _map(torch.zeros_like, params))
 
-    def update(self, params: Tree, grads: Tree, state: AdamState, count=None):
-        """One step: (new params, new state). ``count`` is ``state.count``
-        as a 0-d integer tensor on the parameters' device (the train step
-        passes its step tensor), at which the lr and the bias corrections
-        are read; without it, it is made from ``state.count``."""
-        if count is None:
-            self.table.cover(state.count + 1)
+    def scalars(self, count: int) -> Tuple[float, float, float]:
+        """What an update at ``count`` reads: the lr at ``count`` and the
+        bias corrections 1 − β1^t and 1 − β2^t at t = count + 1."""
+        t = count + 1
+        return self.lr(count), 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+
+    def update(self, params: Tree, grads: Tree, state: AdamState,
+               scalars: Sequence[torch.Tensor] = None):
+        """One step: (new params, new state). ``scalars`` are
+        ``self.scalars(state.count)`` rounded to float32, as 0-d tensors on
+        the parameters' device (the train step passes its own); without
+        them they are made here."""
+        if scalars is None:
             dev = next(t for arrays in params.values() for t in arrays.values()).device
-            count = torch.full((), state.count, dtype=torch.int64, device=dev)
-        lr, bc1, bc2 = self.table.at(count)
+            scalars = torch.tensor(self.scalars(state.count), dtype=torch.float64).float().to(dev).unbind()
+        lr, bc1, bc2 = scalars
         with torch.no_grad():
             mu = _map(lambda g, m: (1.0 - self.b1) * g + self.b1 * m, grads, state.mu)
             nu = _map(lambda g, v: (1.0 - self.b2) * (g * g) + self.b2 * v, grads, state.nu)
@@ -146,8 +110,7 @@ def make_optimizers(cfg, total_steps: int) -> Dict[str, Adam]:
         if anneal_factor != 1.0 and anneal_epochs > 0:
             steps_per_epoch = max(total_steps // max(int(cfg.epochs), 1), 1)
             sched = anneal_every_schedule(sched, anneal_factor, anneal_epochs * steps_per_epoch)
-        return Adam(lr=sched, b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps,
-                    horizon=total_steps + 1)
+        return Adam(lr=sched, b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps)
 
     return {
         "gen": adam(cfg.lr_g),

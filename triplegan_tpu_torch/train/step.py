@@ -30,15 +30,16 @@ one device generator per step, seeded from (state.seed, state.step); the
 batch sampler has its own, seeded from (state.seed, state.step, 0x5A5A).
 The streams are PyTorch's, not JAX's threefry bits.
 
-A step is a ``TrainStep``: its ``body(state, x, gens, step_t)`` takes the
-step's generators and the step as a 0-d integer tensor on the device from
-its caller and reads nothing of the step on the host (α_P, the lr fraction
-and each Adam's lr and bias corrections come from ``StepTable``s read at
-step_t). Called as ``step(state, x)``, it makes both on the host from
-(state.seed, state.step); the chunk of ``make_scan_device_train_step``
-passes generators that a CUDA graph has registered and re-seeds them
-before each replay, and a step tensor that it sets, so the graph replays
-exactly what the eager steps compute.
+A step is a ``TrainStep``: its ``body(state, x, gens, sc)`` takes the
+step's generators and its scalars (``SCALARS``: α_P, the lr fraction and
+each Adam's lr and bias corrections, computed on the host in float64 and
+rounded once to float32) on the device from its caller, and reads nothing
+of the step on the host. Called as ``step(state, x)``, it makes both from
+(state.seed, state.step) and copies the scalars to the device; the chunk
+of ``make_scan_device_train_step`` passes generators that a CUDA graph has
+registered and re-seeds them before each replay, and a static scalars
+tensor that it refills, so the graph replays exactly what the eager steps
+compute.
 """
 
 from __future__ import annotations
@@ -54,11 +55,15 @@ import torch
 from triplegan_tpu_torch.data import ondevice
 from triplegan_tpu_torch.data.zca import apply_zca
 from triplegan_tpu_torch.train import losses
-from triplegan_tpu_torch.train.schedule import AdamState, StepTable, alpha_p_schedule, linear_decay_schedule
+from triplegan_tpu_torch.train.schedule import AdamState, alpha_p_schedule, linear_decay_schedule
 from triplegan_tpu_torch.train.state import TrainState
 
 METRICS = ("loss_d", "loss_g", "loss_c", "d_real", "d_cla", "d_gen", "c_sup", "c_adv",
            "c_pseudo", "alpha_p", "lr_frac")
+PLAYERS = ("gen", "disc", "clf")
+# what a step reads of its step number, in this order: α_P, the lr
+# fraction, then each player's Adam lr and bias corrections
+SCALARS = ("alpha_p", "lr_frac") + tuple(f"{v}_{p}" for p in PLAYERS for v in ("lr", "bc1", "bc2"))
 _SAMPLER_DOMAIN = 0x5A5A
 
 
@@ -76,10 +81,15 @@ def step_generator(device: torch.device, seed: int, step: int, domain: int = 0) 
     return torch.Generator(device=device).manual_seed(_mixed_seed(seed, step, domain))
 
 
-def step_scalar(device: torch.device, step: int) -> torch.Tensor:
-    """``step`` as a 0-d int64 tensor on ``device``, written there by a
-    fill (no copy from the host)."""
-    return torch.full((), step, dtype=torch.int64, device=device)
+def _upload(host: torch.Tensor, dev: torch.device, out: torch.Tensor = None) -> torch.Tensor:
+    """A CPU tensor on ``dev`` (copied into ``out`` if given) with no host
+    sync: on the card through pinned memory, whose block the caching
+    allocator keeps until the copy has run."""
+    if dev.type == "cuda":
+        host = host.pin_memory()
+    if out is None:
+        return host.to(dev, non_blocking=True)
+    return out.copy_(host, non_blocking=True)
 
 
 def _with_grad(tree):
@@ -102,27 +112,28 @@ def _device(state: TrainState) -> torch.device:
 
 class TrainStep:
     """``step(state, x) -> (state, metrics)``, one update of the three
-    players. ``body(state, x, gens, step_t)`` is the step itself: ``gens``
-    its generators, one per entry of ``domains``, and ``step_t`` the step as
-    a 0-d int64 tensor on the state's device; the body reads neither the
-    step nor any device value on the host. ``tables`` are the StepTables it
-    reads at step_t, which ``cover`` extends to a step count."""
+    players. ``body(state, x, gens, sc)`` is the step itself: ``gens`` its
+    generators, one per entry of ``domains``, and ``sc`` its ``SCALARS`` as
+    a float32 vector on the state's device; the body reads neither the
+    step nor any device value on the host. ``values(step, counts)`` gives
+    the scalars on the host in float64, ``counts`` each Adam's count."""
 
-    def __init__(self, body: Callable, tables: Sequence[StepTable], domains: Sequence[int]):
-        self.body, self.tables, self.domains = body, tuple(tables), tuple(domains)
-
-    def cover(self, n: int) -> None:
-        for t in self.tables:
-            t.cover(n)
+    def __init__(self, body: Callable, values: Callable, domains: Sequence[int]):
+        self.body, self.values, self.domains = body, values, tuple(domains)
 
     def generators(self, device: torch.device, seed: int, step: int) -> List[torch.Generator]:
         return [step_generator(device, seed, step, d) for d in self.domains]
 
+    def scalars(self, state: TrainState, n: int = 1) -> torch.Tensor:
+        """The scalars of the ``n`` steps from ``state`` on, (n,
+        len(SCALARS)) float32 on the CPU: float64 values rounded once."""
+        rows = [self.values(state.step + i, {p: o.count + i for p, o in state.opt.items()}) for i in range(n)]
+        return torch.tensor(rows, dtype=torch.float64).float()
+
     def __call__(self, state: TrainState, x):
         dev = _device(state)
-        self.cover(state.step + 1)
         return self.body(state, x, self.generators(dev, state.seed, state.step),
-                         step_scalar(dev, state.step))
+                         _upload(self.scalars(state), dev)[0])
 
 
 class _Zca:
@@ -160,20 +171,20 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         int(cfg.get("alpha_p_ramp_epochs", 0)) * steps_per_epoch,
     )
     lr_now = linear_decay_schedule(1.0, int(cfg.lr_decay_start_frac * total_steps), total_steps)
-    table = StepTable((ap_sched, lr_now), total_steps + 1)  # α_P and the lr fraction, by step
     zca = _Zca(zca_stats)
     share_fwd = bool(cfg.get("share_pseudo_forward", False))
     if bool(cfg.get("fused_clf_forward", False)):
         raise NotImplementedError("fused_clf_forward is not ported yet (ROADMAP Queue 1)")
     non_saturating = bool(cfg.non_saturating_g)
 
-    def body(state: TrainState, batch, gens, step_t) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def values(step: int, counts: Dict[str, int]) -> List[float]:
+        return [ap_sched(step), lr_now(step), *(v for p in PLAYERS for v in optimizers[p].scalars(counts[p]))]
+
+    def body(state: TrainState, batch, gens, sc) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         dev = _device(state)
         (rng,) = gens
-        alpha_p_now, lr_frac = table.at(step_t)
-        # each Adam's count as a tensor: the step plus the (fixed) host offset
-        counts = {p: step_t if o.count == state.step else step_t + (o.count - state.step)
-                  for p, o in state.opt.items()}
+        alpha_p_now, lr_frac = sc[0], sc[1]
+        adam = {p: sc[2 + 3 * i:5 + 3 * i].unbind() for i, p in enumerate(PLAYERS)}
         params, bn = state.params, state.bn
         zm, zw = zca.get(dev)
 
@@ -212,7 +223,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         d_total = losses.d_loss(lr_real, lr_cla, lr_gen, alpha)
         d_terms = losses.d_loss_terms(lr_real, lr_cla, lr_gen, alpha)
         gd = _like(pd, torch.autograd.grad(d_total, _leaves(pd)))
-        pd_new, opt_d_new = opt_d.update(params["disc"], gd, state.opt["disc"], counts["disc"])
+        pd_new, opt_d_new = opt_d.update(params["disc"], gd, state.opt["disc"], adam["disc"])
 
         # ================= G update (scored by the new D) ====================
         bg = batch["g"]
@@ -223,7 +234,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
                                 generator=rng)
         g_total = losses.g_loss(logit_g, alpha, non_saturating)
         gg = _like(pg, torch.autograd.grad(g_total, _leaves(pg)))
-        pg_new, opt_g_new = opt_g.update(params["gen"], gg, state.opt["gen"], counts["gen"])
+        pg_new, opt_g_new = opt_g.update(params["gen"], gg, state.opt["gen"], adam["gen"])
 
         # ================= C update (sees the new D and G) ===================
         bc = batch["c"]
@@ -248,7 +259,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         c_total, c_terms = losses.c_loss(log_l, y_l_c, logit_d_cla, log_u, y_c2, log_g, y_gc,
                                          alpha, alpha_p_now)
         gc = _like(pc, torch.autograd.grad(c_total, _leaves(pc)))
-        pc_new, opt_c_new = opt_c.update(params["clf"], gc, state.opt["clf"], counts["clf"])
+        pc_new, opt_c_new = opt_c.update(params["clf"], gc, state.opt["clf"], adam["clf"])
 
         new_state = TrainState(
             params={"gen": pg_new, "disc": pd_new, "clf": pc_new},
@@ -263,7 +274,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         metrics["alpha_p"], metrics["lr_frac"] = alpha_p_now, lr_frac
         return new_state, metrics
 
-    return TrainStep(body, [table] + [o.table for o in (opt_g, opt_d, opt_c)], (0,))
+    return TrainStep(body, values, (0,))
 
 
 def _make_batch_sampler(cfg):
@@ -328,11 +339,11 @@ def make_device_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=No
     core = make_train_step(cfg, nets, optimizers, total_steps, zca_stats, pseudo_label_mode)
     draw = _make_batch_draw(cfg)
 
-    def body(state: TrainState, data, gens, step_t):
+    def body(state: TrainState, data, gens, sc):
         rng, rng_batch = gens
-        return core.body(state, draw(rng_batch, data), (rng,), step_t)
+        return core.body(state, draw(rng_batch, data), (rng,), sc)
 
-    return TrainStep(body, core.tables, (0, _SAMPLER_DOMAIN))
+    return TrainStep(body, core.values, (0, _SAMPLER_DOMAIN))
 
 
 # ---------------------------------------------------------------------------
@@ -483,21 +494,25 @@ class ScanChunk:
     eager step at its step number computes; the metrics reduced per
     ``metrics_mode`` (``_reduce_scan_metrics``).
 
-    On the card the chunk is one CUDA graph. The first call warms the step
-    up on a clone of the state on a side stream (one eager step, so lazy
-    set-up happens outside the capture), then captures the n steps into
-    one graph, their 2·n generators registered with it and the step a
-    static 0-d tensor, and instantiates it. Every call re-seeds the
-    generators on the host to the seeds the eager steps would draw from,
-    sets the step tensor and replays the graph: one dispatch for n steps.
-    A call whose state or data tensors lie elsewhere in memory, whose
-    tables grew, or under another ``cudnn.deterministic`` captures anew.
-    A capture that fails raises ``GraphCaptureError`` naming the op; the
-    chunk never runs eagerly in its place. The kernel wrappers count their
-    launches at capture (and in the warm-up step), not at replays.
-    ``captures``, ``replays``, ``captured_steps``, ``warmup_steps`` and
-    ``graph_stats`` (the current graph's nodes, seconds to capture and
-    instantiate, and pool bytes) say what happened.
+    On the card the chunk is one CUDA graph. The first call (or
+    ``prepare``) warms the step up on a clone of the state on a side
+    stream (one eager step, so lazy set-up happens outside the capture),
+    then captures the n steps into one graph, their 2·n generators
+    registered with it and their scalars a static (n, len(SCALARS)) tensor,
+    and instantiates it. Every call re-seeds the generators on the host to
+    the seeds the eager steps would draw from, copies the n steps' scalars
+    (computed on the host) into the static tensor and replays the graph:
+    one dispatch for n steps. The graph keeps every step's metrics; the
+    reduction runs after the replay, so both modes replay one graph. A
+    call whose state or data tensors lie elsewhere in memory, or under
+    another ``cudnn.deterministic``, captures anew. A capture that fails
+    raises ``GraphCaptureError`` naming the op; the chunk never runs
+    eagerly in its place. The kernel wrappers count their launches at
+    capture (and in the warm-up step), not at replays. ``captures``,
+    ``replays``, ``captured_steps``, ``warmup_steps`` and ``graph_stats``
+    (the current graph's nodes, seconds to capture and instantiate, and
+    pool bytes) say what happened; ``step_metrics`` holds the last call's
+    metrics of every step ({name: (n,) tensor}).
 
     On the CPU the same chunk runs eagerly, through the same code.
 
@@ -513,15 +528,17 @@ class ScanChunk:
         self.step, self.n, self.mode, self.log = step, int(n_steps), metrics_mode, log
         self.captures = self.replays = self.captured_steps = self.warmup_steps = 0
         self.graph_stats: Dict[str, float] = {}
+        self.step_metrics: Dict[str, torch.Tensor] = {}
         self._graph = self._key = None
 
-    def _chunk(self, state, data, gens, step_t):
-        """The chunk's work, eager on the CPU and captured on the card."""
+    def _chunk(self, state, data, gens, sc):
+        """The chunk's work, eager on the CPU and captured on the card: the
+        new state and the metrics stacked per step."""
         ms = []
         for i in range(self.n):
-            state, m = self.step.body(state, data, gens[i], step_t + i)
+            state, m = self.step.body(state, data, gens[i], sc[i])
             ms.append(m)
-        return state, _reduce_scan_metrics(_stacked(ms), self.mode)
+        return state, _stacked(ms)
 
     def _advanced(self, state: TrainState) -> TrainState:
         return dataclasses.replace(state, step=state.step + self.n,
@@ -530,29 +547,36 @@ class ScanChunk:
     def _key_of(self, state: TrainState, data) -> tuple:
         return (tuple(t.data_ptr() for t in _state_tensors(state)),
                 tuple((t.data_ptr(), tuple(t.shape)) for t in data.values()),
-                tuple(t.version for t in self.step.tables),
-                tuple(o.count - state.step for o in state.opt.values()),
                 torch.backends.cudnn.deterministic)
+
+    def prepare(self, state: TrainState, data) -> None:
+        """On the card, capture the graph for this state and data now
+        unless the current one fits them; a call does this by itself, and
+        a caller may do it first to keep the capture out of a timed call.
+        Changes no value of the state."""
+        if _device(state).type == "cuda":
+            key = self._key_of(state, data)
+            if key != self._key:
+                self._capture(state, data, key)
 
     def __call__(self, state: TrainState, data):
         dev = _device(state)
-        self.step.cover(state.step + self.n)
         if dev.type != "cuda":
             gens = [self.step.generators(dev, state.seed, state.step + i) for i in range(self.n)]
-            new, metrics = self._chunk(state, data, gens, step_scalar(dev, state.step))
+            new, stacked = self._chunk(state, data, gens, self.step.scalars(state, self.n))
             _copy_into(state, new)
-            return self._advanced(state), metrics
-        key = self._key_of(state, data)
-        if key != self._key:
-            self._capture(state, data, key)
-        for i, gens in enumerate(self._gens):
-            for g, domain in zip(gens, self.step.domains):
-                g.manual_seed(_mixed_seed(state.seed, state.step + i, domain))
-        self._step_t.fill_(state.step)
-        self._graph.replay()
-        self.replays += 1
-        out = self._metrics.clone()
-        return self._advanced(state), {k: out[j] for j, k in enumerate(METRICS)}
+        else:
+            self.prepare(state, data)
+            for i, gens in enumerate(self._gens):
+                for g, domain in zip(gens, self.step.domains):
+                    g.manual_seed(_mixed_seed(state.seed, state.step + i, domain))
+            _upload(self.step.scalars(state, self.n), dev, out=self._scalars)
+            self._graph.replay()
+            self.replays += 1
+            out = self._metrics.clone()
+            stacked = {k: out[j] for j, k in enumerate(METRICS)}
+        self.step_metrics = stacked
+        return self._advanced(state), _reduce_scan_metrics(stacked, self.mode)
 
     def _capture(self, state: TrainState, data, key) -> None:
         dev = _device(state)
@@ -561,7 +585,7 @@ class ScanChunk:
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             self.step.body(_clone_state(state), data, self.step.generators(dev, state.seed, state.step),
-                           step_scalar(dev, state.step))
+                           _upload(self.step.scalars(state), dev)[0])
         torch.cuda.current_stream(dev).wait_stream(stream)
         self.warmup_steps += 1
 
@@ -569,17 +593,17 @@ class ScanChunk:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for g in (g for pair in gens for g in pair):
             graph.register_generator_state(g)
-        step_t = step_scalar(dev, state.step)  # a static input, outside the graph's pool
+        sc = _upload(self.step.scalars(state, self.n), dev)  # a static input, outside the graph's pool
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph, stream=stream):
                 mode = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")  # a host sync raises where it is
                 try:
-                    new, metrics = self._chunk(state, data, gens, step_t)
+                    new, stacked = self._chunk(state, data, gens, sc)
                     _copy_into(state, new)
-                    vec = torch.stack([metrics[k] for k in METRICS])
-                    del new, metrics
+                    vec = torch.stack([stacked[k] for k in METRICS])
+                    del new, stacked
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
         except Exception as e:  # any failure inside the capture: name it, never fall back
@@ -587,7 +611,7 @@ class ScanChunk:
         nodes = _graph_nodes(graph)
         graph.instantiate()
         seconds = time.perf_counter() - t0
-        self._graph, self._gens, self._step_t, self._metrics, self._key = graph, gens, step_t, vec, key
+        self._graph, self._gens, self._scalars, self._metrics, self._key = graph, gens, sc, vec, key
         self.captures += 1
         self.captured_steps += self.n
         self.graph_stats = {"steps": self.n, "nodes": nodes, "capture_s": seconds,
