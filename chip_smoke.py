@@ -76,6 +76,31 @@ Phases, each fatal on failure (exit code 1, and no result line):
      its launches a step; the plain arm launches nothing. Then, alone,
      an eval and a checkpoint save timed and the graphed loop's pace (12
      steps, a log every 4);
+  5b. host: the host-streamed path at the shipped setting with ddinit and
+     the fused classifier (data_on_device off, ddinit on, fused_clf_forward
+     on; kernel arm). In this process: ddinit on the card, its launches
+     counted (D's stride-1 and G's phase convs at the init batch), its
+     parameters within 1e-4·(1 + |p|) of a CPU ddinit of the same inputs,
+     D's weight-norm pre-activations on the init batch zero-mean and of
+     unit std per channel within 1e-3; then 6 steps of make_train_step fed
+     by device_prefetch over the port's BatchSampler (the native gather in
+     use), their launches 6 × step_launches of a step whose classifier runs
+     at 3B rows, key for key, the first 4 batches on the card bytewise the
+     sampler's host batches, and the plain arm's first step from the same
+     state agreeing (phase 3's float32 tolerance). Side by side with it:
+     two CLI chains (``cli train --set data_on_device=False --set
+     ddinit=True --set fused_clf_forward=True``, 4 steps, then resumed to
+     8) whose step-8 checkpoints must be equal bitwise, the resumed run
+     printing no second ddinit line; and one subprocess per layer variant
+     (``--variant-step``: TRIPLEGAN_DROPOUT_BITS=8, TRIPLEGAN_MAXPOOL=reshape
+     and maskbwd, TRIPLEGAN_SMALLCIN=patches, TRIPLEGAN_DECONV=transpose),
+     each one eager shipped step per arm: launches as the variant implies
+     (patches and transpose move convs off the kernels), finite losses,
+     step-1 metrics of the two arms agreeing. Then, alone: ms/step of the
+     host-streamed step against the same step on device data and phase 3's
+     device-data step, in turns; the host-to-device copies of one
+     profiled host-streamed step (none pageable); and one batch's copies
+     from device_prefetch's pinned buffers timed with CUDA events;
   6. serve: as in slice 1: cifar10_4k at full width from seeded weights
      (written and read back in the JAX package's npz export format), per
      compute dtype and arm, an HTTP server on an ephemeral port driven
@@ -93,7 +118,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
      (F.conv2d for the conv forward, torch.nn.grad.conv2d_input and
      conv2d_weight for dgrad and wgrad; none for either scale_bias_act
      kernel). A float32 conv row times conv3x3.cu's kernel, a bfloat16 row
-     conv3x3_sm90.cu's.
+     conv3x3_sm90.cu's; a float32 conv row is also called 20 more times,
+     and each call must equal the first bitwise (the kernels sum in a fixed
+     order). The shapes include phase 5b's: the classifier at 3B rows,
+     ddinit's, the variants'.
 
 The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
@@ -168,6 +196,7 @@ BATCH = 100
 N_REQ = 250                   # images per request: chunks 100, 100, 50 (+50 pad)
 RAGGED_SHAPE = (7, 13, 11, 37)  # an epilogue off every path: odd C, scalar loads
 SBA_REPS = 60                 # cold repetitions of each epilogue row
+CONV_REPEATS = 20             # float32 conv calls held bitwise to the first
 SPIN_CYCLES = 1_000_000       # ≈0.5 ms of device spin before each timed call
 # the epilogue kernels' names in a profile (in-step device time, --profile)
 EPILOGUE_KERNELS = {"epilogue_fwd": ("sba_fwd",), "epilogue_bwd": ("sba_bwd",)}
@@ -184,6 +213,16 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
+
+
+def save_failing(name: str, **tensors) -> str:
+    """Writes a failing call's tensors to an npz under the temporary
+    directory (``TMPDIR``); returns its path."""
+    import numpy as np
+
+    path = os.path.join(tempfile.gettempdir(), f"{name}-{os.getpid()}-{time.time_ns()}.npz")
+    np.savez(path, **{k: t.detach().float().cpu().numpy() for k, t in tensors.items()})
+    return path
 
 
 def emit(key: str, obj):
@@ -323,18 +362,25 @@ def train_cfg(dtype: str, batch: int, share: bool, use_pallas: bool):
     return cfg
 
 
-def conv_layers(cfg):
+def conv_layers(cfg, env=os.environ):
     """The 3×3 stride-1 convs the kernels take in each network, as (h,
     cin, cout, halo) lists: (Generator's phase convs, Discriminator's,
-    Classifier's)."""
+    Classifier's). The layer variants of ``env`` move some off the kernels:
+    ``TRIPLEGAN_SMALLCIN=patches`` the Classifier's convs with 9·Cin ≤ 128
+    (a matmul; the Discriminator's weight-norm convs bypass it in the kernel
+    arm, as in JAX), ``TRIPLEGAN_DECONV=transpose`` every Generator conv
+    (``conv_transpose`` on cuDNN)."""
     s, nc = cfg.image_size, cfg.num_classes
+    patches = env.get("TRIPLEGAN_SMALLCIN", "conv") == "patches"
     clf, h, cin = [], s, cfg.channels
     for block in cfg.clf.conv_blocks:
         for w in block:
-            clf.append((h, cin, w, 1))
+            if not (patches and 9 * cin <= 128):
+                clf.append((h, cin, w, 1))
             cin = w
         h = -(-h // 2)
-    clf.append((h, cin, cfg.clf.tail[0], 0))
+    if not (patches and 9 * cin <= 128):
+        clf.append((h, cin, cfg.clf.tail[0], 0))
     disc, h, cin = [], s, cfg.channels + nc
     widths, strides = cfg.disc.widths, cfg.disc.strides
     for i, (w, st) in enumerate(zip(widths, strides)):
@@ -351,6 +397,8 @@ def conv_layers(cfg):
         gen.append((h, gw[i], 4 * gw[i + 1], 1))
         h *= 2
     gen.append((h, gw[-1], 4 * cfg.channels, 1))
+    if env.get("TRIPLEGAN_DECONV", "subpixel") == "transpose":
+        gen = []
     return gen, disc, clf
 
 
@@ -359,8 +407,9 @@ def fwd_launches(cfg, n, layers) -> collections.Counter:
     return collections.Counter(("fwd", n, h, h, ci, co, p, cfg.compute_dtype) for h, ci, co, p in layers)
 
 
-def step_launches(cfg):
-    """Every kernel launch of one train step of ``cfg`` with use_pallas:
+def step_launches(cfg, env=os.environ):
+    """Every kernel launch of one train step of ``cfg`` with use_pallas,
+    under the layer variants of ``env`` (``conv_layers``):
     (Counter of conv launches keyed as the conv wrappers key theirs, (role,
     n, h, w, cin, cout, halo, dtype), {key: the players it runs in},
     epilogue forward launches, epilogue backward launches). Role "fwd" is
@@ -368,7 +417,7 @@ def step_launches(cfg):
     w, cin) the cotangent), "wgrad" the filter gradient of a conv whose
     input is (n, h, w, cin)."""
     b, dt = cfg.batch_size, cfg.compute_dtype
-    gen, disc, clf = conv_layers(cfg)
+    gen, disc, clf = conv_layers(cfg, env)
     widths, gw = cfg.disc.widths, cfg.gen.widths
     convs, players = collections.Counter(), collections.defaultdict(set)
 
@@ -389,7 +438,10 @@ def step_launches(cfg):
                 add(where, "dgrad", n, ho, ho, co, ci, 2 - p, dt)
 
     share = bool(cfg.share_pseudo_forward)
-    c_passes = 2 if share else 3
+    fused = bool(cfg.get("fused_clf_forward", False))
+    # C's passes in the C update: forwards (2 new under share, one 3B-row
+    # pass when fused) and passes that carry a gradient
+    c_fwd, c_bwd = (1, 1) if fused else (2 if share else 3, 3)
     # D update: G and C forwards without grad, D's 3B-row pass and backward
     fwd("gen", b, gen)
     fwd("clf", b, clf)
@@ -400,23 +452,28 @@ def step_launches(cfg):
     fwd("disc", b, disc)
     bwd("disc", b, disc, dw=False, dx_first=True)
     bwd("gen", b, gen, dw=True, dx_first=True)
-    # C update: G forward, 3 C passes (2 new under share), D on the pseudo-pairs
+    # C update: G forward, 3 C passes (2 new under share; one of 3B rows
+    # when fused), D on the pseudo-pairs
     fwd("gen", b, gen)
-    for _ in range(c_passes):
-        fwd("clf", b, clf)
-    for _ in range(3):
-        bwd("clf", b, clf, dw=True, dx_first=False)
+    cb = 3 * b if fused else b
+    for _ in range(c_fwd):
+        fwd("clf", cb, clf)
+    # the first kernel conv of C takes a cotangent's dgrad when the conv
+    # before it left the kernels (a patched first conv)
+    clf_dx_first = env.get("TRIPLEGAN_SMALLCIN", "conv") == "patches" and 9 * cfg.channels <= 128
+    for _ in range(c_bwd):
+        bwd("clf", cb, clf, dw=True, dx_first=clf_dx_first)
     fwd("disc", b, disc)
     n_g = len(gw) + 1
     n_c = sum(len(bl) for bl in cfg.clf.conv_blocks) + len(cfg.clf.tail)
     n_d = len(widths)
-    epilogues = (n_g + n_c + n_d) + (n_g + n_d) + (n_g + c_passes * n_c + n_d)
+    epilogues = (n_g + n_c + n_d) + (n_g + n_d) + (n_g + c_fwd * n_c + n_d)
     # Backward through an epilogue wherever its pass carries a gradient: D's
-    # 3B-row pass in the D update; G and D in the G update; C's three passes
-    # in the C update (under share, one of them is the D update's kept
-    # unlabeled pass). The forwards without grad (G and C in the D update,
-    # G and D in the C update) have none.
-    epilogue_bwds = n_d + (n_g + n_d) + 3 * n_c
+    # 3B-row pass in the D update; G and D in the G update; C's passes in
+    # the C update (three, under share one of them the D update's kept
+    # unlabeled pass; one when fused). The forwards without grad (G and C
+    # in the D update, G and D in the C update) have none.
+    epilogue_bwds = n_d + (n_g + n_d) + c_bwd * n_c
     return convs, players, epilogues, epilogue_bwds
 
 
@@ -1210,7 +1267,7 @@ def driver_timing(data_dir, workdir, inproc, n_steps=12) -> dict:
             "graphed_loop_ms_per_step": statistics.mean(v for st, v in ms.items() if st > 4)}
 
 
-def driver_phase(train_arms, graph_arms) -> dict:
+def driver_phase(train_arms, graph_arms, data_dir) -> dict:
     """The train driver end to end, through the CLI as a user calls it, on
     cifar10_4k at full width (float32, batch 100, kernel arm; 4 steps an
     epoch, an eval, a sample grid and a checkpoint each epoch, a log every
@@ -1227,10 +1284,6 @@ def driver_phase(train_arms, graph_arms) -> dict:
     bare_graph = next(a for a in graph_arms if a["setting"] == "shipped" and a["use_pallas"])
     tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
     try:
-        data_dir = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        write_prepared(data_dir)
-        prepare_s = time.perf_counter() - t0
         w1, w2, w3 = (os.path.join(tmp, w) for w in ("w1", "w2", "w3"))
         run1 = os.path.join(w1, "cifar10_4k")
 
@@ -1281,7 +1334,7 @@ def driver_phase(train_arms, graph_arms) -> dict:
         import shutil
 
         shutil.rmtree(tmp, ignore_errors=True)
-    res = {"config": "cifar10_4k float32 batch 100 kernel arm", "prepare_seconds": prepare_s,
+    res = {"config": "cifar10_4k float32 batch 100 kernel arm",
            "straight_8_seconds": straight_s, "side_by_side_seconds": side_by_side_s,
            "resume_4_4_seconds": resume_s, "eval_seconds_cli": eval_s, "sample_seconds_cli": sample_s,
            **stop, "graphed_bitwise": True, "final": done,
@@ -1289,6 +1342,530 @@ def driver_phase(train_arms, graph_arms) -> dict:
            "bare_step_ms_per_step": bare["ms_per_step"], "bare_graphed_ms_per_step": bare_graph["graph_ms_per_step"],
            "resume_bitwise": True, **{k: v for k, v in inproc.items() if not k.startswith("_")}, **timing}
     emit("driver", res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: host-streamed batches, ddinit, the fused classifier, the layer
+# variants
+# ---------------------------------------------------------------------------
+
+HOST_SETS = ["data_on_device=False", "ddinit=True", "fused_clf_forward=True"]
+HOST_STEPS = 6          # counted host-streamed steps; the first 4 byte-checked
+HOST_BYTE_STEPS = 4
+HOST_TURN_STEPS = 6     # steps a timing turn
+# the layer variants the JAX package reads from the environment, each at a
+# value with which it computes another layer
+VARIANTS = [("TRIPLEGAN_DROPOUT_BITS", "8"), ("TRIPLEGAN_MAXPOOL", "reshape"), ("TRIPLEGAN_MAXPOOL", "maskbwd"),
+            ("TRIPLEGAN_SMALLCIN", "patches"), ("TRIPLEGAN_DECONV", "transpose")]
+
+
+def host_cfg(use_pallas):
+    """The shipped setting (float32, batch 100, share off) with the three
+    options of a host-streamed run: data_on_device off, ddinit, the fused
+    classifier."""
+    cfg = train_cfg("float32", BATCH, False, use_pallas)
+    cfg.data_on_device, cfg.ddinit, cfg.fused_clf_forward = False, True, True
+    return cfg
+
+
+def metrics_agree(a: dict, b: dict, what: str) -> dict:
+    """Step metrics of two arms within phase 3's float32 tolerance,
+    1e-3·(1 + |m|); returns the differences."""
+    diffs = {k: abs(a[k] - b[k]) for k in a}
+    for k in a:
+        check(diffs[k] <= 1e-3 * (1 + abs(b[k])), f"{what}: step-1 {k} differs between arms: {a[k]} vs {b[k]}")
+    return diffs
+
+
+def wn_preactivations(disc, params, x, y):
+    """D's weight-norm pre-activations (conv with g·v/‖v‖ plus b, then the
+    head's dense) on (x, y), stochastic layers off, through F.conv2d."""
+    import torch
+
+    from triplegan_tpu_torch.nn import layers as L
+
+    y1h = L.onehot(y, disc.num_classes, dtype=x.dtype)
+    h = L.label_concat_spatial(x, y1h)
+    out = []
+    for i, s in enumerate(disc.strides):
+        t = L.conv2d_apply(params[f"conv{i}"], h, stride=s)
+        out.append(t)
+        h = L.leaky_relu(t, disc.lrelu_slope)
+        if s == 2 and disc.label_reconcat and i + 1 < len(disc.widths):
+            h = L.label_concat_spatial(h, y1h)
+    out.append(L.dense_apply(params["head"], torch.cat([L.global_avg_pool(h), y1h], -1)))
+    return out
+
+
+def ddinit_on_card(cfg, nets, state, data, zca) -> tuple:
+    """``_apply_ddinit`` on the card, its launches counted (D's stride-1
+    convs and G's phase convs, forwards at the init batch); the new
+    parameters against a CPU ddinit of the same inputs from the same
+    seeded state within 1e-4·(1 + |p|); D's weight-norm pre-activations on
+    the init batch zero-mean and of unit std per channel within 1e-3."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.train import loop as train_loop
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    dev = torch.device("cuda")
+    n = min(cfg.batch_size, len(data.x_unlabel))
+    gen, disc, _ = conv_layers(cfg)
+    counts_zero()
+    new = train_loop._apply_ddinit(cfg, nets, state, data, zca, dev)
+    torch.cuda.synchronize()
+    counts = counts_read()
+    want = fwd_launches(cfg, n, disc) + fwd_launches(cfg, n, gen)
+    got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+    check(got == want, f"ddinit conv launches {dict(got - want)}; implied and not launched {dict(want - got)}")
+    check(not counts["scale_bias_act"] and not counts["scale_bias_act_bwd"], "ddinit launched epilogues")
+
+    t0 = time.perf_counter()
+    cpu_nets = make_networks(cfg)
+    cpu_state = create_state(cfg, cpu_nets, make_optimizers(cfg, TOTAL_STEPS), device="cpu")
+    cpu_new = train_loop._apply_ddinit(cfg, cpu_nets, cpu_state, data, zca, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for p in ("gen", "disc"):
+        for layer, arrays in cpu_new.params[p].items():
+            for k, ref in arrays.items():
+                err = ((new.params[p][layer][k].cpu() - ref).abs() / (1 + ref.abs())).max()
+                worst = max(worst, float(err))
+    check(worst <= 1e-4, f"card and CPU ddinit differ by {worst}·(1 + |p|)")
+
+    x, y, _, _ = train_loop._ddinit_inputs(cfg, data, zca, dev)
+    with torch.no_grad():
+        pre = wn_preactivations(nets[1], new.params["disc"], x, y)
+    mean_dev = max(float(t.reshape(-1, t.shape[-1]).double().mean(0).abs().max()) for t in pre)
+    std_dev = max(float((t.reshape(-1, t.shape[-1]).double().std(0, correction=0) - 1).abs().max()) for t in pre)
+    check(mean_dev <= 1e-3 and std_dev <= 1e-3,
+          f"ddinit pre-activations: per-channel |mean| up to {mean_dev}, |std - 1| up to {std_dev}")
+    res = {"batch": n, "launches": totals(counts), "card_vs_cpu_rel": worst, "cpu_ddinit_seconds": cpu_s,
+           "preact_max_abs_mean": mean_dev, "preact_max_abs_std_minus_1": std_dev, "layers_checked": len(pre)}
+    return new, counts, res
+
+
+def device_memcpy(fn) -> dict:
+    """torch.profiler over one call of ``fn``: the host-to-device copies'
+    device records (count, µs), by name (the name says pinned or
+    pageable)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and "HtoD" in e.name():
+            rec = by_name[e.name()]
+            rec[0] += 1
+            rec[1] += (e.end_ns() - e.start_ns()) / 1e3
+    return {name: {"count": c, "us": us} for name, (c, us) in by_name.items()}
+
+
+def host_arm(data, zca) -> dict:
+    """The host-streamed path in this process (``host_cfg``, kernel arm):
+    ddinit first (``ddinit_on_card``); then ``HOST_STEPS`` steps of
+    ``make_train_step`` fed by ``device_prefetch`` over the port's
+    ``BatchSampler`` (the native gather, which must be in use), counted
+    from just before the first to just after the last: the conv launches
+    must be ``HOST_STEPS`` × step_launches of a step whose classifier runs
+    at 3B rows, key for key, the epilogues their implied numbers; each of
+    the first ``HOST_BYTE_STEPS`` batches on the card must equal the
+    sampler's host batch bytewise. The plain arm's first step from the
+    same ddinit state on the same batch must agree with the kernel arm's
+    (phase 3's float32 tolerance) and launch nothing. Leaves the state,
+    step, stream and first host batch for the timing turns."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.data import native
+    from triplegan_tpu_torch.data.pipeline import BatchSampler, device_prefetch
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    dev = torch.device("cuda")
+    cfg = host_cfg(True)
+    nets = make_networks(cfg)
+    opts = make_optimizers(cfg, TOTAL_STEPS)
+    state = create_state(cfg, nets, opts, device="cuda")
+    state, dd_counts, dd = ddinit_on_card(cfg, nets, state, data, zca)
+    start = S._clone_state(state)
+
+    host = []
+    sampler = BatchSampler(data, cfg.batch_size, seed=SEED)
+
+    def stream():
+        for b in sampler.triple_iter(cfg.z_dim, cfg.num_classes):
+            host.append(b)
+            yield b
+
+    batches = device_prefetch(stream(), dev)
+    step = S.make_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca)
+    torch.cuda.synchronize()
+    seen, metrics = [], []
+    counts_zero()  # the main path starts here
+    t0 = time.perf_counter()
+    for t in range(HOST_STEPS):
+        batch = next(batches)
+        if t < HOST_BYTE_STEPS:
+            seen.append({(s, k): v.clone() for s, d in batch.items() for k, v in d.items()})
+        state, m = step(state, batch)
+        metrics.append(m)
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]  # waits for the steps
+    first_s = time.perf_counter() - t0
+    counts = counts_read()  # the main path ends here
+    check(native.native_available(), "the sampler's gathers did not go through the native library")
+    for t, got in enumerate(seen):
+        want = host[t]
+        check(len(got) == sum(len(d) for d in want.values()), f"host batch {t}: fields {sorted(got)}")
+        for (s, k), v in got.items():
+            check(np.array_equal(v.cpu().numpy(), want[s][k]) and v.dtype == torch.from_numpy(want[s][k]).dtype,
+                  f"host-streamed step {t}: {s}.{k} on the card differs from the sampler's host batch")
+    for t, m in enumerate(metrics):
+        check(all(math.isfinite(v) for v in m.values()), f"host-streamed step {t}: {m}")
+    convs, players, epilogues, epilogue_bwds = step_launches(cfg)
+    check(any(key[1] == 3 * BATCH and key[0] == "fwd" for key in convs) and
+          all(not (key[1] == BATCH and key[0] == "wgrad" and "clf" in players[key]) for key in convs),
+          "step_launches does not run the classifier at 3B rows")
+    want = collections.Counter({key: c * HOST_STEPS for key, c in convs.items()})
+    got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+    check(got == want, f"host-streamed conv launches {dict(got - want)}; implied and not launched {dict(want - got)}")
+    launches = totals(counts)
+    check(launches["scale_bias_act"] == epilogues * HOST_STEPS and
+          launches["scale_bias_act_bwd"] == epilogue_bwds * HOST_STEPS,
+          f"host-streamed epilogue launches {launches}, want {epilogues}/{epilogue_bwds} × {HOST_STEPS}")
+
+    pcfg = host_cfg(False)
+    pstep = S.make_train_step(pcfg, make_networks(pcfg), make_optimizers(pcfg, TOTAL_STEPS), TOTAL_STEPS,
+                              zca_stats=zca)
+    first = {s: {k: torch.as_tensor(v, device=dev) for k, v in d.items()} for s, d in host[0].items()}
+    counts_zero()
+    _, pm = pstep(start, first)
+    pm = {k: float(v) for k, v in pm.items()}
+    check(not any(totals(counts_read()).values()), "the plain arm's host-streamed step launched kernels")
+    diffs = metrics_agree(metrics[0], pm, "host-streamed fused")
+    arm = {"config": "cifar10_4k float32 batch 100 kernel arm, data_on_device=False, ddinit, fused_clf_forward",
+           "steps": HOST_STEPS, "ddinit": dd, "ddinit_launches": dd["launches"], "launches": launches,
+           "launches_per_step": {k: v / HOST_STEPS for k, v in launches.items()},
+           "native_gather": True, "bytes_checked_steps": HOST_BYTE_STEPS, "first_run_s": first_s,
+           "metrics": metrics, "plain_step1": pm, "arms_abs_diff": diffs,
+           "_counts": counts, "_dd_counts": dd_counts, "_players": players,
+           "_state": state, "_step": step, "_batches": batches, "_cfg": cfg, "_host0": host[0]}
+    return arm
+
+
+def htod_batch_copy(batch, reps=20) -> dict:
+    """One host batch's copies to the card as ``device_prefetch`` makes
+    them (from its pinned buffers, ``non_blocking``, on a side stream):
+    the median device time of ``reps`` rounds between CUDA events on that
+    stream, with the bytes and the rate."""
+    import torch
+
+    from triplegan_tpu_torch.data.pipeline import _leaves, _PinnedSlot
+
+    dev = torch.device("cuda")
+    slot = _PinnedSlot(batch)
+    slot.fill(batch)
+    bufs = list(_leaves(slot.bufs))
+    check(all(b.is_pinned() for b in bufs), "device_prefetch's host buffers are not pinned")
+    stream = torch.cuda.Stream(device=dev)
+    pairs = []
+    with torch.cuda.stream(stream):
+        for _ in range(reps):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record(stream)
+            outs = [b.to(dev, non_blocking=True) for b in bufs]
+            e.record(stream)
+            pairs.append((s, e))
+    torch.cuda.synchronize()
+    del outs
+    nbytes = sum(b.numel() * b.element_size() for b in bufs)
+    us = statistics.median(1e3 * s.elapsed_time(e) for s, e in pairs)
+    return {"tensors": len(bufs), "bytes": nbytes, "us": us, "gb_s": nbytes / us / 1e3}
+
+
+class FeedClock:
+    """Host seconds of the parts of ``device_prefetch``'s ``next`` while
+    active, by wrapping the pipeline functions it looks up at each call:
+    the sampler (``next_triple``: its RandomState draws and its native
+    gathers), the gathers alone (``gather_rows``, with ``threads`` threads
+    where given), the pinned slot's wait on the event of its last copies
+    and its refill (``_PinnedSlot.fill``), and the hand-over to the
+    consumer's stream. What ``next`` spends beyond these is the ``.to()``
+    launches, the event record and the generator's own work."""
+
+    def __init__(self, threads=None):
+        self.threads = threads
+        self.s = collections.Counter()
+
+    def __enter__(self):
+        from triplegan_tpu_torch.data import pipeline as P
+
+        self._saved = (P.gather_rows, P.BatchSampler.next_triple, P._PinnedSlot.fill, P._hand_over)
+        gather, next_triple, fill, hand_over = self._saved
+        s, threads = self.s, self.threads
+
+        def timed(part, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    s[part] += time.perf_counter() - t0
+            return run
+
+        def timed_fill(slot, batch):
+            t0 = time.perf_counter()
+            if slot.done is not None:
+                slot.done.synchronize()
+            t1 = time.perf_counter()
+            fill(slot, batch)
+            s["slot_wait"] += t1 - t0
+            s["slot_fill"] += time.perf_counter() - t1
+
+        P.gather_rows = timed("gather", gather if threads is None else
+                              lambda src, idx: gather(src, idx, n_threads=threads))
+        P.BatchSampler.next_triple = timed("sampler", next_triple)
+        P._PinnedSlot.fill = timed_fill
+        P._hand_over = timed("hand_over", hand_over)
+        return self
+
+    def __exit__(self, *exc):
+        from triplegan_tpu_torch.data import pipeline as P
+
+        P.gather_rows, P.BatchSampler.next_triple, P._PinnedSlot.fill, P._hand_over = self._saved
+
+    def ms_per_step(self, steps: int) -> dict:
+        ms = {k: 1e3 * self.s[k] / steps for k in ("next", "sampler", "gather", "slot_wait", "slot_fill",
+                                                    "hand_over")}
+        ms["draws"] = ms["sampler"] - ms["gather"]
+        ms["launches_and_rest"] = ms["next"] - sum(ms[k] for k in ("sampler", "slot_wait", "slot_fill",
+                                                                   "hand_over"))
+        return ms
+
+
+def gather_ms(data, reps=50) -> dict:
+    """Median host ms of one native gather of a batch of random rows of
+    the unlabeled images, at 1 thread and at 8 (the JAX package's count
+    on an 8-core host), with nothing else running."""
+    from triplegan_tpu_torch.data import native
+
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for threads in (1, 8):
+        ts = []
+        for _ in range(reps):
+            idx = rng.randint(0, len(data.x_unlabel), size=BATCH)
+            t0 = time.perf_counter()
+            native.gather_rows(data.x_unlabel, idx, n_threads=threads)
+            ts.append(1e3 * (time.perf_counter() - t0))
+        out[f"threads_{threads}"] = statistics.median(ts)
+    return out
+
+
+def host_timing(arm, data, zca) -> dict:
+    """ms/step, each turn ``HOST_TURN_STEPS`` steps ending in a read of
+    the last step's metrics, in turns (host, host with 8-thread gathers,
+    device fused, device, device, device fused, host with 8-thread
+    gathers, host): the host-streamed fused step of ``host_arm`` (its
+    gathers at the default thread count, and at the JAX package's 8), the same step
+    on device-resident data, and phase 3's shipped device-data step (three
+    classifier passes). For the host-streamed turns, the host ms a step
+    spends in ``next`` on the prefetcher, in parts (``FeedClock``); one
+    gather timed alone at each thread count (``gather_ms``); then one
+    host-streamed step under torch.profiler, its host-to-device copies'
+    records by name (none may be pageable; Kineto does not always keep
+    the side stream's copies), and one batch's copies timed with CUDA
+    events (``htod_batch_copy``)."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    dev_data = S.upload_device_data(data, "cuda")
+    runs = {"host": [arm["_step"], arm["_state"], None]}
+    runs["host_8threads"] = runs["host"]  # the same step, state and prefetcher
+    for name, cfg in (("device_fused", host_cfg(True)), ("device", train_cfg("float32", BATCH, False, True))):
+        nets = make_networks(cfg)
+        opts = make_optimizers(cfg, TOTAL_STEPS)
+        runs[name] = [S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca),
+                      create_state(cfg, nets, opts, device="cuda"), dev_data]
+    batches = arm["_batches"]
+    turns = collections.defaultdict(list)
+    clocks = {"host": FeedClock(), "host_8threads": FeedClock(threads=8)}
+    for name in ("host", "host_8threads", "device_fused", "device", "device", "device_fused", "host_8threads",
+                 "host"):
+        step, state, data_ = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_TURN_STEPS):
+            if data_ is None:
+                with clocks[name] as clock:
+                    t1 = time.perf_counter()
+                    batch = next(batches)
+                    clock.s["next"] += time.perf_counter() - t1
+            state, m = step(state, data_ if data_ is not None else batch)
+        float(m["loss_c"])
+        turns[name].append(1e3 * (time.perf_counter() - t0) / HOST_TURN_STEPS)
+        runs[name][1] = state
+    feed = {name: clock.ms_per_step(HOST_TURN_STEPS * len(turns[name])) for name, clock in clocks.items()}
+
+    def one_step():
+        step, state, _ = runs["host"]
+        runs["host"][1], m = step(state, next(batches))
+        float(m["loss_c"])
+
+    copies = device_memcpy(one_step)
+    batches.close()
+    check(not any("Pageable" in name for name in copies),
+          f"host-streamed copies not all from pinned memory: {sorted(copies)}")
+    ms = {name: statistics.mean(v) for name, v in turns.items()}
+    return {"ms_per_step": ms, "ms_per_step_turns": dict(turns), "steps_a_turn": HOST_TURN_STEPS,
+            "img_s": {k: BATCH * 1e3 / v for k, v in ms.items()},
+            "host_over_device_fused": ms["host"] / ms["device_fused"],
+            "host_feed_ms_per_step": feed["host"]["next"], "feed_ms_per_step": feed,
+            "gather_ms_alone": gather_ms(data),
+            "htod_profiled_step": copies, "htod_batch_copy": htod_batch_copy(arm["_host0"])}
+
+
+def host_cli_chain(workdir, data_dir) -> dict:
+    """``cli train`` with the host-streamed options for 4 steps, then the
+    same command again: the first applies ddinit once, the second resumes
+    from step 4 to 8 and applies no ddinit."""
+    secs, outs = [], []
+    for _ in range(2):
+        t, out = cli(*train_args(workdir, data_dir, 4, *HOST_SETS))
+        secs.append(t)
+        outs.append(out)
+    check(outs[0].count("applied data-dependent weight-norm init") == 1, "the first run printed no ddinit line")
+    check("resumed from step 4" in outs[1], "the second host-streamed run did not resume from step 4")
+    check("applied data-dependent" not in outs[1], "the resumed host-streamed run applied ddinit again")
+    return {"seconds": secs, "done": done_line(outs[1])}
+
+
+def variant_run(var, value, data_dir) -> dict:
+    """One layer variant's step in a subprocess (``--variant-step``), whose
+    environment sets it before anything is imported; its JSON line."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--variant-step", data_dir], cwd=REPO,
+                         capture_output=True, text=True, timeout=600, env={**os.environ, var: value})
+    check(out.returncode == 0, f"variant {var}={value} exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+                               f"{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])["variant"]
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def variant_step(data_dir):
+    """``--variant-step``: one full-width eager shipped step (float32,
+    batch 100, share off, device data) in each arm from the same seeded
+    state, under the layer variant the environment sets. The kernel arm's
+    launches must be what the variant implies (``step_launches``: patches
+    and transpose move convs off the kernels), its losses finite; the
+    plain arm must launch nothing and agree with it (phase 3's float32
+    tolerance). Prints one JSON line with the counted launches."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.data.datasets import load_dataset
+    from triplegan_tpu_torch.data.zca import ZCAStats
+    from triplegan_tpu_torch.nn import layers as L
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    env = {k: os.environ[k] for k, _ in VARIANTS if k in os.environ}
+    check(len(env) == 1, f"--variant-step needs one variant set, got {env}")
+    cfg = train_cfg("float32", BATCH, False, True)
+    data = load_dataset(data_dir, "cifar10", cfg.num_labeled, cfg.num_classes, cfg.seed)
+    zca = ZCAStats.load(os.path.join(data_dir, "cifar10", "zca_stats.npz"))
+    dev_data = S.upload_device_data(data, "cuda")
+    metrics = {}
+    for use_pallas in (True, False):
+        cfg.use_pallas = use_pallas
+        nets = make_networks(cfg)
+        opts = make_optimizers(cfg, TOTAL_STEPS)
+        state = create_state(cfg, nets, opts, device="cuda")
+        step = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca)
+        torch.cuda.synchronize()
+        counts_zero()  # the main path starts here
+        _, m = step(state, dev_data)
+        metrics[use_pallas] = {k: float(v) for k, v in m.items()}
+        counts = counts_read()  # the main path ends here
+        if use_pallas:
+            kernel_counts = counts
+            convs, _, epilogues, epilogue_bwds = step_launches(cfg)
+            got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+            check(got == convs, f"{env}: conv launches {dict(got - convs)}; implied and not launched "
+                                f"{dict(convs - got)}")
+            launches = totals(counts)
+            check(launches["scale_bias_act"] == epilogues and launches["scale_bias_act_bwd"] == epilogue_bwds,
+                  f"{env}: epilogue launches {launches}, want {epilogues}/{epilogue_bwds}")
+        else:
+            check(not any(totals(counts).values()), f"{env}: the plain arm launched kernels")
+        check(all(math.isfinite(v) for v in metrics[use_pallas].values()), f"{env}: {metrics[use_pallas]}")
+    diffs = metrics_agree(metrics[True], metrics[False], f"variant {env}")
+    read = {"TRIPLEGAN_DECONV": L._DECONV_IMPL, "TRIPLEGAN_MAXPOOL": L._MAXPOOL_IMPL}
+    for k, v in env.items():
+        check(read.get(k, v) == v, f"{k}={v} was not read at import: the layers use {read.get(k)!r}")
+    print(json.dumps({"variant": {
+        "env": env, "launches": totals(kernel_counts),
+        "counts": {name: [[list(key), c] for key, c in cnt.items()] for name, cnt in kernel_counts.items()},
+        "conv_launches_default": sum(step_launches(cfg, {})[0].values()),
+        "metrics_kernel": metrics[True], "metrics_plain": metrics[False], "arms_abs_diff": diffs}}), flush=True)
+
+
+def variant_counts(res) -> dict:
+    """A variant run's counts, keyed by tuples again (JSON made them
+    lists, the epilogue's shape inside its key too)."""
+    def tup(v):
+        return tuple(tup(x) for x in v) if isinstance(v, list) else v
+
+    return {name: collections.Counter({tup(key): c for key, c in pairs}) for name, pairs in res["counts"].items()}
+
+
+def host_phase(data, zca, data_dir) -> dict:
+    """Phase 5b: the two host-streamed CLI chains (``host_cli_chain``) and
+    the five variants' subprocesses (``variant_run``) side by side, while
+    this process runs ``host_arm``; then, alone, ``host_timing``. The two
+    chains' step-8 checkpoints must be equal bitwise."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    try:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2 + len(VARIANTS)) as ex:
+            chains = [ex.submit(host_cli_chain, os.path.join(tmp, f"h{i}"), data_dir) for i in range(2)]
+            variants = [ex.submit(variant_run, var, value, data_dir) for var, value in VARIANTS]
+            arm = host_arm(data, zca)
+            chain_res = [f.result() for f in chains]
+            variant_res = [f.result() for f in variants]
+        side_by_side_s = time.perf_counter() - t0
+        diff = ckpt_equal(*(os.path.join(tmp, f"h{i}", "cifar10_4k", "ckpt", "8") for i in range(2)))
+        check(not diff, f"the two host-streamed CLI runs' step-8 checkpoints differ at {diff[:10]}")
+        check(chain_res[0]["done"] == chain_res[1]["done"], f"host-streamed CLI runs: {chain_res}")
+        timing = host_timing(arm, data, zca)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {**{k: v for k, v in arm.items() if not k.startswith("_")}, "side_by_side_seconds": side_by_side_s,
+           "cli_chains": chain_res, "cli_checkpoints_bitwise": True, "variants": variant_res, **timing,
+           "launches_counted": {k: arm["launches"][k] + sum(v["launches"][k] for v in variant_res)
+                                + arm["ddinit_launches"][k] for k in arm["launches"]}}
+    emit("host", res)
+    res.update(_counts=arm["_counts"], _dd_counts=arm["_dd_counts"], _players=arm["_players"],
+               _variant_counts=[(v["env"], variant_counts(v)) for v in variant_res])
     return res
 
 
@@ -1612,11 +2189,19 @@ def conv_case(op, n, h, w, cin, cout, pad, dtype, gen, flush, reps):
     lim = 8.0 * math.sqrt(k_len) * 2.0 ** -24 * abs_ref.double()
     if got.dtype == torch.bfloat16:
         lim = lim + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    case = f"conv3x3 {op} {(n, h, w, cin, cout, pad)} {dtype}"
+    ins = {"x": x, "g": g} if op == "wgrad" else {"x": x, "w": wt}
     check(bool(torch.isfinite(got).all()), f"conv3x3 {op}: non-finite output")
-    check(bool((err <= lim).all()),
-          f"conv3x3 {op} {(n, h, w, cin, cout, pad)} {dtype}: max err {float(err.max())} "
-          f"exceeds tolerance (worst excess {float((err - lim).max())})")
+    if not bool((err <= lim).all()):
+        fail(f"{case}: max err {float(err.max())} exceeds tolerance (worst excess {float((err - lim).max())}); "
+             f"the call's tensors: {save_failing(f'conv3x3_{op}', **ins, got=got, want=want)}")
     max_err = float(err.max())
+    if dtype == torch.float32:  # a fixed summation order: every call gives the first call's bits
+        for rep in range(CONV_REPEATS):
+            again = run()
+            if not torch.equal(again, got):
+                fail(f"{case}: call {rep + 2} differs from the first at {int((again != got).sum())} elements; "
+                     f"the calls' tensors: {save_failing(f'conv3x3_{op}', **ins, got=got, again=again, want=want)}")
     del abs_ref, err, lim, got, want
     tk = time_ms(run, flush, reps=reps, warm=2)
     tp = time_ms(plain, flush, reps=reps, warm=2)
@@ -1733,10 +2318,11 @@ def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def path_launches(train_arms, serve_arms) -> list:
+def path_launches(train_arms, serve_arms, host) -> list:
     """The keyed launch counts of each main path: the first kernel-arm run
-    of each train setting (per step) and each serving dtype (over its main
-    path: one /classify and two /generate of 250 images)."""
+    of each train setting (per step), the host-streamed fused step (per
+    step), its ddinit, each layer variant's step, and each serving dtype
+    (over its main path: one /classify and two /generate of 250 images)."""
     sources, seen = [], set()
     for arm in train_arms:
         if arm["use_pallas"] and arm["setting"] not in seen:
@@ -1744,6 +2330,12 @@ def path_launches(train_arms, serve_arms) -> list:
             per_step = {name: {key: c / arm["steps"] for key, c in counts.items()}
                         for name, counts in arm["_counts"].items()}
             sources.append(("train " + arm["setting"], per_step, arm["_players"]))
+    per_step = {name: {key: c / host["steps"] for key, c in counts.items()}
+                for name, counts in host["_counts"].items()}
+    sources.append(("train host_fused", per_step, host["_players"]))
+    sources.append(("ddinit", host["_dd_counts"], {}))
+    for env, counts in host["_variant_counts"]:
+        sources.append(("variant " + ",".join(f"{k}={v}" for k, v in env.items()), counts, {}))
     for arm in serve_arms:
         if arm["use_pallas"]:
             sources.append(("serve " + arm["dtype"], arm["_counts"], {}))
@@ -1827,7 +2419,7 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
          "triplegan_tpu/ops/pallas_conv.py:104"),
     ):
         per_step = {}
-        for setting, dtype, batch, _ in SETTINGS:
+        for setting, dtype, batch, _ in SETTINGS + [("host_fused", "float32", BATCH, False)]:
             runs = [(r["launches"]["train " + setting], r) for r in rows if "train " + setting in r["launches"]]
             sums = {key: sum(n * r[key] for n, r in runs) for key in ("ms", "plain_ms", "bound_ms")}
             library = [n * r["library_ms"] for n, r in runs if r["library_ms"] is not None]
@@ -1853,7 +2445,8 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
             **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "basis": "top level: sum over one train step's launches at the shipped setting "
                      "(cifar10_4k, float32, batch 100, share_pseudo_forward off); per_step: "
-                     "the same at each setting",
+                     "the same at each setting, and for the host-streamed fused-classifier step "
+                     "(host_fused)",
             "per_step": per_step,
         })
     return kernels
@@ -1866,6 +2459,9 @@ def main():
                     help="also trace each train and serving arm with torch.profiler")
     ap.add_argument("--steps", type=int, default=5,
                     help="train steps per arm (the first is not timed)")
+    ap.add_argument("--variant-step", metavar="DATA_DIR", default=None,
+                    help="(phase 5b's subprocesses) one step per arm under the layer variant the "
+                         "environment sets, on the prepared data in DATA_DIR")
     args = ap.parse_args()
     check(args.steps >= 2, "--steps must be at least 2")
 
@@ -1875,6 +2471,11 @@ def main():
         fail("torch.cuda.is_available() is false: this script runs only on a CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from triplegan_tpu_torch.utils.platform import resolve_device
+
+    if args.variant_step:
+        resolve_device(None)
+        variant_step(args.variant_step)
+        return
 
     t_start = time.perf_counter()
     phases = {}
@@ -1904,9 +2505,23 @@ def main():
     card_cpu = card_vs_cpu_phase(data, zca)
     phases["card_vs_cpu"] = time.perf_counter() - t_start
 
-    # 5. the train driver through the CLI
-    driver = driver_phase(train_arms, graph_arms)
-    phases["driver"] = time.perf_counter() - t_start
+    # 5. the train driver through the CLI, on a prepared synthetic cifar10
+    data_root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        data_dir = os.path.join(data_root, "data")
+        t0 = time.perf_counter()
+        write_prepared(data_dir)
+        emit("prepared", {"seconds": time.perf_counter() - t0})
+        driver = driver_phase(train_arms, graph_arms, data_dir)
+        phases["driver"] = time.perf_counter() - t_start
+
+        # 5b. host-streamed batches, ddinit, the fused classifier, the variants
+        host = host_phase(data, zca, data_dir)
+        phases["host"] = time.perf_counter() - t_start
+    finally:
+        import shutil
+
+        shutil.rmtree(data_root, ignore_errors=True)
 
     # 6. serve
     serve_arms = serve_phase(args.profile)
@@ -1914,11 +2529,11 @@ def main():
     phases["serve"] = time.perf_counter() - t_start
 
     # 7. kernels, at the shapes the main paths launched them at
-    sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms))
+    sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms, host))
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
 
-    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver], serve_arms)
+    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver, host], serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -1926,7 +2541,7 @@ def main():
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "conv_rows": conv_rows,
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms],
-                       "card_vs_cpu": card_cpu, "driver": public(driver),
+                       "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),
                        "serve": [public(a) for a in serve_arms],
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,9 @@
 """The CUDA kernels (scale_bias_act, conv3x3 forward and wgrad: float32
 from conv3x3.cu, bfloat16 from conv3x3_sm90.cu) against their plain
-PyTorch versions, on the card. Skips where there is no CUDA
-device (the kernels have no CPU mode).
+PyTorch versions, on the card; the float32 conv's bits repeated over 200
+calls; ``device_prefetch``'s copies (their bytes and the consumer's
+stream ordered after them) and the native gather in use. Skips where there
+is no CUDA device (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -343,23 +345,128 @@ def test_conv_kernels_match_plain_on_card(shape, dtype, cuda):
     assert bool(((dw.double() - want_dw.double()).abs() <= lim).all()), float((dw - want_dw).abs().max())
 
 
+_F32_CONV_SHAPES = [("SAME", (3, 10, 9, 13, 40)), ("VALID", (2, 8, 8, 16, 24))]
+
+
+def _conv_inputs(shape):
+    n, h, w, cin, cout = shape
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.normal(size=(n, h, w, cin)).astype(np.float32))
+    wt = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32))
+    return x, wt
+
+
+def _conv_call(x, wt, padding, dev):
+    """The conv function's y, dx and dW on ``dev`` for the cotangent
+    cos(0, 1, ...) made there, all as CPU tensors beside gy."""
+    xd = x.to(dev, copy=True).requires_grad_()
+    wd = wt.to(dev, copy=True).requires_grad_()
+    y = cv.conv3x3(xd, wd, padding)
+    gy = torch.cos(torch.arange(y.numel(), device=y.device, dtype=torch.float32)).reshape(y.shape)
+    dx, dw = torch.autograd.grad(y, (xd, wd), gy)
+    return {k: t.detach().cpu() for k, t in (("gy", gy), ("y", y), ("dx", dx), ("dw", dw))}
+
+
+def _save_failing(name, x, wt, **sides):
+    """Writes the failing call's inputs and every side's outputs to an npz
+    under the temporary directory (``TMPDIR``); returns its path."""
+    import os
+    import tempfile
+    import time
+
+    path = os.path.join(tempfile.gettempdir(), f"{name}-{os.getpid()}-{time.time_ns()}.npz")
+    arrays = {"x": x.numpy(), "w": wt.numpy()}
+    for side, outs in sides.items():
+        arrays.update({f"{side}_{k}": t.numpy() for k, t in outs.items()})
+    np.savez(path, **arrays)
+    return path
+
+
+def _assert_card_matches_cpu(card, cpu, name, x, wt):
+    try:
+        for k in ("y", "dx", "dw"):
+            torch.testing.assert_close(card[k], cpu[k], rtol=1e-4, atol=1e-4, msg=lambda m, k=k: f"{k}: {m}")
+    except AssertionError as e:
+        raise AssertionError(f"{e}\nthe call's tensors: {_save_failing(name, x, wt, card=card, cpu=cpu)}") from None
+
+
 @pytest.mark.cuda
 def test_conv_function_grads_match_plain_on_card(cuda):
+    """y, dx and dW of the float32 conv function on the card against the
+    CPU's plain version; a failing call's inputs and both sides' outputs
+    are saved under TMPDIR, named in the failure."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.RandomState(2)
-    for padding, (n, h, w, cin, cout) in (("SAME", (3, 10, 9, 13, 40)), ("VALID", (2, 8, 8, 16, 24))):
-        x = torch.from_numpy(rng.normal(size=(n, h, w, cin)).astype(np.float32))
-        wt = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32))
-        outs = []
-        for dev in ("cpu", cuda):
-            xd = x.to(dev).requires_grad_()
-            wd = wt.to(dev).requires_grad_()
-            y = cv.conv3x3(xd, wd, padding)
-            gy = torch.cos(torch.arange(y.numel(), device=y.device, dtype=torch.float32)).reshape(y.shape)
-            dx, dw = torch.autograd.grad(y, (xd, wd), gy)
-            outs.append([t.detach().cpu() for t in (y, dx, dw)])
-        for a, b in zip(*outs):
-            torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+    for padding, shape in _F32_CONV_SHAPES:
+        x, wt = _conv_inputs(shape)
+        _assert_card_matches_cpu(_conv_call(x, wt, padding, cuda), _conv_call(x, wt, padding, "cpu"),
+                                 f"conv_grads_{padding}", x, wt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding,shape", _F32_CONV_SHAPES)
+def test_f32_conv_function_is_bitwise_repeatable_on_card(padding, shape, cuda):
+    """The float32 conv's forward, input gradient and filter gradient sum in
+    a fixed order, so 200 calls at the shapes of the test above give the
+    same bits as the first; the freed blocks are refilled with NaN between
+    calls, so a read of memory the kernels never wrote would show. The
+    CPU's plain version is repeated beside each call (its bits too must
+    repeat) and each card call is held to it as the test above holds it; a
+    failing call's tensors, and the first call's, are saved under TMPDIR."""
+    x, wt = _conv_inputs(shape)
+    rng = np.random.RandomState(3)
+    first = None
+    for rep in range(200):
+        junk = [torch.full((int(rng.randint(1, 40000)),), float("nan"), device=cuda) for _ in range(16)]
+        del junk
+        got = {"card": _conv_call(x, wt, padding, cuda), "cpu": _conv_call(x, wt, padding, "cpu")}
+        if first is None:
+            first = got
+        for side in got:
+            diff = {k: int((got[side][k] != first[side][k]).sum()) for k in got[side]}
+            if any(diff.values()):
+                path = _save_failing(f"conv_repeat_{padding}", x, wt, **{f"first_{s}": first[s] for s in first},
+                                     **got)
+                raise AssertionError(f"call {rep + 1}, {side}: elements differing from the first call {diff}; "
+                                     f"the calls' tensors: {path}")
+        _assert_card_matches_cpu(got["card"], got["cpu"], f"conv_repeat_{padding}", x, wt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_device_prefetch_copies_the_bytes_and_orders_the_consumer_after_them(depth, cuda):
+    """Host batches from the sampler (gathered by the native library)
+    through ``device_prefetch``: every tensor lands on the card with the
+    host batch's bytes, read by the consumer's stream after a slow kernel
+    there, so a copy that the consumer did not wait for, or memory handed to
+    a later batch while the consumer still reads it, would show as wrong
+    bytes. Each depth rotates its ``depth + 1`` pinned slots anew."""
+    from triplegan_tpu_torch.data import native
+    from triplegan_tpu_torch.data.datasets import synthetic_dataset
+    from triplegan_tpu_torch.data.pipeline import BatchSampler, device_prefetch
+
+    data = synthetic_dataset(32, 3, 10, n_train=4096, n_test=4, num_labeled=400, seed=0)
+    sampler = BatchSampler(data, 384, seed=3)
+    host = []
+
+    def batches():
+        for _ in range(8):
+            b = sampler.next_triple(100, 10)
+            host.append(b)
+            yield b
+
+    copies = []
+    for batch in device_prefetch(batches(), cuda, depth=depth):
+        torch.cuda._sleep(2_000_000)  # the consumer's stream is busy before it reads the batch
+        copies.append({(s, k): v.clone() for s, d in batch.items() for k, v in d.items()})
+        assert all(v.device.type == "cuda" for d in batch.values() for v in d.values())
+    torch.cuda.synchronize()
+    assert native.native_available()
+    assert len(copies) == len(host) == 8
+    for got, want in zip(copies, host):
+        assert len(got) == sum(len(d) for d in want.values())
+        for (s, k), v in got.items():
+            assert v.dtype == torch.from_numpy(want[s][k]).dtype
+            np.testing.assert_array_equal(v.cpu().numpy(), want[s][k], err_msg=f"{s}.{k}")
 
 
 @pytest.mark.cuda

@@ -5,8 +5,11 @@ batches, ``eval/sample.py``'s grid and PNG, ``configs/base.py``'s
 on bridged weights, and ``train/loop.py::train``: its schedule of logs,
 evals, sample grids and checkpoints against one JAX ``train()`` run of the
 same tiny config; 4 + 4 resumed steps equal to 8 straight ones bitwise in
-both arms; a stop (STOP file or SIGTERM) that checkpoints and resumes; and
-the options not ported yet, which raise.
+both arms; a stop (STOP file or SIGTERM) that checkpoints and resumes; the
+host-streamed path (``data_on_device=False``: the sampler's batches from
+seed + step, ddinit once before the first step, fused_clf_forward, a
+resume); the per-call layer variants through the driver; and the options
+not ported yet (meshes), which raise.
 
 Sizes are ``tests/helpers.py::tiny_config``'s (16 px, a few channels),
 mirrored into the port's config through the JAX ``save_config`` and the
@@ -304,8 +307,6 @@ def test_a_stop_checkpoints_skips_the_final_eval_and_resumes(how, tmp_path, monk
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("data_on_device", False, "item 4"),
-    ("ddinit", True, "item 7"),
     ("mesh_shape", (2,), "item 8"),
     ("multihost", True, "item 8"),
 ])
@@ -315,28 +316,6 @@ def test_options_not_ported_raise(knob, value, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1.*{item}"):
         loop.train(cfg, max_steps=1, verbose=False, device="cpu")
     assert not os.path.exists(os.path.join(cfg.workdir, cfg.name))  # raised before any work
-
-
-@pytest.mark.parametrize("var,value", [
-    ("TRIPLEGAN_DROPOUT_BITS", "8"),
-    ("TRIPLEGAN_MAXPOOL", "maskbwd"),
-    ("TRIPLEGAN_MAXPOOL", "reshape"),
-    ("TRIPLEGAN_SMALLCIN", "patches"),
-    ("TRIPLEGAN_DECONV", "transpose"),
-])
-def test_env_variants_not_ported_raise(var, value, tmp_path, monkeypatch):
-    """A layer variant the JAX package reads from the environment, set to a
-    value with which it computes another layer, makes the port refuse where
-    it builds its networks (train here; eval, sample and serve build them
-    the same way), naming the ROADMAP item; its default value is accepted."""
-    _, cfg = _driver_cfg(tmp_path, "run")
-    monkeypatch.setenv(var, port_base.ENV_VARIANTS[var][0])
-    port_base.make_networks(cfg)
-    monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item 6.*{var}='{value}'"):
-        port_base.make_networks(cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item 6.*{var}"):
-        loop.train(cfg, max_steps=1, verbose=False, device="cpu")
 
 
 @pytest.mark.parametrize("var,value", [
@@ -359,6 +338,123 @@ def test_env_values_the_jax_layers_ignore_are_accepted(var, value, tmp_path, mon
         under = np.asarray(dropout(key, x, 0.5, train=True))
         monkeypatch.delenv(var)
         np.testing.assert_array_equal(under, np.asarray(dropout(key, x, 0.5, train=True)))
+
+
+@pytest.mark.parametrize("var,value", [
+    ("TRIPLEGAN_DROPOUT_BITS", "8"),
+    ("TRIPLEGAN_SMALLCIN", "patches"),
+])
+def test_env_variants_train_through_the_driver(var, value, tmp_path, monkeypatch):
+    """The per-call layer variants run through ``train`` (two steps, the
+    host-streamed path): the 8-bit dropout draws other masks, so the
+    metrics differ from the default layer's; the patches conv computes the
+    same sums in another order (the metrics within 1e-5·(1 + |m|)), and
+    runs."""
+    from triplegan_tpu_torch.nn import layers as L
+
+    _, cfg = _driver_cfg(tmp_path, "default", data_on_device=False, zca=False)
+    base = loop.train(cfg, max_steps=2, verbose=False, device="cpu")
+    monkeypatch.setenv(var, value)
+    calls = []
+    real = L._conv3x3_patches
+    monkeypatch.setattr(L, "_conv3x3_patches", lambda *a: calls.append(1) or real(*a))
+    _, cfg = _driver_cfg(tmp_path, "variant", data_on_device=False, zca=False)
+    got = loop.train(cfg, max_steps=2, verbose=False, device="cpu")
+    assert got["steps"] == 2 and all(np.isfinite(v) for v in got["metrics"].values())
+    if var == "TRIPLEGAN_DROPOUT_BITS":
+        assert got["metrics"] != base["metrics"] and not calls
+    else:
+        assert calls
+        for k, v in base["metrics"].items():
+            assert abs(got["metrics"][k] - v) <= 1e-5 * (1 + abs(v)), k
+
+
+def _recording_step(monkeypatch, seen):
+    """Wrap the loop's host-streamed step to keep each batch it is fed."""
+    real = loop.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def wrapped(state, batch):
+            seen.append({s: {k: v.clone() for k, v in d.items()} for s, d in batch.items()})
+            return step(state, batch)
+        return wrapped
+
+    monkeypatch.setattr(loop, "make_train_step", make)
+
+
+@pytest.mark.parametrize("share", [False, True], ids=["share_off", "share_on"])
+def test_host_streamed_batches_are_the_samplers_from_seed_plus_step(share, tmp_path, monkeypatch):
+    """``data_on_device=False``: each step gets the next ``triple_iter``
+    batch of a ``BatchSampler`` seeded ``seed + step`` (a resume draws a
+    fresh continuation, as JAX's loop does), bitwise, as CPU tensors; under
+    share_pseudo_forward the C stream has no x_u."""
+    seen = []
+    _recording_step(monkeypatch, seen)
+    _, cfg = _driver_cfg(tmp_path, "run", data_on_device=False, share_pseudo_forward=share, zca=False)
+    data = loop._resolve_data(cfg)
+    loop.train(cfg, max_steps=3, verbose=False, device="cpu")
+    loop.train(cfg, max_steps=2, verbose=False, device="cpu")
+    assert len(seen) == 5
+    for start, batches in ((0, seen[:3]), (3, seen[3:])):
+        it = JaxBatchSampler(data, cfg.batch_size, seed=cfg.seed + start).triple_iter(
+            cfg.z_dim, cfg.num_classes, skip_c_unlabeled=share)
+        for got in batches:
+            want = next(it)
+            assert got.keys() == want.keys() and ("x_u" in got["c"]) == (not share)
+            for s in want:
+                assert got[s].keys() == want[s].keys()
+                for k in want[s]:
+                    np.testing.assert_array_equal(got[s][k].numpy(), want[s][k])
+
+
+def test_host_streamed_ddinit_fused_run_checkpoints_and_resumes(tmp_path, capsys):
+    """A host-streamed run with ddinit and fused_clf_forward: ddinit applied
+    once, before the first step (its params are the start of the run); the
+    resume restores the checkpoint and does not apply it again."""
+    _, cfg = _driver_cfg(tmp_path, "run", data_on_device=False, ddinit=True, fused_clf_forward=True,
+                         scan_steps=4)
+    first = loop.train(cfg, max_steps=4, verbose=True, device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("applied data-dependent weight-norm init") == 1
+    assert first["steps"] == 4 and not first["preempted"]
+    assert all(np.isfinite(v) for v in first["metrics"].values())
+    again = loop.train(cfg, max_steps=2, verbose=True, device="cpu")
+    out = capsys.readouterr().out
+    assert "resumed from step 4" in out and "applied data-dependent" not in out
+    assert again["steps"] == 6
+    _, ckpts = _events(again["workdir"])[3:]
+    assert ckpts[-1] == 6
+
+    # the params the run started from are ddinit's of the seeded state
+    _, plain = _driver_cfg(tmp_path, "ref")
+    nets = port_base.make_networks(plain)
+    state = create_state(plain, nets, make_optimizers(plain, 16), device="cpu")
+    data = loop._resolve_data(plain)
+    zca = loop._resolve_zca(plain, data, str(tmp_path / "ref_zca"))
+    init = loop._apply_ddinit(plain, nets, state, data, zca, torch.device("cpu"))
+    assert not torch.equal(init.params["disc"]["conv0"]["g"], state.params["disc"]["conv0"]["g"])
+    real = loop.make_train_step
+    starts = []
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def wrapped(st, batch):
+            starts.append({k: v.clone() for k, v in st.params["disc"]["conv0"].items()})
+            return step(st, batch)
+        return wrapped
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(loop, "make_train_step", make)
+    try:
+        _, cfg2 = _driver_cfg(tmp_path, "check", data_on_device=False, ddinit=True, fused_clf_forward=True)
+        loop.train(cfg2, max_steps=1, verbose=False, device="cpu")
+    finally:
+        mp.undo()
+    for k, v in init.params["disc"]["conv0"].items():
+        assert torch.equal(starts[0][k], v), k
 
 
 def test_profile_window_writes_a_trace(tmp_path):

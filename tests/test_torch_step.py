@@ -1,7 +1,8 @@
 """Three steps of the port's train step against the JAX package's
 ``make_train_step`` on the same injected batches, from the same weights
-(carried across by the bridge), with share_pseudo_forward off and on and
-the port's use_pallas off and on (on the CPU the kernels take their plain
+(carried across by the bridge), with share_pseudo_forward off and on, and
+with fused_clf_forward (C's three streams as one 3B-row pass), each in the
+port's use_pallas off and on (on the CPU the kernels take their plain
 versions; the JAX step runs its plain path).
 
 Setting: ``tests/helpers.py::deterministic_config`` (16 px, no noise or
@@ -52,10 +53,11 @@ N_STEPS = 3
 TOTAL = 16
 
 
-def _jcfg(share):
+def _jcfg(share, fused=False):
     cfg = deterministic_config()
     cfg.alpha_p_warmup_epochs = 0
     cfg.share_pseudo_forward = share
+    cfg.fused_clf_forward = fused
     cfg.zca = True
     return cfg
 
@@ -88,12 +90,13 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["share_off", "share_on"])
+@pytest.fixture(scope="module", params=["share_off", "share_on", "fused"])
 def jax_run(request):
     """The JAX reference: 3 steps, with the pseudo-labels and eval counts
-    along the way."""
-    share = request.param
-    cfg = _jcfg(share)
+    along the way; share_pseudo_forward off or on, or fused_clf_forward
+    (C's three streams in one 3B-row pass)."""
+    share, fused = request.param == "share_on", request.param == "fused"
+    cfg = _jcfg(share, fused)
     data = _data(cfg)
     zca = jax_fit_zca(data.x_unlabel)
     nets = jax_make_networks(cfg)
@@ -139,6 +142,7 @@ def test_three_steps_match_jax(jax_run, use_pallas, tmp_path):
     run = jax_run
     cfg = _port_cfg(run["cfg"], use_pallas, tmp_path)
     assert cfg.share_pseudo_forward == run["share"]
+    assert cfg.fused_clf_forward == run["cfg"].fused_clf_forward
     nets = port_base.make_networks(cfg)
     opts = make_optimizers(cfg, TOTAL)
     p0, b0 = _port_trees(*run["init"])
@@ -182,6 +186,16 @@ def test_three_steps_match_jax(jax_run, use_pallas, tmp_path):
         state, {k: torch.from_numpy(v) for k, v in run["eval_batch"].items()})
     assert int(ev["correct"]) == run["correct"]
     assert int(ev["count"]) == len(run["eval_batch"]["y"])
+
+
+def test_fused_clf_forward_with_share_pseudo_forward_raises_as_in_jax(tmp_path):
+    jcfg = _jcfg(True, fused=True)
+    with pytest.raises(ValueError) as want:
+        jax_make_train_step(jcfg, jax_make_networks(jcfg), jax_make_optimizers(jcfg, TOTAL), TOTAL)
+    cfg = _port_cfg(jcfg, False, tmp_path)
+    with pytest.raises(ValueError) as got:
+        S.make_train_step(cfg, port_base.make_networks(cfg), make_optimizers(cfg, TOTAL), TOTAL)
+    assert str(got.value) == str(want.value) and "mutually exclusive" in str(got.value)
 
 
 @pytest.mark.parametrize("share", [False, True])

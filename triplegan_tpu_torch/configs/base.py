@@ -207,34 +207,10 @@ def display(cfg: ConfigDict) -> str:
     return "\n".join(lines)
 
 
-# Layer variants the JAX package reads from the environment
-# (``triplegan_tpu/nn/layers.py``): the layer the port computes, and the
-# values with which the JAX package computes another one (any other value
-# leaves it on its default layer too).
-ENV_VARIANTS = {"TRIPLEGAN_DROPOUT_BITS": ("32", {"8"}), "TRIPLEGAN_MAXPOOL": ("window", {"reshape", "maskbwd"}),
-                "TRIPLEGAN_SMALLCIN": ("conv", {"patches"}), "TRIPLEGAN_DECONV": ("subpixel", {"transpose"})}
-
-
-def check_env_variants() -> None:
-    """Raise ``NotImplementedError`` if one of ``ENV_VARIANTS`` is set to a
-    value with which the JAX package would compute another layer, which the
-    port would silently not."""
-    set_ = {k: os.environ[k] for k, (_, other) in ENV_VARIANTS.items() if os.environ.get(k) in other}
-    if set_:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP Queue 1 item 6, the env variants): "
-            + ", ".join(f"{k}={v!r} (the port computes {k}={ENV_VARIANTS[k][0]!r})" for k, v in set_.items())
-            + "; unset it to run the port")
-
-
 def make_networks(cfg: ConfigDict):
     """Build the (Generator, Discriminator, Classifier) modules of a
-    config, in the JAX package's order. Raises for a layer variant chosen
-    in the environment that the port does not have (``check_env_variants``),
-    so that train, eval, sample and serve all refuse it."""
+    config, in the JAX package's order."""
     from triplegan_tpu_torch.nn.networks import Classifier, Discriminator, Generator
-
-    check_env_variants()
 
     gen = Generator(
         image_size=cfg.image_size,

@@ -26,12 +26,20 @@ b = 0; BN scale 1, bias 0, mean 0, var 1) and draw from an explicit
 ``torch.Generator``. The stochastic layers (noise, dropout) draw from an
 explicit generator too; with none they are the identity, as JAX's are
 with no key.
+
+The layer variants the JAX package reads from the environment compute
+JAX's layer here too, read when JAX reads them: ``TRIPLEGAN_DECONV``
+(``transpose``: ``conv_transpose``) and ``TRIPLEGAN_MAXPOOL``
+(``reshape``, ``maskbwd``) at import, ``TRIPLEGAN_SMALLCIN`` (``patches``)
+and ``TRIPLEGAN_DROPOUT_BITS`` (``8``) at each call. ``patches`` and
+``transpose`` take their convs off the Hopper kernels in either arm.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -130,11 +138,40 @@ def _conv(x: torch.Tensor, w_oihw: torch.Tensor, stride: int, padding: str,
     return _conv_nhwc(x, w_oihw.to(x.dtype), stride, padding)
 
 
+def _conv3x3_patches(x: torch.Tensor, w_oihw: torch.Tensor, padding: str) -> torch.Tensor:
+    """A 3×3 stride-1 conv as the nine shifted views of x concatenated on
+    channels, in (dy, dx, c) order, and one matmul with the (9·Cin, Cout)
+    kernel, summed in float32 and cast to x's dtype: JAX's
+    ``_conv3x3_patches`` (``TRIPLEGAN_SMALLCIN=patches``)."""
+    pad = 1 if padding == "SAME" else 0
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x
+    n, hp, wp, c = xp.shape
+    ho, wo = hp - 2, wp - 2
+    patches = torch.cat([xp[:, dy:dy + ho, dx:dx + wo, :] for dy in range(3) for dx in range(3)], dim=-1)
+    w2 = w_oihw.permute(2, 3, 1, 0).reshape(9 * c, -1)
+    y = patches.reshape(-1, 9 * c).float() @ w2.float()
+    return y.reshape(n, ho, wo, -1).to(x.dtype)
+
+
+def _smallcin_patches(w_oihw: torch.Tensor, stride: int) -> bool:
+    """Whether JAX's ``conv2d_apply`` takes the patches form for this conv:
+    ``TRIPLEGAN_SMALLCIN=patches`` (read at each call, as JAX reads it)
+    and a 3×3 stride-1 kernel with 9·Cin ≤ 128."""
+    return (os.environ.get("TRIPLEGAN_SMALLCIN", "conv") == "patches"
+            and tuple(w_oihw.shape[2:]) == (3, 3) and stride == 1 and 9 * w_oihw.shape[1] <= 128)
+
+
 def conv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1, padding: str = "SAME",
                  use_pallas: bool = False) -> torch.Tensor:
     """Conv with TF padding names and strides; a weight-norm layer (``v``,
-    ``g``) convolves with g·v/‖v‖, the norm over (I, H, W)."""
-    y = _conv(x, _weight(p, (1, 2, 3)), stride, padding, use_pallas)
+    ``g``) convolves with g·v/‖v‖, the norm over (I, H, W). Under
+    ``TRIPLEGAN_SMALLCIN=patches`` a 3×3 stride-1 conv with 9·Cin ≤ 128 is
+    the patches matmul instead, in either arm, as in JAX."""
+    w = _weight(p, (1, 2, 3))
+    if _smallcin_patches(w, stride):
+        y = _conv3x3_patches(x, w.to(x.dtype), padding)
+    else:
+        y = _conv(x, w, stride, padding, use_pallas)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y.to(x.dtype)
@@ -227,15 +264,48 @@ def _deconv2d_subpixel(x: torch.Tensor, wp: torch.Tensor, k: int, stride: int,
     return y.reshape(n, h * s, wd * s, cout)
 
 
+def _deconv_transpose(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """JAX's ``lax.conv_transpose(x, w, (s, s), "SAME",
+    transpose_kernel=False)`` of NHWC x with the (k, k, Cin, Cout) kernel w
+    (in x's dtype): ``F.conv_transpose2d`` with the kernel flipped, whose
+    full output is cropped (or zero-padded at the far edge) to in·stride,
+    starting k − 1 − pad_a in, pad_a being JAX's leading SAME pad."""
+    k, s = w.shape[0], stride
+    pad_a = k - 1 if s > k - 1 else int(math.ceil((k + s - 2) / 2))
+    off = k - 1 - pad_a
+    n, h, wd, _ = x.shape
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.flip((0, 1)).permute(2, 3, 0, 1), stride=s)
+    short = off + h * s - y.shape[2]
+    if short > 0:
+        y = F.pad(y, (0, short, 0, short))
+    return y[:, :, off:off + h * s, off:off + wd * s].permute(0, 2, 3, 1)
+
+
+# The deconv lowering the JAX package reads from TRIPLEGAN_DECONV at import:
+# "transpose" for lax.conv_transpose, anything else the subpixel conv.
+_DECONV_IMPL = os.environ.get("TRIPLEGAN_DECONV", "subpixel")
+
+
+def _deconv_raw(x: torch.Tensor, w: torch.Tensor, stride: int, use_pallas: bool,
+                wp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The transposed conv itself, for every deconv path (the weight-norm
+    epilogue's too), as JAX's ``_deconv_raw``: under
+    ``TRIPLEGAN_DECONV=transpose`` ``_deconv_transpose`` (cuDNN in either
+    arm), else the subpixel conv, through the Hopper conv kernel under
+    ``use_pallas``; ``wp`` is w's phase kernel when the caller built it."""
+    if _DECONV_IMPL == "transpose":
+        return _deconv_transpose(x, w.to(x.dtype), stride)
+    if wp is None:
+        wp = phase_kernel(w, stride)
+    return _deconv2d_subpixel(x, wp, w.shape[0], stride, use_pallas)
+
+
 def deconv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
                    wp: Optional[torch.Tensor] = None, use_pallas: bool = False) -> torch.Tensor:
     """TF-semantics ``conv2d_transpose`` with SAME padding: out = in · stride.
     ``wp`` is the layer's phase kernel when the caller built it once (the
     serving path); it is built from ``p`` here otherwise."""
-    w = _weight(p, (0, 1, 2))
-    if wp is None:
-        wp = phase_kernel(w, stride)
-    y = _deconv2d_subpixel(x, wp, w.shape[0], stride, use_pallas)
+    y = _deconv_raw(x, _weight(p, (0, 1, 2)), stride, use_pallas, wp)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y.to(x.dtype)
@@ -336,9 +406,7 @@ def deconv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
     norm = torch.sqrt(torch.sum(torch.square(v), dim=(0, 1, 2)) + 1e-12)
     k = (g / norm).to(x.dtype)
     b = p["b"].to(x.dtype) if "b" in p else torch.zeros_like(k)
-    if wp is None:
-        wp = phase_kernel(v, stride)
-    y = _deconv2d_subpixel(x, wp, v.shape[0], stride, True).to(x.dtype)
+    y = _deconv_raw(x, v, stride, True, wp).to(x.dtype)
     return _scale_bias_act(y, k, b, act, slope, True)
 
 
@@ -357,10 +425,19 @@ def gaussian_noise(gen: Optional[torch.Generator], x: torch.Tensor, sigma: float
 def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float, *,
             train: bool) -> torch.Tensor:
     """``x · mask · (1/keep)`` with a Bernoulli(keep) mask, keep = 1 − rate
-    (JAX's 32-bit branch)."""
+    (JAX's 32-bit branch). Under ``TRIPLEGAN_DROPOUT_BITS=8`` (read at each
+    call, as JAX reads it) the mask comes from uint8 bits instead: kept
+    where bits < thresh = max(round(keep·256), 1), scaled by 256/thresh,
+    and x is returned as it is where thresh reaches 256."""
     if not train or rate <= 0.0 or gen is None:
         return x
     keep = 1.0 - rate
+    if os.environ.get("TRIPLEGAN_DROPOUT_BITS", "32") == "8":
+        thresh = max(int(round(keep * 256.0)), 1)
+        if thresh >= 256:
+            return x
+        bits = torch.randint(0, 256, x.shape, generator=gen, device=x.device, dtype=torch.uint8)
+        return x * ((bits < thresh).to(x.dtype) * (256.0 / thresh))
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return x * (mask.to(x.dtype) * (1.0 / keep))
 
@@ -374,13 +451,61 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 
 
+# The max-pool lowering the JAX package reads from TRIPLEGAN_MAXPOOL at
+# import: "window" (reduce_window; any other value too), "reshape" or
+# "maskbwd".
+_MAXPOOL_IMPL = os.environ.get("TRIPLEGAN_MAXPOOL", "window")
+
+
+def _max_pool_window(x: torch.Tensor, window: int) -> torch.Tensor:
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, window, ceil_mode=True)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _pool_repeat(a: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
+    """A pooled map broadcast back to the input positions (each belongs to
+    one window), cut to (h, w)."""
+    return a.repeat_interleave(window, 1)[:, :h].repeat_interleave(window, 2)[:, :, :w]
+
+
+class _MaxPoolMaskBwd(torch.autograd.Function):
+    """JAX's ``_max_pool_maskbwd``: the window max forward, and a backward
+    that splits each window's gradient evenly over the elements equal to
+    its max (``_mp_bwd``), in the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        y = _max_pool_window(x, window)
+        ctx.window = window
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        win = ctx.window
+        n, h, w, c = x.shape
+        ho, wo = y.shape[1:3]
+        mask = (x == _pool_repeat(y, win, h, w)).to(g.dtype)
+        padded = F.pad(mask, (0, 0, 0, wo * win - w, 0, ho * win - h))
+        cnt = padded.reshape(n, ho, win, wo, win, c).sum(dim=(2, 4))
+        return mask * _pool_repeat(g / cnt, win, h, w), None
+
+
 def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """Non-overlapping (stride = window) max pool with TF SAME padding,
     NHWC. SAME then pads only the far edge of an odd size, which
     ``ceil_mode`` reproduces. The gradient goes to one element of each
-    window, as through JAX's ``reduce_window``."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, window, ceil_mode=True)
-    return y.permute(0, 2, 3, 1).contiguous()
+    window, as through JAX's ``reduce_window``; under
+    ``TRIPLEGAN_MAXPOOL=reshape`` (sizes divisible by the window) it is an
+    ``amax`` over the window axes, whose gradient splits ties evenly as
+    JAX's reduce-max does, and under ``maskbwd`` ``_MaxPoolMaskBwd``."""
+    n, h, w, c = x.shape
+    if _MAXPOOL_IMPL == "reshape" and h % window == 0 and w % window == 0:
+        return x.reshape(n, h // window, window, w // window, window, c).amax(dim=(2, 4))
+    if _MAXPOOL_IMPL == "maskbwd" and x.dtype.is_floating_point:
+        return _MaxPoolMaskBwd.apply(x, window)
+    return _max_pool_window(x, window)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -47,21 +47,30 @@ def source_path(name: str) -> str:
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless this source and these flags are
     already built; return the shared library's path."""
-    src = source_path(name)
+    return build_shared(source_path(name), f"lib{name}", [_nvcc(), *NVCC_FLAGS])
+
+
+def build_shared(src: str, stem: str, compiler: list) -> str:
+    """Compile ``src`` with ``compiler`` (the command and its flags, which
+    must make a shared library) into ``_build/<stem>-<hash>.so``, the hash
+    over the source and the command's flags, unless that file exists;
+    return its path. The compiler writes a temporary file that is renamed
+    into place, so a concurrent loader sees all or nothing; a failed build
+    raises with the compiler's output."""
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+        digest = hashlib.sha256(f.read() + " ".join(compiler[1:]).encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([*compiler, "-o", tmp, src], capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {src}:\n{proc.stdout}{proc.stderr}"
+            f"{os.path.basename(compiler[0])} failed ({proc.returncode}) building {src}:\n"
+            f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out

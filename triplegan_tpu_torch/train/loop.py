@@ -1,9 +1,17 @@
 """The training driver: the port of ``triplegan_tpu/train/loop.py``, on one
-device with the dataset resident there.
+device.
 
 ``train`` builds the networks, the three Adams and the state, resumes from
-the run's newest checkpoint if it has one, and runs the three-player step
-(``train/step.py::make_device_train_step``) on the JAX loop's schedule:
+the run's newest checkpoint if it has one (else, with ``ddinit``, applies
+the data-dependent weight-norm init: ``_apply_ddinit``), and runs the
+three-player step on the JAX loop's schedule. With ``data_on_device`` (the
+default) the dataset is resident on the device and each step draws its own
+batches there (``train/step.py::make_device_train_step``); without it the
+host samples the batches (``data/pipeline.py::BatchSampler``, seeded
+``seed + step`` so that a resumed run draws a fresh continuation, as
+JAX's does) and ``device_prefetch`` stages them onto the device ahead of
+``make_train_step``; ``scan_steps`` is then 1, as in JAX (a chunk needs
+the data on the device).
 
 * with ``scan_steps`` = K > 1, K steps a call while a whole chunk fits
   before the end (``make_scan_device_train_step``: one CUDA graph replay on
@@ -31,14 +39,13 @@ Running the same command again resumes from that checkpoint: the step's
 random streams depend only on (seed, step), so the resumed run computes
 what an uninterrupted one would.
 
-Options of the JAX loop that the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item: host-streamed data
-(``data_on_device=False``), ``ddinit`` and meshes of more than one device
-(or ``multihost``).
+Meshes of more than one device (or ``multihost``) are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import signal
@@ -49,31 +56,62 @@ import torch
 
 from triplegan_tpu_torch.ckpt.manager import CheckpointManager
 from triplegan_tpu_torch.configs.base import apply_runtime, display, make_networks, save_config
+from triplegan_tpu_torch.data import ondevice
 from triplegan_tpu_torch.data.datasets import SemiSupervisedData, load_dataset, synthetic_dataset
-from triplegan_tpu_torch.data.pipeline import BatchSampler
+from triplegan_tpu_torch.data.pipeline import BatchSampler, device_prefetch
 from triplegan_tpu_torch.data.zca import ZCAStats, fit_zca
 from triplegan_tpu_torch.eval.metrics import evaluate_error
 from triplegan_tpu_torch.eval.sample import class_grid_inputs, make_sample_fn, save_png, to_uint8_grid
+from triplegan_tpu_torch.nn.ddinit import ddinit_discriminator, ddinit_generator
 from triplegan_tpu_torch.train.schedule import make_optimizers
 from triplegan_tpu_torch.train.state import create_state, param_count
 from triplegan_tpu_torch.train.step import (make_device_train_step, make_eval_step,
-                                            make_scan_device_train_step, upload_device_data)
+                                            make_scan_device_train_step, make_train_step,
+                                            upload_device_data)
 from triplegan_tpu_torch.utils.logging import MetricsLogger
 from triplegan_tpu_torch.utils.platform import resolve_device
 
 
 def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for an option of the JAX loop that the
-    port does not have yet, naming its ROADMAP Queue 1 item."""
-    missing = []
-    if not bool(cfg.data_on_device):
-        missing.append("data_on_device=False (host-streamed batches: item 4)")
-    if bool(cfg.ddinit):
-        missing.append("ddinit=True (data-dependent weight-norm init: item 7)")
+    """Raise ``NotImplementedError`` for a mesh of more than one device (or
+    ``multihost``), which the port does not have yet (ROADMAP Queue 1
+    item 8)."""
     if math.prod(cfg.mesh_shape) > 1 or bool(cfg.get("multihost", False)):
-        missing.append(f"mesh_shape={tuple(cfg.mesh_shape)} / multihost (data parallelism: item 8)")
-    if missing:
-        raise NotImplementedError("not ported yet (ROADMAP Queue 1): " + "; ".join(missing))
+        raise NotImplementedError(
+            "not ported yet (ROADMAP Queue 1): "
+            f"mesh_shape={tuple(cfg.mesh_shape)} / multihost (data parallelism: item 8)")
+
+
+def _ddinit_inputs(cfg, data: SemiSupervisedData, zca: Optional[ZCAStats], device):
+    """(x, y, z, y_g) of the data-dependent init: min(batch_size,
+    len(x_unlabel)) unlabeled images preprocessed as the train step does but
+    without augmentation (rescale and ZCA, train=False), in float32 whatever
+    the compute dtype; D's labels y and G's z and labels y_g drawn from a
+    ``torch.Generator`` seeded ``seed + 1`` on the CPU (the JAX loop draws
+    them from ``PRNGKey(seed + 1)``: other numbers, as every random stream
+    of the port), so a run on the card and one on the CPU init from the
+    same inputs."""
+    n = min(int(cfg.batch_size), len(data.x_unlabel))
+    zm, zw = (None, None) if zca is None else (torch.as_tensor(zca.mean, device=device),
+                                               torch.as_tensor(zca.whiten, device=device))
+    x = ondevice.standard_pipeline(torch.as_tensor(data.x_unlabel[:n], device=device), zca_mean=zm,
+                                   zca_whiten=zw, train=False, do_rescale=bool(cfg.get("rescale", True)))
+    rng = torch.Generator().manual_seed(int(cfg.seed) + 1)
+    y = torch.randint(0, cfg.num_classes, (n,), generator=rng)
+    z = torch.randn((n, cfg.z_dim), generator=rng)
+    y_g = torch.randint(0, cfg.num_classes, (n,), generator=rng)
+    return x, y.to(device), z.to(device), y_g.to(device)
+
+
+def _apply_ddinit(cfg, nets, state, data: SemiSupervisedData, zca: Optional[ZCAStats], device):
+    """Data-dependent weight-norm init (``nn/ddinit.py``) of D and G on the
+    batch of ``_ddinit_inputs``; returns the state with the new params."""
+    gen, disc, _ = nets
+    x, y, z, y_g = _ddinit_inputs(cfg, data, zca, device)
+    params = dict(state.params)
+    params["disc"] = ddinit_discriminator(disc, state.params["disc"], x, y)
+    params["gen"] = ddinit_generator(gen, state.params["gen"], state.bn["gen"], z, y_g)
+    return dataclasses.replace(state, params=params)
 
 
 def _resolve_data(cfg) -> SemiSupervisedData:
@@ -159,11 +197,14 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
     optimizers = make_optimizers(cfg, total_steps)
     state = create_state(cfg, nets, optimizers, device=dev)
     say("param counts:", param_count(state))
-    step = make_device_train_step(cfg, nets, optimizers, total_steps, zca,
-                                  pseudo_label_mode=cfg.get("pseudo_label_mode", "sample"))
+    on_device = bool(cfg.data_on_device)
+    make_step = make_device_train_step if on_device else make_train_step
+    step = make_step(cfg, nets, optimizers, total_steps, zca,
+                     pseudo_label_mode=cfg.get("pseudo_label_mode", "sample"))
     # K steps a call: a CUDA graph on the card. It overwrites the state's
-    # tensors in place (the loop keeps no older state).
-    chunk = max(int(cfg.get("scan_steps", 1)), 1)
+    # tensors in place (the loop keeps no older state). Host-streamed
+    # batches come one a step, so there are no chunks then.
+    chunk = max(int(cfg.get("scan_steps", 1)), 1) if on_device else 1
     scan = None
     if chunk > 1:
         scan = make_scan_device_train_step(
@@ -177,12 +218,22 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
     if restored is not None:
         state = restored
         say(f"resumed from step {state.step}", flush=True)
+    elif cfg.ddinit:
+        state = _apply_ddinit(cfg, nets, state, data, zca, dev)
+        say("applied data-dependent weight-norm init", flush=True)
     # Written only after the restore decision: a resume whose config does
     # not fit the checkpoint fails above and leaves the good record alone.
     save_config(cfg, os.path.join(workdir, "config.json"))
 
-    sampler = BatchSampler(data, cfg.batch_size)
-    device_data = upload_device_data(data, dev)
+    # The sampler's seed takes the resume step, so a resumed run draws a
+    # fresh continuation of the host streams (as JAX's loop does).
+    sampler = BatchSampler(data, cfg.batch_size, seed=int(cfg.seed) + state.step)
+    if on_device:
+        device_data, batches = upload_device_data(data, dev), None
+    else:
+        device_data = None
+        batches = device_prefetch(sampler.triple_iter(
+            cfg.z_dim, cfg.num_classes, skip_c_unlabeled=bool(cfg.get("share_pseudo_forward", False))), dev)
     sample_fn = make_sample_fn(cfg, nets)
 
     start_step = state.step
@@ -244,7 +295,7 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
                 state, metrics = scan(state, device_data)
                 taken = chunk
             else:
-                state, metrics = step(state, device_data)
+                state, metrics = step(state, device_data if batches is None else next(batches))
                 taken = 1
             prev, it = it, it + taken
             steps_since_log += taken

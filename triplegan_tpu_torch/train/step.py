@@ -17,7 +17,9 @@ detached, as JAX's ``stop_gradient`` does.
 Batch-norm running stats advance only in their own player's pass; the
 cross-forwards run in train mode but their new stats are dropped. C's
 stats chain labeled → unlabeled → generated, or unlabeled → labeled →
-generated under ``share_pseudo_forward``. D's three kinds of pairs go
+generated under ``share_pseudo_forward``; under ``fused_clf_forward`` C
+runs one pass over the three streams concatenated (3B rows), whose batch
+norm normalizes them jointly, as the JAX option does. D's three kinds of pairs go
 through one batched forward of 3B rows (D has no BN, so this is exact).
 
 ``share_pseudo_forward`` keeps the graph of C's unlabeled-stream forward,
@@ -173,8 +175,14 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
     lr_now = linear_decay_schedule(1.0, int(cfg.lr_decay_start_frac * total_steps), total_steps)
     zca = _Zca(zca_stats)
     share_fwd = bool(cfg.get("share_pseudo_forward", False))
-    if bool(cfg.get("fused_clf_forward", False)):
-        raise NotImplementedError("fused_clf_forward is not ported yet (ROADMAP Queue 1)")
+    fused_clf = bool(cfg.get("fused_clf_forward", False))
+    if share_fwd and fused_clf:
+        raise ValueError(
+            "share_pseudo_forward and fused_clf_forward are mutually "
+            "exclusive: the shared-forward C update replaces the fused "
+            "3B-row pass entirely, so enabling both would silently measure "
+            "shared-only. Pick one."
+        )
     non_saturating = bool(cfg.non_saturating_g)
 
     def values(step: int, counts: Dict[str, int]) -> List[float]:
@@ -249,9 +257,16 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
             log_l, s1 = clf.apply(pc, bn_u, x_l_c, train=True, generator=rng)
             log_g, s3 = clf.apply(pc, s1, x_g_c, train=True, generator=rng)
         else:
-            log_l, s1 = clf.apply(pc, bn["clf"], x_l_c, train=True, generator=rng)
-            log_u, s2 = clf.apply(pc, s1, x_u_c, train=True, generator=rng)
-            log_g, s3 = clf.apply(pc, s2, x_g_c, train=True, generator=rng)
+            if fused_clf:
+                # one 3B-row pass: BN normalizes the three streams jointly
+                log_all, s3 = clf.apply(pc, bn["clf"], torch.cat([x_l_c, x_u_c, x_g_c]),
+                                        train=True, generator=rng)
+                nb = x_l_c.shape[0]
+                log_l, log_u, log_g = log_all[:nb], log_all[nb:2 * nb], log_all[2 * nb:]
+            else:
+                log_l, s1 = clf.apply(pc, bn["clf"], x_l_c, train=True, generator=rng)
+                log_u, s2 = clf.apply(pc, s1, x_u_c, train=True, generator=rng)
+                log_g, s3 = clf.apply(pc, s2, x_g_c, train=True, generator=rng)
             y_c2 = losses.sample_pseudo_labels(rng, log_u, pseudo_label_mode)
         with torch.no_grad():  # the D signal is stop-gradiented in L_C
             logit_d_cla, _ = disc.apply(pd_new, bn["disc"], x_u_c, y_c2, train=True,
