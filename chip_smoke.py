@@ -101,6 +101,37 @@ Phases, each fatal on failure (exit code 1, and no result line):
      device-data step, in turns; the host-to-device copies of one
      profiled host-streamed step (none pageable); and one batch's copies
      from device_prefetch's pinned buffers timed with CUDA events;
+  5c. mesh: data parallelism (``parallel/mesh.py``) on stl10 at its
+     published widths (96 × 96, batch 128, float32, kernel arm) on a
+     seeded synthetic STL-10 in ``prepare``'s layout (2048 train, 256 test
+     images), 2 ranks on the one card joined by gloo (NCCL refuses two
+     ranks on one device; gloo stages the all-reduces through the host),
+     spawned by ``run_local_ranks`` (``mesh_rank``; each rank's wrappers
+     count its own launches and report them, keyed by shape). Gates: one
+     ``make_train_step`` step on each rank's rows of the global host batch
+     (stochastic layers and augmentation off, argmax pseudo-labels) equals
+     one process's step on the global batch from the same seeded state
+     (every parameter, batch-norm statistic and Adam moment within 2·N·lr,
+     95% within lr/100; metrics within 1e-4·(1 + |m|)); 4 device-data steps
+     of the shipped stl10 (noise, dropout, augmentation, sampled labels)
+     finite, each rank's launches 4 × step_launches at its batch of 64, key
+     for key; ``train()`` in each rank, 4 steps and resumed for 4 more
+     (host-streamed batches, an eval, a grid and a checkpoint every 4),
+     whose files come from the coordinator alone (one metrics.jsonl with
+     each record once, one config.json, grids and checkpoints at 4 and 8),
+     whose step-4 checkpoint restores on one process bitwise equal to the
+     state the ranks saved and continues there to step 8 within the same
+     tolerance of the ranks' resumed run; a STOP file that the coordinator
+     writes after its first step stops both ranks at step 2, preempted and
+     checkpointed; the two ranks' states bitwise equal throughout. Then, in
+     this process, an NCCL group of world 1 on the card: 4 eager
+     device-data steps against the same 4 steps as one captured CUDA graph
+     with the all-reduces inside, bitwise, its launches (2·4 + 1) ×
+     step_launches and its replay's kernels counted by name in the profile
+     (and whether NCCL's kernels appear there). Numbers, no gate: a rank's
+     ms/step against one process's step on the global batch, and the host
+     ms a step a rank spends in its collectives (gloo through the host on
+     one shared card: not what NCCL across cards would take);
   6. serve: as in slice 1: cifar10_4k at full width from seeded weights
      (written and read back in the JAX package's npz export format), per
      compute dtype and arm, an HTTP server on an ephemeral port driven
@@ -121,12 +152,15 @@ Phases, each fatal on failure (exit code 1, and no result line):
      conv3x3_sm90.cu's; a float32 conv row is also called 20 more times,
      and each call must equal the first bitwise (the kernels sum in a fixed
      order). The shapes include phase 5b's: the classifier at 3B rows,
-     ddinit's, the variants'.
+     ddinit's, the variants'; and phase 5c's: stl10's 96 × 96 layers at a
+     rank's batch of 64 (D at 192 rows, Cin = 3 + 10), at the global batch
+     of 128, in its evals and its grid.
 
 The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
-the source that serves the setting's dtype); its top-level numbers are
-the shipped setting's. Its launches are the wrappers' counts over every
+the source that serves the setting's dtype; "mesh_rank" is one rank's
+stl10 step at mesh (2,)); its top-level numbers are the shipped
+setting's. Its launches are the wrappers' counts over every
 main path (``launches_counted``) plus the launches that the CUDA graph
 replays of those paths made, counted by kernel name in their profiles
 (``launches_replayed``).
@@ -654,8 +688,9 @@ def device_kernels(fn, reps: int) -> dict:
     """torch.profiler, device activity only, over ``reps`` calls of ``fn``
     (with ``PROFILE_MARGIN_S`` before and after them): from its raw device
     records, the launches and device µs of each
-    ``HAND_KERNELS`` group, the device µs in all, and the 10 kernels with
-    the most device time (names cut to 80 characters)."""
+    ``HAND_KERNELS`` group, the device µs in all, the launches of NCCL's
+    kernels (names holding "nccl"), and the 10 kernels with the most device
+    time (names cut to 80 characters)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -680,6 +715,7 @@ def device_kernels(fn, reps: int) -> dict:
         groups[group] = {"launches": sum(r[0] for r in hit), "us": sum(r[1] for r in hit)}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     return {"reps": reps, "groups": groups, "device_us": sum(r[1] for r in by_name.values()),
+            "nccl": sum(r[0] for name, r in by_name.items() if "nccl" in name.lower()),
             "top_device": [{"name": n[:80], "launches": r[0], "us": r[1]} for n, r in top]}
 
 
@@ -964,13 +1000,15 @@ DRIVER_SETS = ["steps_per_epoch=4", "eval_every_epochs=1", "ckpt_every_epochs=1"
 DRIVER_TEST = 1000  # test images: 10 eval batches of 100
 
 
-def write_prepared(data_dir: str) -> str:
-    """A seeded synthetic cifar10 in the layout ``prepare`` writes
-    ({data_dir}/cifar10/{train,test}.npz: uint8 NHWC ``images``, int32
-    ``labels``; class-dependent blobs as ``synthetic_dataset`` draws them),
-    4096 train images so that ZCA has more samples than its 3072 dims, and
-    the ZCA stats fitted once beside the shards (zca_stats.npz), which each
-    run then loads instead of fitting its own."""
+def write_prepared(data_dir: str, dataset: str = "cifar10", size: int = 32, n_train: int = 4096,
+                   n_test: int = DRIVER_TEST, zca: bool = True) -> str:
+    """A seeded synthetic dataset in the layout ``prepare`` writes
+    ({data_dir}/{dataset}/{train,test}.npz: uint8 NHWC ``images`` of
+    size × size × 3, int32 ``labels``; class-dependent blobs as
+    ``synthetic_dataset`` draws them). For cifar10 4096 train images, so
+    that ZCA has more samples than its 3072 dims, and the ZCA stats fitted
+    once beside the shards (zca_stats.npz), which each run then loads
+    instead of fitting its own."""
     from triplegan_tpu_torch.data.zca import fit_zca
 
     rng = np.random.RandomState(SEED)
@@ -978,15 +1016,15 @@ def write_prepared(data_dir: str) -> str:
     def make(n):
         y = rng.randint(0, 10, size=n).astype(np.int32)
         x = (y[:, None, None, None].astype(np.float32) + 1.0) * (255.0 / 11) + \
-            rng.normal(0, 24.0, size=(n, 32, 32, 3))
+            rng.normal(0, 24.0, size=(n, size, size, 3))
         return np.clip(x, 0, 255).astype(np.uint8), y
 
-    ddir = os.path.join(data_dir, "cifar10")
+    ddir = os.path.join(data_dir, dataset)
     os.makedirs(ddir)
-    for split, n in (("train", 4096), ("test", DRIVER_TEST)):
+    for split, n in (("train", n_train), ("test", n_test)):
         x, y = make(n)
         np.savez(os.path.join(ddir, f"{split}.npz"), images=x, labels=y)
-        if split == "train":
+        if split == "train" and zca:
             fit_zca(x).save(os.path.join(ddir, "zca_stats.npz"))
     return ddir
 
@@ -1870,6 +1908,505 @@ def host_phase(data, zca, data_dir) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: data parallelism: stl10 on a mesh of 2 ranks
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 2
+MESH_STEPS = 4                     # the stochastic path's steps, and the NCCL chunk's
+MESH_TRAIN, MESH_TEST = 2048, 256  # the synthetic STL-10's images (96 × 96 × 3)
+MESH_NUM_LABELED = 1000            # stl10's num_labeled
+
+
+def stl10_cfg(deterministic: bool = False):
+    """stl10 at its published widths (batch 128, float32, kernel arm) on a
+    mesh of ``MESH_WORLD``. ``deterministic``: no noise, dropout or
+    augmentation, argmax pseudo-labels (``tests/helpers.py::
+    deterministic_config``'s settings), so that a step on the ranks and one
+    on the global batch compute the same update."""
+    from triplegan_tpu_torch.configs import get_config
+
+    cfg = get_config("stl10")
+    cfg.mesh_shape = (MESH_WORLD,)
+    if deterministic:
+        cfg.disc.input_noise = cfg.disc.input_dropout = cfg.disc.block_dropout = 0.0
+        cfg.clf.input_noise = cfg.clf.block_dropout = 0.0
+        cfg.aug_translate, cfg.aug_flip = 0, False
+        cfg.pseudo_label_mode = "argmax"
+    return cfg
+
+
+def per_rank(cfg, world: int = MESH_WORLD):
+    """``cfg`` at one rank's batch: what ``step_launches`` counts a rank."""
+    import copy
+
+    out = copy.deepcopy(cfg)
+    out.batch_size = cfg.batch_size // world
+    return out
+
+
+def mesh_loop_cfg(workdir, data_dir, name, steps_per_epoch, epochs, mesh=MESH_WORLD):
+    """The driver's stl10 run of the mesh phase: deterministic layers,
+    host-streamed batches (every rank's sampler draws the global batch, so
+    a run on one rank trains on the same batches), an eval, a grid and a
+    checkpoint every epoch."""
+    cfg = stl10_cfg(deterministic=True)
+    cfg.mesh_shape = (mesh,)
+    cfg.name, cfg.workdir, cfg.data_dir = name, workdir, data_dir
+    cfg.steps_per_epoch, cfg.epochs, cfg.log_every = steps_per_epoch, epochs, steps_per_epoch
+    cfg.eval_every_epochs = cfg.ckpt_every_epochs = 1
+    cfg.data_on_device = False
+    return cfg
+
+
+def floats(m) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def state_flat(state) -> dict:
+    """Every tensor of a train state by its path (params/, bn/, mu/, nu/),
+    on the CPU."""
+    trees = {"params": state.params, "bn": state.bn, "mu": {p: o.mu for p, o in state.opt.items()},
+             "nu": {p: o.nu for p, o in state.opt.items()}}
+    return {f"{kind}/{p}/{layer}/{name}": t.detach().cpu()
+            for kind, tree in trees.items() for p, layers in tree.items()
+            for layer, arrays in layers.items() for name, t in arrays.items()}
+
+
+def state_hash(state) -> str:
+    from triplegan_tpu_torch.parallel.mesh import state_digest
+
+    return state_digest({"params": state.params, "bn": state.bn, "mu": {p: o.mu for p, o in state.opt.items()},
+                         "nu": {p: o.nu for p, o in state.opt.items()}})
+
+
+def states_agree(got: dict, want: dict, n_steps: int, lr: float, what: str) -> dict:
+    """Two flat states within phase 4's tolerance: every parameter, batch-norm
+    statistic and Adam moment within 2·N·lr, 95% of them within lr/100."""
+    check(sorted(got) == sorted(want), f"{what}: the states hold other tensors")
+    errs = np.concatenate([np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64)).ravel()
+                           for k in sorted(want)])
+    res = {"max_abs_diff": float(errs.max()), "frac_within_lr_100": float(np.mean(errs <= lr / 100)),
+           "limit": 2 * n_steps * lr, "lr": lr, "steps": n_steps}
+    check(res["max_abs_diff"] <= res["limit"], f"{what}: states differ by {res['max_abs_diff']}")
+    check(res["frac_within_lr_100"] >= 0.95, f"{what}: {res['frac_within_lr_100']} within lr/100")
+    return res
+
+
+def metrics_within(a: dict, b: dict, what: str) -> float:
+    """Metrics within 1e-4·(1 + |m|) (phase 4's); the worst relative gap."""
+    check(sorted(a) == sorted(b), f"{what}: metrics {sorted(a)} vs {sorted(b)}")
+    worst = max(abs(a[k] - b[k]) / (1 + abs(b[k])) for k in a)
+    check(worst <= 1e-4, f"{what}: metrics differ by {worst} (relative): {a} vs {b}")
+    return worst
+
+
+def device_batch(batch, dev):
+    import torch
+
+    return {s: {k: torch.as_tensor(v, device=dev) for k, v in d.items()} for s, d in batch.items()}
+
+
+def mesh_rank(mesh, plan) -> dict:
+    """One rank of the mesh phase (``run_local_ranks``: 2 gloo ranks on the
+    one card), in order: (1) one ``make_train_step`` step of deterministic
+    stl10 on this rank's rows of the global host batch; (2) ``MESH_STEPS``
+    device-data steps of the shipped stl10 (noise, dropout, augmentation,
+    sampled pseudo-labels), its launches counted from just before to just
+    after, timed a step with the host seconds its collectives took; (3) the
+    driver, ``train()`` 4 steps and resumed for 4 more, with an eval, a
+    grid and a checkpoint every 4 (each checkpoint's state hashed when it is
+    saved), its launches counted; (4) a ``train()`` run whose coordinator
+    writes the STOP file after its first step. States leave as sha256s
+    (the coordinator's also as tensors), launch counts keyed by shape."""
+    import torch
+
+    from triplegan_tpu_torch.ckpt import manager
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.configs.base import apply_runtime
+    from triplegan_tpu_torch.data.datasets import load_dataset
+    from triplegan_tpu_torch.data.pipeline import BatchSampler
+    from triplegan_tpu_torch.train import loop
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+    from triplegan_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(str(mesh.device))
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend}
+    data = load_dataset(plan["data_dir"], "stl10", MESH_NUM_LABELED, 10, SEED)
+
+    # (1) one step on this rank's rows of the global batch
+    cfg = apply_runtime(stl10_cfg(deterministic=True))
+    nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
+    state = create_state(cfg, nets, opts, device=dev)
+    batch = BatchSampler(data, cfg.batch_size, seed=SEED, rows=mesh.rows(cfg.batch_size)).next_triple(
+        cfg.z_dim, cfg.num_classes)
+    step = S.make_train_step(cfg, nets, opts, TOTAL_STEPS, pseudo_label_mode="argmax", mesh=mesh)
+    tb = device_batch(batch, dev)
+    torch.cuda.synchronize()
+    counts_zero()
+    state, m = step(state, tb)
+    out["equiv"] = {"metrics": floats(m), "digest": state_hash(state), "counts": counts_read()}
+    if mesh.coordinator:
+        out["equiv"]["flat"] = state_flat(state)
+    del state, step, tb
+
+    # (2) the shipped stochastic path on device data
+    cfg = apply_runtime(stl10_cfg())
+    nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
+    state = create_state(cfg, nets, opts, device=dev)
+    step = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, mesh=mesh)
+    dev_data = S.upload_device_data(data, dev)
+    torch.cuda.synchronize()
+    secs, coll_s, coll_n, ms = [], [], [], []
+    counts_zero()  # the main path starts here
+    for _ in range(MESH_STEPS):
+        c0, s0, t0 = mesh.collectives, mesh.collective_s, time.perf_counter()
+        state, m = step(state, dev_data)
+        ms.append(floats(m))  # waits for the step
+        secs.append(time.perf_counter() - t0)
+        coll_s.append(mesh.collective_s - s0)
+        coll_n.append(mesh.collectives - c0)
+    counts = counts_read()  # the main path ends here
+    out["stochastic"] = {"metrics": ms, "digest": state_hash(state), "counts": counts, "step_s": secs,
+                         "collective_s": coll_s, "collectives": coll_n,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del state, step, dev_data
+    torch.cuda.empty_cache()
+
+    # (3) the driver: 4 steps, then resumed for 4 more
+    saved, real_save = {}, manager.CheckpointManager.save
+
+    def save(self, step_no, st):
+        saved[int(step_no)] = state_hash(st)
+        return real_save(self, step_no, st)
+
+    cfg = mesh_loop_cfg(plan["workdir"], plan["data_dir"], "loop", 4, 2)
+    manager.CheckpointManager.save = save
+    try:
+        counts_zero()  # the main path starts here
+        t0 = time.perf_counter()
+        runs = [loop.train(cfg, max_steps=4, verbose=False, device=dev) for _ in range(2)]
+        secs = time.perf_counter() - t0
+        counts = counts_read()  # the main path ends here
+    finally:
+        manager.CheckpointManager.save = real_save
+    out["loop"] = {"runs": [{"steps": r["steps"], "preempted": r["preempted"], "test_error": r["test_error"],
+                             "metrics": r["metrics"], "digest": state_hash(r["state"])} for r in runs],
+                   "saved": saved, "counts": counts, "seconds": secs}
+    if mesh.coordinator:
+        out["loop"]["flat"] = state_flat(runs[1]["state"])
+    del runs
+
+    # (4) a STOP file, written by the coordinator after its first step
+    cfg = mesh_loop_cfg(plan["workdir"], plan["data_dir"], "stop", 2, 4)
+    stop_file = os.path.join(cfg.workdir, cfg.name, "STOP")
+    real_make = loop.make_train_step
+
+    def make(*a, **k):
+        inner, calls = real_make(*a, **k), [0]
+
+        def stepping(st, b):
+            res = inner(st, b)
+            calls[0] += 1
+            if calls[0] == 1 and mesh.coordinator:
+                open(stop_file, "w").close()
+            return res
+
+        return stepping
+
+    loop.make_train_step = make
+    try:
+        r = loop.train(cfg, verbose=False, device=dev)
+    finally:
+        loop.make_train_step = real_make
+    out["stop"] = {"steps": r["steps"], "preempted": r["preempted"], "digest": state_hash(r["state"])}
+    out["collectives_total"] = mesh.collectives
+    return out
+
+
+def single_steps(cfg, data, dev, n, batch=None):
+    """``n`` steps of ``cfg`` on one process (no mesh) from the seeded
+    state: on ``batch`` (a host batch, through make_train_step) or on
+    device data; (state, metrics of each, seconds of each, launches)."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.configs.base import apply_runtime
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    apply_runtime(cfg)
+    nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
+    state = create_state(cfg, nets, opts, device=dev)
+    if batch is None:
+        step, x = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS), S.upload_device_data(data, dev)
+    else:
+        step = S.make_train_step(cfg, nets, opts, TOTAL_STEPS, pseudo_label_mode="argmax")
+        x = device_batch(batch, dev)
+    torch.cuda.synchronize()
+    ms, secs = [], []
+    counts_zero()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, x)
+        ms.append(floats(m))
+        secs.append(time.perf_counter() - t0)
+    return state, ms, secs, counts_read()
+
+
+def nccl_chunk(data, data_root, dev) -> dict:
+    """An NCCL group of this process alone (world 1, a FileStore) on the
+    card: ``MESH_STEPS`` eager device-data steps of the shipped stl10 under
+    it, then the same steps from the same state as one chunk of
+    ``make_scan_device_train_step``, captured as a CUDA graph with the
+    step's all-reduces inside and replayed once under torch.profiler. The
+    replay must equal the eager steps bitwise (every state tensor, every
+    step's metrics); the wrappers' counts, zeroed just before, must be
+    (2·MESH_STEPS + 1) × step_launches (the eager steps, the chunk's
+    warm-up step and its capture; the replay adds none) and the replay run
+    each hand-written kernel MESH_STEPS × a step's count; whether NCCL
+    kernels appear in the replay's device records is reported."""
+    import torch
+    import torch.distributed as dist
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.configs.base import apply_runtime
+    from triplegan_tpu_torch.parallel.mesh import make_mesh
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    cfg = apply_runtime(stl10_cfg())
+    cfg.mesh_shape = (1,)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(data_root, "nccl_store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, dev)
+        nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
+        state = create_state(cfg, nets, opts, device=dev)
+        dev_data = S.upload_device_data(data, dev)
+        step = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, mesh=mesh)
+        runner = S.make_scan_device_train_step(cfg, nets, opts, TOTAL_STEPS, MESH_STEPS,
+                                               log=lambda *a, **k: None, mesh=mesh)
+        eager, ms = S._clone_state(state), []
+        counts_zero()  # the main path starts here
+        for _ in range(MESH_STEPS):
+            eager, m = step(eager, dev_data)
+            ms.append(m)
+        t0 = time.perf_counter()
+        runner.prepare(state, dev_data)
+        capture_s = time.perf_counter() - t0
+        holder = {}
+
+        def one_chunk():
+            holder["state"], _ = runner(state, dev_data)
+
+        prof = device_kernels(one_chunk, reps=1)
+        counts = counts_read()  # the main path ends here
+        state = holder["state"]
+        want = S._stacked(ms)
+        bad = [k for k in S.METRICS if not torch.equal(runner.step_metrics[k], want[k])]
+        check(not bad, f"nccl chunk: metrics {bad} differ from the eager steps'")
+        got, ref = list(S._state_tensors(state)), list(S._state_tensors(eager))
+        diff = sum(not torch.equal(a, b) for a, b in zip(got, ref))
+        check(state.step == eager.step and diff == 0,
+              f"nccl chunk: {diff} of {len(got)} state tensors differ from {MESH_STEPS} eager steps'")
+        convs, _, epilogues, epilogue_bwds = step_launches(cfg)
+        n = 2 * MESH_STEPS + 1
+        got_c = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+        want_c = collections.Counter({key: c * n for key, c in convs.items()})
+        check(got_c == want_c, f"nccl chunk: conv launches {dict(got_c - want_c)}; implied and not launched "
+                               f"{dict(want_c - got_c)}")
+        launches = totals(counts)
+        check(launches["scale_bias_act"] == epilogues * n and launches["scale_bias_act_bwd"] == epilogue_bwds * n,
+              f"nccl chunk: epilogue launches {launches}, want {epilogues}/{epilogue_bwds} × {n}")
+        per_step = hand_kernels_per_step(counts, n)
+        in_chunk = {g: v["launches"] for g, v in prof["groups"].items()}
+        check(all(in_chunk[g] == MESH_STEPS * per_step[g] for g in HAND_KERNELS),
+              f"nccl chunk: the replay ran {in_chunk}, want {MESH_STEPS} × {per_step}")
+        replayed = replayed_launches(prof)
+        res = {"steps": MESH_STEPS, "bitwise": True, "backend": mesh.backend, "collectives": mesh.collectives,
+               "capture_s": capture_s, "graph": dict(runner.graph_stats),
+               "nccl_kernels_in_replay": prof["nccl"], "replay_device_ms_per_step":
+                   prof["device_us"] / MESH_STEPS / 1e3, "top_device": prof["top_device"],
+               "launches_counted": launches, "launches_replayed": replayed,
+               "launches": {k: launches[k] + replayed[k] for k in launches}, "_counts": counts}
+        del state, eager, runner, step, dev_data
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_phase(data_root, dev) -> dict:
+    """stl10 at its published widths on a mesh of 2 gloo ranks on the one
+    card (gloo stages its all-reduces through the host; NCCL refuses two
+    ranks on one device), on a seeded synthetic STL-10 in ``prepare``'s
+    layout (``MESH_TRAIN`` / ``MESH_TEST`` images of 96 × 96 × 3): the
+    ranks' work is ``mesh_rank``. Gates: (1) the ranks' step equals one
+    process's step on the global batch from the same seeded state
+    (``states_agree``: parameters, batch-norm statistics and Adam moments;
+    metrics within 1e-4·(1 + |m|)); (2) the stochastic steps finite, each
+    rank's launches ``MESH_STEPS`` × step_launches at its batch of 64, key
+    for key; (3) the driver's files written once, by the coordinator (one
+    ``metrics.jsonl`` with each record once, ``config.json``, grids and
+    checkpoints at 4 and 8); the step-4 checkpoint restored on one process
+    bitwise equal to the state the ranks saved, and continued there to
+    step 8 within ``states_agree`` of the ranks' resumed run; (4) the STOP
+    file stops both ranks at step 2, preempted, checkpointed; and in every
+    part the two ranks' states bitwise equal. Then ``nccl_chunk``, and the
+    numbers (no gate): a rank's ms/step at mesh (2,) against one process's
+    step on the global batch, and the host ms a step a rank spent in its
+    collectives: gloo's, through the host on one shared card, so not what
+    NCCL across cards would take."""
+    import shutil
+
+    import torch
+
+    from triplegan_tpu_torch.ckpt.manager import CheckpointManager
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.data.datasets import load_dataset
+    from triplegan_tpu_torch.data.pipeline import BatchSampler
+    from triplegan_tpu_torch.parallel.mesh import run_local_ranks
+    from triplegan_tpu_torch.train import loop
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    t_start = time.perf_counter()
+    data_dir, workdir = os.path.join(data_root, "stl10_data"), os.path.join(data_root, "mesh_runs")
+    write_prepared(data_dir, "stl10", 96, MESH_TRAIN, MESH_TEST, zca=False)
+    data = load_dataset(data_dir, "stl10", MESH_NUM_LABELED, 10, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r0, r1 = run_local_ranks(mesh_rank, MESH_WORLD, str(dev), backend="gloo", tmpdir=data_root,
+                             args=({"data_dir": data_dir, "workdir": workdir},), timeout=900)
+    ranks_s = time.perf_counter() - t0
+    for part, key in (("equiv", "digest"), ("stochastic", "digest"), ("stop", "digest")):
+        check(r0[part][key] == r1[part][key], f"mesh: the ranks' states differ after {part}")
+    for a, b in zip(r0["loop"]["runs"], r1["loop"]["runs"]):
+        check(a == b, f"mesh driver: the ranks returned {a} and {b}")
+    check(r0["loop"]["saved"] == r1["loop"]["saved"], "mesh driver: the ranks saved other states")
+    for part in ("equiv", "stochastic"):
+        check(r0[part]["counts"] == r1[part]["counts"], f"mesh {part}: the ranks launched other kernels")
+    for name, c0 in r0["loop"]["counts"].items():  # the coordinator alone draws the grids (100 rows)
+        c0, c1 = collections.Counter(c0), collections.Counter(r1["loop"]["counts"][name])
+        rows = [key[0][0] if name.startswith("scale_bias_act") else key[1] for key in c0 - c1]
+        check(not c1 - c0 and set(rows) <= {100}, f"mesh driver: the ranks' {name} launches differ "
+                                                   f"beyond the coordinator's grids: {dict(c0 - c1)}, {dict(c1 - c0)}")
+
+    # (1) the ranks' step against one process's on the global batch
+    cfg = stl10_cfg(deterministic=True)
+    lr = float(cfg.lr_c)
+    batch = BatchSampler(data, cfg.batch_size, seed=SEED).next_triple(cfg.z_dim, cfg.num_classes)
+    single, single_m, _, single_counts = single_steps(cfg, data, dev, 1, batch)
+    equiv = {"state": states_agree(r0["equiv"]["flat"], state_flat(single), 1, lr, "mesh vs one process"),
+             "metrics_max_rel_diff": metrics_within(r0["equiv"]["metrics"], single_m[0], "mesh vs one process"),
+             "ranks_bitwise_equal": True}
+    del single
+
+    # (2) the stochastic path: finite, and step_launches at a rank's batch
+    cfg = stl10_cfg()
+    st = r0["stochastic"]
+    for t, m in enumerate(st["metrics"]):
+        check(all(math.isfinite(v) for v in m.values()), f"mesh stochastic step {t}: {m}")
+    convs, players, epilogues, epilogue_bwds = step_launches(per_rank(cfg))
+    counts = {k: collections.Counter(v) for k, v in st["counts"].items()}
+    got_c = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+    want_c = collections.Counter({key: c * MESH_STEPS for key, c in convs.items()})
+    check(got_c == want_c, f"mesh rank: conv launches not implied by its steps {dict(got_c - want_c)}; implied "
+                           f"and not launched {dict(want_c - got_c)}")
+    check(sum(counts["scale_bias_act"].values()) == epilogues * MESH_STEPS
+          and sum(counts["scale_bias_act_bwd"].values()) == epilogue_bwds * MESH_STEPS,
+          f"mesh rank: epilogue launches {totals(counts)}, want {epilogues}/{epilogue_bwds} × {MESH_STEPS}")
+
+    # (3) the driver: the coordinator's files, a restore and a continuation on one process
+    run_dir = os.path.join(workdir, "loop")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    keys = [(r["step"], tuple(sorted(r))) for r in recs]
+    check(len(keys) == len(set(keys)), "mesh driver: metrics.jsonl holds a record twice (a second writer)")
+    check([r["step"] for r in recs if "loss_d" in r] == [4, 8] and
+          [r["step"] for r in recs if "test_error" in r] == [4, 8], f"mesh driver: records at {keys}")
+    names = sorted(os.listdir(run_dir))
+    check(names == ["ckpt", "config.json", "metrics.jsonl", "samples_00000004.png", "samples_00000008.png"] or
+          names == ["ckpt", "config.json", "metrics.jsonl", "samples_00000004.png", "samples_00000008.png", "tb"],
+          f"mesh driver: the run dir holds {names}")
+    check(sorted(os.listdir(os.path.join(run_dir, "ckpt"))) == ["4", "8"], "mesh driver: checkpoints")
+    side = 10 * cfg.image_size  # 10 classes × 10 samples of 96 × 96
+    check(png_size(os.path.join(run_dir, "samples_00000008.png"))[:2] == (side, side), "mesh driver: grid size")
+    first, second = r0["loop"]["runs"]
+    check((first["steps"], second["steps"]) == (4, 8) and not first["preempted"] and not second["preempted"],
+          f"mesh driver: runs {first} {second}")
+    check(r0["loop"]["saved"][4] == first["digest"] and r0["loop"]["saved"][8] == second["digest"],
+          "mesh driver: the saved states are not the runs' states")
+    lcfg = mesh_loop_cfg(workdir, data_dir, "continued", 4, 2, mesh=1)
+    nets = make_networks(lcfg)
+    template = create_state(lcfg, nets, make_optimizers(lcfg, 8), device=dev)
+    restored = CheckpointManager(os.path.join(run_dir, "ckpt"), write=False).restore(template, step=4)
+    check(state_hash(restored) == r0["loop"]["saved"][4],
+          "mesh driver: the step-4 checkpoint restored on one process differs from the state the ranks saved")
+    del restored, template
+    os.makedirs(os.path.join(workdir, "continued", "ckpt"))
+    shutil.copy(os.path.join(run_dir, "ckpt", "4"), os.path.join(workdir, "continued", "ckpt", "4"))
+    counts_zero()  # the main path starts here
+    t0 = time.perf_counter()
+    cont = loop.train(lcfg, verbose=False, device=dev)
+    cont_s = time.perf_counter() - t0
+    cont_counts = counts_read()  # the main path ends here
+    check(cont["steps"] == 8 and not cont["preempted"], f"mesh continuation: {cont['steps']} steps")
+    continued = states_agree(r0["loop"]["flat"], state_flat(cont["state"]), 4, lr,
+                             "the mesh's resumed run vs one process's continuation")
+    del cont
+
+    # (4) the stop
+    check(r0["stop"]["preempted"] and r1["stop"]["preempted"] and r0["stop"]["steps"] == r1["stop"]["steps"] == 2,
+          f"mesh stop: {r0['stop']} {r1['stop']}")
+    check(sorted(os.listdir(os.path.join(workdir, "stop", "ckpt"))) == ["2"], "mesh stop: its checkpoints")
+
+    nccl = nccl_chunk(data, data_root, dev)
+    emit("mesh_nccl", public(nccl))
+
+    # numbers: a rank's step at mesh (2,) against one process's global-batch step
+    _, _, single_secs, _ = single_steps(stl10_cfg(), data, dev, MESH_STEPS)
+    res = {"config": "stl10", "world": MESH_WORLD, "backend": "gloo", "device": f"{dev} (both ranks)",
+           "global_batch": cfg.batch_size, "rank_batch": cfg.batch_size // MESH_WORLD,
+           "equivalence": equiv, "continuation": continued,
+           "rank_ms_per_step": 1e3 * statistics.mean(st["step_s"][1:]),
+           "single_ms_per_step": 1e3 * statistics.mean(single_secs[1:]),
+           "rank_step_s": st["step_s"], "single_step_s": single_secs,
+           "collective_host_ms_per_step": 1e3 * statistics.mean(st["collective_s"][1:]),
+           "collectives_per_step": st["collectives"], "rank_peak_mem_gb": st["peak_mem_gb"],
+           "driver_seconds": r0["loop"]["seconds"], "continuation_seconds": cont_s, "ranks_seconds": ranks_s,
+           "stop": r0["stop"]["steps"], "test_error": [r["test_error"] for r in r0["loop"]["runs"]],
+           "nccl": public(nccl), "seconds": time.perf_counter() - t_start,
+           "note": "both ranks share one card and gloo stages every all-reduce through the host: "
+                   "not representative of NCCL across cards"}
+    c = lambda d: {k: collections.Counter(v) for k, v in d.items()}  # noqa: E731
+    rank_counts = {name: c(r[part]["counts"]) for name, r, part in
+                   (("rank0 equiv", r0, "equiv"), ("rank1 equiv", r1, "equiv"), ("rank0 stochastic", r0, "stochastic"),
+                    ("rank1 stochastic", r1, "stochastic"), ("rank0 driver", r0, "loop"), ("rank1 driver", r1, "loop"))}
+    counted = collections.Counter()
+    for counts_ in list(rank_counts.values()) + [single_counts, cont_counts]:
+        counted.update(totals(counts_))
+    res["launches_counted"] = dict(counted + collections.Counter(nccl["launches_counted"]))
+    res["launches_replayed"] = nccl["launches_replayed"]
+    res["launches"] = {k: res["launches_counted"].get(k, 0) + res["launches_replayed"].get(k, 0)
+                       for k in nccl["launches"]}
+    per_step = {name: {key: n / MESH_STEPS for key, n in cnt.items()}
+                for name, cnt in rank_counts["rank0 stochastic"].items()}
+    res["_sources"] = [("train mesh_rank", per_step, players),
+                       ("mesh single step", single_counts, {}),
+                       ("mesh driver rank", rank_counts["rank0 driver"], {}),
+                       ("mesh continuation", cont_counts, {}),
+                       ("mesh nccl", nccl["_counts"], {})]
+    emit("mesh", public(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 6: serving end to end
 # ---------------------------------------------------------------------------
 
@@ -2318,11 +2855,15 @@ def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def path_launches(train_arms, serve_arms, host) -> list:
+def path_launches(train_arms, serve_arms, host, mesh) -> list:
     """The keyed launch counts of each main path: the first kernel-arm run
     of each train setting (per step), the host-streamed fused step (per
-    step), its ddinit, each layer variant's step, and each serving dtype
-    (over its main path: one /classify and two /generate of 250 images)."""
+    step), its ddinit, each layer variant's step, the mesh phase's stl10
+    runs (a rank's stochastic step, per step; the one-process step on the
+    global batch; a rank's driver runs and the continuation on one
+    process, evals and grids included; the NCCL chunk's eager steps,
+    warm-up and capture), and each serving dtype (over its main path: one
+    /classify and two /generate of 250 images)."""
     sources, seen = [], set()
     for arm in train_arms:
         if arm["use_pallas"] and arm["setting"] not in seen:
@@ -2336,6 +2877,7 @@ def path_launches(train_arms, serve_arms, host) -> list:
     sources.append(("ddinit", host["_dd_counts"], {}))
     for env, counts in host["_variant_counts"]:
         sources.append(("variant " + ",".join(f"{k}={v}" for k, v in env.items()), counts, {}))
+    sources += mesh["_sources"]
     for arm in serve_arms:
         if arm["use_pallas"]:
             sources.append(("serve " + arm["dtype"], arm["_counts"], {}))
@@ -2419,7 +2961,8 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
          "triplegan_tpu/ops/pallas_conv.py:104"),
     ):
         per_step = {}
-        for setting, dtype, batch, _ in SETTINGS + [("host_fused", "float32", BATCH, False)]:
+        for setting, dtype, batch, _ in SETTINGS + [("host_fused", "float32", BATCH, False),
+                                                   ("mesh_rank", "float32", 128 // MESH_WORLD, False)]:
             runs = [(r["launches"]["train " + setting], r) for r in rows if "train " + setting in r["launches"]]
             sums = {key: sum(n * r[key] for n, r in runs) for key in ("ms", "plain_ms", "bound_ms")}
             library = [n * r["library_ms"] for n, r in runs if r["library_ms"] is not None]
@@ -2445,8 +2988,9 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
             **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "basis": "top level: sum over one train step's launches at the shipped setting "
                      "(cifar10_4k, float32, batch 100, share_pseudo_forward off); per_step: "
-                     "the same at each setting, and for the host-streamed fused-classifier step "
-                     "(host_fused)",
+                     "the same at each setting, for the host-streamed fused-classifier step "
+                     "(host_fused), and for one rank's step of stl10 on a mesh of 2 (mesh_rank: "
+                     "96 x 96, batch 64 a rank)",
             "per_step": per_step,
         })
     return kernels
@@ -2518,6 +3062,10 @@ def main():
         # 5b. host-streamed batches, ddinit, the fused classifier, the variants
         host = host_phase(data, zca, data_dir)
         phases["host"] = time.perf_counter() - t_start
+
+        # 5c. data parallelism: stl10 on a mesh of 2 ranks
+        mesh = mesh_phase(data_root, dev)
+        phases["mesh"] = time.perf_counter() - t_start
     finally:
         import shutil
 
@@ -2529,11 +3077,11 @@ def main():
     phases["serve"] = time.perf_counter() - t_start
 
     # 7. kernels, at the shapes the main paths launched them at
-    sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms, host))
+    sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms, host, mesh))
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
 
-    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver, host], serve_arms)
+    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver, host, mesh], serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -2542,6 +3090,7 @@ def main():
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms],
                        "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),
+                       "mesh": public(mesh),
                        "serve": [public(a) for a in serve_arms],
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -88,3 +88,32 @@ def test_step_launches_equal_the_steps_kernel_calls(case, env, monkeypatch):
     if case == "fused":
         assert any(key[1] == 12 for key in convs) and not any(
             key[0] == "wgrad" and key[1] == 4 and players[key] == {"clf"} for key in convs)
+
+
+def test_stl10_rank_step_launches_equal_the_steps_kernel_calls(monkeypatch):
+    """stl10 (the config that ships a mesh) at a rank's batch, 128 // 2,
+    and its 96 × 96 layers at a few channels: D's first conv takes 3 + 10
+    channels, G has four deconvs, C runs at 96 × 96. ``step_launches`` and
+    ``conv_layers``, which chip_smoke.py holds each rank's launches to,
+    against the spied calls of one step at that batch."""
+    cfg = chip_smoke.per_rank(chip_smoke.stl10_cfg())
+    assert (cfg.batch_size, cfg.image_size, cfg.mesh_shape) == (64, 96, (2,))
+    cfg.gen.widths = (8, 4, 4, 4)
+    cfg.disc.widths = (4,) * len(cfg.disc.strides)
+    cfg.clf.conv_blocks = ((4, 4, 4), (4, 4, 4))
+    cfg.clf.tail = (4, 4, 4)
+    cfg.z_dim = 8
+    gen, disc, clf = chip_smoke.conv_layers(cfg)
+    assert disc[0] == (96, 13, 4, 1) and len(gen) == 4 and gen[-1] == (48, 4, 12, 1) and clf[0] == (96, 3, 4, 1)
+    nets = make_networks(cfg)
+    opts = make_optimizers(cfg, 100)
+    state = create_state(cfg, nets, opts, device="cpu")
+    data = S.upload_device_data(synthetic_dataset(96, 3, 10, n_train=128, n_test=4, num_labeled=100), "cpu")
+    step = S.make_device_train_step(cfg, nets, opts, 100)
+    calls = _spy(monkeypatch)
+    step(state, data)
+    convs, players, epilogues, epilogue_bwds = chip_smoke.step_launches(cfg)
+    assert calls["convs"] == convs, (dict(calls["convs"] - convs), dict(convs - calls["convs"]))
+    assert calls["epilogues"] == epilogues
+    assert set(players) == set(convs)
+    assert {key[1] for key in convs} == {64, 192}  # a rank's batch, and D's 3B rows

@@ -2,7 +2,9 @@
 from conv3x3.cu, bfloat16 from conv3x3_sm90.cu) against their plain
 PyTorch versions, on the card; the float32 conv's bits repeated over 200
 calls; ``device_prefetch``'s copies (their bytes and the consumer's
-stream ordered after them) and the native gather in use. Skips where there
+stream ordered after them) and the native gather in use; the CUDA graph
+chunk under a process group: refused under gloo, and under NCCL (a group
+of this process alone) equal to eager steps bitwise. Skips where there
 is no CUDA device (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -723,3 +725,69 @@ def test_a_host_sync_in_a_captured_step_raises_and_runs_nothing(cuda):
     assert chunk.captures == chunk.replays == 0 and state.step == 0
     for a, b in zip(_state_tensors(state), before):
         assert torch.equal(a, b)
+
+
+def _mesh_of_one(backend, tmp_path):
+    """A process group of this process alone, with ``backend``, on the card
+    (a FileStore: no port), and its mesh."""
+    import torch.distributed as dist
+
+    from triplegan_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    return make_mesh(1, "cuda:0")
+
+
+@pytest.mark.cuda
+def test_graphed_chunk_under_gloo_on_card_raises_naming_the_backend(cuda, tmp_path):
+    """Gloo's collectives on CUDA tensors stage through the host: a chunk
+    under a gloo group on the card raises GraphCaptureError naming gloo,
+    and nothing runs eagerly in the graph's place."""
+    import torch.distributed as dist
+
+    cfg, nets, opts, state, data, S = _small_train()
+    mesh = _mesh_of_one("gloo", tmp_path)
+    try:
+        chunk = S.make_scan_device_train_step(cfg, nets, opts, 16, 2, log=lambda *a, **k: None, mesh=mesh)
+        before = [t.clone() for t in _state_tensors(state)]
+        with pytest.raises(S.GraphCaptureError, match="under a gloo process group"):
+            chunk(state, data)
+        assert chunk.captures == chunk.replays == chunk.warmup_steps == 0 and state.step == 0
+        for a, b in zip(_state_tensors(state), before):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_graphed_chunk_under_nccl_equals_eager_steps_bitwise_on_card(cuda, tmp_path):
+    """Under an NCCL group (of one: the card machine's) the chunk captures
+    the step's collectives into the graph; its replays equal the same
+    steps run eagerly under the group, bitwise."""
+    import torch.distributed as dist
+
+    cfg, nets, opts, state, data, S = _small_train()
+    mesh = _mesh_of_one("nccl", tmp_path)
+    try:
+        eager = S._clone_state(state)
+        step = S.make_device_train_step(cfg, nets, opts, 16, mesh=mesh)
+        chunk = S.make_scan_device_train_step(cfg, nets, opts, 16, 2, log=lambda *a, **k: None, mesh=mesh)
+        want = []
+        for _ in range(4):
+            eager, m = step(eager, data)
+            want.append(m)
+        got = []
+        for _ in range(2):
+            state, m = chunk(state, data)
+            got.append(m)
+        torch.cuda.synchronize()
+        assert (chunk.captures, chunk.replays) == (1, 2)
+        for g, w in zip(got, want[1::2]):
+            for k in S.METRICS:
+                assert torch.equal(g[k], w[k]), k
+        assert state.step == eager.step == 4
+        for a, b in zip(_state_tensors(state), _state_tensors(eager)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

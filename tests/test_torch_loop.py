@@ -307,13 +307,18 @@ def test_a_stop_checkpoints_skips_the_final_eval_and_resumes(how, tmp_path, monk
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("mesh_shape", (2,), "item 8"),
-    ("multihost", True, "item 8"),
+    ("mesh_shape", (2,), "needs 2 processes"),
+    ("multihost", True, "MASTER_ADDR is not set"),
 ])
-def test_options_not_ported_raise(knob, value, item, tmp_path):
+def test_options_not_ported_raise(knob, value, item, tmp_path, monkeypatch):
+    """A mesh (or multihost) run started as one process, with no process
+    group and no torchrun environment, raises naming the torchrun command
+    before any work: it never trains unsharded."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
     _, cfg = _driver_cfg(tmp_path, "run")
     cfg[knob] = value
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1.*{item}"):
+    with pytest.raises(RuntimeError, match=f"{item}.*torchrun --nproc-per-node"):
         loop.train(cfg, max_steps=1, verbose=False, device="cpu")
     assert not os.path.exists(os.path.join(cfg.workdir, cfg.name))  # raised before any work
 

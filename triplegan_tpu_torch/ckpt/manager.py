@@ -15,6 +15,12 @@ rename leaves its tmp file behind; readers ignore such files, and a
 manager opened to write (the train driver) deletes them on opening. Only
 the ``max_to_keep`` newest checkpoints are kept. Saving is synchronous.
 
+Under a data mesh (``parallel/mesh.py``) the state is replicated, so the
+coordinator alone writes, and every rank waits in ``save`` until the
+file is published; every rank restores the same file. A checkpoint holds
+no trace of the mesh it was written on: one written by N ranks restores
+exactly on M.
+
 The JAX package's checkpoints (orbax directories) are not read here;
 weights cross between the packages through ``bridge.py``.
 """
@@ -77,13 +83,16 @@ def _check_like(got: dict, want: dict, path: str) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3, write: bool = True):
+    def __init__(self, directory: str, max_to_keep: int = 3, write: bool = True, mesh=None):
         """``write=False`` opens a reader (eval, sample): it never deletes
-        anything, since another process may be writing to the directory."""
+        anything, since another process may be writing to the directory.
+        Under ``mesh`` only its coordinator writes or deletes."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = int(max_to_keep)
+        self.mesh = mesh
+        self._coordinator = mesh is None or mesh.coordinator
         os.makedirs(self.directory, exist_ok=True)
-        if write:
+        if write and self._coordinator:
             for name in os.listdir(self.directory):
                 if _TMP in name:
                     os.remove(os.path.join(self.directory, name))
@@ -99,7 +108,15 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState) -> bool:
         """Publish ``state`` as checkpoint ``step`` and drop the oldest
         beyond ``max_to_keep``. A step at or below the latest saved one is
-        not saved again (False), as orbax does."""
+        not saved again (False), as orbax does. Under a mesh the
+        coordinator saves and every rank returns its answer once the file is
+        published."""
+        saved = self._save(step, state) if self._coordinator else False
+        if self.mesh is not None:
+            saved = self.mesh.any(saved)  # the barrier: after the coordinator's rename
+        return saved
+
+    def _save(self, step: int, state: TrainState) -> bool:
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False

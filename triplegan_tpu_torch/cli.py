@@ -21,6 +21,14 @@ CLI does, and ``--set key=value`` overrides any config field, e.g.
 ``--set use_pallas=false`` for plain PyTorch in place of the Hopper
 kernels. Every command runs on the card; ``--device cpu`` runs it on the
 CPU.
+
+``train``, ``eval`` and ``sample`` run data-parallel under torchrun, one
+process a card (``cuda:LOCAL_RANK``; the CPU with ``--device cpu``)::
+
+    torchrun --nproc-per-node N -m triplegan_tpu_torch.cli train --config stl10 --set 'mesh_shape=(N,)' ...
+
+The ranks share the work and the coordinator (rank 0) prints and writes;
+a ``mesh_shape`` that is not the number of processes raises.
 """
 
 from __future__ import annotations
@@ -81,6 +89,7 @@ def _load_cfg(args):
 
 
 def cmd_train(args):
+    from triplegan_tpu_torch.parallel.mesh import is_coordinator
     from triplegan_tpu_torch.train.loop import train
 
     result = train(_load_cfg(args), max_steps=args.max_steps, device=args.device)
@@ -88,7 +97,8 @@ def cmd_train(args):
         # Stopped and checkpointed, not finished: EX_TEMPFAIL, so that a
         # restart policy runs the same command again (which resumes).
         sys.exit(75)
-    print(f"done: step={result['steps']} test_error={100 * result['test_error']:.2f}%")
+    if is_coordinator():
+        print(f"done: step={result['steps']} test_error={100 * result['test_error']:.2f}%")
 
 
 def _restore_at(ckpt, state, args, workdir):
@@ -103,21 +113,24 @@ def _restore_at(ckpt, state, args, workdir):
 
 
 def _restore_run(args):
-    """(cfg, networks, restored state, run dir, device) of the run dir that
-    ``args`` names, on ``args.device``."""
+    """(cfg, networks, restored state, run dir, device, mesh) of the run dir
+    that ``args`` names, on ``args.device``; the mesh of ``mesh_shape``
+    (None for one process: ``parallel/mesh.py::mesh_for``)."""
     from triplegan_tpu_torch.ckpt.manager import CheckpointManager
     from triplegan_tpu_torch.configs.base import apply_runtime, make_networks
+    from triplegan_tpu_torch.parallel.mesh import mesh_for
     from triplegan_tpu_torch.train.schedule import make_optimizers
     from triplegan_tpu_torch.train.state import create_state
     from triplegan_tpu_torch.utils.platform import resolve_device
 
     cfg = apply_runtime(_load_cfg(args))
     dev = resolve_device(args.device)
+    mesh = mesh_for(cfg, dev)
     workdir = os.path.join(cfg.workdir, cfg.name)
     nets = make_networks(cfg)
     template = create_state(cfg, nets, make_optimizers(cfg, 1), device=dev)
     ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), write=False)
-    return cfg, nets, _restore_at(ckpt, template, args, workdir), workdir, dev
+    return cfg, nets, _restore_at(ckpt, template, args, workdir), workdir, dev, mesh
 
 
 def cmd_eval(args):
@@ -126,18 +139,25 @@ def cmd_eval(args):
     from triplegan_tpu_torch.train.loop import _resolve_data, _resolve_zca, _test_stream
     from triplegan_tpu_torch.train.step import make_eval_step
 
-    cfg, nets, state, workdir, dev = _restore_run(args)
+    cfg, nets, state, workdir, dev, mesh = _restore_run(args)
+    if mesh is not None and cfg.batch_size % mesh.world:
+        sys.exit(f"batch_size={cfg.batch_size} must divide evenly over the {mesh.world}-rank data mesh")
+    coord = mesh is None or mesh.coordinator
     data = _resolve_data(cfg)
-    zca = _resolve_zca(cfg, data, workdir)
+    zca = _resolve_zca(cfg, data, workdir, coord)
     sampler = BatchSampler(data, cfg.batch_size)
-    err = evaluate_error(make_eval_step(cfg, nets, zca), state, _test_stream(sampler, dev))
-    print(f"test error: {100 * err:.2f}%")
+    err = evaluate_error(make_eval_step(cfg, nets, zca, mesh), state,
+                         _test_stream(sampler, dev, mesh=mesh))
+    if coord:
+        print(f"test error: {100 * err:.2f}%")
 
 
 def cmd_sample(args):
     from triplegan_tpu_torch.eval.sample import class_grid_inputs, make_sample_fn, save_png, to_uint8_grid
 
-    cfg, nets, state, _, _ = _restore_run(args)
+    cfg, nets, state, _, _, mesh = _restore_run(args)
+    if mesh is not None and not mesh.coordinator:
+        return  # the grid is a host-side output: the coordinator's
     z, labels = class_grid_inputs(cfg, n_per_class=args.n_per_class, seed=args.seed)
     grid = to_uint8_grid(make_sample_fn(cfg, nets)(state, z, labels), cfg.num_classes,
                          args.n_per_class)
@@ -192,6 +212,12 @@ def cmd_serve(args):
         server.server_close()
 
 
+def _device_arg(value: str) -> str:
+    if value in ("cuda", "cpu") or (value.startswith("cuda:") and value[5:].isdigit()):
+        return value
+    raise argparse.ArgumentTypeError(f"invalid device {value!r}: cuda, cuda:N or cpu")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="triplegan_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -202,7 +228,8 @@ def main(argv=None):
         sp.add_argument("--data-dir", default=None,
                         help="prepared shards: <data-dir>/<dataset>/{train,test}.npz")
         sp.add_argument("--set", action="append", metavar="KEY=VALUE")
-        sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+        sp.add_argument("--device", default="cuda", type=_device_arg,
+                        help="cuda (cuda:LOCAL_RANK under torchrun), cuda:N or cpu")
 
     def step_arg(sp):
         sp.add_argument("--step", type=int, default=None,

@@ -31,11 +31,20 @@ class BatchSampler:
     when it runs out, independently of the other (the labeled stream is
     much shorter than the unlabeled one, so the two cycle at different
     rates); a stream smaller than a batch is sampled with replacement.
+
+    ``rows`` (a slice of the ``batch_size`` rows; a rank's, under a data
+    mesh: ``Mesh.rows``) makes every train batch that slice of the global
+    batch: the indices and noise are drawn for the whole batch, so every
+    rank's sampler, seeded alike, draws what one process would (JAX's
+    batches bitwise), and only the slice's rows are gathered. The test
+    batches stay whole.
     """
 
-    def __init__(self, data: SemiSupervisedData, batch_size: int, seed: int = 0):
+    def __init__(self, data: SemiSupervisedData, batch_size: int, seed: int = 0,
+                 rows: Optional[slice] = None):
         self.data = data
         self.batch_size = batch_size
+        self.rows = slice(None) if rows is None else rows
         self._rng = np.random.RandomState(seed)
         self._label_order = self._reshuffle(len(data.x_label))
         self._unlabel_order = self._reshuffle(len(data.x_unlabel))
@@ -62,11 +71,12 @@ class BatchSampler:
     def next(self, with_unlabeled: bool = True) -> Dict[str, np.ndarray]:
         idx_l, self._label_order, self._label_pos = self._take(
             self._label_order, self._label_pos, len(self.data.x_label))
+        idx_l = idx_l[self.rows]
         out = {"x_l": gather_rows(self.data.x_label, idx_l), "y_l": self.data.y_label[idx_l]}
         if with_unlabeled:
             idx_u, self._unlabel_order, self._unlabel_pos = self._take(
                 self._unlabel_order, self._unlabel_pos, len(self.data.x_unlabel))
-            out["x_u"] = gather_rows(self.data.x_unlabel, idx_u)
+            out["x_u"] = gather_rows(self.data.x_unlabel, idx_u[self.rows])
         return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -85,8 +95,8 @@ class BatchSampler:
         b = self.batch_size
 
         def noise():
-            return {"z": self._rng.normal(0, 1, size=(b, z_dim)).astype(np.float32),
-                    "y_g": self._rng.randint(0, num_classes, size=(b,)).astype(np.int32)}
+            return {"z": self._rng.normal(0, 1, size=(b, z_dim)).astype(np.float32)[self.rows],
+                    "y_g": self._rng.randint(0, num_classes, size=(b,)).astype(np.int32)[self.rows]}
 
         d = self.next()
         d.update(noise())

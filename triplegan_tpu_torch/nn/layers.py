@@ -322,18 +322,24 @@ def batchnorm_init(num_features: int) -> Tuple[Params, Params]:
     return params, state
 
 
-def _moments(p: Params, s: Params, x: torch.Tensor, train: bool, momentum: float):
+def _moments(p: Params, s: Params, x: torch.Tensor, train: bool, momentum: float, mesh=None):
     """(mean, var, new running stats). In train mode the batch moments in
     float32 over all axes but the channel axis, the biased variance
     max(E[x²] − E[x]², 0), and the running stats advanced as
     momentum·old + (1 − momentum)·new, outside autograd; in eval mode the
-    running stats, unchanged."""
+    running stats, unchanged. With a ``mesh`` (``parallel/mesh.py``) E[x]
+    and E[x²] are averaged over its ranks before the variance (sync-BN, as
+    JAX's ``axis_name`` pmean), in one all-reduce whose backward averages
+    their cotangents, so every rank normalizes with the global batch's
+    moments."""
     if not train:
         return s["mean"], s["var"], s
     axes = tuple(range(x.dim() - 1))
     xf = x.float()
     mean = torch.mean(xf, dim=axes)
     mean_sq = torch.mean(torch.square(xf), dim=axes)
+    if mesh is not None:
+        mean, mean_sq = mesh.pmean_grad(torch.stack([mean, mean_sq])).unbind()
     var = torch.clamp_min(mean_sq - mean * mean, 0.0)
     with torch.no_grad():
         new_s = {
@@ -344,9 +350,10 @@ def _moments(p: Params, s: Params, x: torch.Tensor, train: bool, momentum: float
 
 
 def batchnorm_apply(p: Params, s: Params, x: torch.Tensor, *, train: bool,
-                    momentum: float = 0.99, eps: float = 1e-3):
-    """BN over all axes but the last: (y in x's dtype, new running stats)."""
-    mean, var, new_s = _moments(p, s, x, train, momentum)
+                    momentum: float = 0.99, eps: float = 1e-3, mesh=None):
+    """BN over all axes but the last: (y in x's dtype, new running stats);
+    ``mesh`` as in ``_moments``."""
+    mean, var, new_s = _moments(p, s, x, train, momentum, mesh)
     inv = torch.rsqrt(var + eps) * p["scale"]
     y = (x.float() - mean) * inv + p["bias"]
     return y.to(x.dtype), new_s
@@ -363,11 +370,12 @@ def _scale_bias_act(x, k, b, act, slope, use_pallas):
 
 def batchnorm_act_apply(p: Params, s: Params, x: torch.Tensor, *, train: bool = False,
                         act: Optional[str] = None, slope: float = 0.1, momentum: float = 0.99,
-                        eps: float = 1e-3, use_pallas: bool = False):
+                        eps: float = 1e-3, use_pallas: bool = False, mesh=None):
     """Batch norm folded to ``act(x·k + b)`` with k = scale·rsqrt(var + eps),
-    b = bias − mean·k, from the batch moments (train) or the running stats
-    (eval). Returns (y in x's dtype, new running stats)."""
-    mean, var, new_s = _moments(p, s, x, train, momentum)
+    b = bias − mean·k, from the batch moments (train; synced over ``mesh``
+    as in ``_moments``) or the running stats (eval). Returns (y in x's
+    dtype, new running stats)."""
+    mean, var, new_s = _moments(p, s, x, train, momentum, mesh)
     k = p["scale"] * torch.rsqrt(var + eps)
     b = p["bias"] - mean * k
     return _scale_bias_act(x, k.to(x.dtype), b.to(x.dtype), act, slope, use_pallas), new_s

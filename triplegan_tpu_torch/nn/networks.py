@@ -11,7 +11,9 @@ Each mirrors its namesake in ``triplegan_tpu/nn/networks.py``:
   and dropout of train mode (none: they are off). In train mode batch norm
   normalizes with the batch moments and returns advanced running stats;
   nothing is written in place, so the train step decides whose stats are
-  kept.
+  kept. G's and C's ``apply`` take a ``mesh`` (``parallel/mesh.py``), JAX's
+  ``axis_name``: their batch norms then sync their moments over its ranks
+  (in the kernel arm the synced moments fold into the epilogue's k and b).
 * ``forward`` is eval mode on the module's own tensors (the serving path).
 
 Submodules carry the JAX dict keys (Generator ``dense``, ``bn0``,
@@ -137,10 +139,11 @@ class Generator(_Player):
         return out
 
     def apply(self, params: Tree, stats: Tree, z: torch.Tensor, y: torch.Tensor, *,
-              train: bool, phase: Optional[Dict[str, torch.Tensor]] = None):
+              train: bool, phase: Optional[Dict[str, torch.Tensor]] = None, mesh=None):
         phase = phase or {}
         s0 = self.base_size
-        bn = dict(train=train, act="relu", momentum=self.bn_momentum, use_pallas=self.use_pallas)
+        bn = dict(train=train, act="relu", momentum=self.bn_momentum, use_pallas=self.use_pallas,
+                  mesh=mesh)
         y1h = L.onehot(y, self.num_classes, dtype=z.dtype)
         h = L.dense_apply(params["dense"], torch.cat([z, y1h], dim=-1))
         h = h.reshape(h.shape[0], s0, s0, self.widths[0])
@@ -268,14 +271,15 @@ class Classifier(_Player):
         return params, stats
 
     def apply(self, params: Tree, stats: Tree, x: torch.Tensor, *, train: bool,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, mesh=None):
         new_stats: Tree = {}
 
         def conv_bn_act(name, h, padding):
             h = L.conv2d_apply(params[name], h, padding=padding, use_pallas=self.use_pallas)
             h, new_stats[f"{name}_bn"] = L.batchnorm_act_apply(
                 params[f"{name}_bn"], stats[f"{name}_bn"], h, train=train, act="leaky_relu",
-                slope=self.lrelu_slope, momentum=self.bn_momentum, use_pallas=self.use_pallas)
+                slope=self.lrelu_slope, momentum=self.bn_momentum, use_pallas=self.use_pallas,
+                mesh=mesh)
             return h
 
         h = L.gaussian_noise(generator, x, self.input_noise, train=train)

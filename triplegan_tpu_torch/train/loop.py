@@ -1,5 +1,4 @@
-"""The training driver: the port of ``triplegan_tpu/train/loop.py``, on one
-device.
+"""The training driver: the port of ``triplegan_tpu/train/loop.py``.
 
 ``train`` builds the networks, the three Adams and the state, resumes from
 the run's newest checkpoint if it has one (else, with ``ddinit``, applies
@@ -39,14 +38,27 @@ Running the same command again resumes from that checkpoint: the step's
 random streams depend only on (seed, step), so the resumed run computes
 what an uninterrupted one would.
 
-Meshes of more than one device (or ``multihost``) are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+With ``mesh_shape`` (N,) (or ``multihost``) the run is data-parallel over
+N processes, one a card (``parallel/mesh.py``: launched by ``torchrun
+--nproc-per-node N``, or joined through the ``multihost_*`` fields): each
+rank builds or restores the same state, takes its rows of each batch
+(device data: its own draws of ``batch_size // N``; host batches: its
+slice of the global batch, which every rank's sampler draws alike) and of
+each test batch, and the step, the eval and the stop decision are
+collective. The coordinator (rank 0) alone prints, logs, writes grids,
+``config.json``, the ZCA cache and checkpoints (every rank waits for each
+save), and polls the ``STOP`` file; the stop is decided for all ranks at
+once by an all-reduce of each rank's stop bit, at the loop top every
+``TRIPLEGAN_STOP_SYNC_EVERY`` steps (32) and right after an epoch's tail,
+after the step at an epoch boundary, before each test batch, and after
+the loop, so every rank stops at the same step. A world of another size
+than the mesh's, or a mesh of more than one without a process group or
+torchrun's environment, raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 import signal
 import time
@@ -63,6 +75,7 @@ from triplegan_tpu_torch.data.zca import ZCAStats, fit_zca
 from triplegan_tpu_torch.eval.metrics import evaluate_error
 from triplegan_tpu_torch.eval.sample import class_grid_inputs, make_sample_fn, save_png, to_uint8_grid
 from triplegan_tpu_torch.nn.ddinit import ddinit_discriminator, ddinit_generator
+from triplegan_tpu_torch.parallel.mesh import mesh_for
 from triplegan_tpu_torch.train.schedule import make_optimizers
 from triplegan_tpu_torch.train.state import create_state, param_count
 from triplegan_tpu_torch.train.step import (make_device_train_step, make_eval_step,
@@ -70,16 +83,6 @@ from triplegan_tpu_torch.train.step import (make_device_train_step, make_eval_st
                                             upload_device_data)
 from triplegan_tpu_torch.utils.logging import MetricsLogger
 from triplegan_tpu_torch.utils.platform import resolve_device
-
-
-def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a mesh of more than one device (or
-    ``multihost``), which the port does not have yet (ROADMAP Queue 1
-    item 8)."""
-    if math.prod(cfg.mesh_shape) > 1 or bool(cfg.get("multihost", False)):
-        raise NotImplementedError(
-            "not ported yet (ROADMAP Queue 1): "
-            f"mesh_shape={tuple(cfg.mesh_shape)} / multihost (data parallelism: item 8)")
 
 
 def _ddinit_inputs(cfg, data: SemiSupervisedData, zca: Optional[ZCAStats], device):
@@ -134,23 +137,31 @@ def _resolve_data(cfg) -> SemiSupervisedData:
     return data
 
 
-def _resolve_zca(cfg, data: SemiSupervisedData, workdir: str) -> Optional[ZCAStats]:
+def _resolve_zca(cfg, data: SemiSupervisedData, workdir: str,
+                 coordinator: bool = True) -> Optional[ZCAStats]:
     """The run dir's copy, else the stats fitted when the data was
     prepared (``{data_dir}/{dataset}/zca_stats.npz``), else a fresh fit on
-    the unlabeled pool; the stats chosen are published into the run dir,
-    so that eval and sample whiten as training did."""
+    the unlabeled pool; the stats chosen are published into the run dir
+    (written and renamed, so a reader never sees half a file), so that eval
+    and sample whiten as training did. Only the coordinator of a
+    data-parallel run reads or writes the run dir's copy (a reader could
+    catch its write half done); the other ranks take the prepared stats or
+    fit them, which gives the same arrays."""
     if not cfg.zca:
         return None
     cache = os.path.join(workdir, "zca_stats.npz")
-    if os.path.exists(cache):
+    if coordinator and os.path.exists(cache):
         return ZCAStats.load(cache)
     prepared = os.path.join(cfg.data_dir, cfg.dataset, "zca_stats.npz")
     if cfg.dataset != "synthetic" and os.path.exists(prepared):
         stats = ZCAStats.load(prepared)
     else:
         stats = fit_zca(data.x_unlabel)
-    os.makedirs(workdir, exist_ok=True)
-    stats.save(cache)
+    if coordinator:
+        os.makedirs(workdir, exist_ok=True)
+        tmp = f"{cache}.{os.getpid()}.tmp.npz"
+        stats.save(tmp)
+        os.replace(tmp, cache)
     return stats
 
 
@@ -159,12 +170,16 @@ class _EvalInterrupted(Exception):
     is abandoned."""
 
 
-def _test_stream(sampler: BatchSampler, device, stop_check=None):
-    """The sampler's test batches as tensors on ``device``; ``stop_check``
-    is asked before each batch and raises ``_EvalInterrupted`` if true."""
+def _test_stream(sampler: BatchSampler, device, stop_check=None, mesh=None):
+    """The sampler's test batches as tensors on ``device`` (under ``mesh``
+    this rank's rows of each); ``stop_check`` is asked before each batch
+    and raises ``_EvalInterrupted`` if true (under a mesh it is the
+    collective verdict, so every rank stops at the same batch)."""
     for batch in sampler.test_batches():
         if stop_check is not None and stop_check():
             raise _EvalInterrupted()
+        if mesh is not None:
+            batch = mesh.rank_rows(batch)
         yield {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
@@ -175,21 +190,26 @@ def _sync(dev: torch.device) -> None:
 
 def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[int] = None,
           verbose: bool = True, device=None) -> dict:
-    """A training run on ``device`` (default the card); returns ``steps``,
-    ``test_error``, ``metrics`` (the last logged), ``workdir``, ``state``
-    and ``preempted``. ``max_steps`` caps the steps this call takes without
+    """A training run on ``device`` (default the card: ``cuda:LOCAL_RANK``
+    under torchrun); returns ``steps``, ``test_error``, ``metrics`` (the
+    last logged), ``workdir``, ``state`` and ``preempted``, on every rank
+    of a mesh. ``max_steps`` caps the steps this call takes without
     changing the schedule, which follows ``epochs``."""
-    check_ported(cfg)
-    apply_runtime(cfg)
     dev = resolve_device(device)
+    mesh = mesh_for(cfg, dev)  # before any work: a missing group or a mis-sized world raises
+    coord = mesh is None or mesh.coordinator
+    n_dev = 1 if mesh is None else mesh.world
+    if cfg.batch_size % n_dev:
+        raise ValueError(f"batch_size {cfg.batch_size} must divide evenly over the {n_dev}-rank data mesh")
+    apply_runtime(cfg)
     workdir = os.path.join(cfg.workdir, cfg.name)
     os.makedirs(workdir, exist_ok=True)
-    say = print if verbose else (lambda *a, **k: None)
+    say = print if verbose and coord else (lambda *a, **k: None)
     say(display(cfg))
 
     if data is None:
         data = _resolve_data(cfg)
-    zca = _resolve_zca(cfg, data, workdir)
+    zca = _resolve_zca(cfg, data, workdir, coord)
     steps_per_epoch = int(cfg.steps_per_epoch) or max(len(data.x_unlabel) // cfg.batch_size, 1)
     total_steps = int(cfg.epochs) * steps_per_epoch
 
@@ -200,7 +220,7 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
     on_device = bool(cfg.data_on_device)
     make_step = make_device_train_step if on_device else make_train_step
     step = make_step(cfg, nets, optimizers, total_steps, zca,
-                     pseudo_label_mode=cfg.get("pseudo_label_mode", "sample"))
+                     pseudo_label_mode=cfg.get("pseudo_label_mode", "sample"), mesh=mesh)
     # K steps a call: a CUDA graph on the card. It overwrites the state's
     # tensors in place (the loop keeps no older state). Host-streamed
     # batches come one a step, so there are no chunks then.
@@ -210,10 +230,10 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
         scan = make_scan_device_train_step(
             cfg, nets, optimizers, total_steps, chunk, zca,
             pseudo_label_mode=cfg.get("pseudo_label_mode", "sample"),
-            metrics_mode=str(cfg.get("scan_metrics", "last")), log=say)
-    eval_step = make_eval_step(cfg, nets, zca)
+            metrics_mode=str(cfg.get("scan_metrics", "last")), log=say, mesh=mesh)
+    eval_step = make_eval_step(cfg, nets, zca, mesh=mesh)
 
-    ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=cfg.ckpt_keep)
+    ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=cfg.ckpt_keep, mesh=mesh)
     restored = ckpt.restore(state)
     if restored is not None:
         state = restored
@@ -223,11 +243,14 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
         say("applied data-dependent weight-norm init", flush=True)
     # Written only after the restore decision: a resume whose config does
     # not fit the checkpoint fails above and leaves the good record alone.
-    save_config(cfg, os.path.join(workdir, "config.json"))
+    if coord:
+        save_config(cfg, os.path.join(workdir, "config.json"))
 
     # The sampler's seed takes the resume step, so a resumed run draws a
-    # fresh continuation of the host streams (as JAX's loop does).
-    sampler = BatchSampler(data, cfg.batch_size, seed=int(cfg.seed) + state.step)
+    # fresh continuation of the host streams (as JAX's loop does); every
+    # rank draws the global batch and keeps its rows.
+    sampler = BatchSampler(data, cfg.batch_size, seed=int(cfg.seed) + state.step,
+                           rows=None if mesh is None else mesh.rows(cfg.batch_size))
     if on_device:
         device_data, batches = upload_device_data(data, dev), None
     else:
@@ -241,24 +264,34 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
     last_metrics: dict = {}
     test_error = None
     eval_at = -1
-    profile_dir = str(cfg.get("profile_dir", "") or "")
+    profile_dir = str(cfg.get("profile_dir", "") or "") if coord else ""
     profiler = None
     profile_start = start_step + 2 * chunk
     profile_stop = profile_start + max(int(cfg.get("profile_steps", 10)), chunk)
 
+    # A stop (SIGTERM on any rank, or the STOP file, which the coordinator
+    # alone polls: it also removes a stale one at start, so no rank can read
+    # last run's) must be decided at the same step on every rank, since the
+    # step, the eval and the save are collective: under a mesh the verdict
+    # is an all-reduce of the ranks' bits, paid at the loop top only every
+    # TRIPLEGAN_STOP_SYNC_EVERY steps (and right after an epoch's tail),
+    # after the step at an epoch boundary, before each test batch, and
+    # after the loop. One process checks its own bit every time.
     stop = {"sig": None}
     stop_file = os.path.join(workdir, "STOP")
-    if os.path.exists(stop_file):
+    if coord and os.path.exists(stop_file):
         os.remove(stop_file)  # left by an earlier stopped run
+    stop_sync_every = max(1, int(os.environ.get("TRIPLEGAN_STOP_SYNC_EVERY", "32")))
 
     def _on_sigterm(signum, frame):
         stop["sig"] = signum
 
-    def _stopping() -> bool:
-        return stop["sig"] is not None or os.path.exists(stop_file)
+    def _global_stop() -> bool:
+        local = stop["sig"] is not None or (coord and os.path.exists(stop_file))
+        return local if mesh is None else mesh.any(local)
 
     def _evaluate() -> float:
-        return evaluate_error(eval_step, state, _test_stream(sampler, dev, stop_check=_stopping))
+        return evaluate_error(eval_step, state, _test_stream(sampler, dev, _global_stop, mesh))
 
     def _end_profile():
         nonlocal profile_dir
@@ -274,14 +307,17 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
     except ValueError:  # not the main thread: no handler
         prev_sigterm = None
 
-    logger = MetricsLogger(workdir)
+    logger = MetricsLogger(workdir, enabled=coord)
     t_log = time.perf_counter()
     steps_since_log = 0
     it = start_step
     stopping = False
+    steps_since_sync, sync_now = stop_sync_every, True  # a sync at the first loop top
     try:
         while it < end_step:
-            stopping = _stopping()
+            if mesh is None or sync_now or steps_since_sync >= stop_sync_every:
+                stopping = _global_stop()
+                steps_since_sync, sync_now = 0, False
             if stopping:
                 break
             if profile_dir and profiler is None and it >= profile_start:
@@ -299,6 +335,7 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
                 taken = 1
             prev, it = it, it + taken
             steps_since_log += taken
+            steps_since_sync += taken
             if profiler is not None and profile_dir and it >= profile_stop:
                 _end_profile()
 
@@ -316,7 +353,8 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
             epoch_done = (it // steps_per_epoch) > (prev // steps_per_epoch)
             epoch = it // steps_per_epoch
             if epoch_done and (cfg.eval_every_epochs or cfg.ckpt_every_epochs):
-                stopping = _stopping()  # a stop during the step skips the tail
+                stopping = _global_stop()  # a stop during the step skips the tail
+                steps_since_sync, sync_now = 0, True  # and one during the tail is caught at the top
             if (epoch_done and not stopping and cfg.eval_every_epochs
                     and epoch % cfg.eval_every_epochs == 0):
                 try:
@@ -327,15 +365,16 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
                     eval_at = it
                     logger.scalars(it, {"test_error": test_error})
                     say(f"epoch {epoch}: test error {100 * test_error:.2f}%", flush=True)
-                    z, labels = class_grid_inputs(cfg, n_per_class=10, seed=cfg.seed)
-                    grid = to_uint8_grid(sample_fn(state, z, labels), cfg.num_classes, 10)
-                    logger.image(it, "samples", grid)
-                    save_png(grid, os.path.join(workdir, f"samples_{it:08d}.png"))
+                    if coord:  # the grid is a host-side output: the coordinator's
+                        z, labels = class_grid_inputs(cfg, n_per_class=10, seed=cfg.seed)
+                        grid = to_uint8_grid(sample_fn(state, z, labels), cfg.num_classes, 10)
+                        logger.image(it, "samples", grid)
+                        save_png(grid, os.path.join(workdir, f"samples_{it:08d}.png"))
             if (epoch_done and not stopping and cfg.ckpt_every_epochs
                     and epoch % cfg.ckpt_every_epochs == 0):
                 ckpt.save(it, state)
 
-        preempted = stopping or _stopping()
+        preempted = stopping or _global_stop()
         if profiler is not None and profile_dir:  # the run ended inside the window
             _end_profile()
         if not preempted and (test_error is None or eval_at != it):

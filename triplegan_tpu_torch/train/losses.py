@@ -79,23 +79,31 @@ def sample_pseudo_labels(generator: Optional[torch.Generator], logits_c: torch.T
     return torch.argmax(logits_c.float() - torch.log(-torch.log(u)), dim=-1)
 
 
-def c_adversarial_loss(logit_d_on_cla, logits_c, y_c, alpha: float) -> torch.Tensor:
+def c_adversarial_loss(logit_d_on_cla, logits_c, y_c, alpha: float, mesh=None) -> torch.Tensor:
     """REINFORCE surrogate for α·E_{y~p_c}[log(1 - D(x_u, y))]:
     α · mean(sg(w) · log p_c(y_c | x_u)), w = log(1 - D(x_u, y_c)) less its
-    batch mean (the self-included baseline)."""
+    batch mean (the self-included baseline). Under data parallelism the
+    baseline is the global batch's mean (averaged over ``mesh``'s ranks),
+    or each rank would centre by its own and the sharded gradient would
+    differ from the single-device one; w carries no gradient, so nothing
+    crosses the ranks backwards here."""
     w = log_one_minus_sigmoid(logit_d_on_cla).detach()
-    w = w - torch.mean(w)
+    m = torch.mean(w)
+    if mesh is not None:
+        m = mesh.pmean(m)
+    w = w - m
     return alpha * torch.mean(w * _picked_logp(logits_c, y_c))
 
 
 def c_loss(logits_c_labeled, y_l, logit_d_on_cla, logits_c_unlabeled, y_c, logits_c_gen, y_g,
-           alpha: float, alpha_p):
+           alpha: float, alpha_p, mesh=None):
     """Full L_C and its terms (``c_sup``, ``c_adv``, ``c_pseudo``).
     ``alpha_p`` is a float or a 0-d float32 tensor (the train step's, read
     at the device step); either way α_P·R_P is taken in float32 and
-    rounded once to R_P's dtype, as a Python float multiplies."""
+    rounded once to R_P's dtype, as a Python float multiplies. ``mesh``
+    as in ``c_adversarial_loss``."""
     r_l = cross_entropy(logits_c_labeled, y_l)
-    l_adv = c_adversarial_loss(logit_d_on_cla, logits_c_unlabeled, y_c, alpha)
+    l_adv = c_adversarial_loss(logit_d_on_cla, logits_c_unlabeled, y_c, alpha, mesh)
     r_p = cross_entropy(logits_c_gen, y_g)
     pseudo = (alpha_p * r_p.float()).to(r_p.dtype)
     total = r_l + l_adv + pseudo

@@ -42,6 +42,15 @@ of ``make_scan_device_train_step`` passes generators that a CUDA graph has
 registered and re-seeds them before each replay, and a static scalars
 tensor that it refills, so the graph replays exactly what the eager steps
 compute.
+
+Under data parallelism (``mesh``, ``parallel/mesh.py``; JAX's
+``axis_name``) each rank runs the same step on its rows of the batch:
+G's and C's batch norms sync their moments, C's REINFORCE baseline is the
+global mean, each player's gradients are averaged over the ranks before
+its Adam (one flattened all-reduce a player) and so are the loss metrics;
+every generator's seed mixes in the rank (JAX folds in ``axis_index``), so
+the ranks' noise, dropout, augmentation and draws differ while their
+states stay equal.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ import dataclasses
 import os
 import time
 import traceback
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -73,8 +82,11 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def _mixed_seed(seed: int, step: int, domain: int) -> int:
-    return ((seed * 1_000_003 + step) * 0x9E3779B1 + domain) % (1 << 63)
+def _mixed_seed(seed: int, step: int, domain: int, rank: Optional[int] = None) -> int:
+    mixed = ((seed * 1_000_003 + step) * 0x9E3779B1 + domain) % (1 << 63)
+    if rank is None:  # one process
+        return mixed
+    return (mixed * 0x85EBCA6B + rank + 1) % (1 << 63)
 
 
 def step_generator(device: torch.device, seed: int, step: int, domain: int = 0) -> torch.Generator:
@@ -118,13 +130,18 @@ class TrainStep:
     generators, one per entry of ``domains``, and ``sc`` its ``SCALARS`` as
     a float32 vector on the state's device; the body reads neither the
     step nor any device value on the host. ``values(step, counts)`` gives
-    the scalars on the host in float64, ``counts`` each Adam's count."""
+    the scalars on the host in float64, ``counts`` each Adam's count.
+    ``mesh`` is the mesh the body's collectives run over (None: one
+    process); the generators' seeds mix in its rank."""
 
-    def __init__(self, body: Callable, values: Callable, domains: Sequence[int]):
-        self.body, self.values, self.domains = body, values, tuple(domains)
+    def __init__(self, body: Callable, values: Callable, domains: Sequence[int], mesh=None):
+        self.body, self.values, self.domains, self.mesh = body, values, tuple(domains), mesh
+
+    def seed_of(self, seed: int, step: int, domain: int) -> int:
+        return _mixed_seed(seed, step, domain, None if self.mesh is None else self.mesh.rank)
 
     def generators(self, device: torch.device, seed: int, step: int) -> List[torch.Generator]:
-        return [step_generator(device, seed, step, d) for d in self.domains]
+        return [torch.Generator(device=device).manual_seed(self.seed_of(seed, step, d)) for d in self.domains]
 
     def scalars(self, state: TrainState, n: int = 1) -> torch.Tensor:
         """The scalars of the ``n`` steps from ``state`` on, (n,
@@ -155,13 +172,15 @@ class _Zca:
 
 
 def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
-                    pseudo_label_mode: str = "sample") -> TrainStep:
+                    pseudo_label_mode: str = "sample", mesh=None) -> TrainStep:
     """``(state, batch) -> (state, metrics)``. ``batch`` is the nested dict
     of ``_make_batch_sampler``: streams "d" and "c" with uint8 ``x_l``,
     ``x_u`` (none in "c" under ``share_pseudo_forward``), int ``y_l``, float
     ``z`` and int ``y_g``; stream "g" with ``z`` and ``y_g``. ``metrics``
     holds the 11 scalars of ``METRICS`` as 0-d float32 tensors on the
-    state's device. Its body takes one generator."""
+    state's device. Its body takes one generator. Under ``mesh`` the batch
+    is this rank's rows (``Mesh.rank_rows`` of the global batch) and the
+    step computes the global batch's update on every rank."""
     gen, disc, clf = nets
     opt_g, opt_d, opt_c = optimizers["gen"], optimizers["disc"], optimizers["clf"]
     alpha = float(cfg.alpha)
@@ -184,6 +203,9 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
             "shared-only. Pick one."
         )
     non_saturating = bool(cfg.non_saturating_g)
+
+    def pmean(tree):
+        return tree if mesh is None else mesh.pmean_tree(tree)
 
     def values(step: int, counts: Dict[str, int]) -> List[float]:
         return [ap_sched(step), lr_now(step), *(v for p in PLAYERS for v in optimizers[p].scalars(counts[p]))]
@@ -214,13 +236,14 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         y_l, y_gd = bd["y_l"].long(), bd["y_g"].long()
         z_d = bd["z"].to(cdt)
         with torch.no_grad():
-            x_g = whiten_gen(gen.apply(params["gen"], bn["gen"], z_d, y_gd, train=True)[0])
+            x_g = whiten_gen(gen.apply(params["gen"], bn["gen"], z_d, y_gd, train=True, mesh=mesh)[0])
         pc = _with_grad(params["clf"])
         if share_fwd:
-            logits_c_u, bn_u = clf.apply(pc, bn["clf"], x_u, train=True, generator=rng)
+            logits_c_u, bn_u = clf.apply(pc, bn["clf"], x_u, train=True, generator=rng, mesh=mesh)
         else:
             with torch.no_grad():
-                logits_c_u, _ = clf.apply(params["clf"], bn["clf"], x_u, train=True, generator=rng)
+                logits_c_u, _ = clf.apply(params["clf"], bn["clf"], x_u, train=True, generator=rng,
+                                          mesh=mesh)
         y_c = losses.sample_pseudo_labels(rng, logits_c_u, pseudo_label_mode)
 
         b = x_l.shape[0]
@@ -230,18 +253,18 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         lr_real, lr_cla, lr_gen = logit_all[:b], logit_all[b:2 * b], logit_all[2 * b:]
         d_total = losses.d_loss(lr_real, lr_cla, lr_gen, alpha)
         d_terms = losses.d_loss_terms(lr_real, lr_cla, lr_gen, alpha)
-        gd = _like(pd, torch.autograd.grad(d_total, _leaves(pd)))
+        gd = pmean(_like(pd, torch.autograd.grad(d_total, _leaves(pd))))
         pd_new, opt_d_new = opt_d.update(params["disc"], gd, state.opt["disc"], adam["disc"])
 
         # ================= G update (scored by the new D) ====================
         bg = batch["g"]
         z_g, y_gg = bg["z"].to(cdt), bg["y_g"].long()
         pg = _with_grad(params["gen"])
-        x_raw, bn_g_new = gen.apply(pg, bn["gen"], z_g, y_gg, train=True)
+        x_raw, bn_g_new = gen.apply(pg, bn["gen"], z_g, y_gg, train=True, mesh=mesh)
         logit_g, _ = disc.apply(pd_new, bn["disc"], whiten_gen(x_raw), y_gg, train=True,
                                 generator=rng)
         g_total = losses.g_loss(logit_g, alpha, non_saturating)
-        gg = _like(pg, torch.autograd.grad(g_total, _leaves(pg)))
+        gg = pmean(_like(pg, torch.autograd.grad(g_total, _leaves(pg))))
         pg_new, opt_g_new = opt_g.update(params["gen"], gg, state.opt["gen"], adam["gen"])
 
         # ================= C update (sees the new D and G) ===================
@@ -251,29 +274,29 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         y_l_c, y_gc = bc["y_l"].long(), bc["y_g"].long()
         z_c = bc["z"].to(cdt)
         with torch.no_grad():
-            x_g_c = whiten_gen(gen.apply(pg_new, bn_g_new, z_c, y_gc, train=True)[0])
+            x_g_c = whiten_gen(gen.apply(pg_new, bn_g_new, z_c, y_gc, train=True, mesh=mesh)[0])
         if share_fwd:
             log_u, y_c2 = logits_c_u, y_c
-            log_l, s1 = clf.apply(pc, bn_u, x_l_c, train=True, generator=rng)
-            log_g, s3 = clf.apply(pc, s1, x_g_c, train=True, generator=rng)
+            log_l, s1 = clf.apply(pc, bn_u, x_l_c, train=True, generator=rng, mesh=mesh)
+            log_g, s3 = clf.apply(pc, s1, x_g_c, train=True, generator=rng, mesh=mesh)
         else:
             if fused_clf:
                 # one 3B-row pass: BN normalizes the three streams jointly
                 log_all, s3 = clf.apply(pc, bn["clf"], torch.cat([x_l_c, x_u_c, x_g_c]),
-                                        train=True, generator=rng)
+                                        train=True, generator=rng, mesh=mesh)
                 nb = x_l_c.shape[0]
                 log_l, log_u, log_g = log_all[:nb], log_all[nb:2 * nb], log_all[2 * nb:]
             else:
-                log_l, s1 = clf.apply(pc, bn["clf"], x_l_c, train=True, generator=rng)
-                log_u, s2 = clf.apply(pc, s1, x_u_c, train=True, generator=rng)
-                log_g, s3 = clf.apply(pc, s2, x_g_c, train=True, generator=rng)
+                log_l, s1 = clf.apply(pc, bn["clf"], x_l_c, train=True, generator=rng, mesh=mesh)
+                log_u, s2 = clf.apply(pc, s1, x_u_c, train=True, generator=rng, mesh=mesh)
+                log_g, s3 = clf.apply(pc, s2, x_g_c, train=True, generator=rng, mesh=mesh)
             y_c2 = losses.sample_pseudo_labels(rng, log_u, pseudo_label_mode)
         with torch.no_grad():  # the D signal is stop-gradiented in L_C
             logit_d_cla, _ = disc.apply(pd_new, bn["disc"], x_u_c, y_c2, train=True,
                                         generator=rng)
         c_total, c_terms = losses.c_loss(log_l, y_l_c, logit_d_cla, log_u, y_c2, log_g, y_gc,
-                                         alpha, alpha_p_now)
-        gc = _like(pc, torch.autograd.grad(c_total, _leaves(pc)))
+                                         alpha, alpha_p_now, mesh)
+        gc = pmean(_like(pc, torch.autograd.grad(c_total, _leaves(pc))))
         pc_new, opt_c_new = opt_c.update(params["clf"], gc, state.opt["clf"], adam["clf"])
 
         new_state = TrainState(
@@ -285,11 +308,11 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         )
         metrics = {"loss_d": d_total, "loss_g": g_total, "loss_c": c_total, **d_terms,
                    **c_terms}
-        metrics = {k: v.detach().float() for k, v in metrics.items()}
+        metrics = pmean({k: v.detach().float() for k, v in metrics.items()})
         metrics["alpha_p"], metrics["lr_frac"] = alpha_p_now, lr_frac
         return new_state, metrics
 
-    return TrainStep(body, values, (0,))
+    return TrainStep(body, values, (0,), mesh)
 
 
 def _make_batch_sampler(cfg):
@@ -307,10 +330,11 @@ def _make_batch_sampler(cfg):
     return sample
 
 
-def _make_batch_draw(cfg):
+def _make_batch_draw(cfg, n_shards: int = 1):
     """``(generator, device_data) -> batch``: ``_make_batch_sampler``'s
-    draw from a given generator."""
-    b = int(cfg.batch_size)
+    draw from a given generator, ``batch_size // n_shards`` rows a stream
+    (a rank's share under a mesh of ``n_shards``)."""
+    b = int(cfg.batch_size) // n_shards
     z_dim, n_classes = int(cfg.z_dim), int(cfg.num_classes)
     share_fwd = bool(cfg.get("share_pseudo_forward", False))
 
@@ -346,19 +370,21 @@ def upload_device_data(data, device=None) -> Dict[str, torch.Tensor]:
 
 
 def make_device_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
-                           pseudo_label_mode: str = "sample") -> TrainStep:
+                           pseudo_label_mode: str = "sample", mesh=None) -> TrainStep:
     """``(state, device_data) -> (state, metrics)``: the dataset stays on
     the device (``upload_device_data``) and each step draws its own
     sub-batches there. Its body takes two generators: the core step's and
-    the sampler's (domain 0x5A5A)."""
-    core = make_train_step(cfg, nets, optimizers, total_steps, zca_stats, pseudo_label_mode)
-    draw = _make_batch_draw(cfg)
+    the sampler's (domain 0x5A5A). Under ``mesh`` every rank holds the
+    whole dataset and draws ``batch_size // world`` rows a stream from its
+    own sampler stream (JAX's ``n_shards`` is the mesh's world)."""
+    core = make_train_step(cfg, nets, optimizers, total_steps, zca_stats, pseudo_label_mode, mesh)
+    draw = _make_batch_draw(cfg, 1 if mesh is None else mesh.world)
 
     def body(state: TrainState, data, gens, sc):
         rng, rng_batch = gens
         return core.body(state, draw(rng_batch, data), (rng,), sc)
 
-    return TrainStep(body, core.values, (0, _SAMPLER_DOMAIN))
+    return TrainStep(body, core.values, (0, _SAMPLER_DOMAIN), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -400,11 +426,11 @@ def make_scan_train_step(step_fn, n_steps: int, metrics_mode: str = "last"):
 
 def make_scan_device_train_step(cfg, nets, optimizers, total_steps: int, n_steps: int, zca_stats=None,
                                 pseudo_label_mode: str = "sample", metrics_mode: str = "last",
-                                log=print) -> "ScanChunk":
+                                log=print, mesh=None) -> "ScanChunk":
     """``(state, device_data) -> (state, metrics)``: ``n_steps`` steps of
     ``make_device_train_step`` a call, as a ``ScanChunk`` (a CUDA graph on
     the card). ``log`` takes the line that describes each capture."""
-    step = make_device_train_step(cfg, nets, optimizers, total_steps, zca_stats, pseudo_label_mode)
+    step = make_device_train_step(cfg, nets, optimizers, total_steps, zca_stats, pseudo_label_mode, mesh)
     return ScanChunk(step, n_steps, metrics_mode, log)
 
 
@@ -531,6 +557,14 @@ class ScanChunk:
 
     On the CPU the same chunk runs eagerly, through the same code.
 
+    Under a mesh the step's collectives are part of the chunk. With NCCL
+    they are captured into the graph (one all-reduce first warms the
+    communicator up, which NCCL creates lazily and cannot create inside a
+    capture). Gloo's collectives stage through the host and cannot be
+    captured: a chunk on a CUDA device under a gloo group raises
+    ``GraphCaptureError`` naming the backend, and nothing runs eagerly in
+    its place.
+
     Donation, as JAX's ``donate_argnums=0``: the chunk writes the new
     values into the state's own tensors, and the state it returns holds
     those tensors (step and Adam counts advanced by n). A caller that keeps
@@ -584,7 +618,7 @@ class ScanChunk:
             self.prepare(state, data)
             for i, gens in enumerate(self._gens):
                 for g, domain in zip(gens, self.step.domains):
-                    g.manual_seed(_mixed_seed(state.seed, state.step + i, domain))
+                    g.manual_seed(self.step.seed_of(state.seed, state.step + i, domain))
             _upload(self.step.scalars(state, self.n), dev, out=self._scalars)
             self._graph.replay()
             self.replays += 1
@@ -595,7 +629,15 @@ class ScanChunk:
 
     def _capture(self, state: TrainState, data, key) -> None:
         dev = _device(state)
+        mesh = self.step.mesh
+        if mesh is not None and mesh.backend != "nccl":
+            raise GraphCaptureError(
+                f"capturing {self.n} train steps as a CUDA graph under a {mesh.backend} process group: "
+                f"{mesh.backend}'s collectives on CUDA tensors stage through the host and cannot be "
+                f"captured. Use NCCL (one card a rank), or scan_steps=1. Nothing ran eagerly in its place.")
         self._graph = self._key = self._metrics = None  # the old graph's pool goes first
+        if mesh is not None:
+            mesh.barrier()  # NCCL makes its communicator at the first collective: not in the capture
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -636,10 +678,11 @@ class ScanChunk:
                  f"of pool", flush=True)
 
 
-def make_eval_step(cfg, nets, zca_stats=None):
+def make_eval_step(cfg, nets, zca_stats=None, mesh=None):
     """``(state, batch) -> {"correct", "count"}``: the classifier's masked
     correct count on a test batch (uint8 ``x``, int ``y``, 0/1 ``mask``),
-    eval-mode BN, no augmentation."""
+    eval-mode BN, no augmentation. Under ``mesh`` the batch is this rank's
+    rows and both counts are summed over the ranks."""
     _, _, clf = nets
     cdt = compute_dtype(cfg)
     zca = _Zca(zca_stats)
@@ -652,7 +695,7 @@ def make_eval_step(cfg, nets, zca_stats=None):
             logits, _ = clf.apply(state.params["clf"], state.bn["clf"], x, train=False)
             pred = torch.argmax(logits, dim=-1)
             mask = batch["mask"]
-            return {"correct": torch.sum((pred == batch["y"].long()) * mask),
-                    "count": torch.sum(mask)}
+            out = {"correct": torch.sum((pred == batch["y"].long()) * mask), "count": torch.sum(mask)}
+            return out if mesh is None else mesh.psum_tree(out)
 
     return eval_step

@@ -18,8 +18,13 @@ import numpy as np
 
 
 class MetricsLogger:
-    def __init__(self, workdir: str, use_tensorboard: bool = True):
-        self._tb = None
+    def __init__(self, workdir: str, use_tensorboard: bool = True, enabled: bool = True):
+        """``enabled=False`` makes every method a no-op and opens no file:
+        the ranks of a data-parallel run other than the coordinator pass
+        it, so one process writes the run dir."""
+        self._tb = self._jsonl = None
+        if not enabled:
+            return
         os.makedirs(workdir, exist_ok=True)
         self._jsonl = open(os.path.join(workdir, "metrics.jsonl"), "a", buffering=1)
         if use_tensorboard:
@@ -30,6 +35,8 @@ class MetricsLogger:
             self._tb = SummaryWriter(os.path.join(workdir, "tb"))
 
     def scalars(self, step: int, values: Dict[str, float]) -> None:
+        if self._jsonl is None:
+            return
         rec = {"step": int(step), "time": time.time()}
         for name, v in values.items():
             rec[name] = float(v)
@@ -43,6 +50,7 @@ class MetricsLogger:
             self._tb.add_image(name, img, int(step), dataformats="HWC")
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

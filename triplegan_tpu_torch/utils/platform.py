@@ -7,6 +7,8 @@ device raises.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -23,10 +25,12 @@ def pin_precision() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` or ``"cuda"`` → the current CUDA device, raising
-    ``RuntimeError`` when there is none; ``"cpu"`` only when asked for.
-    Every entry point passes here, so this is where ``pin_precision``
-    runs."""
+    """``None`` or ``"cuda"`` → the card of this process: ``cuda:LOCAL_RANK``
+    under torchrun (one process a card), else the current CUDA device;
+    ``RuntimeError`` when there is none, or when ``LOCAL_RANK`` names a card
+    past the count. An explicit ``"cuda:N"`` is taken as it is; ``"cpu"``
+    only when asked for. Every entry point passes here, so this is where
+    ``pin_precision`` runs."""
     pin_precision()
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -35,7 +39,15 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device is available; pass device='cpu' (CLI: "
                 "--device cpu) to run on the CPU explicitly"
             )
-        if dev.index is None:
+        if dev.index is None and "LOCAL_RANK" in os.environ:
+            local, count = int(os.environ["LOCAL_RANK"]), torch.cuda.device_count()
+            if local >= count:
+                raise RuntimeError(
+                    f"LOCAL_RANK={local} but this machine has {count} CUDA device(s): launch at most "
+                    f"{count} processes a machine (torchrun --nproc-per-node {count}), or pass an "
+                    f"explicit device (--device cuda:N)")
+            dev = torch.device("cuda", local)
+        elif dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
