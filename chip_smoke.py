@@ -708,15 +708,17 @@ def device_kernels(fn, reps: int) -> dict:
             rec = by_name[e.name()]
             rec[0] += 1
             rec[1] += (e.end_ns() - e.start_ns()) / 1e3
-    groups = {}
+    groups, hand = {}, {}
     for group, frags in HAND_KERNELS.items():
-        hit = [rec for name, rec in by_name.items()
-               if any("(anonymous namespace)::" + f in name for f in frags)]
-        groups[group] = {"launches": sum(r[0] for r in hit), "us": sum(r[1] for r in hit)}
+        hit = {name: rec for name, rec in by_name.items()
+               if any("(anonymous namespace)::" + f in name for f in frags)}
+        groups[group] = {"launches": sum(r[0] for r in hit.values()), "us": sum(r[1] for r in hit.values())}
+        hand.update({name[:160]: rec[0] for name, rec in hit.items()})
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     return {"reps": reps, "groups": groups, "device_us": sum(r[1] for r in by_name.values()),
             "nccl": sum(r[0] for name, r in by_name.items() if "nccl" in name.lower()),
-            "top_device": [{"name": n[:80], "launches": r[0], "us": r[1]} for n, r in top]}
+            "top_device": [{"name": n[:80], "launches": r[0], "us": r[1]} for n, r in top],
+            "_hand": hand, "_all": {name[:160]: rec[0] for name, rec in by_name.items()}}
 
 
 def replayed_launches(prof: dict) -> dict:
@@ -1320,7 +1322,9 @@ def driver_phase(train_arms, graph_arms, data_dir) -> dict:
     counted. Then, alone again, ``driver_timing``."""
     bare = next(a for a in train_arms if a["setting"] == "shipped" and a["use_pallas"])
     bare_graph = next(a for a in graph_arms if a["setting"] == "shipped" and a["use_pallas"])
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    # beside the data, whose directory the caller removes: the straight
+    # run's w1 stays for the deploy phase
+    tmp = tempfile.mkdtemp(prefix="driver_", dir=os.path.dirname(data_dir))
     try:
         w1, w2, w3 = (os.path.join(tmp, w) for w in ("w1", "w2", "w3"))
         run1 = os.path.join(w1, "cifar10_4k")
@@ -1371,8 +1375,9 @@ def driver_phase(train_arms, graph_arms, data_dir) -> dict:
     finally:
         import shutil
 
-        shutil.rmtree(tmp, ignore_errors=True)
-    res = {"config": "cifar10_4k float32 batch 100 kernel arm",
+        for w in ("w2", "w3", "w4", "w5"):
+            shutil.rmtree(os.path.join(tmp, w), ignore_errors=True)
+    res = {"config": "cifar10_4k float32 batch 100 kernel arm", "_workdir": w1,
            "straight_8_seconds": straight_s, "side_by_side_seconds": side_by_side_s,
            "resume_4_4_seconds": resume_s, "eval_seconds_cli": eval_s, "sample_seconds_cli": sample_s,
            **stop, "graphed_bitwise": True, "final": done,
@@ -1380,6 +1385,274 @@ def driver_phase(train_arms, graph_arms, data_dir) -> dict:
            "bare_step_ms_per_step": bare["ms_per_step"], "bare_graphed_ms_per_step": bare_graph["graph_ms_per_step"],
            "resume_bitwise": True, **{k: v for k, v in inproc.items() if not k.startswith("_")}, **timing}
     emit("driver", res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: deploy: export, qualify, score, serve and reload the driver's run
+# ---------------------------------------------------------------------------
+
+DEPLOY_SAMPLES = 1000   # generated samples an inception or fid run scores
+DEPLOY_PREDICT = 250    # images a predict labels: chunks 100, 100, 50 (+50 pad)
+DEPLOY_CALLS = 10       # timed calls of each serving function, after 2 untimed
+
+
+def served_inputs(cfg, n: int):
+    """Seeded uint8 images, float32 z and int32 labels, as a client sends them."""
+    images = np.random.RandomState(SEED).randint(
+        0, 256, size=(n, cfg.image_size, cfg.image_size, cfg.channels), dtype=np.uint8)
+    z = np.random.RandomState(3).normal(size=(n, cfg.z_dim)).astype(np.float32)
+    return images, z, (np.arange(n) % cfg.num_classes).astype(np.int32)
+
+
+def max_diff(a, b) -> float:
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def call_ms(fn, *args) -> float:
+    """ms a call of ``fn`` on the card's tensors, host clock, warm."""
+    import torch
+
+    for _ in range(2):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DEPLOY_CALLS):
+        fn(*args)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / DEPLOY_CALLS
+
+
+def serve_start(run_args) -> tuple:
+    """``cli serve`` of ``run_args`` on an ephemeral port: (process, base URL,
+    seconds until it printed its "serving on" line)."""
+    proc = subprocess.Popen([sys.executable, "-m", "triplegan_tpu_torch.cli", "serve", *run_args, "--port", "0"],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    t0 = time.perf_counter()
+    lines = []
+    for line in proc.stdout:  # warnings first, if any
+        lines.append(line)
+        if line.startswith("serving on http://"):
+            break
+    if not (lines and lines[-1].startswith("serving on http://")):
+        proc.kill()
+        proc.wait()
+        fail(f"cli serve printed:\n{''.join(lines)[-3000:]}")
+    return proc, lines[-1].split()[2], time.perf_counter() - t0
+
+
+def serve_and_reload(proc, base, train_cmd, images, want_logits, before_train) -> dict:
+    """The server of ``serve_start`` (``cli serve --config`` of the run dir):
+    /healthz serves the newest checkpoint (step 8), /classify of ``images``
+    agrees with the artifact's logits; then, once ``before_train()`` has
+    returned (the other CLI runs read the run dir's config.json, which a
+    train run rewrites), one more ``cli train`` step in the run dir and
+    ``POST /reload``: /healthz moves to step 9 and a second /classify
+    differs; SIGTERM, and the server exits 0."""
+    try:
+        health = json.loads(http("GET", base + "/healthz")[1])
+        check(health["source"] == "checkpoint" and health["step"] == 8 and "reload" in health["endpoints"]
+              and health["backend"] == "cuda", f"/healthz: {health}")
+        first = load_npy(http("POST", base + "/classify", npy(images), "application/x-npy")[1])
+        diff = float(np.abs(first - want_logits).max())
+        check(diff <= 1e-4, f"/classify and the artifact's logits differ by {diff}")
+        before_train()
+        train_s, out = cli(*train_cmd)
+        check(done_line(out).startswith("done: step=9 "), f"the extra train step: {done_line(out)}")
+        t1 = time.perf_counter()
+        reloaded = json.loads(http("POST", base + "/reload", b"", "application/json")[1])
+        reload_s = time.perf_counter() - t1
+        check(reloaded == {"reloaded": True, "step": 9}, f"/reload: {reloaded}")
+        check(json.loads(http("GET", base + "/healthz")[1])["step"] == 9, "/healthz after /reload")
+        second = load_npy(http("POST", base + "/classify", npy(images), "application/x-npy")[1])
+        check(not np.array_equal(first, second), "/classify did not change after /reload")
+        metrics = http("GET", base + "/metrics")[1].decode()
+        check('triplegan_requests_total{endpoint="reload"} 1' in metrics and "triplegan_checkpoint_step 9" in metrics,
+              "/metrics after /reload")
+        proc.send_signal(15)
+        rest, _ = proc.communicate(timeout=60)
+        check(proc.returncode == 0, f"cli serve exited {proc.returncode} on SIGTERM:\n{rest[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"classify_vs_artifact_max_abs_diff": diff, "classify_vs_artifact_bitwise": diff == 0.0,
+            "train_step_seconds": train_s, "reload_seconds": reload_s,
+            "max_abs_change_after_reload": float(np.abs(second - first).max()), "sigterm_exit": 0}
+
+
+def deploy_phase(driver, data_dir) -> dict:
+    """Everything a user does with the driver's trained run (cifar10_4k at
+    full width, float32, batch 100, kernel arm; checkpoints 4 and 8), through
+    the CLI and in this process, the CLI runs side by side (each ``import
+    torch`` takes ≈10 s of a process's time):
+      * at once: ``cli export --format pt2`` (both players, float32) and
+        ``--quantize int8`` at the served batch of 100; ``cli serve --config``
+        of the run dir; and ``cli inception``, ``cli fid`` (1000 samples of
+        checkpoint 8, the checkpoint's classifier scoring) and ``cli
+        predict`` from checkpoint 8 (250 images);
+      * once the artifacts are written, ``cli eval --artifact`` (it must
+        print the 8-step run's error), ``cli predict --artifact`` (the
+        checkpoint's labels) and inception and fid with the artifact as
+        ``--scorer-path``; meanwhile, in this process, the main path: the
+        float32 artifacts loaded on the card, one classify of seeded uint8
+        images and one generate of seeded z, y, the launch counts set to 0
+        just before and read just after: each wrapper's launches must equal
+        the forward's convs and epilogues of C and G, key for key, and a
+        call pair under torch.profiler must run each hand-written kernel as
+        often, counted by kernel name in its device records; the artifacts
+        against ``make_serving_fns`` on the card (within 1e-4; bitwise
+        recorded); the same artifacts moved to the CPU against the card
+        (atol 1e-4); the int8 artifact's logits against the float32 ones
+        (within 0.05 of the largest logit or of 1); the files' sizes;
+      * ``serve_and_reload`` on the server, its extra train step after
+        every other CLI run has ended;
+      * alone, a call's ms of each artifact and of in-process serving."""
+    import torch
+
+    from triplegan_tpu_torch.cli import _load_zca, _restore_run
+    from triplegan_tpu_torch.export import load_pt2, make_serving_fns
+
+    t0 = time.perf_counter()
+    w1 = driver["_workdir"]
+    out = tempfile.mkdtemp(prefix="deploy_", dir=os.path.dirname(data_dir))
+    run_args = ["--config", "cifar10_4k", "--workdir", w1, "--data-dir", data_dir]
+    at8 = [*run_args, "--step", "8"]  # the extra train step below writes a step 9
+    dirs = {"float32": os.path.join(out, "f32"), "int8": os.path.join(out, "int8")}
+    paths = {fmt: {kind: os.path.join(d, f"{kind}.pt2") for kind in ("classify", "generate")}
+             for fmt, d in dirs.items()}
+    f32c = paths["float32"]["classify"]
+    pred_in = os.path.join(out, "images.npy")
+    p_ckpt, p_art = os.path.join(out, "p_ckpt.npz"), os.path.join(out, "p_art.npz")
+    proc, base, serve_start_s = serve_start(run_args)
+    ex = concurrent.futures.ThreadPoolExecutor(8)
+    try:
+        jobs = {f"export_{fmt}": ex.submit(cli, "export", *at8, "--batch-size", str(BATCH), "--out", d,
+                                           *(["--quantize", "int8"] if fmt == "int8" else []))
+                for fmt, d in dirs.items()}
+        cfg, nets, state, workdir, dev, _ = _restore_run(argparse.Namespace(
+            config="cifar10_4k", workdir=w1, data_dir=data_dir, set=None, step=8, device="cuda"), mesh=False)
+        check(state.step == 8 and cfg.batch_size == BATCH and cfg.compute_dtype == "float32" and cfg.use_pallas,
+              f"deploy: the driver's run is at step {state.step}, batch {cfg.batch_size}")
+        np.save(pred_in, served_inputs(cfg, DEPLOY_PREDICT)[0])
+        samples = ["--n-samples", str(DEPLOY_SAMPLES)]
+        for name, args in (("inception", ("inception", *at8, *samples)), ("fid", ("fid", *at8, *samples)),
+                           ("predict_checkpoint", ("predict", *at8, "--input", pred_in, "--out", p_ckpt))):
+            jobs[name] = ex.submit(cli, *args)
+        export_s = {fmt: jobs[f"export_{fmt}"].result()[0] for fmt in dirs}
+        for name, args in (("eval_artifact", ("eval", *run_args, "--artifact", f32c)),
+                           ("predict_artifact", ("predict", "--artifact", f32c, "--input", pred_in, "--out", p_art)),
+                           ("inception_artifact", ("inception", *at8, *samples, "--scorer-path", f32c)),
+                           ("fid_artifact", ("fid", *at8, *samples, "--scorer-path", f32c))):
+            jobs[name] = ex.submit(cli, *args)
+        sizes = {fmt: {kind: os.path.getsize(p) for kind, p in ps.items()} for fmt, ps in paths.items()}
+
+        classify, generate = make_serving_fns(cfg, nets, state, zca_stats=_load_zca(cfg, workdir), device=dev)
+        art = {fmt: {kind: load_pt2(p, device=dev) for kind, p in ps.items()} for fmt, ps in paths.items()}
+        shape = (BATCH, cfg.image_size, cfg.image_size, cfg.channels)
+        check(art["float32"]["classify"].in_specs == ((shape, torch.uint8),), "classify artifact's input spec")
+        check(art["float32"]["generate"].in_specs == (((BATCH, cfg.z_dim), torch.float32),
+                                                      ((BATCH,), torch.int32)), "generate artifact's input spec")
+        images, z, y = served_inputs(cfg, BATCH)
+        ti, tz, ty = (torch.from_numpy(a).to(dev) for a in (images, z, y))
+        ac, ag = art["float32"]["classify"], art["float32"]["generate"]
+        torch.cuda.synchronize()
+
+        counts_zero()  # the main path starts here
+        logits = ac(ti)
+        imgs = ag(tz, ty)
+        torch.cuda.synchronize()
+        counts = counts_read()  # the main path ends here
+        launches = totals(counts)
+        gen_l, _, clf_l = conv_layers(cfg)
+        want = fwd_launches(cfg, BATCH, clf_l) + fwd_launches(cfg, BATCH, gen_l)
+        check(counts["conv3x3_fwd"] == want, f"an artifact call pair's conv launches "
+                                             f"{dict(counts['conv3x3_fwd'])}, want {dict(want)}")
+        n_c = sum(len(b) for b in cfg.clf.conv_blocks) + len(cfg.clf.tail)
+        n_g = len(cfg.gen.widths) + 1
+        want_totals = {"scale_bias_act": n_c + n_g, "scale_bias_act_bwd": 0, "conv3x3_fwd": want.total(),
+                       "conv3x3_wgrad": 0}
+        check(launches == want_totals, f"an artifact call pair launched {launches}, want {want_totals}")
+        # one call pair under the profiler; a profile may lack a record (on an
+        # H100 one kept 9 of the 10 conv kernels' records), so up to three are taken
+        profiled = []
+        for _ in range(3):
+            prof = device_kernels(lambda: (ac(ti), ag(tz, ty)), reps=1)
+            profiled.append({"by_kernel_name": replayed_launches(prof), "hand_kernels": prof["_hand"]})
+            if profiled[-1]["by_kernel_name"] == want_totals:
+                break
+        by_name = profiled[-1]["by_kernel_name"]
+        check(by_name == want_totals, f"the profiled artifact call pairs ran {profiled} by kernel name, want "
+                                      f"{want_totals}; the wrappers' launches by call: "
+                                      f"{dict(counts['conv3x3_fwd'])}")
+        check(logits.shape == (BATCH, cfg.num_classes) and bool(torch.isfinite(logits).all()), "artifact logits")
+        check(imgs.shape == shape and float(imgs.abs().max()) <= 1.0, "artifact images")
+
+        ref_logits, ref_imgs = classify(ti), generate(tz, ty)
+        vs_inproc = {"logits_max_abs_diff": max_diff(logits, ref_logits),
+                     "images_max_abs_diff": max_diff(imgs, ref_imgs),
+                     "bitwise": bool(torch.equal(logits, ref_logits) and torch.equal(imgs, ref_imgs))}
+        check(max(vs_inproc["logits_max_abs_diff"], vs_inproc["images_max_abs_diff"]) <= 1e-4,
+              f"artifact against in-process serving: {vs_inproc}")
+
+        cpu = {kind: load_pt2(p, device="cpu") for kind, p in paths["float32"].items()}
+        cpu_logits = cpu["classify"](torch.from_numpy(images))
+        cpu_imgs = cpu["generate"](torch.from_numpy(z), torch.from_numpy(y))
+        vs_cpu = {"logits_max_abs_diff": max_diff(logits, cpu_logits),
+                  "images_max_abs_diff": max_diff(imgs, cpu_imgs),
+                  "max_abs_logit": float(cpu_logits.abs().max()), "limit": 1e-4}
+        check(max(vs_cpu["logits_max_abs_diff"], vs_cpu["images_max_abs_diff"]) <= 1e-4,
+              f"the artifact on the card against the same artifact on the CPU: {vs_cpu}")
+
+        q_logits = art["int8"]["classify"](ti)
+        q_imgs = art["int8"]["generate"](tz, ty)
+        int8 = {"logits_max_abs_diff": max_diff(q_logits, logits), "images_max_abs_diff": max_diff(q_imgs, imgs),
+                "max_abs_logit": float(logits.abs().max()),
+                "argmax_agree": float((q_logits.argmax(1) == logits.argmax(1)).float().mean())}
+        # the JAX package's bound for its int8 artifact, 0.05, is set on logits
+        # of size ≈1 (its tiny test config, which tests/test_torch_export.py
+        # keeps); here it scales with the largest logit
+        int8["limit"] = 0.05 * max(1.0, int8["max_abs_logit"])
+        check(int8["logits_max_abs_diff"] < int8["limit"], f"int8 artifact's logits: {int8}")
+
+        done = {}
+        served = serve_and_reload(proc, base, train_args(w1, data_dir, 1), images, logits.cpu().numpy(),
+                                  lambda: done.update({name: f.result() for name, f in jobs.items()}))
+    finally:
+        ex.shutdown(wait=True)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    side_by_side_s = time.perf_counter() - t0
+    ms = {"artifact_classify": call_ms(ac, ti), "inprocess_classify": call_ms(classify, ti),
+          "artifact_generate": call_ms(ag, tz, ty), "inprocess_generate": call_ms(generate, tz, ty)}
+    del art, cpu
+    torch.cuda.empty_cache()
+
+    err = done["eval_artifact"][1].strip().splitlines()[-1]
+    check(err == "test error (artifact): " + driver["final"].split("test_error=")[1],
+          f"cli eval --artifact printed {err!r}; the run: {driver['final']!r}")
+    with np.load(p_ckpt) as a, np.load(p_art) as b:
+        check(np.array_equal(a["labels"], b["labels"]), "predict: checkpoint and artifact labels differ")
+        predict = {"images": DEPLOY_PREDICT, "labels_equal": True,
+                   "logits_max_abs_diff": float(np.abs(a["logits"] - b["logits"]).max())}
+    scores = {}
+    for name in ("inception", "inception_artifact", "fid", "fid_artifact"):
+        line = done[name][1].strip().splitlines()[-1]
+        value = float(line.split(": ")[1].split()[0])
+        check(math.isfinite(value) and value >= (1.0 if name.startswith("inception") else 0.0),
+              f"cli {name}: {line}")
+        scores[name] = {"line": line, "value": value}
+    res = {"config": "cifar10_4k float32 batch 100 kernel arm, the driver's run at step 8",
+           "export_seconds": export_s, "sizes_bytes": sizes,
+           "launches": launches, "launches_by_kernel_name": by_name, "profiles": len(profiled),
+           "_counts": counts, "artifact_vs_inprocess": vs_inproc, "call_ms": ms, "artifact_card_vs_cpu": vs_cpu,
+           "int8_vs_float32": int8, "eval_artifact": err, "predict": predict, "scores": scores,
+           "cli_seconds": {name: r[0] for name, r in done.items()},
+           "serve": {"start_seconds": serve_start_s, **served},
+           "side_by_side_seconds": side_by_side_s, "seconds": time.perf_counter() - t0}
+    emit("deploy", public(res))
     return res
 
 
@@ -2855,15 +3128,16 @@ def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def path_launches(train_arms, serve_arms, host, mesh) -> list:
+def path_launches(train_arms, serve_arms, host, mesh, deploy) -> list:
     """The keyed launch counts of each main path: the first kernel-arm run
     of each train setting (per step), the host-streamed fused step (per
     step), its ddinit, each layer variant's step, the mesh phase's stl10
     runs (a rank's stochastic step, per step; the one-process step on the
     global batch; a rank's driver runs and the continuation on one
     process, evals and grids included; the NCCL chunk's eager steps,
-    warm-up and capture), and each serving dtype (over its main path: one
-    /classify and two /generate of 250 images)."""
+    warm-up and capture), each serving dtype (over its main path: one
+    /classify and two /generate of 250 images), and the deploy phase's
+    artifact call pair."""
     sources, seen = [], set()
     for arm in train_arms:
         if arm["use_pallas"] and arm["setting"] not in seen:
@@ -2881,6 +3155,7 @@ def path_launches(train_arms, serve_arms, host, mesh) -> list:
     for arm in serve_arms:
         if arm["use_pallas"]:
             sources.append(("serve " + arm["dtype"], arm["_counts"], {}))
+    sources.append(("deploy artifact", deploy["_counts"], {}))
     return sources
 
 
@@ -2996,6 +3271,77 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# --eager-step-ab: an eager shipped step of two trees, in turns
+# ---------------------------------------------------------------------------
+
+AB_STEPS = 12
+
+
+def eager_step_ms(n_steps: int) -> dict:
+    """In this process, with the package that ``sys.path`` finds first: the
+    kernels built, then phase 3's shipped kernel arm (cifar10_4k, float32,
+    batch 100, eager, device data) for ``n_steps`` steps (ms/step over all
+    but the first), and the host µs a call of each forward wrapper outside
+    autograd (``scale_bias_act`` and ``conv3x3`` at (8, 8, 8, 16) float32,
+    where the host's share of a call dominates)."""
+    import torch
+
+    import triplegan_tpu_torch
+    from triplegan_tpu_torch.data.datasets import synthetic_dataset
+    from triplegan_tpu_torch.data.zca import fit_zca
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    build_phase()
+    data = synthetic_dataset(image_size=32, channels=3, num_classes=10, n_train=4096, n_test=256,
+                             num_labeled=512)
+    arm = train_arm(SETTINGS[0], True, data, fit_zca(data.x_unlabel), n_steps, False)
+    x = torch.randn(8, 8, 8, 16, device="cuda")
+    k, b = torch.ones(16, device="cuda"), torch.zeros(16, device="cuda")
+    w = torch.randn(3, 3, 16, 16, device="cuda") * 0.1
+
+    def us(fn, reps=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / reps
+
+    with torch.no_grad():
+        host = {"scale_bias_act": us(lambda: sba.scale_bias_act(x, k, b, "leaky_relu", 0.1)),
+                "conv3x3": us(lambda: cv.conv3x3(x, w, "SAME"))}
+    return {"package": os.path.dirname(triplegan_tpu_torch.__file__), "ms_per_step": arm["ms_per_step"],
+            "step_s": arm["step_s"], "launches_per_step": arm["launches_per_step"],
+            "host_us_per_call_no_grad": host}
+
+
+def eager_step_ab(parent: str) -> dict:
+    """``eager_step_ms`` of the tree at ``parent`` (e.g. a ``git archive`` of
+    an earlier commit) and of this checkout, each in a process of its own,
+    in turns (parent, this, this, parent); the mean of each tree's turns."""
+    turns = []
+    for tree in (parent, REPO, REPO, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--eager-step-ms", os.path.abspath(tree),
+                               "--steps", str(AB_STEPS)], cwd=tree, capture_output=True, text=True, timeout=1200)
+        check(proc.returncode == 0, f"eager step of {tree} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit("eager_step", {"tree": tree, **rec})
+        turns.append((tree, rec))
+    res = {}
+    for name, tree in (("before", parent), ("after", REPO)):
+        recs = [r for t, r in turns if t == tree]
+        res[name] = {"tree": tree, "ms_per_step": statistics.mean(r["ms_per_step"] for r in recs),
+                     "ms_per_step_turns": [r["ms_per_step"] for r in recs],
+                     "host_us_per_call_no_grad": {k: statistics.mean(r["host_us_per_call_no_grad"][k] for r in recs)
+                                                  for k in recs[0]["host_us_per_call_no_grad"]}}
+    emit("eager_step_ab", res)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write every result as JSON here")
@@ -3006,6 +3352,11 @@ def main():
     ap.add_argument("--variant-step", metavar="DATA_DIR", default=None,
                     help="(phase 5b's subprocesses) one step per arm under the layer variant the "
                          "environment sets, on the prepared data in DATA_DIR")
+    ap.add_argument("--eager-step-ab", metavar="TREE", default=None,
+                    help="only time an eager shipped step (and the forward wrappers' host cost) of "
+                         "the checkout at TREE and of this one, in turns, and print both")
+    ap.add_argument("--eager-step-ms", metavar="TREE", default=None,
+                    help="(--eager-step-ab's subprocesses) the timing, with TREE's package")
     args = ap.parse_args()
     check(args.steps >= 2, "--steps must be at least 2")
 
@@ -3013,8 +3364,18 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs only on a CUDA device")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, args.eager_step_ms or os.path.dirname(os.path.abspath(__file__)))
     from triplegan_tpu_torch.utils.platform import resolve_device
+
+    if args.eager_step_ms:
+        resolve_device(None)
+        print(json.dumps(eager_step_ms(args.steps)), flush=True)
+        return
+    if args.eager_step_ab:
+        print(smi_line(), flush=True)
+        eager_step_ab(args.eager_step_ab)
+        print(smi_line(), flush=True)
+        return
 
     if args.variant_step:
         resolve_device(None)
@@ -3059,6 +3420,10 @@ def main():
         driver = driver_phase(train_arms, graph_arms, data_dir)
         phases["driver"] = time.perf_counter() - t_start
 
+        # 5d. export, qualify, score, serve and reload the driver's run
+        deploy = deploy_phase(driver, data_dir)
+        phases["deploy"] = time.perf_counter() - t_start
+
         # 5b. host-streamed batches, ddinit, the fused classifier, the variants
         host = host_phase(data, zca, data_dir)
         phases["host"] = time.perf_counter() - t_start
@@ -3077,11 +3442,12 @@ def main():
     phases["serve"] = time.perf_counter() - t_start
 
     # 7. kernels, at the shapes the main paths launched them at
-    sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms, host, mesh))
+    sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms, host, mesh, deploy))
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
 
-    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver, host, mesh], serve_arms)
+    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver, host, mesh, deploy],
+                      serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3090,7 +3456,7 @@ def main():
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms],
                        "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),
-                       "mesh": public(mesh),
+                       "mesh": public(mesh), "deploy": public(deploy),
                        "serve": [public(a) for a in serve_arms],
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

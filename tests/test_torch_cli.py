@@ -4,12 +4,24 @@ mnist100 run on the synthetic dataset trains, logs, evaluates, writes
 sample grids and checkpoints; ``eval`` prints the error that ``train``
 printed; ``sample`` writes a grid of N classes × M columns; a stopped run
 exits 75 and the next resumes; the run dir's ``config.json`` is found as
-the JAX CLI finds it (``--set name=...`` names another run); and without
-``--device cpu`` every command asks for the card."""
+the JAX CLI finds it (``--set name=...`` names another run); the trained
+run is exported (``.pt2``, int8, npz), its artifact qualified by ``eval
+--artifact`` (the error ``train`` printed), ``predict`` gives the same
+logits from the checkpoint and from the artifact, ``inception`` and
+``fid`` score it with its classifier and with the artifact, and ``serve
+--config`` serves its checkpoint and, after one more train step,
+``POST /reload`` the newer one; and without ``--device cpu`` every
+command asks for the card."""
 
 import argparse
 import functools
+import io
+import json
 import os
+import re
+import shutil
+import threading
+import urllib.request
 
 import numpy as np
 import pytest
@@ -142,10 +154,147 @@ def test_run_dir_config_is_found_with_the_overrides_applied(tmp_path):
         cli._load_cfg(_ns(config="nope"))
 
 
-@pytest.mark.parametrize("cmd", ["train", "eval", "sample"])
+_NEEDS = {"predict": ["--input", "images.npy"]}
+
+
+@pytest.mark.parametrize("cmd", ["train", "eval", "sample", "inception", "fid", "export", "serve", "predict"])
 def test_every_command_asks_for_the_card_by_default(cmd, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    args = [a for a in _args(cmd, tmp_path) if a not in ("--device", "cpu")]
+    args = [a for a in _args(cmd, tmp_path, *_NEEDS.get(cmd, [])) if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(args)
+
+
+def _run_cli(capsys, *args):
+    """``cli.main(args)`` and the lines it printed."""
+    cli.main(list(args))
+    return capsys.readouterr().out.strip().splitlines()
+
+
+@pytest.fixture(scope="module")
+def exported(trained, tmp_path_factory):
+    """The trained run's pt2 artifacts (batch 8), their int8 twins and its
+    npz, through ``cli export``."""
+    workdir, _ = trained
+    out = tmp_path_factory.mktemp("export")
+    for extra in ([], ["--quantize", "int8", "--out", str(out / "int8")], ["--format", "npz"]):
+        cli.main(_args("export", workdir, "--out", str(out), *extra, sets=[]))
+    return out
+
+
+def test_export_writes_artifacts_and_eval_artifact_qualifies_them(trained, exported, capsys):
+    workdir, printed = trained
+    assert sorted(os.listdir(exported)) == ["classify.pt2", "generate.pt2", "int8", "params.npz"]
+    assert sorted(os.listdir(exported / "int8")) == ["classify.pt2", "generate.pt2"]
+    want = printed[-1].split("test_error=")[1]
+    out = _run_cli(capsys, *_args("eval", workdir, "--artifact", str(exported / "classify.pt2"), sets=[]))
+    assert out[-1] == "test error (artifact): " + want
+    with pytest.raises(SystemExit, match="not a classifier artifact"):
+        cli.main(_args("eval", workdir, "--artifact", str(exported / "generate.pt2"), sets=[]))
+    with pytest.raises(SystemExit, match="npz stores the raw"):
+        cli.main(_args("export", workdir, "--format", "npz", "--quantize", "int8", sets=[]))
+
+
+def test_predict_from_the_checkpoint_and_the_artifact_agree(trained, exported, tmp_path, capsys):
+    workdir, _ = trained
+    images = str(tmp_path / "images.npy")
+    np.save(images, np.random.RandomState(0).randint(0, 256, size=(11, 28, 28, 1)).astype(np.uint8))
+    p1, p2, p3 = (str(tmp_path / f"p{i}.npz") for i in (1, 2, 3))
+    out = _run_cli(capsys, *_args("predict", workdir, "--input", images, "--out", p1, sets=[]))
+    assert out[-1].startswith(f"predicted 11 images → {p1}")
+    cli.main(["predict", "--artifact", str(exported / "classify.pt2"), "--input", images, "--out", p2,
+              "--device", "cpu"])
+    cli.main(_args("predict", workdir, "--input", images, "--out", p3, "--quantize", "int8", sets=[]))
+    with np.load(p1) as a, np.load(p2) as b, np.load(p3) as q:
+        np.testing.assert_array_equal(a["logits"], b["logits"])
+        np.testing.assert_array_equal(a["labels"], b["labels"])
+        assert a["probs"].shape == (11, 10) and np.allclose(a["probs"].sum(axis=1), 1.0)
+        assert float(np.abs(q["logits"] - a["logits"]).max()) < 0.05
+    bad = str(tmp_path / "bad.npy")
+    np.save(bad, np.zeros((2, 28, 28, 1), np.float32))
+    with pytest.raises(SystemExit, match="must be uint8"):
+        cli.main(_args("predict", workdir, "--input", bad, sets=[]))
+    with pytest.raises(SystemExit, match="no such input file"):
+        cli.main(_args("predict", workdir, "--input", str(tmp_path / "none.npy"), sets=[]))
+    with pytest.raises(SystemExit, match="needs --config"):
+        cli.main(["predict", "--input", images, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="already quantized"):
+        cli.main(["predict", "--artifact", str(exported / "classify.pt2"), "--input", images,
+                  "--quantize", "int8", "--device", "cpu"])
+
+
+def test_inception_and_fid_with_the_classifier_and_the_artifact(trained, exported, capsys):
+    workdir, _ = trained
+    art = str(exported / "classify.pt2")
+    scores = {}
+    for label, extra in (("classifier-scored", []), ("external-scored", ["--scorer-path", art])):
+        out = _run_cli(capsys, *_args("inception", workdir, "--n-samples", "40", "--n-splits", "2",
+                                      *extra, sets=[]))
+        m = re.fullmatch(rf"inception score \({label}\): (\S+) ± (\S+)", out[-1])
+        assert m, out[-1]
+        scores[label] = float(m.group(1))
+        assert 1.0 <= scores[label] <= 10.0
+    for label, extra in (("classifier GAP features", []), ("external features", ["--scorer-path", art])):
+        out = _run_cli(capsys, *_args("fid", workdir, "--n-samples", "40", "--n-real", "24", *extra,
+                                      sets=[]))
+        m = re.fullmatch(rf"FID \({label}, 40 gen vs 24 real\): (\S+)", out[-1])
+        assert m and float(m.group(1)) >= 0.0, out[-1]
+
+
+def _serve_args(workdir, **kw):
+    return argparse.Namespace(**{
+        "config": "mnist100", "workdir": str(workdir), "data_dir": None, "set": None, "step": None,
+        "device": "cpu", "params": None, "zca": None, "classifier": None, "generator": None,
+        "batch_size": None, "quantize": None, **kw})
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read()
+
+
+def _post(url, body=b""):
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "application/x-npy"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.read()
+
+
+def test_serve_config_serves_the_checkpoint_and_reloads_a_newer_one(trained, tmp_path):
+    """``serve --config`` of a port run dir: its newest checkpoint, and after
+    one more ``cli train`` step in the same run dir ``POST /reload`` serves
+    that one (the step moves in /healthz, and /classify changes)."""
+    from triplegan_tpu_torch.serve import make_server
+
+    workdir, _ = trained
+    shutil.copytree(workdir, tmp_path / "w")
+    app = cli._serve_source(_serve_args(tmp_path / "w"))
+    server = make_server(app, port=0)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    buf = io.BytesIO()
+    np.save(buf, np.random.RandomState(1).randint(0, 256, size=(3, 28, 28, 1)).astype(np.uint8))
+    try:
+        h = json.loads(_get(base + "/healthz"))
+        assert (h["source"], h["step"]) == ("checkpoint", 4) and "reload" in h["endpoints"]
+        before = np.load(io.BytesIO(_post(base + "/classify", buf.getvalue())))
+        cli.main(_args("train", tmp_path / "w", "--max-steps", "1", sets=[]))
+        assert json.loads(_post(base + "/reload")) == {"reloaded": True, "step": 5}
+        assert json.loads(_get(base + "/healthz"))["step"] == 5
+        after = np.load(io.BytesIO(_post(base + "/classify", buf.getvalue())))
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=10)
+    assert before.shape == after.shape == (3, 10)
+    assert not np.array_equal(before, after)
+    state = cli._restore_run(argparse.Namespace(config="mnist100", workdir=str(tmp_path / "w"), data_dir=None,
+                                                set=None, step=None, device="cpu"), mesh=False)
+    from triplegan_tpu_torch.export import make_serving_fns
+
+    cfg, nets, restored, wd, _, _ = state
+    classify, _ = make_serving_fns(cfg, nets, restored, zca_stats=cli._load_zca(cfg, wd), device="cpu")
+    images = torch.from_numpy(np.load(io.BytesIO(buf.getvalue())))
+    np.testing.assert_array_equal(after, classify(images).numpy())

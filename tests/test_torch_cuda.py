@@ -4,8 +4,10 @@ PyTorch versions, on the card; the float32 conv's bits repeated over 200
 calls; ``device_prefetch``'s copies (their bytes and the consumer's
 stream ordered after them) and the native gather in use; the CUDA graph
 chunk under a process group: refused under gloo, and under NCCL (a group
-of this process alone) equal to eager steps bitwise. Skips where there
-is no CUDA device (the kernels have no CPU mode).
+of this process alone) equal to eager steps bitwise; the forward kernels
+as PyTorch operators, and a ``.pt2`` artifact exported on the card that
+launches them there and runs its plain versions once moved to the CPU.
+Skips where there is no CUDA device (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -791,3 +793,78 @@ def test_graphed_chunk_under_nccl_equals_eager_steps_bitwise_on_card(cuda, tmp_p
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_operators_launch_the_kernels_and_match_plain_on_card(dtype, cuda):
+    """``torch.ops.triplegan_torch.scale_bias_act`` and ``conv3x3_fwd`` on
+    CUDA tensors: one counted launch each, the plain versions' values (the
+    tolerances above); the wrappers outside autograd take the operators,
+    bitwise; the fakes give the shapes alone."""
+    dt = _DT[dtype]
+    x, k, b = (t.to(dt) for t in _inputs((5, 7, 9, 24), cuda))
+    before = sba.launches.total()
+    got = torch.ops.triplegan_torch.scale_bias_act(x, k, b, "leaky_relu", 0.1)
+    assert sba.launches.total() == before + 1
+    ok, err = _elementwise_ok(got, sba.reference_scale_bias_act(x, k, b, "leaky_relu", 0.1))
+    assert ok, err
+    with torch.no_grad():
+        assert torch.equal(sba.scale_bias_act(x, k, b, "leaky_relu", 0.1), got)
+    assert sba.launches.total() == before + 2
+    rng = np.random.RandomState(4)
+    xc = torch.from_numpy(rng.normal(size=(3, 9, 11, 24)).astype(np.float32)).to(cuda, dt)
+    wc = torch.from_numpy((rng.normal(size=(3, 3, 24, 40)) * 0.1).astype(np.float32)).to(cuda, dt)
+    before = cv.fwd_launches.total()
+    y = torch.ops.triplegan_torch.conv3x3_fwd(xc, wc, 1)
+    assert cv.fwd_launches.total() == before + 1
+    want = cv.reference_conv3x3_nopad(cv._pad_hw(xc, 1), wc)
+    ref_abs = cv.reference_conv3x3_nopad(cv._pad_hw(xc.abs(), 1), wc.abs())
+    assert bool(((y.double() - want.double()).abs() <= _conv_limit(ref_abs, 9 * 24, y, want)).all())
+    with torch.no_grad():
+        assert torch.equal(cv.conv3x3(xc, wc, "SAME"), y)
+    meta = torch.ops.triplegan_torch.conv3x3_fwd(xc.to("meta"), wc.to("meta"), 0)
+    assert meta.shape == (3, 7, 9, 40) and meta.dtype == dt
+    assert torch.ops.triplegan_torch.scale_bias_act(x.to("meta"), k.to("meta"), b.to("meta"), "relu",
+                                                     0.1).shape == x.shape
+
+
+@pytest.mark.cuda
+def test_pt2_exported_on_card_launches_the_kernels_and_moves_to_the_cpu(cuda, tmp_path):
+    """An artifact exported on the card (cifar10_4k's layers at a few
+    channels, batch 4): on the card each call launches the forward kernels
+    as often as the network has convs and epilogues and agrees with
+    ``make_serving_fns`` there; moved to the CPU it launches nothing and
+    agrees with the card within float32's 1e-4."""
+    from triplegan_tpu_torch.cli import _apply_overrides
+    from triplegan_tpu_torch.configs import get_config, make_networks
+    from triplegan_tpu_torch.export import export_artifacts, load_pt2, make_serving_fns
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    cfg = _apply_overrides(get_config("cifar10_4k"), [
+        "zca=False", "gen.widths=(32,16,8)", "clf.conv_blocks=((16,16),(32,))", "clf.tail=(32,16)"])
+    nets = make_networks(cfg)
+    state = create_state(cfg, nets, make_optimizers(cfg, 1), device=cuda)
+    cpath, gpath = export_artifacts(cfg, nets, state, str(tmp_path), batch_size=4, device=cuda)
+    classify, generate = make_serving_fns(cfg, nets, state, device=cuda)
+    rng = np.random.RandomState(5)
+    imgs = torch.from_numpy(rng.randint(0, 256, size=(4, 32, 32, 3)).astype(np.uint8))
+    z = torch.from_numpy(rng.normal(size=(4, cfg.z_dim)).astype(np.float32))
+    y = torch.tensor([0, 4, 9, 2], dtype=torch.int32)
+    n_c, n_g = 3 + 2, 3 + 1  # epilogues: C's convs; G's BNs and its output
+    convs_c, convs_g = 3 + 1, 3  # 3x3 stride-1 convs: C's SAME and t0; G's phase convs
+    for path, args, ref, n_sba, n_conv in ((cpath, (imgs,), classify, n_c, convs_c),
+                                           (gpath, (z, y), generate, n_g, convs_g)):
+        art = load_pt2(path, device=cuda)
+        before = (sba.launches.total(), cv.fwd_launches.total())
+        got = art(*args)
+        torch.cuda.synchronize()
+        assert (sba.launches.total(), cv.fwd_launches.total()) == (before[0] + n_sba, before[1] + n_conv)
+        torch.testing.assert_close(got, ref(*(a.to(cuda) for a in args)), rtol=0, atol=1e-5)
+        on_cpu = load_pt2(path, device="cpu")
+        before = (sba.launches.total(), cv.fwd_launches.total())
+        out = on_cpu(*args)
+        assert out.device.type == "cpu"
+        assert (sba.launches.total(), cv.fwd_launches.total()) == before
+        torch.testing.assert_close(out, got.cpu(), rtol=0, atol=1e-4)

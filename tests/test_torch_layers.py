@@ -79,9 +79,6 @@ def test_subpixel_deconv(size):
     want = JL.deconv2d_apply(p, jnp.asarray(x), stride=2)
     pt = _port("gen", p)
     _check(TL.deconv2d_apply(pt, torch.from_numpy(x), stride=2), want)
-    # the phase kernel built once at load gives the same result
-    wp = TL.phase_kernel(pt["w"], 2)
-    _check(TL.deconv2d_apply(pt, torch.from_numpy(x), stride=2, wp=wp), want)
 
 
 def test_subpixel_matches_lax_conv_transpose():

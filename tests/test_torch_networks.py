@@ -88,11 +88,9 @@ def test_generator_matches_jax(name, use_pallas, tmp_path):
     want, _ = jgen.apply(params["gen"], bn["gen"], jnp.asarray(z), jnp.asarray(y), train=False)
     with torch.inference_mode():
         got = tgen(torch.from_numpy(z), torch.from_numpy(y))
-        got_pk = tgen(torch.from_numpy(z), torch.from_numpy(y), phase=tgen.phase_kernels())
     want = np.asarray(want)
     assert got.shape == want.shape == (3, jcfg.image_size, jcfg.image_size, jcfg.channels)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
-    np.testing.assert_array_equal(got_pk.numpy(), got.numpy())
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

@@ -1,6 +1,8 @@
 """The port's serving path against the JAX package's: make_serving_fns with
 ZCA on, weights through the JAX npz export, batched_apply, and the HTTP
-surface of an in-thread server on an ephemeral port.
+surface of an in-thread server on an ephemeral port; ``POST /reload``
+swapping in what the reloader builds; a server of exported ``.pt2``
+artifacts, which refuses an artifact of the wrong kind and a reload.
 
 Tolerances: float32 atol 1e-4 on logits and images (same math in another
 summation order, ZCA's 768-term dot included).
@@ -241,9 +243,100 @@ def test_http_bad_input_is_400(live, route, body, ctype, match):
 
 
 def test_cli_serve_needs_weights(tmp_path):
+    """With no checkpoint and no params.npz the message names the port's own
+    train and export commands, never the JAX CLI."""
     from triplegan_tpu_torch.cli import main
 
-    with pytest.raises(SystemExit, match="no weights"):
+    with pytest.raises(SystemExit, match="no weights") as e:
         main(["serve", "--config", "cifar10_4k", "--workdir", str(tmp_path), "--device", "cpu"])
+    msg = str(e.value)
+    assert "triplegan_tpu_torch.cli train" in msg and "triplegan_tpu_torch.cli export" in msg
+    assert "triplegan_tpu.cli" not in msg
     with pytest.raises(SystemExit, match="unknown config key"):
         main(["serve", "--config", "cifar10_4k", "--params", "x.npz", "--set", "bogus=1"])
+
+
+@pytest.mark.parametrize("extra", [["--config", "cifar10_4k"], ["--params", "p.npz"]])
+def test_cli_serve_takes_one_source(extra):
+    from triplegan_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit, match="ONE source"):
+        main(["serve", "--classifier", "classify.pt2", *extra, "--device", "cpu"])
+
+
+def test_reload_swaps_in_the_reloaders_functions(run):
+    """POST /reload: the reloader's functions serve the next request, the
+    step moves in /healthz and /metrics, and the reload is counted."""
+    def fns(v):
+        return {"classify": lambda x: np.full((x.shape[0], 10), v, np.float32),
+                "generate": lambda z, y: np.full((z.shape[0], 16, 16, 3), v, np.float32)}
+
+    reloads = []
+
+    def reloader():
+        reloads.append(1)
+        return {**fns(2.0), "step": 7}
+
+    app = ServingApp(**fns(1.0), device="cpu", classify_batch=4, generate_batch=4,
+                     image_shape=(16, 16, 3), z_dim=16, num_classes=10, meta={"step": 3},
+                     reloader=reloader)
+    server = make_server(app, port=0)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        before = np.load(io.BytesIO(_post(base + "/classify", _npy(run.images), "application/x-npy")[1]))
+        status, body = _post(base + "/reload", b"", "application/json")
+        assert status == 200 and json.loads(body) == {"reloaded": True, "step": 7}
+        after = np.load(io.BytesIO(_post(base + "/classify", _npy(run.images), "application/x-npy")[1]))
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            h = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=10)
+    assert (before == 1.0).all() and (after == 2.0).all() and reloads == [1]
+    assert h["step"] == 7 and h["endpoints"] == ["classify", "generate", "reload"]
+    assert h["requests"]["reload"] == 1
+    assert "triplegan_checkpoint_step 7" in metrics
+    assert 'triplegan_requests_total{endpoint="reload"} 1' in metrics
+
+
+@pytest.fixture(scope="module")
+def artifacts(run, tmp_path_factory):
+    from triplegan_tpu_torch.export import export_artifacts
+
+    run.cfg.compute_dtype = "float32"
+    state = bridge.load_npz(run.npz)
+    out = tmp_path_factory.mktemp("pt2")
+    cpath, gpath = export_artifacts(run.cfg, port_base.make_networks(run.cfg), state, str(out),
+                                    batch_size=4, zca_stats=run.zca, device="cpu")
+    return cpath, gpath, _port_fns(run, state)
+
+
+def test_app_from_artifacts_serves_them(artifacts, run):
+    from triplegan_tpu_torch.serve import app_from_artifacts
+
+    cpath, gpath, (classify, generate) = artifacts
+    app = app_from_artifacts(cpath, gpath, meta={"source": "pt2"}, device="cpu")
+    h = app.health()
+    assert h["endpoints"] == ["classify", "generate"] and h["classify_batch"] == 4
+    assert h["image_shape"] == [16, 16, 3] and h["z_dim"] == run.jcfg.z_dim and h["source"] == "pt2"
+    np.testing.assert_array_equal(app.do_classify(run.images),
+                                  classify(torch.from_numpy(run.images)).numpy())
+    np.testing.assert_array_equal(app.do_generate(run.z, run.y),
+                                  generate(torch.from_numpy(run.z), torch.from_numpy(run.y)).numpy())
+    with pytest.raises(ValueError, match="no reload source"):
+        app.do_reload()
+
+
+def test_app_from_artifacts_refuses_the_wrong_kind(artifacts):
+    from triplegan_tpu_torch.serve import app_from_artifacts
+
+    cpath, gpath, _ = artifacts
+    with pytest.raises(ValueError, match="not a classifier artifact"):
+        app_from_artifacts(classifier_path=gpath, device="cpu")
+    with pytest.raises(ValueError, match="not a generator artifact"):
+        app_from_artifacts(generator_path=cpath, device="cpu")

@@ -286,26 +286,21 @@ def _deconv_transpose(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Te
 _DECONV_IMPL = os.environ.get("TRIPLEGAN_DECONV", "subpixel")
 
 
-def _deconv_raw(x: torch.Tensor, w: torch.Tensor, stride: int, use_pallas: bool,
-                wp: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _deconv_raw(x: torch.Tensor, w: torch.Tensor, stride: int, use_pallas: bool) -> torch.Tensor:
     """The transposed conv itself, for every deconv path (the weight-norm
     epilogue's too), as JAX's ``_deconv_raw``: under
     ``TRIPLEGAN_DECONV=transpose`` ``_deconv_transpose`` (cuDNN in either
     arm), else the subpixel conv, through the Hopper conv kernel under
-    ``use_pallas``; ``wp`` is w's phase kernel when the caller built it."""
+    ``use_pallas``."""
     if _DECONV_IMPL == "transpose":
         return _deconv_transpose(x, w.to(x.dtype), stride)
-    if wp is None:
-        wp = phase_kernel(w, stride)
-    return _deconv2d_subpixel(x, wp, w.shape[0], stride, use_pallas)
+    return _deconv2d_subpixel(x, phase_kernel(w, stride), w.shape[0], stride, use_pallas)
 
 
 def deconv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
-                   wp: Optional[torch.Tensor] = None, use_pallas: bool = False) -> torch.Tensor:
-    """TF-semantics ``conv2d_transpose`` with SAME padding: out = in · stride.
-    ``wp`` is the layer's phase kernel when the caller built it once (the
-    serving path); it is built from ``p`` here otherwise."""
-    y = _deconv_raw(x, _weight(p, (0, 1, 2)), stride, use_pallas, wp)
+                   use_pallas: bool = False) -> torch.Tensor:
+    """TF-semantics ``conv2d_transpose`` with SAME padding: out = in · stride."""
+    y = _deconv_raw(x, _weight(p, (0, 1, 2)), stride, use_pallas)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y.to(x.dtype)
@@ -401,20 +396,18 @@ def conv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 1, padding:
 
 def deconv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
                           act: Optional[str] = None, slope: float = 0.2,
-                          use_pallas: bool = False,
-                          wp: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          use_pallas: bool = False) -> torch.Tensor:
     """Weight-norm transposed conv with the norm as a fused epilogue:
     deconv(x, v·g/‖v‖) = deconv(x, v)·(g/‖v‖) per output channel. With
     ``use_pallas`` the raw-v deconv runs and k = g/‖v‖ goes into the kernel;
-    without it, the normalized kernel is applied as ``deconv2d_apply`` does.
-    ``wp`` is the phase kernel of whichever of the two this path convolves."""
+    without it, the normalized kernel is applied as ``deconv2d_apply`` does."""
     if "v" not in p or not use_pallas:
-        return apply_act(deconv2d_apply(p, x, stride=stride, wp=wp), act or "linear", slope)
+        return apply_act(deconv2d_apply(p, x, stride=stride), act or "linear", slope)
     v, g = p["v"], p["g"]
     norm = torch.sqrt(torch.sum(torch.square(v), dim=(0, 1, 2)) + 1e-12)
     k = (g / norm).to(x.dtype)
     b = p["b"].to(x.dtype) if "b" in p else torch.zeros_like(k)
-    y = _deconv_raw(x, v, stride, True, wp).to(x.dtype)
+    y = _deconv_raw(x, v, stride, True).to(x.dtype)
     return _scale_bias_act(y, k, b, act, slope, True)
 
 

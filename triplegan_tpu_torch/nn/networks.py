@@ -14,7 +14,7 @@ Each mirrors its namesake in ``triplegan_tpu/nn/networks.py``:
   kept. G's and C's ``apply`` take a ``mesh`` (``parallel/mesh.py``), JAX's
   ``axis_name``: their batch norms then sync their moments over its ranks
   (in the kernel arm the synced moments fold into the epilogue's k and b).
-* ``forward`` is eval mode on the module's own tensors (the serving path).
+* ``forward`` is eval mode on the module's own tensors.
 
 Submodules carry the JAX dict keys (Generator ``dense``, ``bn0``,
 ``deconv0``, …, ``deconv_out``; Discriminator ``conv0`` … ``conv5``,
@@ -124,23 +124,8 @@ class Generator(_Player):
                                                weight_norm=True)
         return params, stats
 
-    def phase_kernels(self) -> Dict[str, torch.Tensor]:
-        """Each deconv's subpixel phase kernel, in float32, from the module's
-        weights: build once after loading and pass to ``forward``. The
-        output deconv convolves raw ``v`` under ``use_pallas`` (the norm
-        goes into the epilogue) and the normalized kernel otherwise."""
-        out = {
-            f"deconv{i}": L.phase_kernel(getattr(self, f"deconv{i}").w, 2)
-            for i in range(len(self.widths) - 1)
-        }
-        p = self.deconv_out.tensors()
-        w = p["v"] if self.use_pallas else L._wn_kernel(p["v"], p["g"], (0, 1, 2))
-        out["deconv_out"] = L.phase_kernel(w, 2)
-        return out
-
     def apply(self, params: Tree, stats: Tree, z: torch.Tensor, y: torch.Tensor, *,
-              train: bool, phase: Optional[Dict[str, torch.Tensor]] = None, mesh=None):
-        phase = phase or {}
+              train: bool, mesh=None):
         s0 = self.base_size
         bn = dict(train=train, act="relu", momentum=self.bn_momentum, use_pallas=self.use_pallas,
                   mesh=mesh)
@@ -151,17 +136,15 @@ class Generator(_Player):
         h, new_stats["bn0"] = L.batchnorm_act_apply(params["bn0"], stats["bn0"], h, **bn)
         for i in range(len(self.widths) - 1):
             name = f"deconv{i}"
-            h = L.deconv2d_apply(params[name], h, stride=2, wp=phase.get(name),
-                                 use_pallas=self.use_pallas)
+            h = L.deconv2d_apply(params[name], h, stride=2, use_pallas=self.use_pallas)
             h, new_stats[f"bn{i + 1}"] = L.batchnorm_act_apply(
                 params[f"bn{i + 1}"], stats[f"bn{i + 1}"], h, **bn)
         h = L.deconv2d_wn_act_apply(params["deconv_out"], h, stride=2, act="tanh",
-                                    use_pallas=self.use_pallas, wp=phase.get("deconv_out"))
+                                    use_pallas=self.use_pallas)
         return h, new_stats
 
-    def forward(self, z: torch.Tensor, y: torch.Tensor,
-                phase: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        return self.apply(*self.trees(), z, y, train=False, phase=phase)[0]
+    def forward(self, z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.apply(*self.trees(), z, y, train=False)[0]
 
 
 # ===========================================================================
@@ -271,7 +254,11 @@ class Classifier(_Player):
         return params, stats
 
     def apply(self, params: Tree, stats: Tree, x: torch.Tensor, *, train: bool,
-              generator: Optional[torch.Generator] = None, mesh=None):
+              generator: Optional[torch.Generator] = None, mesh=None,
+              return_features: bool = False):
+        """(logits, new stats); with ``return_features`` ((logits, feats),
+        new stats), feats the global-average-pooled penultimate activations
+        (the built-in FID feature space), as in the JAX package."""
         new_stats: Tree = {}
 
         def conv_bn_act(name, h, padding):
@@ -290,7 +277,11 @@ class Classifier(_Player):
             h = L.dropout(generator, h, self.block_dropout, train=train)
         for ti in range(len(self.tail)):
             h = conv_bn_act(f"t{ti}", h, "VALID" if ti == 0 else "SAME")
-        return L.dense_apply(params["head"], L.global_avg_pool(h)), new_stats
+        feats = L.global_avg_pool(h)
+        logits = L.dense_apply(params["head"], feats)
+        if return_features:
+            return (logits, feats), new_stats
+        return logits, new_stats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(*self.trees(), x, train=False)[0]

@@ -46,6 +46,13 @@ Semantics, as in the JAX package:
 A tensor on the CPU takes the plain versions (``reference_*``: nine
 shifted matmuls accumulated in float32, as the Pallas bodies do). A CUDA
 tensor launches the kernel or raises; there is no fallback.
+
+The forward is also a PyTorch operator, ``torch.ops.triplegan_torch.
+conv3x3_fwd`` (``conv3x3_op``): ``conv3x3_nopad`` for CUDA tensors, the plain
+version for CPU tensors, and a shape-only fake for tracing, so that
+``torch.export`` records the operator and an exported program launches the
+kernel (``export.py``). A ``conv3x3`` call that autograd does not record
+goes to the operator; the ``autograd.Function``'s forward calls it too.
 """
 
 from __future__ import annotations
@@ -364,7 +371,7 @@ class _Conv3x3(torch.autograd.Function):
         p = _PAD[padding]
         ctx.p = p
         ctx.save_for_backward(x, w)
-        return conv3x3_nopad(x, w.to(x.dtype).contiguous(), pad=p)
+        return conv3x3_op(x, w.to(x.dtype).contiguous(), p)
 
     @staticmethod
     def backward(ctx, g):
@@ -385,4 +392,29 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, padding: str = "SAME") -> torch.Te
     ``F.conv2d`` (and JAX's ``lax.conv_general_dilated``) in float32."""
     if padding not in _PAD:
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-    return _Conv3x3.apply(x, w, padding)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3 takes cpu or cuda tensors, got {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv3x3.apply(x, w, padding)
+    return conv3x3_op(x, w.to(x.dtype).contiguous(), _PAD[padding])
+
+
+def _conv3x3_op(x, w, pad):
+    return conv3x3_nopad(x, w, pad)
+
+
+def _conv3x3_fake(x, w, pad):
+    ho, wo = _out_hw(x, pad)
+    return x.new_empty((x.shape[0], ho, wo, w.shape[3]))
+
+
+# ``conv3x3_nopad(x, w, pad)`` as an operator: the plain version for CPU
+# tensors, for CUDA tensors one launch of the forward kernel (counted in
+# ``fwd_launches``) or an error, a shape-only fake for tracing; registered
+# as ``scale_bias_act.py``'s operator is.
+_LIB = torch.library.Library("triplegan_torch", "FRAGMENT")  # kept: registrations live with it
+_LIB.define("conv3x3_fwd(Tensor x, Tensor w, int pad) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("conv3x3_fwd", _conv3x3_op, _key)
+torch.library.register_fake("triplegan_torch::conv3x3_fwd", _conv3x3_fake, lib=_LIB)
+conv3x3_op = torch.ops.triplegan_torch.conv3x3_fwd.default

@@ -25,6 +25,15 @@ dtype. Only the gradients autograd asks for are computed.
 A tensor on the CPU takes the plain versions (``reference_scale_bias_act``,
 ``reference_scale_bias_act_bwd``). A CUDA tensor launches the kernel or
 raises, in the forward and in the backward.
+
+The forward is also a PyTorch operator, ``torch.ops.triplegan_torch.
+scale_bias_act`` (``scale_bias_act_op``): the kernel for CUDA tensors, the
+plain version for CPU tensors, and a shape-only fake for tracing (the
+registration is at the end of this module), so that
+``torch.export`` records the operator and an exported program launches the
+kernel (``export.py``). A call that autograd does not record (no input
+needs a gradient, or grad mode is off) goes to the operator; the
+``autograd.Function``'s forward calls it too.
 """
 
 from __future__ import annotations
@@ -158,7 +167,33 @@ def scale_bias_act(x, k, b, act="leaky_relu", slope=0.1):
     kernels."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; expected one of {sorted(ACTS)}")
-    return _ScaleBiasAct.apply(x, k, b, act, float(slope))
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"scale_bias_act takes cpu or cuda tensors, got {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or k.requires_grad or b.requires_grad):
+        return _ScaleBiasAct.apply(x, k, b, act, float(slope))
+    return scale_bias_act_op(x, k, b, act, float(slope))
+
+
+def _forward_op(x, k, b, act, slope):
+    return _forward(x, k, b, act, slope)
+
+
+def _forward_fake(x, k, b, act, slope):
+    return x.new_empty(x.shape)
+
+
+# The forward as an operator: ``_forward`` for CPU tensors (the plain version)
+# and CUDA tensors (one launch of the kernel, counted in ``launches``, or an
+# error), a shape-only fake for tracing. Registered through the
+# ``torch.library.Library`` API, which dispatches straight to ``_forward``;
+# ``torch.library.custom_op`` would wrap each call in autograd and dynamo
+# guards and import torch._dynamo at a process's first call.
+_LIB = torch.library.Library("triplegan_torch", "FRAGMENT")  # kept: registrations live with it
+_LIB.define("scale_bias_act(Tensor x, Tensor k, Tensor b, str act, float slope) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("scale_bias_act", _forward_op, _key)
+torch.library.register_fake("triplegan_torch::scale_bias_act", _forward_fake, lib=_LIB)
+scale_bias_act_op = torch.ops.triplegan_torch.scale_bias_act.default
 
 
 class _ScaleBiasAct(torch.autograd.Function):
@@ -168,7 +203,7 @@ class _ScaleBiasAct(torch.autograd.Function):
     def forward(ctx, x, k, b, act, slope):
         ctx.save_for_backward(x, k, b)
         ctx.act, ctx.slope = act, slope
-        return _forward(x, k, b, act, slope)
+        return scale_bias_act_op(x, k, b, act, slope)
 
     @staticmethod
     def backward(ctx, g):

@@ -2,6 +2,7 @@
 and error codes as ``triplegan_tpu/serve.py``.
 
     python -m triplegan_tpu_torch.cli serve --config cifar10_4k --workdir runs
+    python -m triplegan_tpu_torch.cli serve --classifier runs/cifar10_4k/export/classify.pt2
 
 Protocol (stdlib ``http.server``):
 
@@ -14,11 +15,15 @@ Protocol (stdlib ``http.server``):
   * ``POST /generate``: JSON ``{"n": int, "y": [labels]?, "seed": int?,
     "pixels": bool?}`` (the server draws z) or an ``.npz`` body with
     explicit ``z``/``y``; response is an ``.npy`` of images.
+  * ``POST /reload`` (a server of a run dir's checkpoints): serve the
+    newest checkpoint from now on.
 
 Requests of any size run in chunks of the static serving batch, the last
 chunk padded, as the JAX server does. One device lock serializes device
-work while the threaded server keeps accepting connections. Serving from
-exported artifacts and ``/reload`` wait for a later slice.
+work while the threaded server keeps accepting connections. The sources:
+a restored state (``app_from_state``, with a checkpoint reloader:
+``make_checkpoint_reloader``) or exported ``.pt2`` artifacts
+(``app_from_artifacts``).
 """
 
 from __future__ import annotations
@@ -89,6 +94,7 @@ class ServingApp:
         z_dim: int = 0,
         num_classes: int = 0,
         meta: Optional[dict] = None,
+        reloader: Optional[Callable] = None,  # () -> {"classify", "generate", "step"}
     ):
         if classify is None and generate is None:
             raise ValueError("nothing to serve: no classify or generate fn")
@@ -101,8 +107,9 @@ class ServingApp:
         self.z_dim = int(z_dim)
         self.num_classes = int(num_classes)
         self.meta = dict(meta or {})
+        self.reloader = reloader
         self.device_lock = threading.Lock()
-        self.counters = {"classify": 0, "generate": 0, "errors": 0}
+        self.counters = {"classify": 0, "generate": 0, "reload": 0, "errors": 0}
         # Cumulative seconds per endpoint (device-lock wait + compute).
         self.latency_s = {"classify": 0.0, "generate": 0.0}
         self._counter_lock = threading.Lock()
@@ -126,7 +133,8 @@ class ServingApp:
             "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "endpoints": [
                 e
-                for e, fn in (("classify", self.classify), ("generate", self.generate))
+                for e, fn in (("classify", self.classify), ("generate", self.generate),
+                              ("reload", self.reloader))
                 if fn is not None
             ],
             "classify_batch": self.classify_batch,
@@ -200,7 +208,32 @@ class ServingApp:
             f'triplegan_serving_batch{{fn="classify"}} {self.classify_batch}',
             f'triplegan_serving_batch{{fn="generate"}} {self.generate_batch}',
         ]
+        step = self.meta.get("step")
+        if step is not None:
+            lines += [
+                "# HELP triplegan_checkpoint_step Step of the served checkpoint.",
+                "# TYPE triplegan_checkpoint_step gauge",
+                f"triplegan_checkpoint_step {int(step)}",
+            ]
         return "\n".join(lines) + "\n"
+
+    def do_reload(self) -> dict:
+        """Serve the newest checkpoint: the reloader restores it and builds
+        new serving functions outside the lock (requests go on being
+        served), then they are swapped in under the device lock, so that a
+        request in flight finishes on the old weights and a later one sees
+        the new, never a mix."""
+        if self.reloader is None:
+            raise ValueError("this server has no reload source (artifacts are immutable; "
+                             "reload serves a run dir's checkpoints)")
+        fresh = self.reloader()
+        with self.device_lock:
+            self.classify = fresh.get("classify", self.classify)
+            self.generate = fresh.get("generate", self.generate)
+            if "step" in fresh:
+                self.meta["step"] = int(fresh["step"])
+        self.count("reload")
+        return {"reloaded": True, "step": self.meta.get("step")}
 
     def generate_from_json(self, req: dict) -> np.ndarray:
         n = int(req.get("n", 0) or (len(req["y"]) if "y" in req else 0))
@@ -289,6 +322,8 @@ def make_server(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
                 if route == "/classify":
                     out = app.do_classify(_load_npy(body))
                     self._send(200, _npy_bytes(out), "application/x-npy")
+                elif route == "/reload":
+                    self._send_json(200, app.do_reload())
                 elif route == "/generate":
                     ctype = (self.headers.get("Content-Type") or "").lower()
                     if "json" in ctype:
@@ -315,16 +350,20 @@ def make_server(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
 
 
 def app_from_state(cfg, nets, state, zca_stats=None, batch_size: int = 0, meta=None,
-                   device=None) -> ServingApp:
-    """Serve an in-memory state (``{"gen", "clf"}`` state dicts, see
-    ``bridge.py``) through :func:`export.make_serving_fns` at a static batch
-    size (default ``cfg.batch_size``) on ``device`` (default CUDA)."""
+                   device=None, quantize=None, reloader=None) -> ServingApp:
+    """Serve an in-memory state (a ``TrainState`` or ``{"gen", "clf"}``
+    state dicts, see ``bridge.py``) through :func:`export.make_serving_fns`
+    at a static batch size (default ``cfg.batch_size``) on ``device``
+    (default the card). ``quantize="int8"`` serves the weight-only PTQ
+    variant; ``reloader`` (:func:`make_checkpoint_reloader`) enables
+    ``POST /reload``."""
     from triplegan_tpu_torch.export import make_serving_fns
     from triplegan_tpu_torch.utils.platform import resolve_device
 
     dev = resolve_device(device)
     b = int(batch_size or cfg.batch_size)
-    classify, generate = make_serving_fns(cfg, nets, state, zca_stats=zca_stats, device=dev)
+    classify, generate = make_serving_fns(cfg, nets, state, zca_stats=zca_stats, device=dev,
+                                          quantize=quantize)
     return ServingApp(
         classify=numpy_fn(classify, dev),
         generate=numpy_fn(generate, dev),
@@ -335,4 +374,58 @@ def app_from_state(cfg, nets, state, zca_stats=None, batch_size: int = 0, meta=N
         z_dim=cfg.z_dim,
         num_classes=cfg.num_classes,
         meta=meta,
+        reloader=reloader,
     )
+
+
+def make_checkpoint_reloader(cfg, nets, ckpt, template, zca_stats=None, quantize=None,
+                             device=None) -> Callable:
+    """A :class:`ServingApp` reloader: restore the newest checkpoint of
+    ``ckpt`` (``ckpt/manager.py``, which lists the directory afresh, so a
+    live training run's new checkpoints are seen) into ``template``'s
+    layout and build new serving functions on ``device``."""
+    from triplegan_tpu_torch.export import make_serving_fns
+    from triplegan_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+
+    def reload():
+        ckpt.refresh()
+        fresh = ckpt.restore(template, step=None)
+        if fresh is None:
+            raise ValueError("no checkpoint to reload")
+        classify, generate = make_serving_fns(cfg, nets, fresh, zca_stats=zca_stats, device=dev,
+                                              quantize=quantize)
+        return {"classify": numpy_fn(classify, dev), "generate": numpy_fn(generate, dev),
+                "step": int(fresh.step)}
+
+    return reload
+
+
+def app_from_artifacts(classifier_path: Optional[str] = None, generator_path: Optional[str] = None,
+                       meta=None, device=None) -> ServingApp:
+    """Serve exported ``.pt2`` artifacts (``export.py``) on ``device``
+    (default the card): the serving shapes, dtypes and batch sizes come from
+    the artifacts' own input specs, no config needed. An artifact of the
+    wrong kind (by its input count: a classifier takes 1, a generator 2)
+    raises ``ValueError``."""
+    from triplegan_tpu_torch.export import load_pt2
+    from triplegan_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    kw = dict(meta=meta, device=dev)
+    if classifier_path:
+        art = load_pt2(classifier_path, device=dev)
+        if len(art.in_specs) != 1:
+            raise ValueError(f"{classifier_path} is not a classifier artifact (takes "
+                             f"{len(art.in_specs)} inputs; a classifier takes 1: uint8 images)")
+        (shape, _), = art.in_specs
+        kw.update(classify=numpy_fn(art, dev), classify_batch=shape[0], image_shape=shape[1:])
+    if generator_path:
+        art = load_pt2(generator_path, device=dev)
+        if len(art.in_specs) != 2:
+            raise ValueError(f"{generator_path} is not a generator artifact (takes "
+                             f"{len(art.in_specs)} inputs; a generator takes 2: z, y)")
+        (z_shape, _), _ = art.in_specs
+        kw.update(generate=numpy_fn(art, dev), generate_batch=z_shape[0], z_dim=z_shape[1])
+    return ServingApp(**kw)
