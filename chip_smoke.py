@@ -11,6 +11,19 @@ Phases, each fatal on failure (exit code 1, and no result line):
      checkout (triplegan_tpu_torch/ops/csrc: scale_bias_act.cu, conv3x3.cu
      for float32 convs, conv3x3_sm90.cu for bfloat16 convs), one nvcc per
      source, all started together, and prints each build's seconds;
+  2b. doctor: the datasets of phases 5 and 5c written as their
+     distribution files (CIFAR-10 python pickle batches, 4096 train and
+     1000 test images; STL-10 binaries, 2048 and 256), seeded synthetic
+     images, and converted by ``python -m triplegan_tpu_torch.cli prepare``
+     (cifar10 with its ZCA statistics); then ``cli doctor --config
+     cifar10_4k`` on the cifar10 shards must exit 0, its device finding
+     naming the card and each kernel its probe built, launched once and
+     held to its plain twin (``doctor.PROBE``: scale_bias_act forward and
+     backward, conv3x3 forward and wgrad, float32 and bfloat16); ``cli
+     doctor`` with a data dir that holds nothing must exit 1; and the same
+     device probe with its builds sent to an empty directory (a first
+     doctor on a new machine: three nvcc builds and the gather's g++). The
+     seconds of each prepare, doctor run and cold build;
   3. train: cifar10_4k at full width, ZCA fitted on a 4096-image synthetic
      dataset, through the port's create_state, make_optimizers,
      make_device_train_step and make_eval_step, at two settings:
@@ -51,11 +64,17 @@ Phases, each fatal on failure (exit code 1, and no result line):
      at a few channels, no noise, dropout or augmentation, argmax
      pseudo-labels) on the card with the kernels and on the CPU with their
      plain versions, on the same batches;
+  4b. debug: one eager shipped step on a host batch unchecked and under
+     ``utils/debug.py::checkify_step`` (its slowdown; the same metrics); the
+     D stream's z poisoned with NaN must raise naming an aten operator, and
+     an Inf that first appears in a gradient (on autograd's device thread)
+     must raise naming the backward's node and its forward line; one
+     ``utils/profiling.py::trace`` window around one step, whose Chrome
+     trace must hold each wrapper's hand-written kernels by name;
   5. driver: the train driver (train/loop.py) at cifar10_4k's full width,
-     float32, batch 100, kernel arm, on a seeded synthetic cifar10 written
-     in the layout ``prepare`` writes (4096 train, 1000 test images, ZCA
-     stats beside them), 4 steps an epoch with an eval, a sample grid and
-     a checkpoint each epoch: through ``python -m triplegan_tpu_torch.cli``,
+     float32, batch 100, kernel arm, on the cifar10 shards and ZCA stats
+     that phase 2b's ``cli prepare`` made, 4 steps an epoch with an eval, a
+     sample grid and a checkpoint each epoch: through ``python -m triplegan_tpu_torch.cli``,
      an 8-step run, alone (metrics logged at steps 2, 4, 6, 8, test errors
      at 4 and 8, grids at 4 and 8, checkpoints 4 and 8 kept; the eager
      loop's pace). Then side by side: ``eval``, which must print the 8-step
@@ -74,8 +93,9 @@ Phases, each fatal on failure (exit code 1, and no result line):
      phase 3 launched (so phase 7 holds it against the plain versions);
      each replay under torch.profiler must run each wrapper's kernel 4 ×
      its launches a step; the plain arm launches nothing. Then, alone,
-     an eval and a checkpoint save timed and the graphed loop's pace (12
-     steps, a log every 4);
+     an eval and two checkpoint saves timed (the seconds ``save`` blocks the
+     loop, and until the file is published: saves are asynchronous) and the
+     graphed loop's pace (12 steps, a log every 4);
   5b. host: the host-streamed path at the shipped setting with ddinit and
      the fused classifier (data_on_device off, ddinit on, fused_clf_forward
      on; kernel arm). In this process: ddinit on the card, its launches
@@ -102,10 +122,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
      profiled host-streamed step (none pageable); and one batch's copies
      from device_prefetch's pinned buffers timed with CUDA events;
   5c. mesh: data parallelism (``parallel/mesh.py``) on stl10 at its
-     published widths (96 × 96, batch 128, float32, kernel arm) on a
-     seeded synthetic STL-10 in ``prepare``'s layout (2048 train, 256 test
-     images), 2 ranks on the one card joined by gloo (NCCL refuses two
-     ranks on one device; gloo stages the all-reduces through the host),
+     published widths (96 × 96, batch 128, float32, kernel arm) on the
+     stl10 shards phase 2b's ``cli prepare`` made, 2 ranks on the one card
+     joined by gloo (NCCL refuses two ranks on one device; gloo stages
+     the all-reduces through the host),
      spawned by ``run_local_ranks`` (``mesh_rank``; each rank's wrappers
      count its own launches and report them, keyed by shape). Gates: one
      ``make_train_step`` step on each rank's rows of the global host batch
@@ -154,15 +174,20 @@ Phases, each fatal on failure (exit code 1, and no result line):
      order). The shapes include phase 5b's: the classifier at 3B rows,
      ddinit's, the variants'; and phase 5c's: stl10's 96 × 96 layers at a
      rank's batch of 64 (D at 192 rows, Cin = 3 + 10), at the global batch
-     of 128, in its evals and its grid.
+     of 128, in its evals and its grid; and the doctor probe's. Then the
+     Winograd A/B rows (``winograd_rows``): ``ops/winograd.py`` at the
+     Classifier's SAME convs, float32 and bfloat16, held to
+     ``reference_conv3x3`` and timed against the conv kernels and
+     ``F.conv2d``.
 
 The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
 the source that serves the setting's dtype; "mesh_rank" is one rank's
 stl10 step at mesh (2,)); its top-level numbers are the shipped
 setting's. Its launches are the wrappers' counts over every
-main path (``launches_counted``) plus the launches that the CUDA graph
-replays of those paths made, counted by kernel name in their profiles
+main path (``launches_counted``; the doctor probes' counted in their
+subprocesses and reported in their findings) plus the launches that the
+CUDA graph replays of those paths made, counted by kernel name in their profiles
 (``launches_replayed``).
 
 With --profile, one extra step per train arm and 10 chunks per serving
@@ -186,6 +211,13 @@ Tolerances.
   on |inputs|), K the length of each sum (both sum in float32, in other
   orders), plus one bfloat16 ulp of the value where the output is
   bfloat16 (both round a float32 sum once).
+- Winograd against ``reference_conv3x3`` (u = 2⁻²⁴, M =
+  ``winograd_magnitude``: the computation on magnitudes, which bounds the
+  terms any rounding acts on; n = Cin + 32 additions in an output's
+  chain): float32 (n + 9·Cin)·u·M; bfloat16 2·2⁻⁹·M + n·u·M plus two
+  bfloat16 ulps (V and U are rounded to bfloat16, each side's output once).
+- checkify: the checked step's metrics within 1e-3·(1 + |m|) of the
+  unchecked step's (the train arms' float32 tolerance).
 - train arms, step-1 metrics: float32 within 1e-3·(1 + |m|); bfloat16
   within 2 bfloat16 ulps of max(|a|, |b|, 1): the metrics are bfloat16
   scalars and the arms round their bf16 convs differently, so a metric may
@@ -380,6 +412,130 @@ def build_phase() -> dict:
     cv._lib_sm90()
     secs["wall"] = time.perf_counter() - t0
     return secs
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: prepare the datasets and run the doctor, through the CLI
+# ---------------------------------------------------------------------------
+
+
+def probe_counts(runs: int) -> dict:
+    """The launches of ``runs`` runs of the doctor's device probe, keyed as
+    the wrappers key them: one of each kernel at each ``doctor.PROBE``
+    entry a run."""
+    from triplegan_tpu_torch import doctor
+
+    counts = {name: collections.Counter() for name in WRAPPER_GROUP}
+    for kernel, dtype, shape in doctor.PROBE:
+        if kernel == "scale_bias_act":
+            counts["scale_bias_act"][tuple(shape), dtype, doctor.PROBE_ACT, doctor.PROBE_SLOPE] += runs
+            counts["scale_bias_act_bwd"][tuple(shape), dtype, doctor.PROBE_ACT, doctor.PROBE_SLOPE, "xkb"] += runs
+        else:
+            n, h, w, cin, cout = shape
+            counts["conv3x3_fwd"]["fwd", n, h, w, cin, cout, 1, dtype] += runs
+            counts["conv3x3_wgrad"]["wgrad", n, h, w, cin, cout, 1, dtype] += runs
+    return counts
+
+
+def probe_lines_ok(device_line: str, kind: str) -> None:
+    """A device finding of the doctor must name the card and each
+    ``doctor.PROBE`` entry, its kernel from its source, launched once
+    (forward and backward, or forward and wgrad)."""
+    from triplegan_tpu_torch import doctor
+
+    check(kind in device_line, f"the doctor's device finding does not name {kind}: {device_line}")
+    for kernel, dtype, _ in doctor.PROBE:
+        if kernel == "scale_bias_act":
+            want = f"scale_bias_act {dtype} (scale_bias_act.cu, launches scale_bias_act 1, scale_bias_act_bwd 1;"
+        else:
+            want = f"conv3x3 {dtype} ({doctor.CONV_SOURCE[dtype]}, launches conv3x3_fwd 1, conv3x3_wgrad 1;"
+        check(want in device_line, f"the doctor's device finding lacks {want!r}:\n{device_line}")
+
+
+def cold_probe(build_dir: str) -> dict:
+    """``doctor.check_device`` in this process with every build sent to
+    the empty ``build_dir`` (``enable_build_cache``): what a first ``cli
+    doctor`` on a new machine pays, the three nvcc builds and the gather's
+    g++ build included; its seconds and each build's."""
+    import re
+
+    from triplegan_tpu_torch import doctor
+    from triplegan_tpu_torch.ops import build
+    from triplegan_tpu_torch.utils.cache import enable_build_cache
+
+    prev = build.BUILD_DIR
+    enable_build_cache(build_dir)
+    try:
+        t0 = time.perf_counter()
+        findings, visible, memory = doctor.check_device()
+        secs = time.perf_counter() - t0
+    finally:
+        build.BUILD_DIR = prev
+    check(findings[0][0] == "ok", f"the cold device probe: {findings}")
+    builds = {src: float(t) for src, t in re.findall(r"([\w.]+\.(?:cu|cpp)) ([\d.]+) s", findings[0][2])}
+    check(len(builds) == 4 and len(os.listdir(build_dir)) == 4, f"the cold probe's builds: {builds}")
+    return {"seconds": secs, "build_seconds": builds, "visible": visible, "memory_bytes": memory,
+            "finding": findings[0][2]}
+
+
+def doctor_phase(data_root: str, kind: str) -> dict:
+    """The datasets of phases 5 and 5c written as raw distribution files
+    (``write_raw``: CIFAR-10 pickle batches of 4096 train and 1000 test
+    images; STL-10 binaries of ``MESH_TRAIN`` and ``MESH_TEST``), then, side
+    by side: ``cli prepare`` of each (cifar10 with its ZCA statistics,
+    which the driver then loads), followed for cifar10 by ``cli doctor
+    --config cifar10_4k`` on those shards, which must exit 0 with a device
+    finding that names the card and holds each kernel of ``doctor.PROBE``
+    to its plain twin after one launch; and ``cli doctor --skip-device``
+    with a data dir that holds nothing, which must exit 1 on the data
+    check; and ``cold_probe``, the device probe with its builds sent to an
+    empty directory. Seconds of each."""
+    t0 = time.perf_counter()
+    raw = {name: os.path.join(data_root, f"raw_{name}") for name in ("cifar10", "stl10")}
+    write_raw(raw["cifar10"], "cifar10", 32, DRIVER_TRAIN, DRIVER_TEST)
+    write_raw(raw["stl10"], "stl10", 96, MESH_TRAIN, MESH_TEST)
+    raw_s = time.perf_counter() - t0
+    data_dir, stl_dir = os.path.join(data_root, "data"), os.path.join(data_root, "stl10_data")
+    runs = os.path.join(data_root, "doctor_runs")
+
+    def prepare(name, out):
+        secs, stdout = cli("prepare", "--dataset", name, "--raw-dir", raw[name], "--data-dir", out)
+        check(stdout.strip().splitlines()[-1] == f"prepared {name} → {out}/{name}",
+              f"cli prepare {name} printed {stdout[-500:]!r}")
+        return secs
+
+    def cifar_then_doctor():
+        prep_s = prepare("cifar10", data_dir)
+        doc_s, out = cli("doctor", "--config", "cifar10_4k", "--workdir", runs, "--data-dir", data_dir)
+        return prep_s, doc_s, out
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        f_cifar = ex.submit(cifar_then_doctor)
+        f_stl = ex.submit(prepare, "stl10", stl_dir)
+        f_missing = ex.submit(cli, "doctor", "--config", "cifar10_4k", "--workdir", runs, "--data-dir",
+                              os.path.join(data_root, "empty"), "--skip-device", rc=1)
+        f_cold = ex.submit(cold_probe, os.path.join(data_root, "cold_build"))
+        prep_cifar_s, doctor_s, out = f_cifar.result()
+        prep_stl_s = f_stl.result()
+        missing_s, missing_out = f_missing.result()
+        cold = f_cold.result()
+    side_by_side_s = time.perf_counter() - t0
+    check(all(os.path.exists(os.path.join(data_dir, "cifar10", f)) for f in ("train.npz", "test.npz", "zca_stats.npz")),
+          f"cli prepare cifar10 wrote {os.listdir(os.path.join(data_dir, 'cifar10'))}")
+    check(any(ln.startswith("✗ data") for ln in missing_out.splitlines()), "the doctor on no data failed no data check")
+    device = [ln for ln in out.splitlines() if ln.startswith("✓ device")]
+    check(len(device) == 1, f"the doctor printed no passing device finding:\n{out}")
+    probe_lines_ok(device[0], kind)
+    probe_lines_ok(cold["finding"], kind)
+    check(not any(ln.startswith("✗") for ln in out.splitlines()), f"the doctor failed a check:\n{out}")
+    counts = probe_counts(2)  # cli doctor's probe and the cold one
+    res = {"raw_write_seconds": raw_s, "prepare_cifar10_seconds": prep_cifar_s, "prepare_stl10_seconds": prep_stl_s,
+           "doctor_seconds": doctor_s, "doctor_missing_data_seconds": missing_s, "cold_probe": cold,
+           "side_by_side_seconds": side_by_side_s, "doctor_findings": out.strip().splitlines(),
+           "launches": totals(counts), "_counts": counts, "_data_dir": data_dir, "_stl10_dir": stl_dir}
+    emit("doctor", public(res))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -995,51 +1151,166 @@ def card_vs_cpu_phase(data, zca) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the debug tools: checkify_step and a trace window
+# ---------------------------------------------------------------------------
+
+
+def debug_phase(data, zca) -> dict:
+    """One eager shipped step (cifar10_4k, float32, batch 100, kernel arm,
+    ``make_train_step`` on a host batch from ``BatchSampler``) timed
+    unchecked and under ``utils/debug.py::checkify_step`` (twice: the first
+    call pays the dispatch mode's first use; the slowdown is the second's),
+    whose metrics must equal the unchecked step's within phase 3's
+    float32 tolerance; the same step with the D stream's ``z`` poisoned
+    (NaN) must raise ``NonFiniteError`` naming an aten operator; a step
+    whose first Inf appears in a gradient (the derivative of sqrt at 0, run
+    by autograd's device thread) must raise naming ``SqrtBackward0``. Then
+    one ``utils/profiling.py::trace`` window around one step, whose Chrome
+    trace must hold each group of hand-written kernels by name
+    (``HAND_KERNELS``, the wrappers' groups); their counts there against
+    the launches a step implies are reported (the profiler may drop a
+    record at the window's edges: no gate on them)."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.data.pipeline import BatchSampler
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+    from triplegan_tpu_torch.train.step import make_train_step
+    from triplegan_tpu_torch.utils.debug import NonFiniteError, checkify_step
+    from triplegan_tpu_torch.utils.profiling import trace
+
+    cfg = train_cfg("float32", BATCH, False, True)
+    nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
+    state = create_state(cfg, nets, opts, device="cuda")
+    step = make_train_step(cfg, nets, opts, TOTAL_STEPS, zca)
+    host = BatchSampler(data, BATCH, seed=SEED).next_triple(cfg.z_dim, cfg.num_classes)
+
+    def on_card(batch):
+        return {k: {kk: torch.as_tensor(v, device="cuda") for kk, v in s.items()} for k, s in batch.items()}
+
+    def timed(fn, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = fn(state, on_card(batch))
+        m = {k: float(v) for k, v in m.items()}
+        return time.perf_counter() - t0, m
+
+    step(state, on_card(host))  # warm-up: cuDNN's plans, the kernels' first calls
+    checked = checkify_step(step)
+    plain_s, want = timed(step, host)
+    first_checked_s, _ = timed(checked, host)  # the dispatch mode's first use included
+    checked_s, got = timed(checked, host)
+    for k in want:
+        check(abs(got[k] - want[k]) <= 1e-3 * (1 + abs(want[k])), f"checkify changed {k}: {got[k]} vs {want[k]}")
+    poisoned = {k: dict(v) for k, v in host.items()}
+    poisoned["d"]["z"] = np.full_like(host["d"]["z"], np.nan)
+    try:
+        checked(state, on_card(poisoned))
+        fail("checkify_step let a step with a NaN z through")
+    except NonFiniteError as e:
+        poisoned_msg = str(e)
+    check(poisoned_msg.startswith("NaN or Inf in the output of aten."), f"checkify's error: {poisoned_msg}")
+
+    def grad_step(st, batch):
+        x = batch.clone().requires_grad_(True)
+        g, = torch.autograd.grad((x.sqrt() * 2.0).sum(), x)
+        return st, {"g": g.sum()}
+
+    try:
+        checkify_step(grad_step)(None, torch.tensor([0.0, 1.0], device="cuda"))
+        fail("checkify_step let an Inf that first appears in a gradient through")
+    except NonFiniteError as e:
+        grad_msg = str(e)
+    check("in the backward of SqrtBackward0" in grad_msg and "its forward at " in grad_msg,
+          f"checkify's gradient error: {grad_msg}")
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with trace(logdir) as path:
+            float(step(state, on_card(host))[1]["loss_c"])
+            time.sleep(PROFILE_MARGIN_S)
+        with open(path) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        trace_mb = os.path.getsize(path) / 1e6
+    finally:
+        import shutil
+
+        shutil.rmtree(logdir, ignore_errors=True)
+    in_trace = {name: sum(1 for n in names if any("(anonymous namespace)::" + f in n for f in HAND_KERNELS[group]))
+                for name, group in WRAPPER_GROUP.items()}
+    for name, n in in_trace.items():
+        check(n > 0, f"the trace window's Chrome trace holds no {name} kernel ({HAND_KERNELS[WRAPPER_GROUP[name]]})")
+    res = {"config": "cifar10_4k float32 batch 100 kernel arm, make_train_step on a host batch",
+           "step_seconds": plain_s, "first_checked_step_seconds": first_checked_s,
+           "checked_step_seconds": checked_s, "checkify_slowdown": checked_s / plain_s,
+           "poisoned_error": poisoned_msg, "gradient_error": grad_msg, "trace_kernels": in_trace,
+           "trace_kernels_implied": step_totals(cfg), "trace_device_kernels": len(names), "trace_mb": trace_mb}
+    emit("debug", res)
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the train driver, checkpoints and resume, through the CLI
 # ---------------------------------------------------------------------------
 
 DRIVER_SETS = ["steps_per_epoch=4", "eval_every_epochs=1", "ckpt_every_epochs=1", "log_every=2"]
+DRIVER_TRAIN = 4096  # more than cifar10's 3072 pixel values, so that ZCA's covariance is of full rank
 DRIVER_TEST = 1000  # test images: 10 eval batches of 100
 
 
-def write_prepared(data_dir: str, dataset: str = "cifar10", size: int = 32, n_train: int = 4096,
-                   n_test: int = DRIVER_TEST, zca: bool = True) -> str:
-    """A seeded synthetic dataset in the layout ``prepare`` writes
-    ({data_dir}/{dataset}/{train,test}.npz: uint8 NHWC ``images`` of
-    size × size × 3, int32 ``labels``; class-dependent blobs as
-    ``synthetic_dataset`` draws them). For cifar10 4096 train images, so
-    that ZCA has more samples than its 3072 dims, and the ZCA stats fitted
-    once beside the shards (zca_stats.npz), which each run then loads
-    instead of fitting its own."""
-    from triplegan_tpu_torch.data.zca import fit_zca
+def synthetic_split(n: int, size: int, rng) -> tuple:
+    """n seeded images of size × size × 3, class-dependent blobs as
+    ``synthetic_dataset`` draws them, and their int32 labels."""
+    y = rng.randint(0, 10, size=n).astype(np.int32)
+    x = (y[:, None, None, None].astype(np.float32) + 1.0) * (255.0 / 11) + \
+        rng.normal(0, 24.0, size=(n, size, size, 3))
+    return np.clip(x, 0, 255).astype(np.uint8), y
+
+
+def write_raw(raw_dir: str, dataset: str, size: int, n_train: int, n_test: int) -> None:
+    """A seeded synthetic dataset (``synthetic_split``: the train images,
+    then the test images, from one stream) written as the dataset's
+    distribution files, which ``cli prepare`` converts: cifar10 as
+    ``cifar-10-batches-py/data_batch_1..5`` (the train images in five
+    python pickle batches of rows of 3072 CHW bytes) and ``test_batch``;
+    stl10 as ``stl10_binary/{train,test}_X.bin`` (CWH bytes an image) and
+    ``_y.bin`` (labels 1..10)."""
+    import pickle
 
     rng = np.random.RandomState(SEED)
+    (x_tr, y_tr), (x_te, y_te) = synthetic_split(n_train, size, rng), synthetic_split(n_test, size, rng)
+    if dataset == "cifar10":
+        d = os.path.join(raw_dir, "cifar-10-batches-py")
+        os.makedirs(d)
+        parts = [(f"data_batch_{i + 1}", x_tr[idx], y_tr[idx])
+                 for i, idx in enumerate(np.array_split(np.arange(n_train), 5))]
+        for name, x, y in parts + [("test_batch", x_te, y_te)]:
+            with open(os.path.join(d, name), "wb") as f:
+                pickle.dump({b"data": x.transpose(0, 3, 1, 2).reshape(len(x), -1), b"labels": y.tolist()}, f)
+    else:
+        check(dataset == "stl10", f"no raw writer for {dataset}")
+        d = os.path.join(raw_dir, "stl10_binary")
+        os.makedirs(d)
+        for split, x, y in (("train", x_tr, y_tr), ("test", x_te, y_te)):
+            with open(os.path.join(d, f"{split}_X.bin"), "wb") as f:
+                f.write(x.transpose(0, 3, 2, 1).tobytes())
+            with open(os.path.join(d, f"{split}_y.bin"), "wb") as f:
+                f.write((y + 1).astype(np.uint8).tobytes())
 
-    def make(n):
-        y = rng.randint(0, 10, size=n).astype(np.int32)
-        x = (y[:, None, None, None].astype(np.float32) + 1.0) * (255.0 / 11) + \
-            rng.normal(0, 24.0, size=(n, size, size, 3))
-        return np.clip(x, 0, 255).astype(np.uint8), y
 
-    ddir = os.path.join(data_dir, dataset)
-    os.makedirs(ddir)
-    for split, n in (("train", n_train), ("test", n_test)):
-        x, y = make(n)
-        np.savez(os.path.join(ddir, f"{split}.npz"), images=x, labels=y)
-        if split == "train" and zca:
-            fit_zca(x).save(os.path.join(ddir, "zca_stats.npz"))
-    return ddir
-
-
-def cli(*args, timeout=600) -> tuple:
+def cli(*args, timeout=600, rc=0) -> tuple:
     """Run ``python -m triplegan_tpu_torch.cli`` with these arguments from
-    this checkout: (seconds, standard output); fails unless it exits 0."""
+    this checkout: (seconds, standard output); fails unless it exits
+    ``rc``."""
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "triplegan_tpu_torch.cli", *args], cwd=REPO,
                          capture_output=True, text=True, timeout=timeout)
     secs = time.perf_counter() - t0
-    check(out.returncode == 0, f"cli {' '.join(args[:1])} exited {out.returncode}:\n"
-                               f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    check(out.returncode == rc, f"cli {' '.join(args[:1])} exited {out.returncode}, want {rc}:\n"
+                                f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
     return secs, out.stdout
 
 
@@ -1258,8 +1529,9 @@ def step_totals(cfg) -> dict:
 
 
 def driver_timing(data_dir, workdir, inproc, n_steps=12) -> dict:
-    """With nothing else running: one eval and one checkpoint save of the
-    in-process run's final state, timed; and the graphed loop's own pace:
+    """With nothing else running: one eval and two checkpoint saves of the
+    in-process run's final state, timed (the seconds ``save`` blocks, and
+    the seconds until the file is published); and the graphed loop's own pace:
     an in-process run of ``n_steps`` steps (shipped setting, kernel arm,
     cuDNN deterministic as the driver runs) with ``scan_steps=4``, a log
     every 4 steps and no eval, grid or checkpoint before the end; ms/step
@@ -1284,11 +1556,21 @@ def driver_timing(data_dir, workdir, inproc, n_steps=12) -> dict:
     err = evaluate_error(eval_step, state, train_loop._test_stream(sampler, torch.device("cuda")))
     eval_s = time.perf_counter() - t0
     check(err == res["test_error"], f"re-evaluated error {err} != the run's {res['test_error']}")
-    t0 = time.perf_counter()
+    # two saves of the state in turn, as the loop makes them (the first also
+    # allocates the manager's pinned host buffers): how long save blocks the
+    # loop, and how long until the file is published
     saver = CheckpointManager(os.path.join(workdir, "save_timing"))
-    saver.save(state.step, state)
-    save_s = time.perf_counter() - t0
+    blocks, published = [], []
+    for step_no in (state.step, state.step + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(saver.save(step_no, state), f"save {step_no} refused")
+        blocks.append(time.perf_counter() - t0)
+        saver.wait()
+        published.append(time.perf_counter() - t0)
     ckpt_bytes = os.path.getsize(os.path.join(saver.directory, str(state.step)))
+    check(not ckpt_equal(os.path.join(saver.directory, str(state.step)),
+                         os.path.join(saver.directory, str(state.step + 1))), "the two saves differ")
 
     det = torch.backends.cudnn.deterministic
     try:
@@ -1302,7 +1584,8 @@ def driver_timing(data_dir, workdir, inproc, n_steps=12) -> dict:
         recs = [json.loads(ln) for ln in f]
     ms = {r["step"]: 1e3 * cfg.batch_size / r["images_per_sec"] for r in recs if "images_per_sec" in r}
     check(sorted(ms) == list(range(4, n_steps + 1, 4)), f"loop timing logged at {sorted(ms)}")
-    return {"eval_seconds": eval_s, "ckpt_save_seconds": save_s, "ckpt_bytes": ckpt_bytes,
+    return {"eval_seconds": eval_s, "ckpt_save_blocks_seconds": blocks, "ckpt_save_published_seconds": published,
+            "ckpt_bytes": ckpt_bytes,
             "graphed_loop_ms_per_step_by_log": ms,
             "graphed_loop_ms_per_step": statistics.mean(v for st, v in ms.items() if st > 4)}
 
@@ -2548,8 +2831,8 @@ def mesh_phase(data_root, dev) -> dict:
     from triplegan_tpu_torch.train.state import create_state
 
     t_start = time.perf_counter()
+    # the shards phase 2b's `cli prepare --dataset stl10` made
     data_dir, workdir = os.path.join(data_root, "stl10_data"), os.path.join(data_root, "mesh_runs")
-    write_prepared(data_dir, "stl10", 96, MESH_TRAIN, MESH_TEST, zca=False)
     data = load_dataset(data_dir, "stl10", MESH_NUM_LABELED, 10, SEED)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3128,8 +3411,58 @@ def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def path_launches(train_arms, serve_arms, host, mesh, deploy) -> list:
-    """The keyed launch counts of each main path: the first kernel-arm run
+def winograd_rows(gen, flush) -> list:
+    """``ops/winograd.py::conv3x3_winograd`` (an A/B arm that no main path
+    calls) at cifar10_4k's Classifier SAME convs (batch 100; every H and W
+    there is even), float32 and bfloat16: held to ``reference_conv3x3`` on
+    the same inputs within its tolerance (u = 2⁻²⁴, M =
+    ``winograd_magnitude``, n = Cin + 32 additions in a Winograd output's
+    chain: float32 (n + 9·Cin)·u·M; bfloat16 2·2⁻⁹·M + n·u·M plus two
+    bfloat16 ulps, for V and U rounded to bfloat16), and timed cold
+    (``time_ms``) against the conv kernel of that dtype (``conv3x3``, SAME)
+    and ``F.conv2d``."""
+    import torch
+    import torch.nn.functional as F
+
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+    from triplegan_tpu_torch.ops.winograd import conv3x3_winograd, winograd_magnitude
+
+    cfg = train_cfg("float32", BATCH, False, True)
+    shapes = sorted({(h, cin, cout) for h, cin, cout, halo in conv_layers(cfg)[2] if halo == 1 and h % 2 == 0})
+    rows, u = [], 2.0 ** -24
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, cin, cout in shapes:
+            x = torch.randn((BATCH, h, h, cin), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") / math.sqrt(9 * cin)).to(dtype)
+            got = conv3x3_winograd(x, w)
+            torch.cuda.synchronize()
+            want = cv.reference_conv3x3(x, w)
+            check(got.shape == want.shape and got.dtype == want.dtype, f"winograd {(h, cin, cout)}: {got.dtype}")
+            mag, n = winograd_magnitude(x, w).double(), cin + 32
+            if dtype == torch.float32:
+                lim = (n + 9 * cin) * u * mag
+            else:
+                lim = 2 * 2.0 ** -9 * mag + n * u * mag + 2 * bf16_ulp(torch.maximum(got.abs(), want.abs()))
+            err = (got.double() - want.double()).abs()
+            check(bool((err <= lim).all()), f"winograd {(BATCH, h, h, cin, cout)} {dtype}: max err "
+                                            f"{float(err.max())} exceeds its tolerance")
+            row = {"input": [BATCH, h, h, cin], "cout": cout, "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": float(err.max()), "max_err_share": float((err / lim).max())}
+            del got, want, mag, err, lim
+            xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+            for name, fn in (("winograd", lambda: conv3x3_winograd(x, w)), ("kernel", lambda: cv.conv3x3(x, w)),
+                             ("library", lambda: F.conv2d(xc, wc, padding=1))):
+                row[f"{name}_ms"] = time_ms(fn, flush, reps=5, warm=2)["cold"]
+            rows.append(row)
+            emit("winograd", row)
+    return rows
+
+
+def path_launches(train_arms, serve_arms, host, mesh, deploy, doctor) -> list:
+    """The keyed launch counts of each main path: the doctor's device
+    probes (``cli doctor``'s and the cold one: one launch of each kernel at
+    each ``doctor.PROBE`` entry each, in their subprocesses), the first
+    kernel-arm run
     of each train setting (per step), the host-streamed fused step (per
     step), its ddinit, each layer variant's step, the mesh phase's stl10
     runs (a rank's stochastic step, per step; the one-process step on the
@@ -3138,7 +3471,7 @@ def path_launches(train_arms, serve_arms, host, mesh, deploy) -> list:
     warm-up and capture), each serving dtype (over its main path: one
     /classify and two /generate of 250 images), and the deploy phase's
     artifact call pair."""
-    sources, seen = [], set()
+    sources, seen = [("doctor probe", doctor["_counts"], {})], set()
     for arm in train_arms:
         if arm["use_pallas"] and arm["setting"] not in seen:
             seen.add(arm["setting"])
@@ -3201,8 +3534,9 @@ def kernel_phase(sources) -> tuple:
                **conv_case(op, n, h, w, cin, cout, pad, getattr(torch, dtype), gen, flush, reps=5)}
         conv_rows.append(row)
         emit("conv3x3", row)
+    wino_rows = winograd_rows(gen, flush)
     del flush
-    return sba_rows, bwd_rows, conv_rows
+    return sba_rows, bwd_rows, conv_rows, wino_rows
 
 
 # ---------------------------------------------------------------------------
@@ -3398,25 +3732,30 @@ def main():
     emit("build", build_s)
     phases["build"] = time.perf_counter() - t_start
 
-    # 3. train
-    train_arms, data, zca = train_phase(args.steps, args.profile)
-    phases["train"] = time.perf_counter() - t_start
-
-    # 3b. K train steps a dispatch, as a CUDA graph
-    graph_arms = graph_phase(data, zca)
-    phases["graph"] = time.perf_counter() - t_start
-
-    # 4. card against CPU
-    card_cpu = card_vs_cpu_phase(data, zca)
-    phases["card_vs_cpu"] = time.perf_counter() - t_start
-
-    # 5. the train driver through the CLI, on a prepared synthetic cifar10
     data_root = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
-        data_dir = os.path.join(data_root, "data")
-        t0 = time.perf_counter()
-        write_prepared(data_dir)
-        emit("prepared", {"seconds": time.perf_counter() - t0})
+        # 2b. the datasets through cli prepare, and cli doctor on them
+        doctor = doctor_phase(data_root, kind)
+        data_dir = doctor["_data_dir"]
+        phases["doctor"] = time.perf_counter() - t_start
+
+        # 3. train
+        train_arms, data, zca = train_phase(args.steps, args.profile)
+        phases["train"] = time.perf_counter() - t_start
+
+        # 3b. K train steps a dispatch, as a CUDA graph
+        graph_arms = graph_phase(data, zca)
+        phases["graph"] = time.perf_counter() - t_start
+
+        # 4. card against CPU
+        card_cpu = card_vs_cpu_phase(data, zca)
+        phases["card_vs_cpu"] = time.perf_counter() - t_start
+
+        # 4b. checkify_step and a trace window
+        debug = debug_phase(data, zca)
+        phases["debug"] = time.perf_counter() - t_start
+
+        # 5. the train driver through the CLI, on the shards cli prepare made
         driver = driver_phase(train_arms, graph_arms, data_dir)
         phases["driver"] = time.perf_counter() - t_start
 
@@ -3441,18 +3780,20 @@ def main():
     torch.cuda.synchronize(dev)
     phases["serve"] = time.perf_counter() - t_start
 
-    # 7. kernels, at the shapes the main paths launched them at
-    sba_rows, bwd_rows, conv_rows = kernel_phase(path_launches(train_arms, serve_arms, host, mesh, deploy))
+    # 7. kernels, at the shapes the main paths launched them at; the winograd A/B rows
+    sba_rows, bwd_rows, conv_rows, wino_rows = kernel_phase(
+        path_launches(train_arms, serve_arms, host, mesh, deploy, doctor))
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
 
-    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver, host, mesh, deploy],
+    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver, host, mesh, deploy, doctor],
                       serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "conv_rows": conv_rows,
+                       "winograd_rows": wino_rows, "doctor": public(doctor), "debug": debug,
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms],
                        "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),

@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     modules = _all_modules()
     for m in ("ops.scale_bias_act", "ops.conv3x3", "train.step", "train.losses",
               "train.schedule", "train.state", "data.datasets", "cli", "train.loop",
-              "ckpt.manager", "eval.metrics", "eval.sample", "data.pipeline", "utils.logging"):
+              "ckpt.manager", "eval.metrics", "eval.sample", "data.pipeline", "utils.logging",
+              "data.prepare", "data.download", "doctor", "utils.profiling", "utils.debug",
+              "utils.cache", "ops.winograd"):
         assert f"triplegan_tpu_torch.{m}" in modules
     # A fresh interpreter: this test process has imported jax already.
     code = (
@@ -46,6 +48,23 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def _py_modules(package_dir):
+    """The package's .py modules as paths relative to it."""
+    out = set()
+    for root, _, files in os.walk(package_dir):
+        out |= {os.path.relpath(os.path.join(root, f), package_dir) for f in files if f.endswith(".py")}
+    return out
+
+
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    """The port does what the JAX package does: every module of it, but
+    the Pallas kernels' (whose counterparts are the CUDA kernels of
+    ops/csrc), has a module of the same path in the port."""
+    jax_modules = {m for m in _py_modules(os.path.join(REPO, "triplegan_tpu"))
+                   if not os.path.basename(m).startswith("pallas_")}
+    assert sorted(jax_modules - _py_modules(os.path.join(REPO, "triplegan_tpu_torch"))) == []
 
 
 def test_resolve_device_needs_a_card_unless_cpu_is_asked_for():

@@ -89,7 +89,7 @@ def test_load_dataset_matches_jax_bitwise(tmp_path):
         x, y = getattr(a, k), getattr(b, k)
         assert x.dtype == y.dtype and x.shape == y.shape and x.flags.c_contiguous, k
         np.testing.assert_array_equal(x, y)
-    with pytest.raises(FileNotFoundError, match="python -m triplegan_tpu.cli prepare --dataset nope"):
+    with pytest.raises(FileNotFoundError, match="python -m triplegan_tpu_torch.cli prepare --dataset nope"):
         datasets.load_dataset(str(tmp_path), "nope", 40)
 
 

@@ -13,13 +13,23 @@ A save is published atomically: the file is written to
 reader sees the whole checkpoint or none. A save interrupted before the
 rename leaves its tmp file behind; readers ignore such files, and a
 manager opened to write (the train driver) deletes them on opening. Only
-the ``max_to_keep`` newest checkpoints are kept. Saving is synchronous.
+the ``max_to_keep`` newest checkpoints are kept.
+
+Saves are asynchronous, as the JAX manager's orbax saves are: ``save``
+copies every tensor of the state to the host (into pinned buffers kept
+for the next save, when the state lies on the card) and waits for those
+copies, so the caller may change the state the moment ``save`` returns
+(a ``ScanChunk`` writes into the state's own tensors); then one writer
+thread writes, fsyncs, renames and prunes while the caller trains on. At
+most one save is in flight: the next ``save`` waits for it. ``wait``
+joins the writer and raises what it raised; ``close`` waits.
 
 Under a data mesh (``parallel/mesh.py``) the state is replicated, so the
-coordinator alone writes, and every rank waits in ``save`` until the
-file is published; every rank restores the same file. A checkpoint holds
-no trace of the mesh it was written on: one written by N ranks restores
-exactly on M.
+coordinator alone writes; every rank returns the same answer from
+``save``, and ``wait`` and ``close`` end in a barrier after the
+coordinator's file is published (every rank raises if its write failed).
+Every rank restores the same file. A checkpoint holds no trace of the mesh
+it was written on: one written by N ranks restores exactly on M.
 
 The JAX package's checkpoints (orbax directories) are not read here;
 weights cross between the packages through ``bridge.py``.
@@ -28,6 +38,7 @@ weights cross between the packages through ``bridge.py``.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, List, Optional
 
 import torch
@@ -91,6 +102,10 @@ class CheckpointManager:
         self.max_to_keep = int(max_to_keep)
         self.mesh = mesh
         self._coordinator = mesh is None or mesh.coordinator
+        self._writer: Optional[threading.Thread] = None
+        self._inflight: Optional[int] = None
+        self._error: Optional[Exception] = None
+        self._staging: Dict[str, torch.Tensor] = {}
         os.makedirs(self.directory, exist_ok=True)
         if write and self._coordinator:
             for name in os.listdir(self.directory):
@@ -106,38 +121,91 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: TrainState) -> bool:
-        """Publish ``state`` as checkpoint ``step`` and drop the oldest
-        beyond ``max_to_keep``. A step at or below the latest saved one is
-        not saved again (False), as orbax does. Under a mesh the
-        coordinator saves and every rank returns its answer once the file is
-        published."""
-        saved = self._save(step, state) if self._coordinator else False
+        """Start publishing ``state`` as checkpoint ``step`` (True), once the
+        save in flight, if any, is published; the state's tensors are
+        copied to the host before this returns. A step at or below the
+        latest saved or in flight is not saved again (False), as orbax
+        does. Under a mesh every rank returns the coordinator's answer."""
+        saved = self._save(int(step), state) if self._coordinator else False
         if self.mesh is not None:
-            saved = self.mesh.any(saved)  # the barrier: after the coordinator's rename
+            saved = self.mesh.any(saved)
         return saved
 
     def _save(self, step: int, state: TrainState) -> bool:
-        latest = self.latest_step()
-        if latest is not None and step <= latest:
+        known = self.all_steps() + ([] if self._inflight is None else [self._inflight])
+        if known and step <= max(known):
             return False
-        final = os.path.join(self.directory, str(int(step)))
-        tmp = f"{final}{_TMP}{os.getpid()}"
-        with open(tmp, "wb") as f:
-            torch.save(_payload(state), f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, final)
-        if self.max_to_keep > 0:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                os.remove(os.path.join(self.directory, str(old)))
+        self.join()
+        self._raise_error()
+        payload = self._host_copy(_payload(state))
+        self._inflight = step
+        self._writer = threading.Thread(target=self._write, args=(step, payload),
+                                        name=f"ckpt-save-{step}", daemon=False)
+        self._writer.start()
         return True
+
+    def _host_copy(self, payload: dict) -> dict:
+        """``payload`` with every tensor copied into a host buffer of this
+        manager's, once the copies are done. The writer of the previous
+        save has finished with the buffers (``_save`` joins it first)."""
+        cards = set()
+        for key, t in _leaves(payload).items():
+            if not isinstance(t, torch.Tensor):
+                continue
+            buf = self._staging.get(key)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = self._staging[key] = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                                                       pin_memory=t.is_cuda)
+            buf.copy_(t, non_blocking=t.is_cuda)
+            if t.is_cuda:
+                cards.add(t.device)
+        for dev in cards:
+            torch.cuda.synchronize(dev)
+
+        def rebuild(tree, prefix=""):
+            return {k: rebuild(v, f"{prefix}{k}/") if isinstance(v, dict) else
+                    (self._staging[prefix + k] if isinstance(v, torch.Tensor) else v)
+                    for k, v in tree.items()}
+
+        return rebuild(payload)
+
+    def _write(self, step: int, payload: dict) -> None:
+        final = os.path.join(self.directory, str(step))
+        tmp = f"{final}{_TMP}{os.getpid()}"
+        try:
+            with open(tmp, "wb") as f:
+                torch.save(payload, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, final)
+            if self.max_to_keep > 0:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    os.remove(os.path.join(self.directory, str(old)))
+        except Exception as e:  # kept for wait(), which raises it in the caller's thread
+            self._error = e
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    def join(self) -> None:
+        """Wait until the save in flight, if any, is published or has
+        failed; no collective, and no error raised (``wait`` raises it)."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = self._inflight = None
+
+    def _raise_error(self) -> None:
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
 
     def restore(self, template: TrainState, step: Optional[int] = None) -> Optional[TrainState]:
         """The checkpoint ``step`` (default the latest) as a ``TrainState``
         on the device of ``template``'s tensors, which it must match key for
         key, in shape and dtype. None when there is no checkpoint;
         ``FileNotFoundError`` listing the steps there are for an explicit
-        ``step`` that is not one of them."""
+        ``step`` that is not one of them. A save of this manager's in
+        flight is published first."""
+        self.join()
         steps = self.all_steps()
         target = step if step is not None else (steps[-1] if steps else None)
         if target is None:
@@ -163,7 +231,15 @@ class CheckpointManager:
         (kept for the JAX manager's interface)."""
 
     def wait(self) -> None:
-        """Nothing to wait for: saves are synchronous."""
+        """Block until the save in flight is published; raise the error of
+        its write, if it failed. Under a mesh every rank waits for the
+        coordinator's (the barrier) and raises if it failed."""
+        self.join()
+        failed = self._error is not None
+        if self.mesh is not None and self.mesh.any(failed) and not failed:
+            raise RuntimeError(f"the coordinator's checkpoint save under {self.directory} failed")
+        self._raise_error()
 
     def close(self) -> None:
-        """Nothing to release."""
+        """``wait``: the last save is published when this returns."""
+        self.wait()

@@ -9,6 +9,8 @@
     python -m triplegan_tpu_torch.cli serve     --config cifar10_4k --workdir runs [--port 8000]
     python -m triplegan_tpu_torch.cli serve     --classifier classify.pt2 --generator generate.pt2
     python -m triplegan_tpu_torch.cli predict   --config cifar10_4k --workdir runs --input imgs.npy [--artifact A.pt2]
+    python -m triplegan_tpu_torch.cli prepare   --dataset cifar10 --raw-dir raw --data-dir data [--download]
+    python -m triplegan_tpu_torch.cli doctor    [--config cifar10_4k --workdir runs --data-dir data]
 
 ``train`` runs the train driver (``train/loop.py``) in ``<workdir>/<name>``:
 metrics, sample grids, checkpoints, and ``config.json``; run again, it
@@ -23,7 +25,11 @@ classifier's, which must match), ``sample`` a grid, ``inception`` and
 (``POST /reload`` serves the newest checkpoint). ``serve`` also takes
 exported artifacts (``--classifier``/``--generator``), or a
 ``params.npz`` in the JAX package's layout (``--params``, or the run dir's
-``export/params.npz`` when it has no checkpoint).
+``export/params.npz`` when it has no checkpoint). ``prepare`` converts raw
+dataset files into the shards the others read (``data/prepare.py``), and
+``doctor`` checks a machine and a run before it starts (``doctor.py``):
+its device probe builds the kernels and holds each to its plain twin on
+the card; it exits 1 if any check fails.
 
 The run dir's ``config.json`` is merged over the named config as the JAX
 CLI does, and ``--set key=value`` overrides any config field, e.g.
@@ -39,6 +45,10 @@ process a card (``cuda:LOCAL_RANK``; the CPU with ``--device cpu``)::
 The ranks share the work and the coordinator (rank 0) prints and writes;
 a ``mesh_shape`` that is not the number of processes raises. The other
 commands run as one process.
+
+Every command first points the kernels' builds at their directory
+(``utils/cache.py::enable_build_cache``): the package's ``_build/`` where
+it can be written, else ``~/.cache/triplegan_tpu_torch_build``.
 """
 
 from __future__ import annotations
@@ -519,6 +529,30 @@ def cmd_predict(args):
     print(f"predicted {len(labels)} images → {args.out} (class counts: {counts.tolist()})")
 
 
+def cmd_doctor(args):
+    """Every check of ``doctor.py``; exits 1 if and only if one fails."""
+    from triplegan_tpu_torch.doctor import format_findings, run_doctor
+
+    cfg = workdir = None
+    if args.config:
+        from triplegan_tpu_torch.configs.base import apply_runtime
+
+        cfg = apply_runtime(_load_cfg(args))
+        workdir = os.path.join(cfg.workdir, cfg.name)
+    findings = run_doctor(cfg, workdir, skip_device=args.skip_device,
+                          device_timeout_s=args.device_timeout, device=args.device)
+    print(format_findings(findings))
+    if any(lv == "fail" for lv, _, _ in findings):
+        sys.exit(1)
+
+
+def cmd_prepare(args):
+    from triplegan_tpu_torch.data.prepare import prepare
+
+    prepare(args.dataset, args.raw_dir, args.data_dir, download=args.download)
+    print(f"prepared {args.dataset} → {args.data_dir}/{args.dataset}")
+
+
 def _device_arg(value: str) -> str:
     if value in ("cuda", "cpu") or (value.startswith("cuda:") and value[5:].isdigit()):
         return value
@@ -648,7 +682,36 @@ def main(argv=None):
                     help="weight-only int8 PTQ (checkpoint source only)")
     sp.set_defaults(fn=cmd_predict)
 
+    from triplegan_tpu_torch.doctor import DEVICE_TIMEOUT_S
+
+    sp = sub.add_parser("doctor", help="diagnose the deployment: the card and the kernels, versions, "
+                                       "config, data, mesh, memory, checkpoints")
+    sp.add_argument("--config", default=None, help="also check this config's data, mesh and run dir")
+    sp.add_argument("--workdir", default=None)
+    sp.add_argument("--data-dir", default=None)
+    sp.add_argument("--set", action="append", metavar="KEY=VALUE")
+    sp.add_argument("--skip-device", action="store_true", help="skip the device probe (a subprocess)")
+    sp.add_argument("--device-timeout", type=int, default=DEVICE_TIMEOUT_S,
+                    help=f"seconds before the device probe counts as hung (default {DEVICE_TIMEOUT_S}: "
+                         f"importing torch, three cold nvcc builds and the gather's g++ build, with room)")
+    sp.add_argument("--device", default="cuda", type=_device_arg,
+                    help="cuda: build, launch and check every kernel on the card; cpu: the plain "
+                         "versions only")
+    sp.set_defaults(fn=cmd_doctor)
+
+    sp = sub.add_parser("prepare", help="convert raw dataset files to npz shards")
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--raw-dir", default="",
+                    help="directory of raw dataset files (not needed for digits, shapes, shapes16)")
+    sp.add_argument("--data-dir", required=True)
+    sp.add_argument("--download", action="store_true",
+                    help="first fetch and checksum-verify the raw files into --raw-dir (needs the network)")
+    sp.set_defaults(fn=cmd_prepare)
+
     args = p.parse_args(argv)
+    from triplegan_tpu_torch.utils.cache import enable_build_cache
+
+    enable_build_cache()
     args.fn(args)
 
 

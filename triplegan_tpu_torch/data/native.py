@@ -4,9 +4,9 @@
 ``csrc/batch_gather.cpp``) gathers rows of a uint8 array into one
 contiguous buffer with a tight ``memcpy`` loop, fanned out over threads for
 large batches. It compiles with ``g++`` at first use into
-``triplegan_tpu_torch/_build/libbatch_gather-<hash>.so`` (the hash over the
-source and the flags, as ``ops/build.py`` builds a ``.cu``) and loads with
-``ctypes``.
+``<build dir>/libbatch_gather-<hash>.so`` (the hash over the source and the
+flags; the directory ``ops/build.py::build_dir`` gives, as for a ``.cu``)
+and loads with ``ctypes``.
 
 Unlike the JAX module there is no silent numpy path: a failed build
 raises, with the compiler's output. The numpy gather is the plain twin,

@@ -29,6 +29,11 @@ the data on the device).
 * at the end, the test error again if the last one is stale, and a final
   checkpoint.
 
+Checkpoints are saved asynchronously (``ckpt/manager.py``): the loop
+trains on while the previous one is written. Every exit publishes the last
+one before ``train`` returns or raises: the normal end, a stop (STOP or
+SIGTERM) and an exception alike.
+
 A run stops early on SIGTERM or when ``<run dir>/STOP`` exists (a stale
 one is removed at start). The stop is checked at the top of each
 iteration, after the step at an epoch boundary, and before each test
@@ -46,8 +51,8 @@ rank builds or restores the same state, takes its rows of each batch
 slice of the global batch, which every rank's sampler draws alike) and of
 each test batch, and the step, the eval and the stop decision are
 collective. The coordinator (rank 0) alone prints, logs, writes grids,
-``config.json``, the ZCA cache and checkpoints (every rank waits for each
-save), and polls the ``STOP`` file; the stop is decided for all ranks at
+``config.json``, the ZCA cache and checkpoints (every rank waits for the
+last one at the end), and polls the ``STOP`` file; the stop is decided for all ranks at
 once by an all-reduce of each rank's stop bit, at the loop top every
 ``TRIPLEGAN_STOP_SYNC_EVERY`` steps (32) and right after an epoch's tail,
 after the step at an epoch boundary, before each test batch, and after
@@ -389,6 +394,7 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
         ckpt.save(state.step, state)
         ckpt.close()
     finally:
+        ckpt.join()  # on an exception's way out too: the save in flight is published
         # The handler stays through the save: a second SIGTERM during it
         # must not kill the process before the checkpoint is published.
         if prev_sigterm is not None:
