@@ -11,11 +11,12 @@ Phases, each fatal on failure (exit code 1, and no result line):
      checkout (triplegan_tpu_torch/ops/csrc: scale_bias_act.cu, conv3x3.cu
      for float32 convs, conv3x3_sm90.cu for bfloat16 convs), one nvcc per
      source, all started together, and prints each build's seconds;
-  2b. doctor: the datasets of phases 5 and 5c written as their
-     distribution files (CIFAR-10 python pickle batches, 4096 train and
-     1000 test images; STL-10 binaries, 2048 and 256), seeded synthetic
-     images, and converted by ``python -m triplegan_tpu_torch.cli prepare``
-     (cifar10 with its ZCA statistics); then ``cli doctor --config
+  2b. doctor: the datasets of phases 3c, 5 and 5c written as their
+     distribution files (CIFAR-10 python pickle batches, MNIST idx files
+     and SVHN .mat files, 4096 train and 1000 test images each; STL-10
+     binaries, 2048 and 256), seeded synthetic images, and converted by
+     ``python -m triplegan_tpu_torch.cli prepare`` (cifar10 with its ZCA
+     statistics); then ``cli doctor --config
      cifar10_4k`` on the cifar10 shards must exit 0, its device finding
      naming the card and each kernel its probe built, launched once and
      held to its plain twin (``doctor.PROBE``: scale_bias_act forward and
@@ -60,6 +61,31 @@ Phases, each fatal on failure (exit code 1, and no result line):
      turns (kernel, plain, plain, kernel); the graph's nodes,
      capture-and-instantiate seconds and pool bytes; and for the shipped
      kernel arm, a turn with cuDNN's deterministic algorithms off;
+  3c. configs: mnist100, svhn1k and cifar10_cond at their published
+     widths (``configs_phase``), kernel arm, cuDNN deterministic, each on
+     its synthetic device data (60000, 8192 and 50000 train images;
+     cifar10_cond fully labeled, with phase 3's ZCA statistics; mnist100
+     and svhn1k without ZCA). Per configuration and arm (float32 batch 100;
+     bfloat16 over float32 weights at batch 384 for mnist100 and
+     cifar10_cond, whose convs take bfloat16 shapes no other arm runs): 2
+     eager steps (1 at bfloat16), then one chunk of 4 steps captured as a
+     CUDA graph and replayed once under torch.profiler; the chunk must
+     equal 4 eager steps from the same state bitwise; the wrappers' counts
+     must be (eager + 4 + 1) × step_launches key for key, the replay's
+     kernels 4 × a step's by name. Then, on the float32 arm's state, an
+     eval step, a class grid and the serving functions
+     (``export.make_serving_fns``, batch 100; launches counted), card
+     against CPU within 1e-4; two steps card against CPU (phase 4's gate;
+     svhn1k and cifar10_cond at a few channels, their published widths
+     reported beside the CPU's own spread, ungated); and for svhn1k and
+     cifar10_cond, ``train_loop.train`` in this process on the shards phase
+     2b prepared, one epoch of 4 steps with its eval, grid and checkpoint,
+     its launches counted. Side by side, mnist100 through the CLI as the
+     README's recipe: ``cli train`` 8 steps on the mnist shards, then
+     ``cli eval`` (train's last error), ``cli sample`` (a grayscale PNG of
+     10 rows) and ``cli serve`` (/classify of 28 × 28 × 1 images, /generate,
+     SIGTERM → 0). Then, alone, each arm's eager and graphed ms/step and
+     device ms/step;
   4. card against CPU: two steps of a cut-down config (cifar10_4k's layers
      at a few channels, no noise, dropout or augmentation, argmax
      pseudo-labels) on the card with the kernels and on the CPU with their
@@ -159,7 +185,7 @@ Phases, each fatal on failure (exit code 1, and no result line):
      must launch 9 epilogues and 7 convs per classify chunk, 4 and 3 per
      generate chunk; outputs checked against each other and the CPU;
   7. kernels: at every (shape, dtype, activation) at which a kernel arm of
-     phases 3 and 6 launched a kernel (for the epilogue's backward, also the
+     phases 3, 3c and 6 launched a kernel (for the epilogue's backward, also the
      gradients it computed), holds the kernel's wrapper to its plain
      PyTorch version on fresh seeded inputs and times both with CUDA events
      (``time_ms``: the L2 flushed by a read and the device held by a spin
@@ -183,7 +209,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
 The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
 the source that serves the setting's dtype; "mesh_rank" is one rank's
-stl10 step at mesh (2,)); its top-level numbers are the shipped
+stl10 step at mesh (2,); "mnist100 float32" and the like are phase 3c's
+arms); its top-level numbers are the shipped
 setting's. Its launches are the wrappers' counts over every
 main path (``launches_counted``; the doctor probes' counted in their
 subprocesses and reported in their findings) plus the launches that the
@@ -479,21 +506,24 @@ def cold_probe(build_dir: str) -> dict:
 
 
 def doctor_phase(data_root: str, kind: str) -> dict:
-    """The datasets of phases 5 and 5c written as raw distribution files
-    (``write_raw``: CIFAR-10 pickle batches of 4096 train and 1000 test
-    images; STL-10 binaries of ``MESH_TRAIN`` and ``MESH_TEST``), then, side
-    by side: ``cli prepare`` of each (cifar10 with its ZCA statistics,
-    which the driver then loads), followed for cifar10 by ``cli doctor
-    --config cifar10_4k`` on those shards, which must exit 0 with a device
-    finding that names the card and holds each kernel of ``doctor.PROBE``
-    to its plain twin after one launch; and ``cli doctor --skip-device``
-    with a data dir that holds nothing, which must exit 1 on the data
-    check; and ``cold_probe``, the device probe with its builds sent to an
-    empty directory. Seconds of each."""
+    """The datasets of phases 3c, 5 and 5c written as raw distribution
+    files (``write_raw``: CIFAR-10 pickle batches, MNIST idx files and SVHN
+    .mat files of 4096 train and 1000 test images each; STL-10 binaries of
+    ``MESH_TRAIN`` and ``MESH_TEST``), then, side by side: ``cli prepare``
+    of each (cifar10 with its ZCA statistics, which the driver then loads),
+    followed for cifar10 by ``cli doctor --config cifar10_4k`` on those
+    shards, which must exit 0 with a device finding that names the card
+    and holds each kernel of ``doctor.PROBE`` to its plain twin after one
+    launch; and ``cli doctor --skip-device`` with a data dir that holds
+    nothing, which must exit 1 on the data check; and ``cold_probe``, the
+    device probe with its builds sent to an empty directory. Seconds of
+    each."""
     t0 = time.perf_counter()
-    raw = {name: os.path.join(data_root, f"raw_{name}") for name in ("cifar10", "stl10")}
-    write_raw(raw["cifar10"], "cifar10", 32, DRIVER_TRAIN, DRIVER_TEST)
-    write_raw(raw["stl10"], "stl10", 96, MESH_TRAIN, MESH_TEST)
+    sizes = {"cifar10": (DRIVER_TRAIN, DRIVER_TEST), "mnist": (DRIVER_TRAIN, DRIVER_TEST),
+             "svhn": (DRIVER_TRAIN, DRIVER_TEST), "stl10": (MESH_TRAIN, MESH_TEST)}
+    raw = {name: os.path.join(data_root, f"raw_{name}") for name in sizes}
+    for name, (n_train, n_test) in sizes.items():
+        write_raw(raw[name], name, n_train, n_test)
     raw_s = time.perf_counter() - t0
     data_dir, stl_dir = os.path.join(data_root, "data"), os.path.join(data_root, "stl10_data")
     runs = os.path.join(data_root, "doctor_runs")
@@ -510,14 +540,15 @@ def doctor_phase(data_root: str, kind: str) -> dict:
         return prep_s, doc_s, out
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+    with concurrent.futures.ThreadPoolExecutor(6) as ex:
         f_cifar = ex.submit(cifar_then_doctor)
-        f_stl = ex.submit(prepare, "stl10", stl_dir)
+        f_prep = {name: ex.submit(prepare, name, stl_dir if name == "stl10" else data_dir)
+                  for name in ("stl10", "mnist", "svhn")}
         f_missing = ex.submit(cli, "doctor", "--config", "cifar10_4k", "--workdir", runs, "--data-dir",
                               os.path.join(data_root, "empty"), "--skip-device", rc=1)
         f_cold = ex.submit(cold_probe, os.path.join(data_root, "cold_build"))
         prep_cifar_s, doctor_s, out = f_cifar.result()
-        prep_stl_s = f_stl.result()
+        prep_s = {name: f.result() for name, f in f_prep.items()}
         missing_s, missing_out = f_missing.result()
         cold = f_cold.result()
     side_by_side_s = time.perf_counter() - t0
@@ -530,7 +561,8 @@ def doctor_phase(data_root: str, kind: str) -> dict:
     probe_lines_ok(cold["finding"], kind)
     check(not any(ln.startswith("✗") for ln in out.splitlines()), f"the doctor failed a check:\n{out}")
     counts = probe_counts(2)  # cli doctor's probe and the cold one
-    res = {"raw_write_seconds": raw_s, "prepare_cifar10_seconds": prep_cifar_s, "prepare_stl10_seconds": prep_stl_s,
+    res = {"raw_write_seconds": raw_s, "prepare_cifar10_seconds": prep_cifar_s,
+           **{f"prepare_{name}_seconds": secs for name, secs in prep_s.items()},
            "doctor_seconds": doctor_s, "doctor_missing_data_seconds": missing_s, "cold_probe": cold,
            "side_by_side_seconds": side_by_side_s, "doctor_findings": out.strip().splitlines(),
            "launches": totals(counts), "_counts": counts, "_data_dir": data_dir, "_stl10_dir": stl_dir}
@@ -667,6 +699,32 @@ def step_launches(cfg, env=os.environ):
     return convs, players, epilogues, epilogue_bwds
 
 
+def check_step_launches(cfg, counts, n: int, what: str, n_evals: int = 0, n_grids: int = 0) -> dict:
+    """The wrappers' counts (``counts_read``) over ``n`` train steps of
+    ``cfg`` with use_pallas against ``step_launches``, plus, for a
+    ``train_loop.train`` run, ``n_evals`` evals of the ``DRIVER_TEST``
+    test images through the Classifier and ``n_grids`` class grids (10 a
+    class) through the Generator: the conv launches key for key, and the
+    epilogue's forwards and backwards. Returns the counts' totals."""
+    convs, _, epilogues, epilogue_bwds = step_launches(cfg)
+    gen, _, clf = conv_layers(cfg)
+    n_batches = n_evals * -(-DRIVER_TEST // cfg.batch_size)
+    want = collections.Counter({key: c * n for key, c in convs.items()})
+    for _ in range(n_batches):
+        want.update(fwd_launches(cfg, cfg.batch_size, clf))
+    for _ in range(n_grids):
+        want.update(fwd_launches(cfg, cfg.num_classes * 10, gen))
+    got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
+    check(got == want, f"{what}: conv launches not implied by {n} steps, {n_evals} evals and {n_grids} grids "
+                       f"{dict(got - want)}; implied and not launched {dict(want - got)}")
+    launches = totals(counts)
+    n_c = sum(len(b) for b in cfg.clf.conv_blocks) + len(cfg.clf.tail)
+    want_fwd = epilogues * n + n_batches * n_c + n_grids * (len(cfg.gen.widths) + 1)
+    check(launches["scale_bias_act"] == want_fwd and launches["scale_bias_act_bwd"] == epilogue_bwds * n,
+          f"{what}: epilogue launches {launches}, want {want_fwd} forwards, {epilogue_bwds * n} backwards")
+    return launches
+
+
 def profile_calls(fn, reps: int, top: int, groups=None) -> dict:
     """torch.profiler over ``reps`` calls of ``fn``: wall and device time
     per call, the device's busy share of the wall time, the kernels
@@ -745,18 +803,8 @@ def train_arm(setting, use_pallas, data, zca, n_steps, profile) -> dict:
         check(sorted(m) == sorted(METRICS), f"metrics {sorted(m)}")
         check(all(math.isfinite(v) for v in m.values()), f"{name} arm {use_pallas}: step {t} {m}")
     if use_pallas:
-        convs, players, epilogues, epilogue_bwds = step_launches(cfg)
-        want = collections.Counter({key: c * n_steps for key, c in convs.items()})
-        got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-        check(got == want, f"{name} kernel arm: conv launches not implied by the step's convs "
-                           f"{dict(got - want)}; implied and not launched {dict(want - got)}")
-        check(launches["scale_bias_act"] == epilogues * n_steps,
-              f"{name} kernel arm launched {launches['scale_bias_act']} epilogues, "
-              f"want {epilogues * n_steps}")
-        check(launches["scale_bias_act_bwd"] == epilogue_bwds * n_steps,
-              f"{name} kernel arm launched {launches['scale_bias_act_bwd']} epilogue backwards, "
-              f"want {epilogue_bwds * n_steps}")
-        arm["_players"] = players
+        check_step_launches(cfg, counts, n_steps, f"{name} kernel arm")
+        arm["_players"] = step_launches(cfg)[1]
     else:
         check(not any(launches.values()), f"{name} plain arm launched kernels: {launches}")
     if profile:
@@ -964,13 +1012,7 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
     check(all(in_chunk[g] == k * per_step[g] for g in HAND_KERNELS),
           f"{name} use_pallas={use_pallas}: a replayed chunk ran {in_chunk}, want {k} × {per_step}")
     if use_pallas:
-        convs, _, epilogues, epilogue_bwds = step_launches(cfg)
-        want_c = collections.Counter({key: c * n for key, c in convs.items()})
-        got_c = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-        check(got_c == want_c, f"{name} graph: conv launches at capture {dict(got_c - want_c)}; "
-                               f"implied and not launched {dict(want_c - got_c)}")
-        check(launches["scale_bias_act"] == epilogues * n and launches["scale_bias_act_bwd"] == epilogue_bwds * n,
-              f"{name} graph: epilogue launches at capture {launches}, want {epilogues}/{epilogue_bwds} × {n}")
+        check_step_launches(cfg, counts, n, f"{name} graph, at capture")
     else:
         check(not any(launches.values()), f"{name} plain graph arm launched kernels: {launches}")
     replayed = replayed_launches(prof)
@@ -1094,60 +1136,459 @@ def graph_phase(data, zca) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the other configurations: mnist100, svhn1k, cifar10_cond
+# ---------------------------------------------------------------------------
+
+CONFIGS = ("mnist100", "svhn1k", "cifar10_cond")
+# train images of each configuration's synthetic device data: MNIST's and
+# CIFAR-10's train sets (cifar10_cond is fully labeled: its sampler draws
+# labeled rows from all of them); svhn1k's 1000 labels from 8192
+CONFIG_TRAIN = {"mnist100": 60000, "svhn1k": 8192, "cifar10_cond": 50000}
+CONFIG_TEST = 1000
+# (dtype, batch, eager steps before the chunk): the shipped semantics, and
+# bfloat16 over float32 master weights at bench.py's batch for the
+# configurations whose convs take shapes no other arm runs in bfloat16
+CONFIG_ARMS = {"mnist100": (("float32", BATCH, 2), ("bfloat16", 384, 1)),
+               "svhn1k": (("float32", BATCH, 2),),
+               "cifar10_cond": (("float32", BATCH, 2), ("bfloat16", 384, 1))}
+CONFIG_CPU_BATCH = 8     # the card-against-CPU steps
+CONFIG_LOOP_STEPS = 4    # the in-process driver runs (one epoch: an eval, a grid, a checkpoint)
+CONFIG_CLI_STEPS = 8     # mnist100 through the CLI (two epochs)
+CONFIG_REQ = 4           # images of the mnist100 server's /classify and /generate
+
+
+def config_cfg(name: str, dtype: str, batch: int):
+    """``get_config(name)`` at its published widths, ``dtype`` and
+    ``batch``, kernel arm."""
+    from triplegan_tpu_torch.configs import get_config
+
+    cfg = get_config(name)
+    cfg.compute_dtype, cfg.batch_size, cfg.use_pallas = dtype, batch, True
+    return cfg
+
+
+def config_data(name: str):
+    """The configuration's synthetic dataset (``synthetic_dataset`` at its
+    image size, channels and labels; ``CONFIG_TRAIN`` train images)."""
+    from triplegan_tpu_torch.configs import get_config
+    from triplegan_tpu_torch.data.datasets import synthetic_dataset
+
+    cfg = get_config(name)
+    return synthetic_dataset(image_size=cfg.image_size, channels=cfg.channels, num_classes=cfg.num_classes,
+                             n_train=CONFIG_TRAIN[name], n_test=CONFIG_TEST, num_labeled=cfg.num_labeled)
+
+
+def config_arm(name: str, dtype: str, batch: int, n_eager: int, data, zca) -> dict:
+    """One arm of a configuration on device data, cuDNN deterministic. The
+    main path: ``n_eager`` eager steps from a seeded state, then one chunk
+    of ``GRAPH_K`` steps through ``make_scan_device_train_step`` (its
+    warm-up step, its capture, and one replay under torch.profiler). The
+    wrappers' counts, zeroed just before, must be (n_eager + K + 1) ×
+    ``step_launches`` key for key, and unchanged by the replay, whose device
+    records must hold each hand-written kernel K × the count a step runs;
+    the chunk must equal K eager steps from the same state bitwise (every
+    state tensor, every step's metrics), which run after it. Leaves the
+    runner, its state and the eager step for ``config_timing``."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    cfg = config_cfg(name, dtype, batch)
+    what = f"{name} {dtype} b{batch}"
+    nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
+    dev_data = S.upload_device_data(data, "cuda")
+    step = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca)
+    runner = S.make_scan_device_train_step(cfg, nets, opts, TOTAL_STEPS, GRAPH_K, zca_stats=zca,
+                                           log=lambda *a, **kw: None)
+    state = create_state(cfg, nets, opts, device="cuda")
+    k = GRAPH_K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    counts_zero()  # the main path starts here
+    eager = []
+    for _ in range(n_eager):
+        state, m = step(state, dev_data)
+        eager.append(floats(m))
+    ref = S._clone_state(state)
+    runner.prepare(state, dev_data)
+    counts = counts_read()  # the eager steps, the warm-up step and the capture
+    chunk = []
+    prof = device_kernels(lambda: chunk.append(runner(state, dev_data)), reps=1)
+    check(counts_read() == counts, f"{what}: the replay counted launches")  # the main path ends here
+    state = chunk[0][0]
+    per_step_m = runner.step_metrics
+
+    ref_ms = []
+    for _ in range(k):
+        ref, m = step(ref, dev_data)
+        ref_ms.append(m)
+    want = S._stacked(ref_ms)
+    bad = [key for key in S.METRICS if not torch.equal(per_step_m[key], want[key])]
+    diff = sum(not torch.equal(a, b) for a, b in zip(S._state_tensors(state), S._state_tensors(ref)))
+    check(not bad and diff == 0 and state.step == ref.step == n_eager + k,
+          f"{what}: the graphed chunk differs from {k} eager steps: metrics {bad}, {diff} state tensors")
+    graphed = [{key: float(v[i]) for key, v in per_step_m.items()} for i in range(k)]
+    for t, m in enumerate(eager + graphed):
+        check(all(math.isfinite(v) for v in m.values()), f"{what}: step {t + 1} {m}")
+    del ref, ref_ms, want
+
+    n = n_eager + k + runner.warmup_steps
+    launches = check_step_launches(cfg, counts, n, what)
+    per_step = hand_kernels_per_step(counts, n)
+    in_chunk = {g: v["launches"] for g, v in prof["groups"].items()}
+    check(all(in_chunk[g] == k * per_step[g] for g in HAND_KERNELS),
+          f"{what}: the replayed chunk ran {in_chunk}, want {k} × {per_step}")
+    replayed = replayed_launches(prof)
+    return {"config": name, "dtype": dtype, "batch": batch, "eager_steps": n_eager, "k": k,
+            "metrics": eager + graphed, "graph": dict(runner.graph_stats), "bitwise": True,
+            "launches_counted": launches, "launches_replayed": replayed,
+            "launches": {key: launches[key] + replayed[key] for key in launches},
+            "launches_per_step": step_totals(cfg),
+            "replayed_chunk": {"kernels_per_step": per_step, "groups": prof["groups"],
+                               "device_ms_per_step": prof["device_us"] / k / 1e3, "top_device": prof["top_device"]},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "_counts": counts, "_steps": n, "_players": step_launches(cfg)[1], "_cfg": cfg, "_nets": nets,
+            "_runner": runner, "_state": state, "_data": dev_data, "_step": step}
+
+
+def config_serving(arm, data, zca) -> dict:
+    """With the float32 arm's trained state, on the card: one eval step on
+    the first ``BATCH`` test images, a class grid (10 a class) through the
+    Generator, and the serving functions (``export.make_serving_fns``) on
+    ``BATCH`` seeded images and z, y, the launches counted from just before
+    the eval to just after (C's forward twice, G's twice, at batch
+    ``BATCH``); the serving functions against the same functions on the
+    CPU within 1e-4."""
+    import torch
+
+    from triplegan_tpu_torch.eval.sample import class_grid_inputs, make_sample_fn, to_uint8_grid
+    from triplegan_tpu_torch.export import make_serving_fns
+    from triplegan_tpu_torch.train.step import make_eval_step
+
+    cfg, nets, state = arm["_cfg"], arm["_nets"], arm["_state"]
+    dev = torch.device("cuda")
+    classify, generate = make_serving_fns(cfg, nets, state, zca_stats=zca, device=dev)
+    ev = make_eval_step(cfg, nets, zca)
+    sample = make_sample_fn(cfg, nets)
+    gz, gy = class_grid_inputs(cfg, n_per_class=10, seed=SEED)
+    images, z, y = served_inputs(cfg, BATCH)
+    ti, tz, ty = (torch.from_numpy(a).to(dev) for a in (images, z, y))
+    batch = {"x": torch.as_tensor(data.x_test[:BATCH], device=dev),
+             "y": torch.as_tensor(data.y_test[:BATCH], device=dev), "mask": torch.ones(BATCH, device=dev)}
+    torch.cuda.synchronize()
+
+    counts_zero()  # the main path starts here
+    out = ev(state, batch)
+    grid = to_uint8_grid(sample(state, gz, gy), cfg.num_classes, 10)
+    logits, imgs = classify(ti), generate(tz, ty)
+    torch.cuda.synchronize()
+    counts = counts_read()  # the main path ends here
+    what = f"{cfg.name} serving"
+    gen_l, _, clf_l = conv_layers(cfg)
+    want = fwd_launches(cfg, BATCH, clf_l) + fwd_launches(cfg, BATCH, gen_l)
+    want = want + want
+    check(counts["conv3x3_fwd"] == want and not counts["conv3x3_wgrad"],
+          f"{what}: conv launches {dict(counts['conv3x3_fwd'])}, want {dict(want)}")
+    n_c = sum(len(b) for b in cfg.clf.conv_blocks) + len(cfg.clf.tail)
+    n_g = len(cfg.gen.widths) + 1
+    launches = totals(counts)
+    check(launches["scale_bias_act"] == 2 * (n_c + n_g) and not launches["scale_bias_act_bwd"],
+          f"{what}: epilogue launches {launches}, want {2 * (n_c + n_g)} forwards")
+    shape = (BATCH, cfg.image_size, cfg.image_size, cfg.channels)
+    check(int(out["count"]) == BATCH and 0 <= int(out["correct"]) <= BATCH, f"{what}: eval {out}")
+    check(grid.shape == (10 * cfg.image_size, 10 * cfg.image_size, cfg.channels), f"{what}: grid {grid.shape}")
+    check(logits.shape == (BATCH, cfg.num_classes) and bool(torch.isfinite(logits).all()), f"{what}: logits")
+    check(imgs.shape == shape and float(imgs.abs().max()) <= 1.0, f"{what}: images {tuple(imgs.shape)}")
+
+    cpu_classify, cpu_generate = make_serving_fns(cfg, nets, state, zca_stats=zca, device="cpu")
+    t0 = time.perf_counter()
+    cpu_logits, cpu_imgs = cpu_classify(torch.from_numpy(images)), cpu_generate(torch.from_numpy(z),
+                                                                                torch.from_numpy(y))
+    vs_cpu = {"logits_max_abs_diff": max_diff(logits, cpu_logits), "images_max_abs_diff": max_diff(imgs, cpu_imgs),
+              "max_abs_logit": float(cpu_logits.abs().max()), "limit": 1e-4,
+              "cpu_seconds": time.perf_counter() - t0}
+    check(max(vs_cpu["logits_max_abs_diff"], vs_cpu["images_max_abs_diff"]) <= 1e-4,
+          f"{what}: the card against the CPU: {vs_cpu}")
+    return {"eval_correct": int(out["correct"]), "eval_count": int(out["count"]), "grid_shape": list(grid.shape),
+            "launches": launches, "serving_card_vs_cpu": vs_cpu, "_counts": counts}
+
+
+def config_loop(name: str, data_dir: str, workdir: str) -> dict:
+    """``train_loop.train`` of ``name`` at its published widths (float32,
+    batch 100, kernel arm) in this process, as ``cli train`` runs it, on the
+    shards phase 2b's ``cli prepare`` made (cifar10_cond on cifar10's, with
+    its ZCA statistics), ``CONFIG_LOOP_STEPS`` steps: one epoch, its eval,
+    grid and checkpoint. Its launches, counted from just before to just
+    after, must be the steps' ``step_launches`` plus the eval's (the test
+    set through the Classifier) and the grid's (100 images through the
+    Generator), key for key."""
+    from triplegan_tpu_torch.cli import _apply_overrides
+    from triplegan_tpu_torch.configs import get_config
+    from triplegan_tpu_torch.train import loop as train_loop
+
+    cfg = _apply_overrides(get_config(name), DRIVER_SETS)
+    cfg.workdir, cfg.data_dir = workdir, data_dir
+    n = CONFIG_LOOP_STEPS
+    counts_zero()  # the main path starts here
+    t0 = time.perf_counter()
+    res = train_loop.train(cfg, max_steps=n, verbose=False, device="cuda")
+    secs = time.perf_counter() - t0
+    counts = counts_read()  # the main path ends here
+    check(res["steps"] == n and not res["preempted"] and math.isfinite(res["test_error"]),
+          f"{name} loop: {res['steps']} steps, test error {res['test_error']}")
+    run = os.path.join(workdir, name)
+    check(os.path.exists(os.path.join(run, "ckpt", str(n))) and
+          os.path.exists(os.path.join(run, f"samples_{n:08d}.png")), f"{name} loop: no checkpoint or grid at {n}")
+    launches = check_step_launches(cfg, counts, n, f"{name} loop", n_evals=1, n_grids=1)
+    return {"steps": n, "test_error": res["test_error"], "seconds": secs, "launches_counted": launches,
+            "launches": launches, "_counts": counts}
+
+
+def mnist_cli_chain(data_dir: str, workdir: str) -> dict:
+    """mnist100 as the README's recipe runs it, through ``python -m
+    triplegan_tpu_torch.cli`` on the card, on the shards phase 2b's ``cli
+    prepare --dataset mnist`` made: ``train`` for ``CONFIG_CLI_STEPS``
+    steps (4 an epoch, an eval, a grid and a checkpoint each), then side by
+    side ``eval``, which must print train's last test error; ``sample``, a
+    grayscale PNG of 10 rows; and ``serve --config``, which must answer a
+    /classify of ``CONFIG_REQ`` 28 × 28 × 1 images with finite logits and a
+    /generate with images in [-1, 1], and exit 0 on SIGTERM."""
+    run_args = ["--config", "mnist100", "--workdir", workdir, "--data-dir", data_dir]
+    sets = [a for kv in DRIVER_SETS for a in ("--set", kv)]
+    train_s, out = cli("train", *run_args, *sets, "--max-steps", str(CONFIG_CLI_STEPS))
+    done = done_line(out)
+    check(done.startswith(f"done: step={CONFIG_CLI_STEPS} "), f"mnist100 cli train: {done}")
+    kept = sorted(int(d) for d in os.listdir(os.path.join(workdir, "mnist100", "ckpt")) if d.isdigit())
+    check(kept == [4, 8], f"mnist100 cli train kept checkpoints {kept}")
+    grid = os.path.join(workdir, "grid.png")
+    images = np.random.RandomState(SEED).randint(0, 256, size=(CONFIG_REQ, 28, 28, 1), dtype=np.uint8)
+    t0 = time.perf_counter()
+    proc, base, serve_start_s = serve_start(run_args)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            f_eval = ex.submit(cli, "eval", *run_args)
+            f_sample = ex.submit(cli, "sample", *run_args, "--out", grid, "--n-per-class", "5")
+            health = json.loads(http("GET", base + "/healthz")[1])
+            check(health["backend"] == "cuda" and health["step"] == CONFIG_CLI_STEPS
+                  and health["image_shape"] == [28, 28, 1], f"mnist100 /healthz: {health}")
+            logits = load_npy(http("POST", base + "/classify", npy(images), "application/x-npy")[1])
+            imgs = load_npy(http("POST", base + "/generate", json.dumps({"n": CONFIG_REQ, "seed": 3}).encode(),
+                                 "application/json")[1])
+            eval_s, eval_out = f_eval.result()
+            sample_s, _ = f_sample.result()
+        proc.send_signal(15)
+        rest, _ = proc.communicate(timeout=60)
+        check(proc.returncode == 0, f"mnist100 cli serve exited {proc.returncode} on SIGTERM:\n{rest[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(logits.shape == (CONFIG_REQ, 10) and bool(np.isfinite(logits).all()), f"mnist100 /classify {logits.shape}")
+    check(imgs.shape == (CONFIG_REQ, 28, 28, 1) and float(np.abs(imgs).max()) <= 1.0,
+          f"mnist100 /generate {imgs.shape}")
+    err_line = eval_out.strip().splitlines()[-1]
+    check(err_line == "test error: " + done.split("test_error=")[1], f"mnist100 cli eval printed {err_line!r}, "
+                                                                     f"train {done!r}")
+    check(png_size(grid) == (5 * 28, 10 * 28, 8, 0), f"mnist100 sample grid IHDR {png_size(grid)}")
+    return {"train_seconds": train_s, "final": done, "eval": err_line, "eval_seconds": eval_s,
+            "sample_seconds": sample_s, "serve_start_seconds": serve_start_s,
+            "side_by_side_seconds": time.perf_counter() - t0, "healthz": health}
+
+
+def config_timing(arm) -> dict:
+    """With nothing else running: ms/step of 3 eager steps from a copy of
+    the arm's state (host clock, each ending in a device→host read), and
+    one ``time_graph_turn`` of 2 chunks (graphed ms/step, a chunk's
+    dispatch µs, device ms/step)."""
+    import torch
+
+    from triplegan_tpu_torch.train import step as S
+
+    st, secs = S._clone_state(arm["_state"]), []
+    torch.cuda.synchronize()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        st, m = arm["_step"](st, arm["_data"])
+        float(m["loss_c"])
+        secs.append(time.perf_counter() - t0)
+    del st
+    turn = time_graph_turn(arm, chunks=2)
+    return {"eager_ms_per_step": 1e3 * statistics.mean(secs), "graph_ms_per_step": turn["ms_per_step"],
+            "graph_dispatch_us": turn["dispatch_us"], "graph_device_ms_per_step": turn["device_ms_per_step"]}
+
+
+def configs_phase(data_dir: str, zca) -> list:
+    """mnist100, svhn1k and cifar10_cond at their published widths, kernel
+    arm, cuDNN deterministic. Side by side with ``mnist_cli_chain`` (a
+    thread running its CLI processes): per configuration, on its synthetic
+    device data (``config_data``; cifar10_cond with phase 3's ZCA
+    statistics, the others have none), each arm of ``CONFIG_ARMS``
+    (``config_arm``), then ``config_serving`` on the float32 arm's state,
+    ``card_vs_cpu`` of the configuration (``deterministic``, batch
+    ``CONFIG_CPU_BATCH``: mnist100 at its published widths; svhn1k and
+    cifar10_cond gated at a few channels, their published widths reported
+    ungated) and, for those two, ``config_loop`` on the prepared shards.
+    Then, alone, ``config_timing`` of every arm."""
+    import shutil
+
+    import torch
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    workdir = tempfile.mkdtemp(prefix="configs_", dir=os.path.dirname(data_dir))
+    res, arms = [], []
+    ex = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        f_cli = ex.submit(mnist_cli_chain, data_dir, os.path.join(workdir, "cli"))
+        for name in CONFIGS:
+            t0 = time.perf_counter()
+            data = config_data(name)
+            cz = zca if config_cfg(name, "float32", BATCH).zca else None
+            rec = {"config": name, "data_seconds": time.perf_counter() - t0, "train_images": CONFIG_TRAIN[name]}
+            mine = [config_arm(name, dtype, batch, n_eager, data, cz) for dtype, batch, n_eager in CONFIG_ARMS[name]]
+            rec["serving"] = config_serving(mine[0], data, cz)
+            # mnist100 at its published widths; the others' two steps there are
+            # ill-conditioned (PERF.md), so they are held at a few channels and
+            # their published widths reported beside the CPU's own spread
+            cpu_cfg = deterministic(config_cfg(name, "float32", CONFIG_CPU_BATCH))
+            if name == "mnist100":
+                rec["card_vs_cpu"] = card_vs_cpu(cpu_cfg, data, cz, f"{name} at its widths")
+            else:
+                rec["card_vs_cpu_published"] = card_vs_cpu(cpu_cfg, data, cz, f"{name} at its widths", gate=False)
+                rec["card_vs_cpu"] = card_vs_cpu(few_channels(cpu_cfg), data, cz, f"{name} at a few channels")
+                rec["loop"] = config_loop(name, data_dir, os.path.join(workdir, "loop"))
+            rec["seconds"] = time.perf_counter() - t0
+            arms += mine
+            res.append(rec)
+            del data
+        cli_chain = f_cli.result()
+        for arm in arms:
+            arm.update(config_timing(arm))
+            emit("config_arm", public(arm))
+    finally:
+        ex.shutdown(wait=True)
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(workdir, ignore_errors=True)
+    for rec in res:
+        mine = [a for a in arms if a["config"] == rec["config"]]
+        rec["arms"] = [public(a) for a in mine]
+        rec["_sources"] = [(f"train {a['config']} {a['dtype']}",
+                            {name: {key: c / a["_steps"] for key, c in counts.items()}
+                             for name, counts in a["_counts"].items()}, a["_players"]) for a in mine]
+        rec["_sources"].append((f"serve {rec['config']}", rec["serving"].pop("_counts"), {}))
+        if "loop" in rec:
+            rec["_sources"].append((f"loop {rec['config']}", rec["loop"].pop("_counts"), {}))
+        if rec["config"] == "mnist100":
+            rec["cli"] = cli_chain
+        emit("config", public(rec))
+    del arms
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the train step on the card against the CPU
 # ---------------------------------------------------------------------------
 
 
-def card_vs_cpu_phase(data, zca) -> dict:
+def deterministic(cfg):
+    """``cfg`` with no input noise, dropout or augmentation and α_P live
+    from the first step: a step on the card and on the CPU then computes
+    the same update from the same batch (with argmax pseudo-labels)."""
+    cfg.disc.input_noise = cfg.disc.input_dropout = cfg.disc.block_dropout = 0.0
+    cfg.clf.input_noise = cfg.clf.block_dropout = 0.0
+    cfg.aug_translate, cfg.aug_flip = 0, False
+    cfg.alpha_p_warmup_epochs = 0
+    return cfg
+
+
+def few_channels(cfg):
+    """``cfg`` with cifar10_4k's layer structure (and its own number of
+    Generator deconvs) at a few channels, z of 16."""
+    cfg.gen.widths = (16,) + (8,) * (len(cfg.gen.widths) - 1)
+    cfg.disc.widths = (8, 8, 16, 16, 16, 16)
+    cfg.clf.conv_blocks = ((16, 16, 16), (16, 16, 16))
+    cfg.clf.tail = (16, 16, 16)
+    cfg.z_dim = 16
+    return cfg
+
+
+def card_vs_cpu(cfg, data, zca, what: str, gate: bool = True) -> dict:
+    """Two steps of ``cfg`` (``make_train_step``, argmax pseudo-labels) on
+    the same batches, drawn on the CPU, from the same seeded state: on the
+    card with the kernels and on the CPU with their plain versions. With
+    ``gate``: metrics within 1e-4·(1 + |m|); parameters within 2·N·lr, 95%
+    within lr/100. Without: the same numbers, and beside them those of the
+    CPU's plain arm (use_pallas off: ``F.conv2d``) against the CPU's
+    kernel arm (its plain versions), the spread that summation order alone
+    gives the reference on one machine."""
+    import copy
+
     import torch
 
     from triplegan_tpu_torch import bridge
-    from triplegan_tpu_torch.configs import get_config, make_networks
+    from triplegan_tpu_torch.configs import make_networks
     from triplegan_tpu_torch.train.schedule import make_optimizers
     from triplegan_tpu_torch.train.state import create_state
     from triplegan_tpu_torch.train.step import METRICS, _make_batch_sampler, make_train_step, \
         upload_device_data
 
-    cfg = get_config("cifar10_4k")
-    cfg.gen.widths = (16, 8, 8)
-    cfg.disc.widths = (8, 8, 16, 16, 16, 16)
-    cfg.clf.conv_blocks = ((16, 16, 16), (16, 16, 16))
-    cfg.clf.tail = (16, 16, 16)
-    cfg.batch_size, cfg.z_dim = 8, 16
-    cfg.disc.input_noise = cfg.disc.input_dropout = cfg.disc.block_dropout = 0.0
-    cfg.clf.input_noise = cfg.clf.block_dropout = 0.0
-    cfg.aug_translate, cfg.aug_flip = 0, False
-    cfg.alpha_p_warmup_epochs = 0
     sample = _make_batch_sampler(cfg)
     cpu_data = upload_device_data(data, "cpu")
     n = 2
     batches = [sample(0, t, cpu_data) for t in range(n)]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        nets = make_networks(cfg)
-        opts = make_optimizers(cfg, 100)
-        state = create_state(cfg, nets, opts, device=dev)
-        step = make_train_step(cfg, nets, opts, 100, zca_stats=zca, pseudo_label_mode="argmax")
+    lr = float(cfg.lr_c)
+    out, secs = {}, {}
+    for dev, use_pallas in [("cuda", True), ("cpu", True)] + ([] if gate else [("cpu", False)]):
+        c = copy.deepcopy(cfg)
+        c.use_pallas = use_pallas
+        nets = make_networks(c)
+        opts = make_optimizers(c, 100)
+        state = create_state(c, nets, opts, device=dev)
+        step = make_train_step(c, nets, opts, 100, zca_stats=zca, pseudo_label_mode="argmax")
         ms = []
+        t0 = time.perf_counter()
         for batch in batches:
             b = {s: {k: v.to(dev) for k, v in d.items()} for s, d in batch.items()}
             state, m = step(state, b)
             ms.append({k: float(v) for k, v in m.items()})
+        secs[dev if use_pallas else "cpu_plain"] = time.perf_counter() - t0
         params = {p: bridge.flat(state.params[p], state.bn[p]) for p in state.params}
-        out[dev] = (ms, {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()})
-    lr = float(cfg.lr_c)
-    worst_m = max(abs(a[k] - b[k]) / (1 + abs(b[k]))
-                  for a, b in zip(out["cuda"][0], out["cpu"][0]) for k in METRICS)
-    errs = torch.cat([(out["cuda"][1][p][k] - v).abs().flatten()
-                      for p, sd in out["cpu"][1].items() for k, v in sd.items()])
-    res = {"steps": n, "metrics_max_rel_diff": worst_m, "param_max_abs_diff": float(errs.max()),
-           "param_frac_within_lr_100": float((errs <= lr / 100).double().mean()),
-           "lr": lr, "metrics_card": out["cuda"][0], "metrics_cpu": out["cpu"][0]}
+        out[dev, use_pallas] = (ms, {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()})
+
+    def agree(got, want):
+        worst = max(abs(a[k] - b[k]) / (1 + abs(b[k])) for a, b in zip(got[0], want[0]) for k in METRICS)
+        errs = torch.cat([(got[1][p][k] - v).abs().flatten() for p, sd in want[1].items() for k, v in sd.items()])
+        return {"metrics_max_rel_diff": worst, "param_max_abs_diff": float(errs.max()),
+                "param_frac_within_lr_100": float((errs <= lr / 100).double().mean())}
+
+    res = {"what": what, "batch": cfg.batch_size, "steps": n, "gated": gate,
+           **agree(out["cuda", True], out["cpu", True]), "lr": lr, "seconds": secs,
+           "metrics_card": out["cuda", True][0], "metrics_cpu": out["cpu", True][0]}
+    if not gate:
+        res["cpu_plain_vs_cpu"] = agree(out["cpu", False], out["cpu", True])
     emit("train_card_vs_cpu", res)
-    check(worst_m <= 1e-4, f"card and CPU train metrics differ by {worst_m} (relative)")
-    check(res["param_max_abs_diff"] <= 2 * n * lr, f"card and CPU params differ by {res['param_max_abs_diff']}")
-    check(res["param_frac_within_lr_100"] >= 0.95, f"card/CPU params: {res['param_frac_within_lr_100']}")
+    if gate:
+        check(res["metrics_max_rel_diff"] <= 1e-4,
+              f"{what}: card and CPU train metrics differ by {res['metrics_max_rel_diff']} (relative)")
+        check(res["param_max_abs_diff"] <= 2 * n * lr,
+              f"{what}: card and CPU params differ by {res['param_max_abs_diff']}")
+        check(res["param_frac_within_lr_100"] >= 0.95,
+              f"{what}: card/CPU params: {res['param_frac_within_lr_100']}")
     return res
+
+
+def card_vs_cpu_phase(data, zca) -> dict:
+    """``card_vs_cpu`` of cifar10_4k's layers at a few channels, batch 8."""
+    from triplegan_tpu_torch.configs import get_config
+
+    cfg = few_channels(deterministic(get_config("cifar10_4k")))
+    cfg.batch_size = 8
+    return card_vs_cpu(cfg, data, zca, "cifar10_4k at a few channels")
 
 
 # ---------------------------------------------------------------------------
@@ -1261,27 +1702,37 @@ DRIVER_TRAIN = 4096  # more than cifar10's 3072 pixel values, so that ZCA's cova
 DRIVER_TEST = 1000  # test images: 10 eval batches of 100
 
 
-def synthetic_split(n: int, size: int, rng) -> tuple:
-    """n seeded images of size × size × 3, class-dependent blobs as
+def synthetic_split(n: int, size: int, rng, channels: int = 3) -> tuple:
+    """n seeded images of size × size × channels, class-dependent blobs as
     ``synthetic_dataset`` draws them, and their int32 labels."""
     y = rng.randint(0, 10, size=n).astype(np.int32)
     x = (y[:, None, None, None].astype(np.float32) + 1.0) * (255.0 / 11) + \
-        rng.normal(0, 24.0, size=(n, size, size, 3))
+        rng.normal(0, 24.0, size=(n, size, size, channels))
     return np.clip(x, 0, 255).astype(np.uint8), y
 
 
-def write_raw(raw_dir: str, dataset: str, size: int, n_train: int, n_test: int) -> None:
+# the raw writers' datasets: (image size, channels)
+RAW_SHAPES = {"cifar10": (32, 3), "stl10": (96, 3), "mnist": (28, 1), "svhn": (32, 3)}
+
+
+def write_raw(raw_dir: str, dataset: str, n_train: int, n_test: int) -> None:
     """A seeded synthetic dataset (``synthetic_split``: the train images,
     then the test images, from one stream) written as the dataset's
     distribution files, which ``cli prepare`` converts: cifar10 as
     ``cifar-10-batches-py/data_batch_1..5`` (the train images in five
     python pickle batches of rows of 3072 CHW bytes) and ``test_batch``;
     stl10 as ``stl10_binary/{train,test}_X.bin`` (CWH bytes an image) and
-    ``_y.bin`` (labels 1..10)."""
+    ``_y.bin`` (labels 1..10); mnist as the uncompressed idx files
+    ``{train,t10k}-{images-idx3,labels-idx1}-ubyte`` (28 × 28 × 1); svhn as
+    ``{train,test}_32x32.mat`` (``X`` (32, 32, 3, N) uint8, ``y`` (N, 1) in
+    1..10, 10 for the digit 0)."""
     import pickle
 
+    size, channels = RAW_SHAPES[dataset]
     rng = np.random.RandomState(SEED)
-    (x_tr, y_tr), (x_te, y_te) = synthetic_split(n_train, size, rng), synthetic_split(n_test, size, rng)
+    (x_tr, y_tr), (x_te, y_te) = (synthetic_split(n_train, size, rng, channels),
+                                  synthetic_split(n_test, size, rng, channels))
+    splits = (("train", x_tr, y_tr), ("test", x_te, y_te))
     if dataset == "cifar10":
         d = os.path.join(raw_dir, "cifar-10-batches-py")
         os.makedirs(d)
@@ -1290,15 +1741,30 @@ def write_raw(raw_dir: str, dataset: str, size: int, n_train: int, n_test: int) 
         for name, x, y in parts + [("test_batch", x_te, y_te)]:
             with open(os.path.join(d, name), "wb") as f:
                 pickle.dump({b"data": x.transpose(0, 3, 1, 2).reshape(len(x), -1), b"labels": y.tolist()}, f)
-    else:
-        check(dataset == "stl10", f"no raw writer for {dataset}")
+    elif dataset == "stl10":
         d = os.path.join(raw_dir, "stl10_binary")
         os.makedirs(d)
-        for split, x, y in (("train", x_tr, y_tr), ("test", x_te, y_te)):
+        for split, x, y in splits:
             with open(os.path.join(d, f"{split}_X.bin"), "wb") as f:
                 f.write(x.transpose(0, 3, 2, 1).tobytes())
             with open(os.path.join(d, f"{split}_y.bin"), "wb") as f:
                 f.write((y + 1).astype(np.uint8).tobytes())
+    elif dataset == "mnist":
+        os.makedirs(raw_dir)
+        for split, x, y in splits:
+            name = "t10k" if split == "test" else split
+            with open(os.path.join(raw_dir, f"{name}-images-idx3-ubyte"), "wb") as f:
+                f.write(struct.pack(">IIII", 2051, len(x), size, size) + x.tobytes())
+            with open(os.path.join(raw_dir, f"{name}-labels-idx1-ubyte"), "wb") as f:
+                f.write(struct.pack(">II", 2049, len(y)) + y.astype(np.uint8).tobytes())
+    else:
+        from scipy.io import savemat
+
+        check(dataset == "svhn", f"no raw writer for {dataset}")
+        os.makedirs(raw_dir)
+        for split, x, y in splits:
+            savemat(os.path.join(raw_dir, f"{split}_32x32.mat"),
+                    {"X": x.transpose(1, 2, 3, 0), "y": np.where(y == 0, 10, y).astype(np.uint8).reshape(-1, 1)})
 
 
 def cli(*args, timeout=600, rc=0) -> tuple:
@@ -1452,10 +1918,6 @@ def driver_inprocess(data_dir, workdir, train_arms) -> dict:
     from triplegan_tpu_torch.train import loop as train_loop
 
     cfg = driver_cfg(workdir, data_dir, "kernel", f"scan_steps={GRAPH_K}")
-    n_batches = -(-DRIVER_TEST // cfg.batch_size)
-    gen, _, clf = conv_layers(cfg)
-    convs, _, epilogues, epilogue_bwds = step_launches(cfg)
-    n_g, n_c = len(cfg.gen.widths) + 1, sum(len(b) for b in cfg.clf.conv_blocks) + len(cfg.clf.tail)
     n_steps, n_evals, n_grids = 10, 3, 2
     runners = []
     real_scan = train_loop.make_scan_device_train_step
@@ -1476,21 +1938,7 @@ def driver_inprocess(data_dir, workdir, train_arms) -> dict:
         check((runner.captures, runner.replays, runner.warmup_steps) == (1, 2, 1),
               f"driver graph: {runner.captures} captures, {runner.replays} replays")
         counted = runner.captured_steps + runner.warmup_steps + n_steps - runner.n * runner.replays
-        want = collections.Counter({k: counted * c for k, c in convs.items()})
-        for _ in range(n_evals * n_batches):
-            want.update(fwd_launches(cfg, cfg.batch_size, clf))
-        for _ in range(n_grids):
-            want.update(fwd_launches(cfg, cfg.num_classes * 10, gen))
-        got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-        check(got == want, f"driver conv launches not implied by its steps, evals and grids: "
-                           f"{dict(got - want)}; implied and not launched {dict(want - got)}")
-        launches = totals(counts)
-        want_sba = counted * epilogues + n_evals * n_batches * n_c + n_grids * n_g
-        check(launches["scale_bias_act"] == want_sba,
-              f"driver launched {launches['scale_bias_act']} epilogues, want {want_sba}")
-        check(launches["scale_bias_act_bwd"] == counted * epilogue_bwds,
-              f"driver launched {launches['scale_bias_act_bwd']} epilogue backwards, "
-              f"want {counted * epilogue_bwds}")
+        launches = check_step_launches(cfg, counts, counted, "driver", n_evals, n_grids)
         shipped = next(a for a in train_arms if a["setting"] == "shipped" and a["use_pallas"])["_counts"]
         for name, c in counts.items():
             unseen = set(c) - set(shipped[name])
@@ -2127,17 +2575,11 @@ def host_arm(data, zca) -> dict:
                   f"host-streamed step {t}: {s}.{k} on the card differs from the sampler's host batch")
     for t, m in enumerate(metrics):
         check(all(math.isfinite(v) for v in m.values()), f"host-streamed step {t}: {m}")
-    convs, players, epilogues, epilogue_bwds = step_launches(cfg)
+    convs, players, _, _ = step_launches(cfg)
     check(any(key[1] == 3 * BATCH and key[0] == "fwd" for key in convs) and
           all(not (key[1] == BATCH and key[0] == "wgrad" and "clf" in players[key]) for key in convs),
           "step_launches does not run the classifier at 3B rows")
-    want = collections.Counter({key: c * HOST_STEPS for key, c in convs.items()})
-    got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-    check(got == want, f"host-streamed conv launches {dict(got - want)}; implied and not launched {dict(want - got)}")
-    launches = totals(counts)
-    check(launches["scale_bias_act"] == epilogues * HOST_STEPS and
-          launches["scale_bias_act_bwd"] == epilogue_bwds * HOST_STEPS,
-          f"host-streamed epilogue launches {launches}, want {epilogues}/{epilogue_bwds} × {HOST_STEPS}")
+    launches = check_step_launches(cfg, counts, HOST_STEPS, "host-streamed")
 
     pcfg = host_cfg(False)
     pstep = S.make_train_step(pcfg, make_networks(pcfg), make_optimizers(pcfg, TOTAL_STEPS), TOTAL_STEPS,
@@ -2400,13 +2842,7 @@ def variant_step(data_dir):
         counts = counts_read()  # the main path ends here
         if use_pallas:
             kernel_counts = counts
-            convs, _, epilogues, epilogue_bwds = step_launches(cfg)
-            got = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-            check(got == convs, f"{env}: conv launches {dict(got - convs)}; implied and not launched "
-                                f"{dict(convs - got)}")
-            launches = totals(counts)
-            check(launches["scale_bias_act"] == epilogues and launches["scale_bias_act_bwd"] == epilogue_bwds,
-                  f"{env}: epilogue launches {launches}, want {epilogues}/{epilogue_bwds}")
+            check_step_launches(cfg, counts, 1, f"variant {env}")
         else:
             check(not any(totals(counts).values()), f"{env}: the plain arm launched kernels")
         check(all(math.isfinite(v) for v in metrics[use_pallas].values()), f"{env}: {metrics[use_pallas]}")
@@ -2769,15 +3205,8 @@ def nccl_chunk(data, data_root, dev) -> dict:
         diff = sum(not torch.equal(a, b) for a, b in zip(got, ref))
         check(state.step == eager.step and diff == 0,
               f"nccl chunk: {diff} of {len(got)} state tensors differ from {MESH_STEPS} eager steps'")
-        convs, _, epilogues, epilogue_bwds = step_launches(cfg)
         n = 2 * MESH_STEPS + 1
-        got_c = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-        want_c = collections.Counter({key: c * n for key, c in convs.items()})
-        check(got_c == want_c, f"nccl chunk: conv launches {dict(got_c - want_c)}; implied and not launched "
-                               f"{dict(want_c - got_c)}")
-        launches = totals(counts)
-        check(launches["scale_bias_act"] == epilogues * n and launches["scale_bias_act_bwd"] == epilogue_bwds * n,
-              f"nccl chunk: epilogue launches {launches}, want {epilogues}/{epilogue_bwds} × {n}")
+        launches = check_step_launches(cfg, counts, n, "nccl chunk")
         per_step = hand_kernels_per_step(counts, n)
         in_chunk = {g: v["launches"] for g, v in prof["groups"].items()}
         check(all(in_chunk[g] == MESH_STEPS * per_step[g] for g in HAND_KERNELS),
@@ -2868,15 +3297,9 @@ def mesh_phase(data_root, dev) -> dict:
     st = r0["stochastic"]
     for t, m in enumerate(st["metrics"]):
         check(all(math.isfinite(v) for v in m.values()), f"mesh stochastic step {t}: {m}")
-    convs, players, epilogues, epilogue_bwds = step_launches(per_rank(cfg))
     counts = {k: collections.Counter(v) for k, v in st["counts"].items()}
-    got_c = counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]
-    want_c = collections.Counter({key: c * MESH_STEPS for key, c in convs.items()})
-    check(got_c == want_c, f"mesh rank: conv launches not implied by its steps {dict(got_c - want_c)}; implied "
-                           f"and not launched {dict(want_c - got_c)}")
-    check(sum(counts["scale_bias_act"].values()) == epilogues * MESH_STEPS
-          and sum(counts["scale_bias_act_bwd"].values()) == epilogue_bwds * MESH_STEPS,
-          f"mesh rank: epilogue launches {totals(counts)}, want {epilogues}/{epilogue_bwds} × {MESH_STEPS}")
+    check_step_launches(per_rank(cfg), counts, MESH_STEPS, "mesh rank")
+    players = step_launches(per_rank(cfg))[1]
 
     # (3) the driver: the coordinator's files, a restore and a continuation on one process
     run_dir = os.path.join(workdir, "loop")
@@ -3458,12 +3881,14 @@ def winograd_rows(gen, flush) -> list:
     return rows
 
 
-def path_launches(train_arms, serve_arms, host, mesh, deploy, doctor) -> list:
+def path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor) -> list:
     """The keyed launch counts of each main path: the doctor's device
     probes (``cli doctor``'s and the cold one: one launch of each kernel at
     each ``doctor.PROBE`` entry each, in their subprocesses), the first
     kernel-arm run
-    of each train setting (per step), the host-streamed fused step (per
+    of each train setting (per step), phase 3c's (each configuration's
+    arms, per step; its eval, grid and serving calls; its driver run), the
+    host-streamed fused step (per
     step), its ddinit, each layer variant's step, the mesh phase's stl10
     runs (a rank's stochastic step, per step; the one-process step on the
     global batch; a rank's driver runs and the continuation on one
@@ -3478,6 +3903,8 @@ def path_launches(train_arms, serve_arms, host, mesh, deploy, doctor) -> list:
             per_step = {name: {key: c / arm["steps"] for key, c in counts.items()}
                         for name, counts in arm["_counts"].items()}
             sources.append(("train " + arm["setting"], per_step, arm["_players"]))
+    for rec in configs:
+        sources += rec["_sources"]
     per_step = {name: {key: c / host["steps"] for key, c in counts.items()}
                 for name, counts in host["_counts"].items()}
     sources.append(("train host_fused", per_step, host["_players"]))
@@ -3546,7 +3973,8 @@ def kernel_phase(sources) -> tuple:
 
 def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
     """One line per kernel: launches over every main path (the train arms,
-    the graph arms' and the driver's counted runs, the serving arms): the
+    the graph arms', phase 3c's and the driver's counted runs, the serving
+    arms): the
     wrappers' counts (``launches_counted``: each launch, or each capture
     of one into a graph) plus the launches that the replays of those runs
     made, counted by kernel name in their profiles
@@ -3571,7 +3999,8 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
     ):
         per_step = {}
         for setting, dtype, batch, _ in SETTINGS + [("host_fused", "float32", BATCH, False),
-                                                   ("mesh_rank", "float32", 128 // MESH_WORLD, False)]:
+                                                   ("mesh_rank", "float32", 128 // MESH_WORLD, False)] + [
+                (f"{name} {dtype}", dtype, batch, False) for name in CONFIGS for dtype, batch, _ in CONFIG_ARMS[name]]:
             runs = [(r["launches"]["train " + setting], r) for r in rows if "train " + setting in r["launches"]]
             sums = {key: sum(n * r[key] for n, r in runs) for key in ("ms", "plain_ms", "bound_ms")}
             library = [n * r["library_ms"] for n, r in runs if r["library_ms"] is not None]
@@ -3598,8 +4027,9 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
             "basis": "top level: sum over one train step's launches at the shipped setting "
                      "(cifar10_4k, float32, batch 100, share_pseudo_forward off); per_step: "
                      "the same at each setting, for the host-streamed fused-classifier step "
-                     "(host_fused), and for one rank's step of stl10 on a mesh of 2 (mesh_rank: "
-                     "96 x 96, batch 64 a rank)",
+                     "(host_fused), for one rank's step of stl10 on a mesh of 2 (mesh_rank: "
+                     "96 x 96, batch 64 a rank), and for each arm of phase 3c (mnist100, svhn1k, "
+                     "cifar10_cond at their published widths: float32 batch 100, bfloat16 batch 384)",
             "per_step": per_step,
         })
     return kernels
@@ -3747,6 +4177,10 @@ def main():
         graph_arms = graph_phase(data, zca)
         phases["graph"] = time.perf_counter() - t_start
 
+        # 3c. mnist100, svhn1k and cifar10_cond at their published widths
+        configs = configs_phase(data_dir, zca)
+        phases["configs"] = time.perf_counter() - t_start
+
         # 4. card against CPU
         card_cpu = card_vs_cpu_phase(data, zca)
         phases["card_vs_cpu"] = time.perf_counter() - t_start
@@ -3782,12 +4216,13 @@ def main():
 
     # 7. kernels, at the shapes the main paths launched them at; the winograd A/B rows
     sba_rows, bwd_rows, conv_rows, wino_rows = kernel_phase(
-        path_launches(train_arms, serve_arms, host, mesh, deploy, doctor))
+        path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor))
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
 
-    kernels = summary(sba_rows, bwd_rows, conv_rows, train_arms + graph_arms + [driver, host, mesh, deploy, doctor],
-                      serve_arms)
+    config_runs = [run for rec in configs for run in rec["arms"] + [rec["serving"]] + ([rec["loop"]] if "loop" in rec else [])]
+    kernels = summary(sba_rows, bwd_rows, conv_rows,
+                      train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor], serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3795,7 +4230,7 @@ def main():
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "conv_rows": conv_rows,
                        "winograd_rows": wino_rows, "doctor": public(doctor), "debug": debug,
                        "train": [public(a) for a in train_arms],
-                       "graph": [public(a) for a in graph_arms],
+                       "graph": [public(a) for a in graph_arms], "configs": [public(r) for r in configs],
                        "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),
                        "mesh": public(mesh), "deploy": public(deploy),
                        "serve": [public(a) for a in serve_arms],

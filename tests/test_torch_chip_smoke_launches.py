@@ -2,12 +2,15 @@
 arm's counts to key for key, against the conv and epilogue calls that one
 train step of the port makes, on the CPU: cifar10_4k's layers at a few
 channels, with the fused classifier, share_pseudo_forward and each layer
-variant that moves convs off the kernels (or does not). The wrappers count
-only on the card, so the calls are counted here by spies that key them as
-the wrappers do."""
+variant that moves convs off the kernels (or does not); and the
+configurations of phase 3c (mnist100, svhn1k, cifar10_cond). The wrappers
+count only on the card, so the calls are counted here by spies that key
+them as the wrappers do (the epilogue's forward and backward by count),
+and ``check_step_launches``, the card run's check, must pass on them."""
 
 import collections
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,8 +18,10 @@ torch = pytest.importorskip("torch")
 import chip_smoke  # noqa: E402
 from triplegan_tpu_torch.configs import make_networks  # noqa: E402
 from triplegan_tpu_torch.data.datasets import synthetic_dataset  # noqa: E402
+from triplegan_tpu_torch.data.zca import ZCAStats  # noqa: E402
 from triplegan_tpu_torch.nn import layers as L  # noqa: E402
 from triplegan_tpu_torch.ops import conv3x3 as cv  # noqa: E402
+from triplegan_tpu_torch.ops import scale_bias_act as sba_mod  # noqa: E402
 from triplegan_tpu_torch.train import step as S  # noqa: E402
 from triplegan_tpu_torch.train.schedule import make_optimizers  # noqa: E402
 from triplegan_tpu_torch.train.state import create_state  # noqa: E402
@@ -25,12 +30,13 @@ torch.set_num_threads(1)
 
 
 def _spy(monkeypatch):
-    calls = {"convs": collections.Counter(), "epilogues": 0}
+    calls = {"convs": collections.Counter(), "epilogues": 0, "epilogue_bwds": 0}
 
     def dt(t):
         return str(t.dtype).split(".")[-1]
 
     real_fwd, real_wgrad, real_sba = cv.conv3x3_nopad, cv.conv3x3_wgrad, L.scale_bias_act
+    real_bwd = sba_mod.reference_scale_bias_act_bwd
 
     def nopad(x, w, pad=0, role="fwd"):
         n, h, wd, cin = x.shape
@@ -46,40 +52,85 @@ def _spy(monkeypatch):
         calls["epilogues"] += 1
         return real_sba(*args, **kwargs)
 
+    def sba_bwd(*args, **kwargs):
+        calls["epilogue_bwds"] += 1
+        return real_bwd(*args, **kwargs)
+
     monkeypatch.setattr(cv, "conv3x3_nopad", nopad)
     monkeypatch.setattr(cv, "conv3x3_wgrad", wgrad)
     monkeypatch.setattr(L, "scale_bias_act", sba)
+    monkeypatch.setattr(sba_mod, "reference_scale_bias_act_bwd", sba_bwd)
     return calls
+
+
+def _as_counts(calls):
+    """The spied calls keyed as ``chip_smoke.counts_read`` returns the
+    wrappers' counts (the epilogue's by call count alone)."""
+    convs = calls["convs"]
+    return {"conv3x3_fwd": collections.Counter({k: c for k, c in convs.items() if k[0] != "wgrad"}),
+            "conv3x3_wgrad": collections.Counter({k: c for k, c in convs.items() if k[0] == "wgrad"}),
+            "scale_bias_act": collections.Counter({"calls": calls["epilogues"]}),
+            "scale_bias_act_bwd": collections.Counter({"calls": calls["epilogue_bwds"]})}
+
+
+# the layers that set phase 3c's configurations apart, at the widths this
+# test runs them: (Generator's, Discriminator's, Classifier's) first conv
+# and (Generator's last, Discriminator's after the label re-concat,
+# Classifier's VALID t0), each (h, cin, cout, halo)
+CONFIG_LAYERS = {
+    # published widths: Cin 1 and 1 + 10, Cout 4·1, 32 + 10 at 14 × 14, 7 × 7 to 5 × 5
+    "mnist100": ((7, 128, 256, 1), (28, 11, 32, 1), (28, 1, 32, 1), (14, 64, 4, 1), (14, 42, 64, 1), (7, 64, 128, 0)),
+    "svhn1k": ((4, 16, 32, 1), (32, 13, 8, 1), (32, 3, 16, 1), (16, 8, 12, 1), (16, 18, 16, 1), (8, 16, 16, 0)),
+    "cifar10_cond": ((4, 16, 32, 1), (32, 13, 8, 1), (32, 3, 16, 1), (16, 8, 12, 1), (16, 18, 16, 1), (8, 16, 16, 0)),
+}
 
 
 @pytest.mark.parametrize("case,env", [
     ("default", {}), ("fused", {}), ("share", {}),
     ("fused", {"TRIPLEGAN_SMALLCIN": "patches"}), ("default", {"TRIPLEGAN_SMALLCIN": "patches"}),
     ("default", {"TRIPLEGAN_DECONV": "transpose"}), ("default", {"TRIPLEGAN_MAXPOOL": "maskbwd"}),
-], ids=["default", "fused", "share", "fused_patches", "patches", "transpose", "maskbwd"])
+    ("mnist100", {}), ("svhn1k", {}), ("cifar10_cond", {}),
+], ids=["default", "fused", "share", "fused_patches", "patches", "transpose", "maskbwd",
+        "mnist100", "svhn1k", "cifar10_cond"])
 def test_step_launches_equal_the_steps_kernel_calls(case, env, monkeypatch):
+    """cifar10_4k's layers at a few channels under each case; and phase
+    3c's configurations as ``chip_smoke.config_cfg`` builds them (mnist100
+    at its published widths, svhn1k and cifar10_cond at a few channels,
+    ``chip_smoke.few_channels``), each with its own image size, channels,
+    ZCA, augmentation and labels."""
     for var, value in env.items():
         monkeypatch.setenv(var, value)
     monkeypatch.setattr(L, "_DECONV_IMPL", env.get("TRIPLEGAN_DECONV", "subpixel"))
     monkeypatch.setattr(L, "_MAXPOOL_IMPL", env.get("TRIPLEGAN_MAXPOOL", "window"))
-    cfg = chip_smoke.train_cfg("float32", 4, case == "share", True)
-    cfg.fused_clf_forward = case == "fused"
-    cfg.gen.widths = (16, 8, 8)
-    cfg.disc.widths = (8, 8, 16, 16, 16, 16)
-    cfg.clf.conv_blocks = ((16, 16, 16), (16, 16, 16))
-    cfg.clf.tail = (16, 16, 16)
-    cfg.z_dim = 16
+    if case in chip_smoke.CONFIGS:
+        cfg = chip_smoke.config_cfg(case, "float32", 4)
+        if case != "mnist100":
+            chip_smoke.few_channels(cfg)
+        gen, disc, clf = chip_smoke.conv_layers(cfg)
+        assert (gen[0], disc[0], clf[0], gen[-1], disc[1], clf[-1]) == CONFIG_LAYERS[case]
+    else:
+        cfg = chip_smoke.few_channels(chip_smoke.train_cfg("float32", 4, case == "share", True))
+        cfg.fused_clf_forward = case == "fused"
     nets = make_networks(cfg)
     opts = make_optimizers(cfg, 100)
     state = create_state(cfg, nets, opts, device="cpu")
-    data = S.upload_device_data(synthetic_dataset(32, 3, 10, n_train=64, n_test=4, num_labeled=20), "cpu")
-    step = S.make_device_train_step(cfg, nets, opts, 100)
+    data = S.upload_device_data(synthetic_dataset(cfg.image_size, cfg.channels, 10, n_train=64, n_test=4,
+                                                  num_labeled=min(cfg.num_labeled, 20) if case != "cifar10_cond"
+                                                  else cfg.num_labeled), "cpu")
+    zca = None
+    if cfg.zca:
+        d = cfg.image_size ** 2 * cfg.channels
+        zca = ZCAStats(mean=np.zeros(d, np.float32), whiten=np.eye(d, dtype=np.float32))
+    step = S.make_device_train_step(cfg, nets, opts, 100, zca_stats=zca)
     calls = _spy(monkeypatch)
     step(state, data)
-    convs, players, epilogues, _ = chip_smoke.step_launches(cfg, env)
+    convs, players, epilogues, epilogue_bwds = chip_smoke.step_launches(cfg, env)
     assert calls["convs"] == convs, (dict(calls["convs"] - convs), dict(convs - calls["convs"]))
-    assert calls["epilogues"] == epilogues
+    assert (calls["epilogues"], calls["epilogue_bwds"]) == (epilogues, epilogue_bwds)
     assert set(players) == set(convs)
+    # the check the card run applies to the wrappers' counts
+    assert chip_smoke.check_step_launches(cfg, _as_counts(calls), 1, case)["conv3x3_fwd"] == sum(
+        c for k, c in convs.items() if k[0] != "wgrad")
     default = sum(chip_smoke.step_launches(cfg, {})[0].values())
     if "TRIPLEGAN_SMALLCIN" in env or "TRIPLEGAN_DECONV" in env:
         assert sum(convs.values()) < default  # convs moved off the kernels
@@ -114,6 +165,6 @@ def test_stl10_rank_step_launches_equal_the_steps_kernel_calls(monkeypatch):
     step(state, data)
     convs, players, epilogues, epilogue_bwds = chip_smoke.step_launches(cfg)
     assert calls["convs"] == convs, (dict(calls["convs"] - convs), dict(convs - calls["convs"]))
-    assert calls["epilogues"] == epilogues
+    assert (calls["epilogues"], calls["epilogue_bwds"]) == (epilogues, epilogue_bwds)
     assert set(players) == set(convs)
     assert {key[1] for key in convs} == {64, 192}  # a rank's batch, and D's 3B rows

@@ -168,6 +168,31 @@ def test_load_dataset_names_the_ports_own_prepare_and_that_command_works(tmp_pat
     assert got.x_unlabel.shape == (24, 28, 28, 1) and got.x_test.shape == (12, 28, 28, 1)
 
 
+@pytest.mark.parametrize("name", ["mnist", "svhn"])
+def test_chip_smoke_raw_files_load_back_as_the_images_they_were_drawn_from(name, tmp_path):
+    """``chip_smoke.write_raw``'s MNIST idx and SVHN .mat files, which the
+    card run converts with ``cli prepare``, through ``prepare_mnist`` /
+    ``prepare_svhn`` and ``load_dataset``: the images and labels that
+    ``chip_smoke.synthetic_split`` drew, bitwise (SVHN's label 10 read back
+    as the digit 0)."""
+    import chip_smoke
+
+    raw, data = str(tmp_path / "raw"), str(tmp_path / "data")
+    chip_smoke.write_raw(raw, name, 40, 12)
+    {"mnist": prepare.prepare_mnist, "svhn": prepare.prepare_svhn}[name](raw, data)
+    size, channels = chip_smoke.RAW_SHAPES[name]
+    rng = np.random.RandomState(chip_smoke.SEED)
+    x_tr, y_tr = chip_smoke.synthetic_split(40, size, rng, channels)
+    x_te, y_te = chip_smoke.synthetic_split(12, size, rng, channels)
+    assert (y_tr == 0).any() and x_tr.shape == (40, size, size, channels)
+    got = datasets.load_dataset(data, name, 20)
+    x_l, y_l, _ = datasets.semi_split(x_tr, y_tr, 20, 10)
+    for have, want in ((got.x_unlabel, x_tr), (got.x_test, x_te), (got.y_test, y_te),
+                       (got.x_label, x_l), (got.y_label, y_l)):
+        assert have.dtype == want.dtype and have.shape == want.shape
+        np.testing.assert_array_equal(have, want)
+
+
 def test_bad_requests_and_malformed_raw_files_are_refused_by_name(tmp_path):
     with pytest.raises(KeyError, match="unknown dataset 'nope'"):
         prepare.prepare("nope", str(tmp_path), str(tmp_path))

@@ -22,6 +22,7 @@ from triplegan_tpu_torch.configs import base as port_base  # noqa: E402
 from triplegan_tpu_torch.data.datasets import synthetic_dataset  # noqa: E402
 from triplegan_tpu_torch.data.pipeline import BatchSampler  # noqa: E402
 from triplegan_tpu_torch.ops import build  # noqa: E402
+from triplegan_tpu_torch.ops import conv3x3 as cv  # noqa: E402
 from triplegan_tpu_torch.train.schedule import make_optimizers  # noqa: E402
 from triplegan_tpu_torch.train.state import create_state  # noqa: E402
 from triplegan_tpu_torch.train.step import make_scan_device_train_step, make_train_step  # noqa: E402
@@ -60,6 +61,25 @@ def test_checkify_clean_step_passes_and_changes_nothing(tiny):
         for layer, arrays in want_state.params[p].items():
             for name, t in arrays.items():
                 assert torch.equal(got_state.params[p][layer][name], t), (p, layer, name)
+
+
+def test_checkify_passes_views_of_memory_not_written_yet(monkeypatch):
+    """The plain filter gradient fills an ``empty`` (3, 3, Cin, Cout) tap by
+    tap (``out[dy, dx] = ...``): each tap's view holds memory nobody wrote
+    until the copy into it. With that memory holding NaN, as freed memory
+    may, a checked call must pass and equal the unchecked one (a mode that
+    checks views fails the clean-step test above whenever it does)."""
+    gen = torch.Generator().manual_seed(0)
+    x, g = torch.randn(2, 6, 6, 3, generator=gen), torch.randn(2, 4, 4, 5, generator=gen)
+    want = cv.reference_conv3x3_wgrad(x, g)
+    garbage = torch.full((9 * 3 * 5,), float("nan"))
+
+    def nan_empty(size, **kwargs):
+        return garbage[:9 * 3 * 5].view(size)
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    _, got = checkify_step(lambda st, b: (st, {"dw": cv.reference_conv3x3_wgrad(*b)}))(None, (x, g))
+    assert torch.equal(got["dw"], want)
 
 
 def test_checkify_catches_poisoned_input(tiny):

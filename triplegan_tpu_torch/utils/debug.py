@@ -11,7 +11,8 @@ that reaches PyTorch's dispatcher below autograd: the forward's, the
 backward's (autograd hands the mode to the threads that run a backward on
 the card) and the port's kernels, which are operators
 (``triplegan_torch::scale_bias_act``, ``conv3x3_fwd``). For each floating
-output it queues ``isfinite(out).all()`` on the output's device, and notes
+output of an operator that computes one (not an allocation, not a view) it
+queues ``isfinite(out).all()`` on the output's device, and notes
 the operator and the Python line that issued it (the innermost frame
 outside torch); for a backward operator, the autograd node it belongs to
 and the line of the forward that made that node, which autograd's anomaly
@@ -87,7 +88,10 @@ class _FloatCheck(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if func.overloadpacket.__name__ in _UNWRITTEN:
+        # a view computes no value: its values were checked where they were
+        # computed, or are memory not written yet (a slice of an ``empty``
+        # that an in-place op fills next)
+        if func.overloadpacket.__name__ in _UNWRITTEN or func.is_view:
             return out
         for t in tree_flatten(out)[0]:
             if isinstance(t, torch.Tensor) and t.is_floating_point() and t.numel():
