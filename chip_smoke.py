@@ -86,6 +86,29 @@ Phases, each fatal on failure (exit code 1, and no result line):
      10 rows) and ``cli serve`` (/classify of 28 × 28 × 1 images, /generate,
      SIGTERM → 0). Then, alone, each arm's eager and graphed ms/step and
      device ms/step;
+  3d. digits: the real-data recipe of the port's campaign
+     (``triplegan_tpu_torch/tools/digits_experiment.py``) for seed 1 and
+     100 labels: ``cli prepare --dataset digits`` from the data file the
+     package carries; ``cli train`` of the campaign's stage command
+     (mnist100 at its published widths on 1,297 real 28 × 28 images, 300
+     epochs of 12 steps, α_P from epoch 100, an eval every 100 epochs, a
+     checkpoint every 200, ``scan_steps=4``) through ``cli.main`` in this
+     process: its launches must be (4 captured + 1 warm-up) ×
+     ``step_launches`` plus 3 evals of 500 images and 3 grids, key for key,
+     its 900 replays counted by the runner, three of them profiled (each 4
+     × a step's kernels by name); every logged loss finite; the test error
+     at most 12.0% (40 JAX and TF runs of the recipe: at most 9.2%); then
+     the supervised arm: first 4 of its full-batch steps graphed (a
+     one-step ``ScanChunk``) against 4 eager steps on seed 1's labelled
+     set, bitwise (losses, parameters, BN statistics, Adam moments); then
+     ``supervised_baseline`` (3000 full-batch steps of the Classifier, each
+     a replay of one captured step) in this process: its launches (a
+     warm-up step, the capture, an eval of 500 images) as implied, key for
+     key, its replays counted by the runner, three of them profiled (each a
+     step's kernels by name); and ``cli eval``, which must print train's
+     last error. Both errors, the seconds, the graphed ms/step and the
+     final losses are printed (line "digits"); cuDNN is deterministic, so
+     the error is repeatable for a given tree;
   4. card against CPU: two steps of a cut-down config (cifar10_4k's layers
      at a few channels, no noise, dropout or augmentation, argmax
      pseudo-labels) on the card with the kernels and on the CPU with their
@@ -185,7 +208,7 @@ Phases, each fatal on failure (exit code 1, and no result line):
      must launch 9 epilogues and 7 convs per classify chunk, 4 and 3 per
      generate chunk; outputs checked against each other and the CPU;
   7. kernels: at every (shape, dtype, activation) at which a kernel arm of
-     phases 3, 3c and 6 launched a kernel (for the epilogue's backward, also the
+     phases 3, 3c, 3d and 6 launched a kernel (for the epilogue's backward, also the
      gradients it computed), holds the kernel's wrapper to its plain
      PyTorch version on fresh seeded inputs and times both with CUDA events
      (``time_ms``: the L2 flushed by a read and the device held by a spin
@@ -215,7 +238,13 @@ setting's. Its launches are the wrappers' counts over every
 main path (``launches_counted``; the doctor probes' counted in their
 subprocesses and reported in their findings) plus the launches that the
 CUDA graph replays of those paths made, counted by kernel name in their profiles
-(``launches_replayed``).
+(``launches_replayed``; of phase 3d's 900 train replays and 3000
+supervised replays, the three of each that were profiled: a profile that
+held every replay would hold millions of kernel records). Every such
+profile brackets its calls with 256 launches of a marker kernel on each
+side and must keep a marker on each side (``device_kernels``): in some
+states of this long process a window has lost its first records. Line
+"profile_markers" gives the windows that lost markers, and how many.
 
 With --profile, one extra step per train arm and 10 chunks per serving
 arm run under torch.profiler (device busy share, kernels by device time,
@@ -699,16 +728,18 @@ def step_launches(cfg, env=os.environ):
     return convs, players, epilogues, epilogue_bwds
 
 
-def check_step_launches(cfg, counts, n: int, what: str, n_evals: int = 0, n_grids: int = 0) -> dict:
+def check_step_launches(cfg, counts, n: int, what: str, n_evals: int = 0, n_grids: int = 0,
+                        n_test: int = None) -> dict:
     """The wrappers' counts (``counts_read``) over ``n`` train steps of
     ``cfg`` with use_pallas against ``step_launches``, plus, for a
-    ``train_loop.train`` run, ``n_evals`` evals of the ``DRIVER_TEST``
-    test images through the Classifier and ``n_grids`` class grids (10 a
-    class) through the Generator: the conv launches key for key, and the
-    epilogue's forwards and backwards. Returns the counts' totals."""
+    ``train_loop.train`` run, ``n_evals`` evals of the ``n_test`` test
+    images (default ``DRIVER_TEST``) through the Classifier and ``n_grids``
+    class grids (10 a class) through the Generator: the conv launches key
+    for key, and the epilogue's forwards and backwards. Returns the
+    counts' totals."""
     convs, _, epilogues, epilogue_bwds = step_launches(cfg)
     gen, _, clf = conv_layers(cfg)
-    n_batches = n_evals * -(-DRIVER_TEST // cfg.batch_size)
+    n_batches = n_evals * -(-(DRIVER_TEST if n_test is None else n_test) // cfg.batch_size)
     want = collections.Counter({key: c * n for key, c in convs.items()})
     for _ in range(n_batches):
         want.update(fwd_launches(cfg, cfg.batch_size, clf))
@@ -876,6 +907,15 @@ HAND_KERNELS = {"sba_fwd": ("sba_fwd_rows<", "sba_fwd_c3<"), "sba_bwd": ("sba_bw
 # synchronize once lacked a few kernels of the kinds that end a step), so
 # each profile of replays leaves this much idle time on both sides of them
 PROFILE_MARGIN_S = 0.2
+# and, in some states of a long process, a window has lost its first device
+# records even so (6 to 13 of them, 0.2 s into the window, in an eager step
+# and in a replay alike, while the graph held every kernel node), so each
+# window brackets the calls with this many launches of a marker kernel on
+# each side: a profile that keeps a marker on both sides kept every record
+# between them
+PROFILE_MARKERS = 256
+PROFILE_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
+PROFILE_WINDOWS = []  # (leading, trailing) markers lost, a window each
 # the group whose launches are each wrapper's own (one a call)
 WRAPPER_GROUP = {"scale_bias_act": "sba_fwd", "scale_bias_act_bwd": "sba_bwd", "conv3x3_fwd": "conv_fwd",
                  "conv3x3_wgrad": "conv_wgrad"}
@@ -890,28 +930,50 @@ def graph_cfg(setting, use_pallas):
 
 def device_kernels(fn, reps: int) -> dict:
     """torch.profiler, device activity only, over ``reps`` calls of ``fn``
-    (with ``PROFILE_MARGIN_S`` before and after them): from its raw device
-    records, the launches and device µs of each
+    (with ``PROFILE_MARGIN_S`` before and after them, and
+    ``PROFILE_MARKERS`` marker kernels right before and right after them,
+    of which the profile must keep at least one on each side): from its raw
+    device records but the markers, the launches and device µs of each
     ``HAND_KERNELS`` group, the device µs in all, the launches of NCCL's
     kernels (names holding "nccl"), and the 10 kernels with the most device
-    time (names cut to 80 characters)."""
+    time (names cut to 80 characters); and the markers lost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def markers():
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(100)
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_MARGIN_S)
+        markers()
         for _ in range(reps):
             fn()
+        markers()
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
+    events = sorted((e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    marks = [i for i, (_, _, name) in enumerate(events) if PROFILE_MARKER in name]
+    inner = [i for i in range(len(events)) if PROFILE_MARKER not in events[i][2]]
+    if inner:
+        head = sum(i < inner[0] for i in marks)
+        tail = sum(i > inner[-1] for i in marks)
+        check(head > 0 and tail > 0,
+              f"a profile kept {head} markers before its calls' first record and {tail} after their last "
+              f"(of {PROFILE_MARKERS} launched on each side): it may have lost some of the calls' records")
+    else:
+        head, tail = len(marks), 0
+        check(len(marks) == 2 * PROFILE_MARKERS, f"a profile with no records of its calls kept {len(marks)} "
+                                                 f"of its {2 * PROFILE_MARKERS} markers")
+    PROFILE_WINDOWS.append((PROFILE_MARKERS - head, PROFILE_MARKERS - tail))
     by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            rec = by_name[e.name()]
-            rec[0] += 1
-            rec[1] += (e.end_ns() - e.start_ns()) / 1e3
+    for start, end, name in (events[i] for i in inner):
+        rec = by_name[name]
+        rec[0] += 1
+        rec[1] += (end - start) / 1e3
     groups, hand = {}, {}
     for group, frags in HAND_KERNELS.items():
         hit = {name: rec for name, rec in by_name.items()
@@ -919,7 +981,8 @@ def device_kernels(fn, reps: int) -> dict:
         groups[group] = {"launches": sum(r[0] for r in hit.values()), "us": sum(r[1] for r in hit.values())}
         hand.update({name[:160]: rec[0] for name, rec in hit.items()})
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    return {"reps": reps, "groups": groups, "device_us": sum(r[1] for r in by_name.values()),
+    return {"reps": reps, "markers_lost": 2 * PROFILE_MARKERS - len(marks),
+            "groups": groups, "device_us": sum(r[1] for r in by_name.values()),
             "nccl": sum(r[0] for name, r in by_name.items() if "nccl" in name.lower()),
             "top_device": [{"name": n[:80], "launches": r[0], "us": r[1]} for n, r in top],
             "_hand": hand, "_all": {name[:160]: rec[0] for name, rec in by_name.items()}}
@@ -1491,6 +1554,251 @@ def configs_phase(data_dir: str, zca) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: digits: one seed of the real-data recipe, both arms
+# ---------------------------------------------------------------------------
+
+DIGITS_SEED, DIGITS_LABELS = 1, 100
+DIGITS_TEST = 500           # the digits test set: 5 eval batches of 100
+DIGITS_ERROR_MAX = 12.0     # percent; 40 JAX and TF runs of the recipe at 100 labels: at most 9.2
+DIGITS_BASELINE_STEPS = 3000
+DIGITS_PROFILED = (1, 301, 900)  # replays under torch.profiler: the first, α_P's first, the last
+DIGITS_B_PROFILED = (1, 1500, 3000)  # the supervised arm's: the first, one midway, the last
+DIGITS_B_BITWISE = 4  # supervised steps graphed against eager ones first
+
+
+def digits_baseline_launches(cfg) -> tuple:
+    """The supervised arm's implied launches: (one full-batch step of the
+    Classifier at ``cfg.batch_size``: a forward, then every filter gradient
+    and every input gradient but the first conv's, as a conv Counter, its
+    epilogue forwards and backwards; one eval of ``DIGITS_TEST`` images in
+    batches of ``cfg.batch_size``: a conv Counter, its epilogue forwards)."""
+    _, _, clf = conv_layers(cfg)
+    b, dt = cfg.batch_size, cfg.compute_dtype
+    step = fwd_launches(cfg, b, clf)
+    for i, (h, ci, co, p) in enumerate(clf):
+        step[("wgrad", b, h, h, ci, co, p, dt)] += 1
+        if i > 0:
+            ho = h + 2 * p - 2
+            step[("dgrad", b, ho, ho, co, ci, 2 - p, dt)] += 1
+    n_batches = -(-DIGITS_TEST // b)
+    evals = collections.Counter({k: c * n_batches for k, c in fwd_launches(cfg, b, clf).items()})
+    n_c = sum(len(bl) for bl in cfg.clf.conv_blocks) + len(cfg.clf.tail)
+    return step, n_c, n_c, evals, n_c * n_batches
+
+
+def digits_supervised_bitwise(cfg, k: int) -> dict:
+    """``k`` steps of the supervised arm on the labelled set of ``cfg``
+    (``baseline_config``'s), graphed (``SupervisedBaseline.step``: a
+    one-step ``ScanChunk``, captured at the first step) against ``k`` eager
+    steps (``SupervisedBaseline.train_step``) from the same weights and
+    per-step noise seeds, in this process and at the arm's shapes: every
+    step's loss, and every parameter, BN statistic and Adam moment after
+    them, must be equal bitwise. Its launches are no part of the main
+    path."""
+    import torch
+
+    from triplegan_tpu_torch.data.datasets import load_dataset
+    from triplegan_tpu_torch.tools.digits_experiment import SupervisedBaseline
+    from triplegan_tpu_torch.train import step as S
+
+    data = load_dataset(cfg.data_dir, cfg.dataset, cfg.num_labeled, cfg.num_classes, cfg.seed)
+    eager, graphed = (SupervisedBaseline(cfg, data.x_label, data.y_label, "cuda", noise_seed=cfg.seed)
+                      for _ in range(2))
+    e_losses = []
+    for _ in range(k):
+        eager.state, m = eager.train_step(eager.state, eager.data)
+        e_losses.append(m["loss"])
+    g_losses = [graphed.step() for _ in range(k)]
+    check((graphed.chunk.captures, graphed.chunk.replays) == (1, k),
+          f"supervised bitwise: {graphed.chunk.captures} captures, {graphed.chunk.replays} replays")
+    bad = [i for i, (a, b) in enumerate(zip(e_losses, g_losses)) if not torch.equal(a, b)]
+    got, want = list(S._state_tensors(graphed.state)), list(S._state_tensors(eager.state))
+    diff = sum(not torch.equal(a, b) for a, b in zip(got, want))
+    check(not bad and diff == 0 and graphed.state.step == eager.state.step == k,
+          f"the supervised arm's graphed steps differ from its eager steps: losses of steps {bad}, "
+          f"{diff} of {len(got)} state tensors")
+    return {"steps": k, "state_tensors": len(got), "losses": [float(v) for v in g_losses]}
+
+
+def digits_phase(root: str) -> dict:
+    """The digits recipe for seed ``DIGITS_SEED`` as the campaign
+    (``triplegan_tpu_torch/tools/digits_experiment.py``) runs it: ``cli
+    prepare --dataset digits`` (from the file the package carries; a
+    subprocess); ``cli train`` of its stage command (mnist100 at its
+    published widths on 1,297 real 28 × 28 images, 100 labels, 300 epochs
+    of 12 steps, α_P from epoch 100, an eval every 100 epochs, a checkpoint
+    every 200, ``scan_steps=4``: 900 CUDA graph replays) through
+    ``cli.main`` in this process, so that its launches are counted: (4
+    captured + 1 warm-up) × ``step_launches`` plus 3 evals of 500 test
+    images and 3 grids, key for key, the replays counted by the runner and
+    three of them profiled, each holding 4 × a step's kernels by name;
+    then ``DIGITS_B_BITWISE`` steps of the supervised arm graphed against
+    as many eager steps (``digits_supervised_bitwise``); then the
+    supervised arm (``supervised_baseline``, 3000 full-batch steps, each a
+    replay of one captured step) in this process, its launches those that
+    its warm-up step, its capture and its eval imply, the replays counted
+    by its runner and three of them profiled, each holding a step's
+    kernels by name; then ``cli eval`` (a subprocess), which must print the
+    error train logged last. The replayed launches are those of the
+    profiled replays.
+    Gates: the Triple-GAN error at most ``DIGITS_ERROR_MAX`` percent, every
+    logged loss finite, and the launches."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from triplegan_tpu_torch import cli as port_cli
+    from triplegan_tpu_torch.cli import _apply_overrides
+    from triplegan_tpu_torch.configs import get_config
+    from triplegan_tpu_torch.tools import campaign
+    from triplegan_tpu_torch.tools.digits_experiment import baseline_config, supervised_baseline
+    from triplegan_tpu_torch.train import loop as train_loop
+    from triplegan_tpu_torch.train import step as S
+
+    data_dir, workdir = os.path.join(root, "digits_data"), os.path.join(root, "digits_runs")
+    cmds = campaign.stage_cmds(DIGITS_SEED, workdir=workdir, data_dir=data_dir, num_labeled=DIGITS_LABELS,
+                               epochs=300, warmup_epochs=100, eval_every_epochs=100, ckpt_every_epochs=200,
+                               device="cuda", scan_steps=GRAPH_K)
+    prepare_s, _ = cli(*cmds["prepare"])
+    sets = [kv for flag, kv in zip(cmds["train"], cmds["train"][1:]) if flag == "--set"]
+    cfg = _apply_overrides(get_config("mnist100"), sets)
+    run_dir = os.path.join(workdir, cfg.name)
+
+    runners = []
+    real_scan = train_loop.make_scan_device_train_step
+
+    def keep_runner(*args, **kwargs):
+        runners.append(SampledProfiledRunner(real_scan(*args, **kwargs), DIGITS_PROFILED))
+        return runners[-1]
+
+    det = torch.backends.cudnn.deterministic
+    out = io.StringIO()
+    train_loop.make_scan_device_train_step = keep_runner
+    try:
+        counts_zero()  # the main path starts here
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                port_cli.main(cmds["train"])
+        except BaseException:
+            sys.stderr.write(out.getvalue()[-4000:])
+            raise
+        train_s = time.perf_counter() - t0
+        counts = counts_read()  # the main path ends here
+    finally:
+        train_loop.make_scan_device_train_step = real_scan
+        torch.backends.cudnn.deterministic = det
+    log = out.getvalue()
+    done = done_line(log)
+    total = 300 * 12
+    check(done.startswith(f"done: step={total} "), f"digits train: {done}")
+    check(len(runners) == 1, f"digits train made {len(runners)} chunk runners")
+    runner = runners[0].runner
+    check((runner.captures, runner.replays, runner.warmup_steps) == (1, total // GRAPH_K, 1),
+          f"digits graph: {runner.captures} captures, {runner.replays} replays, {runner.warmup_steps} warm-ups")
+    counted = runner.captured_steps + runner.warmup_steps
+    launches = check_step_launches(cfg, counts, counted, "digits train", n_evals=3, n_grids=3, n_test=DIGITS_TEST)
+    per_step = step_totals(cfg)
+    for prof in runners[0].profiles:
+        got = replayed_launches(prof)
+        check(got == {k: GRAPH_K * v for k, v in per_step.items()},
+              f"a digits replay ran {got}, want {GRAPH_K} × {per_step}")
+    check(len(runners[0].profiles) == len(DIGITS_PROFILED), f"digits: {len(runners[0].profiles)} replays profiled")
+    replayed = collections.Counter()
+    for prof in runners[0].profiles:
+        replayed.update(replayed_launches(prof))
+
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    losses = [r for r in recs if "loss_d" in r]
+    evals = {r["step"]: r["test_error"] for r in recs if "test_error" in r}
+    check(all(math.isfinite(v) for r in losses for k, v in r.items() if k not in ("step", "time")),
+          "digits train: a logged loss is not finite")
+    check(sorted(evals) == [1200, 2400, 3600], f"digits evals at steps {sorted(evals)}")
+    error_pct = float(done.split("test_error=")[1].rstrip("%"))
+    check(error_pct <= DIGITS_ERROR_MAX, f"digits seed {DIGITS_SEED}: test error {error_pct}% > {DIGITS_ERROR_MAX}%")
+    kept = sorted(int(d) for d in os.listdir(os.path.join(run_dir, "ckpt")) if d.isdigit())
+    check(kept == [2400, 3600], f"digits checkpoints {kept}")
+    ms = [1e3 * cfg.batch_size / r["images_per_sec"] for r in recs if r.get("images_per_sec")]
+
+    # the supervised arm: each step a replay of one captured step; the
+    # wrappers count at the warm-up step and the capture, and the profiled
+    # replays must each run a step's kernels by name
+    b_cfg = baseline_config(data_dir, DIGITS_SEED, DIGITS_LABELS)
+    bitwise = digits_supervised_bitwise(b_cfg, DIGITS_B_BITWISE)
+    step_convs, step_fwd, step_bwd, eval_convs, eval_fwd = digits_baseline_launches(b_cfg)
+    b_step = {"scale_bias_act": step_fwd, "scale_bias_act_bwd": step_bwd,
+              "conv3x3_fwd": sum(c for k, c in step_convs.items() if k[0] != "wgrad"),
+              "conv3x3_wgrad": sum(c for k, c in step_convs.items() if k[0] == "wgrad")}
+    b_runners, real_chunk = [], S.ScanChunk
+
+    def keep_chunk(*args, **kwargs):
+        b_runners.append(SampledProfiledRunner(real_chunk(*args, **kwargs), DIGITS_B_PROFILED))
+        return b_runners[-1]
+
+    S.ScanChunk = keep_chunk
+    try:
+        counts_zero()  # the supervised arm starts here
+        t0 = time.perf_counter()
+        b_err = supervised_baseline(data_dir, DIGITS_SEED, DIGITS_BASELINE_STEPS, DIGITS_LABELS, log_every=0,
+                                    device="cuda")
+        baseline_s = time.perf_counter() - t0
+        b_counts = counts_read()  # and ends here
+    finally:
+        S.ScanChunk = real_chunk
+    check(len(b_runners) == 1, f"the supervised arm made {len(b_runners)} chunk runners")
+    b_runner = b_runners[0].runner
+    check((b_runner.captures, b_runner.replays, b_runner.warmup_steps) == (1, DIGITS_BASELINE_STEPS, 1),
+          f"supervised graph: {b_runner.captures} captures, {b_runner.replays} replays, "
+          f"{b_runner.warmup_steps} warm-ups")
+    check(len(b_runners[0].profiles) == len(DIGITS_B_PROFILED),
+          f"supervised: {len(b_runners[0].profiles)} replays profiled")
+    b_profiled = [replayed_launches(prof) for prof in b_runners[0].profiles]
+    check(all(got == b_step for got in b_profiled),
+          f"the supervised arm's profiled replays ran {b_profiled} by kernel name, its step {b_step}")
+    eval_s, eval_out = cli(*cmds["eval"])
+    torch.backends.cudnn.deterministic = det
+    err_line = eval_out.strip().splitlines()[-1]
+    check(err_line == "test error: " + done.split("test_error=")[1], f"digits cli eval printed {err_line!r}, "
+                                                                    f"train {done!r}")
+    want_convs = collections.Counter({k: 2 * c for k, c in step_convs.items()}) + eval_convs
+    got_convs = b_counts["conv3x3_fwd"] + b_counts["conv3x3_wgrad"]
+    b_launches = totals(b_counts)
+    check(got_convs == want_convs and b_launches["scale_bias_act"] == 2 * step_fwd + eval_fwd
+          and b_launches["scale_bias_act_bwd"] == 2 * step_bwd,
+          f"digits supervised arm: launches {b_launches}, conv keys beyond the implied (a warm-up step, "
+          f"a capture, an eval) {dict(got_convs - want_convs)}, implied and not launched "
+          f"{dict(want_convs - got_convs)}")
+    for got in b_profiled:
+        replayed.update(got)
+    replayed = {k: replayed[k] for k in b_step}
+    counts_all = {name: counts[name] + b_counts[name] for name in counts}
+    launches_all = {k: launches[k] + b_launches[k] for k in launches}
+    final = {k: losses[-1][k] for k in ("loss_d", "loss_g", "loss_c", "c_sup")}
+    res = {"seed": DIGITS_SEED, "num_labeled": DIGITS_LABELS, "steps": total, "triplegan_error_pct": error_pct,
+           "evals": evals, "baseline_error_pct": 100 * b_err, "baseline_steps": DIGITS_BASELINE_STEPS,
+           "final_losses": final, "prepare_seconds": prepare_s, "train_seconds": train_s,
+           "graphed_ms_per_step_median": statistics.median(ms), "log_windows": len(ms),
+           "eval_seconds_cli": eval_s, "baseline_seconds": baseline_s,
+           "graph": {"captures": runner.captures, "replays": runner.replays, "profiled": list(DIGITS_PROFILED),
+                     **runner.graph_stats},
+           "baseline_graph": {"captures": b_runner.captures, "replays": b_runner.replays,
+                              "profiled": list(DIGITS_B_PROFILED), **b_runner.graph_stats},
+           "baseline_bitwise": bitwise,
+           "markers_lost": {"train": [p["markers_lost"] for p in runners[0].profiles],
+                            "supervised": [p["markers_lost"] for p in b_runners[0].profiles]},
+           "launches_counted": launches_all, "launches_replayed": replayed,
+           "launches": {k: launches_all[k] + replayed[k] for k in launches_all},
+           "launches_train": launches, "launches_baseline": b_launches,
+           "baseline_profiled": {"step": b_step, "by_name": b_runners[0].profiles[-1]["_hand"]},
+           "_sources": [("digits train", counts, {}), ("digits supervised", b_counts, {})], "_counts": counts_all}
+    shutil.rmtree(workdir, ignore_errors=True)
+    emit("digits", public(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the train step on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -1896,6 +2204,21 @@ class ProfiledRunner:
         out = []
         self.profiles.append(device_kernels(lambda: out.append(self.runner(state, data)), reps=1))
         return out[0]
+
+
+class SampledProfiledRunner(ProfiledRunner):
+    """``ProfiledRunner`` that profiles only the replays numbered in
+    ``which`` (1-based) and counts every call."""
+
+    def __init__(self, runner, which):
+        super().__init__(runner)
+        self.which, self.calls = set(which), 0
+
+    def __call__(self, state, data):
+        self.calls += 1
+        if self.calls in self.which:
+            return super().__call__(state, data)
+        return self.runner(state, data)
 
 
 def driver_inprocess(data_dir, workdir, train_arms) -> dict:
@@ -3881,7 +4204,7 @@ def winograd_rows(gen, flush) -> list:
     return rows
 
 
-def path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor) -> list:
+def path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits) -> list:
     """The keyed launch counts of each main path: the doctor's device
     probes (``cli doctor``'s and the cold one: one launch of each kernel at
     each ``doctor.PROBE`` entry each, in their subprocesses), the first
@@ -3916,6 +4239,7 @@ def path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor) -
         if arm["use_pallas"]:
             sources.append(("serve " + arm["dtype"], arm["_counts"], {}))
     sources.append(("deploy artifact", deploy["_counts"], {}))
+    sources += digits["_sources"]
     return sources
 
 
@@ -4181,6 +4505,10 @@ def main():
         configs = configs_phase(data_dir, zca)
         phases["configs"] = time.perf_counter() - t_start
 
+        # 3d. digits: one seed of the real-data recipe, both arms
+        digits = digits_phase(data_root)
+        phases["digits"] = time.perf_counter() - t_start
+
         # 4. card against CPU
         card_cpu = card_vs_cpu_phase(data, zca)
         phases["card_vs_cpu"] = time.perf_counter() - t_start
@@ -4216,13 +4544,17 @@ def main():
 
     # 7. kernels, at the shapes the main paths launched them at; the winograd A/B rows
     sba_rows, bwd_rows, conv_rows, wino_rows = kernel_phase(
-        path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor))
+        path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits))
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
+    lost = [w for w in PROFILE_WINDOWS if any(w)]
+    emit("profile_markers", {"windows": len(PROFILE_WINDOWS), "markers_a_side": PROFILE_MARKERS,
+                             "windows_that_lost_markers": len(lost), "lost_leading_trailing": lost})
 
     config_runs = [run for rec in configs for run in rec["arms"] + [rec["serving"]] + ([rec["loop"]] if "loop" in rec else [])]
     kernels = summary(sba_rows, bwd_rows, conv_rows,
-                      train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor], serve_arms)
+                      train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor, digits],
+                      serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -4232,9 +4564,9 @@ def main():
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms], "configs": [public(r) for r in configs],
                        "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),
-                       "mesh": public(mesh), "deploy": public(deploy),
+                       "mesh": public(mesh), "deploy": public(deploy), "digits": public(digits),
                        "serve": [public(a) for a in serve_arms],
-                       "kernels": kernels}, f, indent=1)
+                       "kernels": kernels, "profile_windows": PROFILE_WINDOWS}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -168,3 +168,30 @@ def test_stl10_rank_step_launches_equal_the_steps_kernel_calls(monkeypatch):
     assert (calls["epilogues"], calls["epilogue_bwds"]) == (epilogues, epilogue_bwds)
     assert set(players) == set(convs)
     assert {key[1] for key in convs} == {64, 192}  # a rank's batch, and D's 3B rows
+
+
+def test_the_digits_supervised_arm_launches_what_chip_smoke_implies(monkeypatch):
+    """``digits_baseline_launches``, the card run's check of the supervised
+    arm of phase 3d: a full-batch step (every filter gradient, every input
+    gradient but the first conv's) and an eval of the 500 test images in
+    batches of ``batch_size``, against the calls that two eager steps and
+    an eval of ``SupervisedBaseline`` make, mnist100's Classifier at a few
+    channels."""
+    from triplegan_tpu_torch.configs import get_config
+    from triplegan_tpu_torch.tools.digits_experiment import SupervisedBaseline
+
+    cfg = get_config("mnist100")
+    cfg.clf.conv_blocks, cfg.clf.tail = ((4, 4), (8, 8)), (8, 8)
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 256, (cfg.batch_size, 28, 28, 1)).astype(np.uint8)
+    calls = _spy(monkeypatch)
+    run = SupervisedBaseline(cfg, x, np.arange(cfg.batch_size) % 10, "cpu", noise_seed=0)
+    for _ in range(2):
+        run.step()
+    run.error(rng.randint(0, 256, (chip_smoke.DIGITS_TEST, 28, 28, 1)).astype(np.uint8),
+              np.zeros(chip_smoke.DIGITS_TEST, np.int64))
+    step_convs, step_fwd, step_bwd, eval_convs, eval_fwd = chip_smoke.digits_baseline_launches(cfg)
+    counts = _as_counts(calls)
+    want = collections.Counter({k: 2 * c for k, c in step_convs.items()}) + eval_convs
+    assert counts["conv3x3_fwd"] + counts["conv3x3_wgrad"] == want
+    assert (calls["epilogues"], calls["epilogue_bwds"]) == (2 * step_fwd + eval_fwd, 2 * step_bwd)

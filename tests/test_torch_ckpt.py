@@ -206,8 +206,12 @@ def test_keep_n_and_one_save_a_step_hold_with_a_save_in_flight(tmp_path, monkeyp
     for step in (2, 4):
         release.set()
         assert mgr.save(step, _advanced(state, step))
+    # 4 is published before the event is cleared: a writer that had not yet
+    # reached release.wait would otherwise block there, and save(6) with it
+    mgr.join()
+    assert mgr.all_steps() == [2, 4]
     release.clear()
-    assert mgr.save(6, _advanced(state, 6))  # 4 is published first, 6 is held in flight
+    assert mgr.save(6, _advanced(state, 6))  # 6 is held in flight
     assert mgr.all_steps() == [2, 4]
     assert not mgr.save(6, _advanced(state, 7))  # the step in flight counts
     assert not mgr.save(5, _advanced(state, 5))

@@ -868,3 +868,37 @@ def test_pt2_exported_on_card_launches_the_kernels_and_moves_to_the_cpu(cuda, tm
         assert out.device.type == "cpu"
         assert (sba.launches.total(), cv.fwd_launches.total()) == before
         torch.testing.assert_close(out, got.cpu(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [20, 100])
+def test_graphed_supervised_step_equals_eager_steps_bitwise_on_card(cuda, batch):
+    """The digits campaign's supervised arm
+    (``tools/digits_experiment.py::SupervisedBaseline``): its step, a
+    one-step ``ScanChunk`` captured once and replayed 3 times, equals 3
+    eager steps of its ``train_step`` from the same weights, bitwise
+    (losses, parameters, BN statistics, Adam moments), noise and dropout
+    drawn from the same per-step seeds; its eval too. At batch 100 the
+    shapes are those of the campaign (100 labels, one batch)."""
+    from triplegan_tpu_torch.configs import get_config
+    from triplegan_tpu_torch.tools.digits_experiment import SupervisedBaseline
+    from triplegan_tpu_torch.train.step import _state_tensors
+
+    cfg = get_config("mnist100")
+    cfg.batch_size = batch
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 256, (batch, 28, 28, 1)).astype(np.uint8)
+    y = np.arange(batch) % 10
+    eager, graphed = (SupervisedBaseline(cfg, x, y, cuda, noise_seed=5) for _ in range(2))
+    e_losses = []
+    for _ in range(3):
+        eager.state, m = eager.train_step(eager.state, eager.data)
+        e_losses.append(float(m["loss"]))
+    assert [float(graphed.step()) for _ in range(3)] == e_losses
+    assert (graphed.chunk.captures, graphed.chunk.replays) == (1, 3)
+    got, want = list(_state_tensors(graphed.state)), list(_state_tensors(eager.state))
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert eager.state.step == graphed.state.step == 3
+    assert eager.state.opt["clf"].count == graphed.state.opt["clf"].count == 3
+    x_test = rng.randint(0, 256, (50, 28, 28, 1)).astype(np.uint8)
+    assert eager.error(x_test, np.zeros(50)) == graphed.error(x_test, np.zeros(50))

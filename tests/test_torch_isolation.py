@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of triplegan_tpu_torch
-pulls in no jax, no ml_collections, nothing of triplegan_tpu and no PIL
-(sample grids are written without it), and it asks for the card unless
-told to use the CPU."""
+pulls in no jax, no ml_collections, nothing of triplegan_tpu, no PIL
+(sample grids are written without it) and no scikit-learn (the digits
+data ships with the package), and it asks for the card unless told to use
+the CPU."""
 
 import os
 import pkgutil
@@ -31,7 +32,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "train.schedule", "train.state", "data.datasets", "cli", "train.loop",
               "ckpt.manager", "eval.metrics", "eval.sample", "data.pipeline", "utils.logging",
               "data.prepare", "data.download", "doctor", "utils.profiling", "utils.debug",
-              "utils.cache", "ops.winograd"):
+              "utils.cache", "ops.winograd", "tools.stats", "tools.campaign", "tools.seed_campaign",
+              "tools.digits_experiment", "tools.parity", "tools.digits_quality", "tools.flagset_ab"):
         assert f"triplegan_tpu_torch.{m}" in modules
     # A fresh interpreter: this test process has imported jax already.
     code = (
@@ -40,7 +42,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ml_collections' or m.startswith('ml_collections.')\n"
         "             or m == 'triplegan_tpu' or m.startswith('triplegan_tpu.')\n"
-        "             or m == 'PIL' or m.startswith('PIL.'))\n"
+        "             or m == 'PIL' or m.startswith('PIL.')\n"
+        "             or m == 'sklearn' or m.startswith('sklearn.'))\n"
         "print(json.dumps(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -17,6 +17,7 @@ Downloading is a separate, opt-in step (``download=True``:
 from __future__ import annotations
 
 import gzip
+import io
 import os
 import pickle
 import struct
@@ -204,30 +205,45 @@ def prepare_stl10(raw_dir: str, out_dir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# scikit-learn's digits (real data bundled with scikit-learn)
+# digits (UCI optdigits, as scikit-learn bundles it; a copy ships here)
 # ---------------------------------------------------------------------------
 
 
 DIGITS_TEST_PER_CLASS = 50
 DIGITS_SPLIT_SEED = 0
+# scikit-learn's ``datasets/data/digits.csv.gz`` (1.9.0), byte for byte: the
+# UCI optdigits sample (CC BY 4.0), in scikit-learn's copy (BSD-3)
+DIGITS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "digits.csv.gz")
+DIGITS_SHA256 = "09f66e6debdee2cd2b5ae59e0d6abbb73fc2b0e0185d2e1957e9ebb51e23aa22"
+
+
+def load_digits_file(path: str = DIGITS_FILE) -> Tuple[np.ndarray, np.ndarray]:
+    """(images (1797, 8, 8) float64 in 0..16, targets int) of the packaged
+    digits file, read as scikit-learn's ``load_digits`` reads its copy: the
+    gzip'd CSV through ``np.loadtxt``, the last column the target. Raises
+    ``ValueError`` when the file's sha256 is not ``DIGITS_SHA256``."""
+    import hashlib
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    digest = hashlib.sha256(raw).hexdigest()
+    if digest != DIGITS_SHA256:
+        raise ValueError(f"{path}: sha256 {digest}, want {DIGITS_SHA256} (a damaged copy of the digits file)")
+    data = np.loadtxt(io.StringIO(gzip.decompress(raw).decode("utf-8")), delimiter=",")
+    return data[:, :-1].reshape(-1, 8, 8), data[:, -1].astype(int)
 
 
 def prepare_digits(raw_dir: str, out_dir: str) -> None:
-    """scikit-learn's bundled handwritten digits (UCI optdigits): 1,797
-    real 8×8 images. ``raw_dir`` is ignored. Pixels 0..16 rescale to uint8
-    0..255 and upsample nearest-neighbour to 28×28×1, so the ``mnist100``
-    architecture applies unchanged; ``DIGITS_TEST_PER_CLASS`` images of
-    each class are held out (seed ``DIGITS_SPLIT_SEED``), so every run
-    writes the same shards. Needs scikit-learn: ``RuntimeError`` naming it
-    when it is missing."""
-    try:
-        from sklearn.datasets import load_digits
-    except ImportError as e:
-        raise RuntimeError("prepare --dataset digits needs scikit-learn (it bundles the data)") from e
-
-    d = load_digits()
-    x = np.round(d.images * (255.0 / 16.0)).astype(np.uint8)  # (1797, 8, 8)
-    y = d.target.astype(np.int32)
+    """The handwritten digits scikit-learn bundles (UCI optdigits): 1,797
+    real 8×8 images, read from the package's own copy
+    (``load_digits_file``; no scikit-learn needed). ``raw_dir`` is
+    ignored. Pixels 0..16 rescale to uint8 0..255 and upsample
+    nearest-neighbour to 28×28×1, so the ``mnist100`` architecture applies
+    unchanged; ``DIGITS_TEST_PER_CLASS`` images of each class are held out
+    (seed ``DIGITS_SPLIT_SEED``), so every run writes the same shards."""
+    images, target = load_digits_file()
+    x = np.round(images * (255.0 / 16.0)).astype(np.uint8)  # (1797, 8, 8)
+    y = target.astype(np.int32)
     idx28 = (np.arange(28) * 8) // 28
     x = x[:, idx28][:, :, idx28][..., None]  # nearest neighbour → (N, 28, 28, 1)
 

@@ -132,10 +132,13 @@ class TrainStep:
     step nor any device value on the host. ``values(step, counts)`` gives
     the scalars on the host in float64, ``counts`` each Adam's count.
     ``mesh`` is the mesh the body's collectives run over (None: one
-    process); the generators' seeds mix in its rank."""
+    process); the generators' seeds mix in its rank. ``metrics`` names the
+    0-d tensors the body's metrics hold."""
 
-    def __init__(self, body: Callable, values: Callable, domains: Sequence[int], mesh=None):
+    def __init__(self, body: Callable, values: Callable, domains: Sequence[int], mesh=None,
+                 metrics: Sequence[str] = METRICS):
         self.body, self.values, self.domains, self.mesh = body, values, tuple(domains), mesh
+        self.metrics = tuple(metrics)
 
     def seed_of(self, seed: int, step: int, domain: int) -> int:
         return _mixed_seed(seed, step, domain, None if self.mesh is None else self.mesh.rank)
@@ -623,7 +626,7 @@ class ScanChunk:
             self._graph.replay()
             self.replays += 1
             out = self._metrics.clone()
-            stacked = {k: out[j] for j, k in enumerate(METRICS)}
+            stacked = {k: out[j] for j, k in enumerate(self.step.metrics)}
         self.step_metrics = stacked
         return self._advanced(state), _reduce_scan_metrics(stacked, self.mode)
 
@@ -659,7 +662,7 @@ class ScanChunk:
                 try:
                     new, stacked = self._chunk(state, data, gens, sc)
                     _copy_into(state, new)
-                    vec = torch.stack([stacked[k] for k in METRICS])
+                    vec = torch.stack([stacked[k] for k in self.step.metrics])
                     del new, stacked
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
