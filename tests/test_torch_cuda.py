@@ -4,7 +4,8 @@ PyTorch versions, on the card; the float32 conv's bits repeated over 200
 calls; ``device_prefetch``'s copies (their bytes and the consumer's
 stream ordered after them) and the native gather in use; the CUDA graph
 chunk under a process group: refused under gloo, and under NCCL (a group
-of this process alone) equal to eager steps bitwise; the forward kernels
+of this process alone) equal to eager steps bitwise; the phase marks a
+profiled replay runs; the forward kernels
 as PyTorch operators, and a ``.pt2`` artifact exported on the card that
 launches them there and runs its plain versions once moved to the CPU.
 Skips where there is no CUDA device (the kernels have no CPU mode).
@@ -701,6 +702,44 @@ def test_graphed_step_equals_eager_step_bitwise_on_card(dtype, cuda):
             assert torch.equal(g[k], w[k]), k
     assert state.step == eager.step == 2
     for a, b in zip(_state_tensors(state), _state_tensors(eager)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_a_profiled_replay_holds_each_phase_mark_a_step_in_order_on_card(cuda):
+    """A K = 4 chunk's replay under the profiler runs the seven phase marks
+    of each step in order, 4 times; the replay's first mark starts after
+    the host span of the replay starts (one clock for both); no span leaves
+    a record on the card; the state equals an unprofiled twin's bitwise."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, nets, opts, state, data, S = _small_train()
+    twin = S._clone_state(state)
+    quiet = lambda *a, **k: None  # noqa: E731
+    chunk = S.make_scan_device_train_step(cfg, nets, opts, 16, 4, log=quiet)
+    chunk.prepare(state, data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)  # the window's edges lie on the host's clock: margins on both sides
+        state, got = chunk(state, data)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    twin, want = S.make_scan_device_train_step(cfg, nets, opts, 16, 4, log=quiet)(twin, data)
+    torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [e for e in events if e.device_type() == DeviceType.CUDA]
+    marks = sorted((e.start_ns(), e.name()) for e in on_card if e.name().startswith("tg_phase_"))
+    phases = ("d_grad", "d_adam", "g_grad", "g_adam", "c_grad", "c_adam", "end")
+    assert [n for _, n in marks] == [f"tg_phase_{p}" for p in phases] * 4
+    replays = [e for e in events if e.name() == "tg::chunk.replay" and e.device_type() != DeviceType.CUDA]
+    assert len(replays) == 1 and replays[0].start_ns() < marks[0][0]
+    assert not [e.name() for e in on_card if e.name().startswith("tg::")]
+    for k in S.METRICS:
+        assert torch.equal(got[k], want[k]), k
+    for a, b in zip(_state_tensors(state), _state_tensors(twin)):
         assert torch.equal(a, b)
 
 

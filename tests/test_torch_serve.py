@@ -11,6 +11,7 @@ summation order, ZCA's 768-term dot included).
 import io
 import json
 import threading
+import time
 import types
 import urllib.error
 import urllib.request
@@ -150,6 +151,44 @@ def test_batched_apply_rejects_bad_batches():
 def test_app_requires_a_fn():
     with pytest.raises(ValueError, match="nothing to serve"):
         ServingApp(device="cpu")
+
+
+def test_device_lock_wait_is_counted_apart_from_the_compute():
+    """A request that waits for the lock another thread holds counts that
+    wait under ``triplegan_device_lock_wait_seconds_total`` and not its
+    compute; ``triplegan_request_seconds_total`` keeps both."""
+    compute_s, hold_s = 0.5, 0.5
+
+    def classify(x):
+        time.sleep(compute_s)
+        return np.zeros((x.shape[0], 10), np.float32)
+
+    app = ServingApp(classify, device="cpu", classify_batch=2, image_shape=(4, 4, 3))
+    images = np.zeros((2, 4, 4, 3), np.uint8)
+    app.do_classify(images)  # nobody holds the lock
+    assert app.lock_wait_s["classify"] < compute_s / 2 and app.latency_s["classify"] >= compute_s
+    held = threading.Event()
+
+    def holder():
+        with app.device_lock:
+            held.set()
+            time.sleep(hold_s)
+
+    t = threading.Thread(target=holder)
+    t.start()
+    held.wait()
+    wait0, total0 = app.lock_wait_s["classify"], app.latency_s["classify"]
+    app.do_classify(images)
+    t.join()
+    wait, total = app.lock_wait_s["classify"] - wait0, app.latency_s["classify"] - total0
+    assert hold_s / 2 <= wait < hold_s + compute_s / 2  # the hold, and not the compute
+    assert total - wait >= compute_s
+    text = app.metrics_text()
+    assert "# TYPE triplegan_device_lock_wait_seconds_total counter" in text
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith('triplegan_device_lock_wait_seconds_total{endpoint="classify"}'))
+    assert float(line.split()[-1]) == pytest.approx(app.lock_wait_s["classify"], abs=1e-6)
+    assert 'triplegan_device_lock_wait_seconds_total{endpoint="generate"} 0.000000' in text
 
 
 # ---------- live HTTP round trip ----------

@@ -1,6 +1,7 @@
 """The port's ``utils/debug.py`` (``checkify_step``), ``utils/cache.py``
 (``enable_build_cache`` and the build directory of ``ops/build.py``) and
-``utils/profiling.py`` (``trace``, ``step_timer``), on the CPU.
+``utils/profiling.py`` (``trace``, ``step_timer``, and the spans and
+phases of the training call), on the CPU.
 
 ``checkify_step`` as the JAX package's ``tests/test_debug.py`` holds its
 own: a clean step passes (and returns what the unchecked step returns,
@@ -25,12 +26,17 @@ from triplegan_tpu_torch.ops import build  # noqa: E402
 from triplegan_tpu_torch.ops import conv3x3 as cv  # noqa: E402
 from triplegan_tpu_torch.train.schedule import make_optimizers  # noqa: E402
 from triplegan_tpu_torch.train.state import create_state  # noqa: E402
+from triplegan_tpu_torch.train import step as S  # noqa: E402
 from triplegan_tpu_torch.train.step import make_scan_device_train_step, make_train_step  # noqa: E402
 from triplegan_tpu_torch.utils.cache import enable_build_cache  # noqa: E402
 from triplegan_tpu_torch.utils.debug import NonFiniteError, checkify_step  # noqa: E402
-from triplegan_tpu_torch.utils.profiling import step_timer, trace  # noqa: E402
+from triplegan_tpu_torch.utils import profiling  # noqa: E402
+from triplegan_tpu_torch.utils.profiling import span, step_timer, trace  # noqa: E402
 
 torch.set_num_threads(1)
+
+# the train step's phases in the order they open (train/step.py)
+PHASES = ("d_grad", "d_adam", "g_grad", "g_adam", "c_grad", "c_adam", "end")
 
 
 @pytest.fixture(scope="module")
@@ -172,3 +178,73 @@ def test_trace_writes_a_chrome_trace_and_step_timer_times(tmp_path):
     with step_timer(result, "t"):
         (a @ a).sum()
     assert result["t"] > 0
+
+
+def _chunk_of_two(tiny):
+    """A K = 2 chunk of the tiny config's device-data step, a fresh state and
+    the data it draws from, on the CPU."""
+    cfg, nets, opts, _, _ = tiny
+    data = synthetic_dataset(cfg.image_size, cfg.channels, 10, n_train=64, n_test=16, num_labeled=20)
+    chunk = make_scan_device_train_step(cfg, nets, opts, 16, 2, log=lambda *a, **k: None)
+    return chunk, create_state(cfg, nets, opts, device="cpu"), S.upload_device_data(data, "cpu")
+
+
+def _tg_spans(prof):
+    return sorted((e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                  if e.name().startswith("tg::"))
+
+
+def test_a_profiled_chunk_records_its_call_and_each_steps_phases_in_order(tiny):
+    chunk, state, data = _chunk_of_two(tiny)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        chunk(state, data)
+    spans = _tg_spans(prof)
+    calls = [s for s in spans if s[2] == "tg::chunk.call"]
+    phases = [s for s in spans if s[2].startswith("tg::phase.")]
+    assert len(calls) == 1 and len(spans) == 1 + len(phases)  # no capture and no replay on the CPU
+    assert [s[2] for s in phases] == [f"tg::phase.{p}" for p in PHASES] * 2
+    assert all(calls[0][0] <= s[0] and s[1] <= calls[0][1] for s in phases)
+    assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))  # one after another, none nested
+
+
+def test_a_profiled_chunk_equals_an_unprofiled_twin_bitwise(tiny):
+    chunk, state, data = _chunk_of_two(tiny)
+    twin = S._clone_state(state)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        state, got = chunk(state, data)
+    twin, want = chunk(twin, data)
+    assert state.step == twin.step == 2
+    for k in S.METRICS:
+        assert torch.equal(got[k], want[k]), k
+    for a, b in zip(S._state_tensors(state), S._state_tensors(twin)):
+        assert torch.equal(a, b)
+
+
+def test_span_enters_no_profiler_op_without_a_profiler(tiny, monkeypatch):
+    entered = []
+    real = torch._C._profiler._RecordFunctionFast
+
+    def counting(name):
+        entered.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", counting)
+    chunk, state, data = _chunk_of_two(tiny)
+    chunk(state, data)
+    with span("x"):
+        pass
+    assert entered == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with span("x"):
+            pass
+    assert entered == ["tg::x"]
+
+
+def test_phases_on_the_cpu_build_and_launch_no_mark(tiny, monkeypatch):
+    def no_mark(name):
+        raise AssertionError(f"a CPU step must not launch the mark kernel of phase {name!r}")
+
+    monkeypatch.setattr(profiling, "_mark", no_mark)
+    chunk, state, data = _chunk_of_two(tiny)
+    state, metrics = chunk(state, data)
+    assert state.step == 2 and all(bool(torch.isfinite(metrics[k]).all()) for k in S.METRICS)

@@ -110,15 +110,28 @@ class ServingApp:
         self.reloader = reloader
         self.device_lock = threading.Lock()
         self.counters = {"classify": 0, "generate": 0, "reload": 0, "errors": 0}
-        # Cumulative seconds per endpoint (device-lock wait + compute).
+        # Cumulative seconds per endpoint: device-lock wait + compute, and
+        # the wait alone.
         self.latency_s = {"classify": 0.0, "generate": 0.0}
+        self.lock_wait_s = {"classify": 0.0, "generate": 0.0}
         self._counter_lock = threading.Lock()
 
-    def count(self, key: str, seconds: float = None):
+    def count(self, key: str, seconds: float = None, wait: float = 0.0):
         with self._counter_lock:
             self.counters[key] += 1
             if seconds is not None:
                 self.latency_s[key] += seconds
+                self.lock_wait_s[key] += wait
+
+    def _serve(self, endpoint: str, fn: Callable, batch: int, *arrays: np.ndarray) -> np.ndarray:
+        """``batched_apply`` under the device lock, counted with its time and
+        its wait for the lock."""
+        t0 = time.perf_counter()
+        with self.device_lock:
+            t1 = time.perf_counter()
+            out = batched_apply(fn, batch, *arrays)
+        self.count(endpoint, seconds=time.perf_counter() - t0, wait=t1 - t0)
+        return out
 
     # ---- endpoint implementations (numpy in / numpy|dict out) ----
 
@@ -158,11 +171,7 @@ class ServingApp:
                 f"images must be [N,{','.join(map(str, self.image_shape))}], "
                 f"got {tuple(images.shape)}"
             )
-        t0 = time.perf_counter()
-        with self.device_lock:
-            out = batched_apply(self.classify, self.classify_batch, images)
-        self.count("classify", seconds=time.perf_counter() - t0)
-        return out
+        return self._serve("classify", self.classify, self.classify_batch, images)
 
     def do_generate(self, z: np.ndarray, y: np.ndarray, pixels: bool = False) -> np.ndarray:
         if self.generate is None:
@@ -175,10 +184,7 @@ class ServingApp:
             raise ValueError(f"y must be [N]={z.shape[0]}, got {y.shape}")
         if self.num_classes and ((y < 0).any() or (y >= self.num_classes).any()):
             raise ValueError(f"labels must be in [0,{self.num_classes})")
-        t0 = time.perf_counter()
-        with self.device_lock:
-            imgs = batched_apply(self.generate, self.generate_batch, z, y)
-        self.count("generate", seconds=time.perf_counter() - t0)
+        imgs = self._serve("generate", self.generate, self.generate_batch, z, y)
         if pixels:  # [-1,1] → uint8, the mapping of the JAX server
             imgs = np.clip((np.asarray(imgs, np.float32) + 1.0) * 127.5, 0, 255)
             imgs = imgs.astype(np.uint8)
@@ -189,6 +195,7 @@ class ServingApp:
         with self._counter_lock:
             counters = dict(self.counters)
             latency = dict(self.latency_s)
+            wait = dict(self.lock_wait_s)
         lines = [
             "# HELP triplegan_requests_total Requests served, by endpoint.",
             "# TYPE triplegan_requests_total counter",
@@ -202,6 +209,13 @@ class ServingApp:
         ]
         for k, v in sorted(latency.items()):
             lines.append(f'triplegan_request_seconds_total{{endpoint="{k}"}} {v:.6f}')
+        lines += [
+            "# HELP triplegan_device_lock_wait_seconds_total Cumulative time requests "
+            "waited for the device lock, by endpoint (a part of triplegan_request_seconds_total).",
+            "# TYPE triplegan_device_lock_wait_seconds_total counter",
+        ]
+        for k, v in sorted(wait.items()):
+            lines.append(f'triplegan_device_lock_wait_seconds_total{{endpoint="{k}"}} {v:.6f}')
         lines += [
             "# HELP triplegan_serving_batch Static serving batch size.",
             "# TYPE triplegan_serving_batch gauge",

@@ -86,6 +86,7 @@ from triplegan_tpu_torch.train.state import create_state, param_count
 from triplegan_tpu_torch.train.step import (make_device_train_step, make_eval_step,
                                             make_scan_device_train_step, make_train_step,
                                             upload_device_data)
+from triplegan_tpu_torch.utils import profiling
 from triplegan_tpu_torch.utils.logging import MetricsLogger
 from triplegan_tpu_torch.utils.platform import resolve_device
 
@@ -186,11 +187,6 @@ def _test_stream(sampler: BatchSampler, device, stop_check=None, mesh=None):
         if mesh is not None:
             batch = mesh.rank_rows(batch)
         yield {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[int] = None,
@@ -300,10 +296,7 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
 
     def _end_profile():
         nonlocal profile_dir
-        _sync(dev)
-        profiler.stop()
-        os.makedirs(profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        profiling.stop_trace(profiler, os.path.join(profile_dir, "trace.json"))
         say(f"wrote profile trace to {profile_dir}", flush=True)
         profile_dir = ""
 
@@ -326,12 +319,7 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
             if stopping:
                 break
             if profile_dir and profiler is None and it >= profile_start:
-                _sync(dev)
-                acts = [torch.profiler.ProfilerActivity.CPU]
-                if dev.type == "cuda":
-                    acts.append(torch.profiler.ProfilerActivity.CUDA)
-                profiler = torch.profiler.profile(activities=acts)
-                profiler.start()
+                profiler = profiling.start_trace()
             if scan is not None and it + chunk <= end_step:
                 state, metrics = scan(state, device_data)
                 taken = chunk

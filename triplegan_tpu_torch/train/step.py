@@ -51,6 +51,16 @@ its Adam (one flattened all-reduce a player) and so are the loss metrics;
 every generator's seed mixes in the rank (JAX folds in ``axis_index``), so
 the ranks' noise, dropout, augmentation and draws differ while their
 states stay equal.
+
+The body opens the step's phases in order (``utils/profiling.py::
+phase``): ``d_grad``, ``d_adam``, ``g_grad``, ``g_adam``, ``c_grad``,
+``c_adam``, each a player's update before its Adam and the Adam, and
+``end``, which closes the last. A phase lasts until the next opens. Each
+opening is a host span in a trace and, on the card, a launch of the
+phase's mark kernel, which a CUDA graph replays, so a trace of a replay
+divides by phase. Under ``share_pseudo_forward`` C's unlabeled forward
+runs in ``d_grad``; under a mesh each player's all-reduce falls in its
+``*_grad`` phase. The marks change no value.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ from triplegan_tpu_torch.data.zca import apply_zca
 from triplegan_tpu_torch.train import losses
 from triplegan_tpu_torch.train.schedule import AdamState, alpha_p_schedule, linear_decay_schedule
 from triplegan_tpu_torch.train.state import TrainState
+from triplegan_tpu_torch.utils.profiling import phase, span
 
 METRICS = ("loss_d", "loss_g", "loss_c", "d_real", "d_cla", "d_gen", "c_sup", "c_adv",
            "c_pseudo", "alpha_p", "lr_frac")
@@ -234,6 +245,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
             return apply_zca(x_raw, zm, zw) if zm is not None else x_raw
 
         # ================= D update (G, C at their current values) ==========
+        phase("d_grad", dev)
         bd = batch["d"]
         x_l, x_u = preprocess(bd["x_l"]), preprocess(bd["x_u"])
         y_l, y_gd = bd["y_l"].long(), bd["y_g"].long()
@@ -257,9 +269,11 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         d_total = losses.d_loss(lr_real, lr_cla, lr_gen, alpha)
         d_terms = losses.d_loss_terms(lr_real, lr_cla, lr_gen, alpha)
         gd = pmean(_like(pd, torch.autograd.grad(d_total, _leaves(pd))))
+        phase("d_adam", dev)
         pd_new, opt_d_new = opt_d.update(params["disc"], gd, state.opt["disc"], adam["disc"])
 
         # ================= G update (scored by the new D) ====================
+        phase("g_grad", dev)
         bg = batch["g"]
         z_g, y_gg = bg["z"].to(cdt), bg["y_g"].long()
         pg = _with_grad(params["gen"])
@@ -268,9 +282,11 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
                                 generator=rng)
         g_total = losses.g_loss(logit_g, alpha, non_saturating)
         gg = pmean(_like(pg, torch.autograd.grad(g_total, _leaves(pg))))
+        phase("g_adam", dev)
         pg_new, opt_g_new = opt_g.update(params["gen"], gg, state.opt["gen"], adam["gen"])
 
         # ================= C update (sees the new D and G) ===================
+        phase("c_grad", dev)
         bc = batch["c"]
         x_l_c = preprocess(bc["x_l"])
         x_u_c = x_u if share_fwd else preprocess(bc["x_u"])
@@ -300,7 +316,9 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         c_total, c_terms = losses.c_loss(log_l, y_l_c, logit_d_cla, log_u, y_c2, log_g, y_gc,
                                          alpha, alpha_p_now, mesh)
         gc = pmean(_like(pc, torch.autograd.grad(c_total, _leaves(pc))))
+        phase("c_adam", dev)
         pc_new, opt_c_new = opt_c.update(params["clf"], gc, state.opt["clf"], adam["clf"])
+        phase("end", dev)
 
         new_state = TrainState(
             params={"gen": pg_new, "disc": pd_new, "clf": pc_new},
@@ -552,7 +570,9 @@ class ScanChunk:
     another ``cudnn.deterministic``, captures anew. A capture that fails
     raises ``GraphCaptureError`` naming the op; the chunk never runs
     eagerly in its place. The kernel wrappers count their launches at
-    capture (and in the warm-up step), not at replays. ``captures``,
+    capture (and in the warm-up step), not at replays. A trace names the
+    call, its replay and a capture as the spans ``tg::chunk.call``,
+    ``tg::chunk.replay`` and ``tg::chunk.capture``. ``captures``,
     ``replays``, ``captured_steps``, ``warmup_steps`` and ``graph_stats``
     (the current graph's nodes, seconds to capture and instantiate, and
     pool bytes) say what happened; ``step_metrics`` holds the last call's
@@ -609,26 +629,29 @@ class ScanChunk:
         if _device(state).type == "cuda":
             key = self._key_of(state, data)
             if key != self._key:
-                self._capture(state, data, key)
+                with span("chunk.capture"):
+                    self._capture(state, data, key)
 
     def __call__(self, state: TrainState, data):
-        dev = _device(state)
-        if dev.type != "cuda":
-            gens = [self.step.generators(dev, state.seed, state.step + i) for i in range(self.n)]
-            new, stacked = self._chunk(state, data, gens, self.step.scalars(state, self.n))
-            _copy_into(state, new)
-        else:
-            self.prepare(state, data)
-            for i, gens in enumerate(self._gens):
-                for g, domain in zip(gens, self.step.domains):
-                    g.manual_seed(self.step.seed_of(state.seed, state.step + i, domain))
-            _upload(self.step.scalars(state, self.n), dev, out=self._scalars)
-            self._graph.replay()
-            self.replays += 1
-            out = self._metrics.clone()
-            stacked = {k: out[j] for j, k in enumerate(self.step.metrics)}
-        self.step_metrics = stacked
-        return self._advanced(state), _reduce_scan_metrics(stacked, self.mode)
+        with span("chunk.call"):
+            dev = _device(state)
+            if dev.type != "cuda":
+                gens = [self.step.generators(dev, state.seed, state.step + i) for i in range(self.n)]
+                new, stacked = self._chunk(state, data, gens, self.step.scalars(state, self.n))
+                _copy_into(state, new)
+            else:
+                self.prepare(state, data)
+                for i, gens in enumerate(self._gens):
+                    for g, domain in zip(gens, self.step.domains):
+                        g.manual_seed(self.step.seed_of(state.seed, state.step + i, domain))
+                _upload(self.step.scalars(state, self.n), dev, out=self._scalars)
+                with span("chunk.replay"):
+                    self._graph.replay()
+                self.replays += 1
+                out = self._metrics.clone()
+                stacked = {k: out[j] for j, k in enumerate(self.step.metrics)}
+            self.step_metrics = stacked
+            return self._advanced(state), _reduce_scan_metrics(stacked, self.mode)
 
     def _capture(self, state: TrainState, data, key) -> None:
         dev = _device(state)
