@@ -132,13 +132,13 @@ def test_cpu_call_does_not_count_or_build(monkeypatch):
         raise AssertionError("a CPU call must not build the kernel")
 
     monkeypatch.setattr(build, "_nvcc", no_nvcc)
-    before = (cv.fwd_launches.copy(), cv.wgrad_launches.copy())
+    before = (cv.fwd_launches.copy(), cv.wgrad_launches.copy(), cv.fwd_block_launches.copy())
     for dtype in (torch.float32, torch.bfloat16):  # bfloat16 would take conv3x3_sm90 on the card
         x = torch.randn(2, 5, 5, 4, dtype=dtype, requires_grad=True)
         w = torch.randn(3, 3, 4, 6, requires_grad=True)
         torch.autograd.grad(cv.conv3x3(x, w).float().sum(), (x, w))
         cv.conv3x3_wgrad(x.detach(), torch.randn(2, 5, 5, 6, dtype=dtype), 1)
-    assert (cv.fwd_launches, cv.wgrad_launches) == before
+    assert (cv.fwd_launches, cv.wgrad_launches, cv.fwd_block_launches) == before
     assert "conv3x3" not in build._loaded and "conv3x3_sm90" not in build._loaded
 
 
@@ -243,6 +243,29 @@ def test_f32_forward_plan_covers_k_and_fills_the_card():
     assert cv.f32_fwd_plan(100 * 32 * 32, 128, 128)[:3] == (128, 792, 8)
     # (100,16,16,256)->256: 400 tiles, one whole wave, 136 × 144 K tiles in 262 runs of 75
     assert cv.f32_fwd_plan(100 * 16 * 16, 256, 256)[:3] == (128, 264, 75)
+
+
+@pytest.mark.parametrize("m,cin,cout", _F32_FWD_SHAPES)
+def test_f32_forward_block_and_layout_follow_cout(m, cin, cout):
+    """The float32 forward's block (the key of ``fwd_block_launches``): its
+    rows, the plan's width, and the im2col tile k-major in every block but
+    256 × 16 (Cout <= 16), a function of Cout alone."""
+    bn = cv.f32_fwd_plan(m, cin, cout)[0]
+    bm, bn_, layout = cv.f32_fwd_block(bn)
+    assert bn_ == bn and bm == (256 if cout <= 32 else 128)
+    assert layout == ("m-major" if cout <= 16 else "k-major")
+
+
+def test_f32_forward_block_of_the_shipped_c_convs():
+    # C's 3×3 convs of cifar10_4k, which carry most of the forward's work,
+    # and their input gradients take the 128 × 128 block with k-major A
+    for cin, cout in ((128, 128), (128, 256), (256, 256), (256, 128)):
+        assert cv.f32_fwd_block(cv.f32_fwd_plan(100 * 16 * 16, cin, cout)[0]) == (128, 128, "k-major")
+    # D's 13 -> 32 conv takes 256 × 32, its input gradient (32 -> 13) and
+    # G's output phase conv (128 -> 12) 256 × 16
+    assert cv.f32_fwd_block(cv.f32_fwd_plan(100 * 32 * 32, 13, 32)[0]) == (256, 32, "k-major")
+    assert cv.f32_fwd_block(cv.f32_fwd_plan(100 * 32 * 32, 32, 13)[0]) == (256, 16, "m-major")
+    assert cv.f32_fwd_block(cv.f32_fwd_plan(100 * 16 * 16, 128, 12)[0]) == (256, 16, "m-major")
 
 
 _SM90_SHAPES = [(100 * 32 * 32, 3, 128), (384 * 32 * 32, 128, 128), (384 * 16 * 16, 256, 256),

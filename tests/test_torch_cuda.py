@@ -350,7 +350,44 @@ def test_conv_kernels_match_plain_on_card(shape, dtype, cuda):
     assert bool(((dw.double() - want_dw.double()).abs() <= lim).all()), float((dw - want_dw).abs().max())
 
 
-_F32_CONV_SHAPES = [("SAME", (3, 10, 9, 13, 40)), ("VALID", (2, 8, 8, 16, 24))]
+# The shipped step's C convs at batch 100, forward and input gradient (the
+# forward kernel on the cotangent against the flipped kernel, halo 2 - 1):
+# 128 -> 128 at 32x32 runs 792 whole 128 x 128 tiles and shares the last 8
+# out stream-K; 256 -> 256 at 16x16 one whole wave of 264 tiles, then 136
+# tiles stream-K. Both take the k-major im2col tile.
+_SHIPPED_C_CONVS = [(100, 32, 32, 128, 128, 1), (100, 16, 16, 256, 256, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["fwd", "dgrad"])
+@pytest.mark.parametrize("shape", _SHIPPED_C_CONVS)
+def test_f32_shipped_c_convs_match_plain_on_card(shape, role, cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, h, w, cin, cout, pad = shape
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.normal(size=(n, h, w, cin)).astype(np.float32)).to(cuda)
+    if role == "fwd":
+        wt = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)).to(cuda)
+    else:  # x is the cotangent of a cout -> cin conv's output, wt that conv's flipped kernel
+        w0 = torch.from_numpy((rng.normal(size=(3, 3, cout, cin)) / np.sqrt(9 * cout)).astype(np.float32))
+        wt = w0.flip((0, 1)).transpose(2, 3).contiguous().to(cuda)
+    plan = cv.f32_fwd_plan(n * h * w, cin, cout)
+    assert plan[2] > 0 and cv.f32_fwd_block(plan[0]) == (128, 128, "k-major")  # stream-K runs too
+    before = (cv.fwd_launches[role, n, h, w, cin, cout, pad, "float32"],
+              cv.fwd_block_launches[128, 128, "k-major"])
+    got = cv.conv3x3_nopad(x, wt, pad, role=role)
+    torch.cuda.synchronize()
+    assert (cv.fwd_launches[role, n, h, w, cin, cout, pad, "float32"],
+            cv.fwd_block_launches[128, 128, "k-major"]) == (before[0] + 1, before[1] + 1)
+    xp = cv._pad_hw(x, pad)
+    want = cv.reference_conv3x3_nopad(xp, wt)
+    lim = _conv_limit(cv.reference_conv3x3_nopad(xp.abs(), wt.abs()).float(), 9 * cin, got, want)
+    assert bool(((got.double() - want.double()).abs() <= lim).all()), float((got.double() - want.double()).abs().max())
+
+
+# (padding, (N, H, W, Cin, Cout)): Cin 13 (4-byte copies), Cin 16 VALID, and
+# 256 -> 512 at 8x8, whose forward and input gradient are stream-K alone
+_F32_CONV_SHAPES = [("SAME", (3, 10, 9, 13, 40)), ("VALID", (2, 8, 8, 16, 24)), ("SAME", (3, 8, 8, 256, 512))]
 
 
 def _conv_inputs(shape):

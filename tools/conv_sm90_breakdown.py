@@ -16,7 +16,8 @@ source at the shipped step's C (100,32,32,128)->128 and (100,16,16,256)->256.
   no_gather    (bfloat16) the im2col copies (cp.async) read nothing and
                write zeros;
   no_copies    (float32) every global->shared copy (cp.async, both
-               operands) reads nothing and writes zeros;
+               operands, and the forward's register-staged reads of x)
+               reads nothing and writes zeros;
   no_products  no wgmma is issued (bfloat16), no FMA tile is computed
                (float32);
   neither      both removed: what is left is each thread's address work,
@@ -65,10 +66,12 @@ _SM90_PRODUCTS = [
 _F32_COPIES = [
     ('"r"(valid ? 16 : 0)', '"r"(0)'),
     ('"r"(valid ? 4 : 0)', '"r"(0)'),
+    ("const float4 f = ok ? __ldg(", "const float4 f = false ? __ldg("),  # the register-staged reads
 ]
 _F32_PRODUCTS = [
-    ("fwd_products<BM, BN, TM, TN>(sa,", "if (s.n < 0) fwd_products<BM, BN, TM, TN>(sa,"),
-    ("wgrad_products<BM, BN, TM, TN>(sa,", "if (s.n < 0) wgrad_products<BM, BN, TM, TN>(sa,"),
+    ("tile_products<BM, BN, TM, TN, kAS>(sa,", "if (s.n < 0) tile_products<BM, BN, TM, TN, kAS>(sa,"),
+    ("m_major_products<BM, BN, TM, TN>(sa,", "if (s.n < 0) m_major_products<BM, BN, TM, TN>(sa,"),
+    ("tile_products<BM, BN, TM, TN, BM>(sa,", "if (s.n < 0) tile_products<BM, BN, TM, TN, BM>(sa,"),
 ]
 SOURCES = {
     "conv3x3_sm90": {
@@ -95,7 +98,7 @@ def build_variant(source: str, name: str) -> str:
         if old not in src:
             raise SystemExit(f"{source}.cu no longer contains {old!r}: update {__file__}")
         src = src.replace(old, new)
-    out_dir = os.path.join(build.BUILD_DIR, "breakdown")
+    out_dir = os.path.join(build.build_dir(), "breakdown")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{source}-{name}.cu")
     with open(path, "w") as f:

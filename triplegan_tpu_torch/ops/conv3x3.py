@@ -8,7 +8,7 @@ Two CUDA sources replace the TPU kernels of
 
 * float32: ``csrc/conv3x3.cu``, an implicit GEMM on the CUDA cores in
   full float32 (256-thread blocks of up to 128×128 with 8×8 accumulators
-  a thread, fed by a ``cp.async`` ring). The wrapper plans the forward
+  a thread, fed by a ring of shared-memory tiles). The wrapper plans the forward
   (``f32_fwd_plan``: the block width, and a stream-K share-out of the
   output tiles that would fill only part of a last wave of the card) and
   the filter gradient's split over pixels (``f32_wgrad_plan``); both sum
@@ -76,6 +76,9 @@ _PAD = {"SAME": 1, "VALID": 0}
 # or "wgrad" and (N, H, W, Cin) the kernel's input.
 fwd_launches: collections.Counter = collections.Counter()
 wgrad_launches: collections.Counter = collections.Counter()
+# Float32 forward kernel launches by block, keyed by ``f32_fwd_block``:
+# (rows, columns, the im2col tile's layout).
+fwd_block_launches: collections.Counter = collections.Counter()
 
 # The float32 kernels: 16 of K (forward) or pixels (wgrad) a stage; two
 # blocks fit on each of the H100's 132 SMs, so a wave is 264.
@@ -254,6 +257,7 @@ def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "f
                      bn, wp.shape[0], wp.shape[1], stream)
         else:
             bn, full, per, ws_len = f32_fwd_plan(n * ho * wo, cin, cout)
+            block = f32_fwd_block(bn)
             ws = torch.empty(ws_len, dtype=torch.float32, device=x.device) if ws_len else None
             fwd, _ = _lib()
             rc = fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(), n,
@@ -261,6 +265,8 @@ def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "f
     if rc != 0:
         raise RuntimeError(f"conv3x3 forward kernel launch failed: cudaError {rc}")
     fwd_launches[role, n, hin, win, cin, cout, pad, _dtype_name(x)] += 1
+    if x.dtype == torch.float32:
+        fwd_block_launches[block] += 1
     return y
 
 
@@ -277,6 +283,15 @@ def _best_fill(tiles: int, most: int) -> int:
 def _f32_fwd_rows(bn: int) -> int:
     """Rows of M per block of the float32 forward kernel of width bn."""
     return 256 if bn <= 32 else 128
+
+
+def f32_fwd_block(bn: int):
+    """(rows, columns, layout of the im2col tile) of the float32 forward
+    kernel's block of width bn, as ``csrc/conv3x3.cu`` lays it out: the
+    tile is "k-major" where a thread owns 8 rows of the output tile (blocks
+    128 × 128, 128 × 64 and 256 × 32), so its product loop is the filter
+    gradient's; "m-major" in the 256 × 16 block, whose threads own 4."""
+    return _f32_fwd_rows(bn), bn, "m-major" if bn == 16 else "k-major"
 
 
 @functools.lru_cache(maxsize=None)

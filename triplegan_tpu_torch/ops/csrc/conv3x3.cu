@@ -20,35 +20,48 @@
 // Bound: operations (67 TFLOP/s float32 on an H100 SXM) at the training
 // step's shapes, hundreds of flops per byte at Cin >= 42; bytes only for
 // the Cin = 3 and 13 first layers. Measured (H100 SXM at 700 W,
-// tools/conv_sm90_breakdown.py): the FMA loops take 80% of the time at the
-// widest shapes and the copies none (removing them changes nothing); the
-// kernels run at 35-43 TFLOP/s, about cuBLAS's full-float32 SGEMM on the
-// same GEMM sizes on that card.
+// tools/conv_sm90_breakdown.py, C's (100,32,32,128)->128): the forward at
+// 41.5 TFLOP/s and the wgrad at 42.9, both drawing about 600 W at the full
+// 1980 MHz clock; with their copies removed 42.8 and 43.1; cuBLAS's
+// full-float32 SGEMM of the same size 42.3, held to 1860 MHz by the 700 W
+// limit. At (100,16,16,256)->256, whose last 136 tiles run stream-K, the
+// forward reaches 39.0.
 //
 // Design: an implicit GEMM, M = N*Ho*Wo output pixels, N = Cout, K = 9*Cin
 // (wgrad: rows K, columns Cout, the reduction over M). A block of 256
-// threads computes a BM x BN tile, two blocks to an SM; each thread keeps
-// a TM x TN float32 accumulator (up to 8 x 8) in registers and reads its
-// operands from shared memory as float4s: 16 vector reads for 256 FMAs at
-// 8 x 8.
+// threads computes a BM x BN tile, two blocks to an SM, so a thread has
+// 128 registers; it keeps a TM x TN float32 accumulator (up to 8 x 8) in
+// them and reads its operands from shared memory as float4s: for each k,
+// its TM values of A and TN of B, then their outer product
+// (tile_products), 4 vector reads for 64 FMAs at 8 x 8, each output's
+// fmaf chain in ascending k.
 // - Tiles of kBK = 16 along the reduction arrive through a ring of kStages
-//   slots in dynamic shared memory, filled by cp.async kStages-1 tiles
-//   ahead of the products, with one __syncthreads per tile.
+//   slots in dynamic shared memory, issued kStages-1 tiles ahead of the
+//   products, with one __syncthreads per tile.
 // - Copies are 16 bytes (four channels) where the channel count is a
 //   multiple of 4 and the base 16-byte aligned, else 4 bytes per element;
 //   a halo tap, a row past M or a column past K or Cout copies zeros
 //   (src-size 0). No padded copy of any operand is made.
-// - forward: A is the im2col tile, [m][k] (rows padded by 4 floats), each
-//   thread reading four k of a row at once; B is W's [k][co] tile. Blocks
-//   are 128 x 128, 128 x 64, 256 x 32 or 256 x 16 by Cout. Each block
-//   keeps the (pixel offset, h, w) of its rows in shared memory, and each
-//   copying thread walks K tap-major, carrying (dy, dx, ci) from tile to
-//   tile by additions: no division after the block's first decode.
-//   Whole waves of output tiles run one block a tile; the tiles left over,
-//   which would fill only part of a last wave, are shared out stream-K:
-//   their K tiles are cut into equal runs, one block a run, each writing a
-//   partial tile per output tile it touches, and a second kernel sums each
-//   tile's partials in block order.
+// - forward: A is the im2col tile, B W's [k][co] tile. Blocks are
+//   128 x 128, 128 x 64, 256 x 32 or 256 x 16 by Cout. In all but 256 x 16
+//   A is k-major ([k][m], rows padded by 4 floats), as the wgrad's tiles
+//   are, so the forward runs the wgrad's product loop. Read m-major ([m][k],
+//   four k of a row at once), A takes 32 registers of a thread beside its
+//   64 accumulators, and at 128 x 128 ptxas spills (132 bytes stored, 328
+//   loaded a thread) and the loop runs at 35 TFLOP/s. Four channels of a
+//   pixel lie along k, so with 16-byte reads a thread stages them in
+//   registers: it reads its pixels' float4s when the tile is issued and,
+//   after the products of the tile before, writes them to the four k rows
+//   as one 2- or 4-pixel vector each; 4-byte copies go to their element. The 256 x 16 block keeps A m-major: its 4 x 4 threads hold
+//   few operands, and its short product loop does not hide staged reads.
+//   Each block keeps the (pixel offset, h, w) of its rows in shared
+//   memory, and each copying thread walks K tap-major, carrying (dy, dx,
+//   ci) from tile to tile by additions: no division after the block's
+//   first decode. Whole waves of output tiles run one block a tile; the
+//   tiles left over, which would fill only part of a last wave, are shared
+//   out stream-K: their K tiles are cut into equal runs, one block a run,
+//   each writing a partial tile per output tile it touches, and a second
+//   kernel sums each tile's partials in block order.
 // - wgrad: A is [pixel][k], G is g's [pixel][co]; blocks are 128 rows of
 //   K by 32, 64 or 128 of Cout, or 32 x 128 where K <= 32. The taps of the
 //   block's K rows are decoded once, and each copying thread carries its
@@ -132,6 +145,17 @@ __device__ __forceinline__ void read_owned(const float* row, int t, float (&v)[T
   }
 }
 
+// Writes P = 2 or 4 values to dst as one vector (dst aligned to 4·P bytes).
+template <int P>
+__device__ __forceinline__ void store_vec(float* dst, const float (&v)[P]) {
+  if constexpr (P == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    static_assert(P == 2, "2 or 4 values");
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  }
+}
+
 // Writes a thread's TN values of one output row (columns from col_of, from
 // n0 on) where they lie inside Cout.
 template <int BN, int TN>
@@ -154,23 +178,58 @@ __device__ __forceinline__ void store_row(float* row, const float (&v)[TN], int 
   }
 }
 
+// acc[i][j] += A[k][col_of(ty, i)] * B[k][col_of(tx, j)] over a tile's kBK
+// steps k, A's rows AS floats apart and B's BN: each step reads the
+// thread's TM + TN operands as float4s and runs their outer product, so
+// each output's fmaf chain runs in ascending k.
+template <int BM, int BN, int TM, int TN, int AS>
+__device__ __forceinline__ void tile_products(const float* sa, const float* sb, int ty, int tx,
+                                              float (&acc)[TM][TN]) {
+#pragma unroll
+  for (int k = 0; k < kBK; ++k) {
+    float a[TM], b[TN];
+    read_owned<BM, TM>(sa + k * AS, ty, a);
+    read_owned<BN, TN>(sb + k * BN, tx, b);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // forward: y = conv(xh, W)
 // ---------------------------------------------------------------------------
 
-// Output row (of BM) of a forward thread's accumulator row i: a thread's
-// rows lie BM / TM apart, so the threads of a warp read neighbouring rows
-// of A (no two in one bank at the 16-wide tile).
+// A forward stage holds A, the im2col tile, then B, W's [k][co] tile. A is
+// k-major ([k][m], rows BM + 4 floats apart) where a thread owns TM = 8
+// rows of the output tile, m-major ([m][k], rows kBK + 4 floats apart)
+// where it owns 4: the 256 x 16 block.
+template <int TM>
+__host__ __device__ constexpr bool fwd_k_major() { return TM == 8; }
+
 template <int BM, int TM>
-__device__ __forceinline__ int fwd_row(int ty, int i) { return i * (BM / TM) + ty; }
+__host__ __device__ constexpr int fwd_a_floats() {
+  return fwd_k_major<TM>() ? kBK * (BM + 4) : BM * (kBK + 4);
+}
 
-template <int BM, int BN>
-__host__ __device__ constexpr int fwd_stage_floats() { return BM * (kBK + 4) + kBK * BN; }
+template <int BM, int BN, int TM>
+__host__ __device__ constexpr int fwd_stage_floats() { return fwd_a_floats<BM, TM>() + kBK * BN; }
 
-// acc[i][j] += A[fwd_row(ty, i)][k] * B[k][col_of(tx, j)] over the tile's kBK k.
+// Output row (of BM) of a forward thread's accumulator row i: the rows of
+// its float4 reads (k-major A), or rows BM / TM apart, so that the threads
+// of a warp read neighbouring rows of A (m-major A: no two in one bank at
+// the 16-wide tile).
+template <int BM, int TM>
+__device__ __forceinline__ int fwd_row(int ty, int i) {
+  return fwd_k_major<TM>() ? col_of<BM, TM>(ty, i) : i * (BM / TM) + ty;
+}
+
+// acc[i][j] += A[fwd_row(ty, i)][k] * B[k][col_of(tx, j)] over the tile's
+// kBK k, A m-major.
 template <int BM, int BN, int TM, int TN>
-__device__ __forceinline__ void fwd_products(const float* sa, const float* sb, int ty, int tx,
-                                             float (&acc)[TM][TN]) {
+__device__ __forceinline__ void m_major_products(const float* sa, const float* sb, int ty, int tx,
+                                                 float (&acc)[TM][TN]) {
   constexpr int kAS = kBK + 4;
 #pragma unroll
   for (int kq = 0; kq < kBK; kq += 4) {
@@ -210,11 +269,13 @@ __device__ __forceinline__ void fwd_segment(const float* __restrict__ x, const f
                                             const Shape& s, int vec, int tile, int kt0, int kt1,
                                             float* smem, FwdRows<BM>& rows) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "one accumulator tile per thread");
-  constexpr int kAS = kBK + 4;               // A row stride (floats)
-  constexpr int kStage = fwd_stage_floats<BM, BN>();
-  constexpr int kAChunks = kBK / 4;          // 16-byte chunks of an A row
+  constexpr bool kKM = fwd_k_major<TM>();
+  constexpr int kAS = kKM ? BM + 4 : kBK + 4;  // A's row stride (floats): a k, or a pixel
+  constexpr int kAFloats = fwd_a_floats<BM, TM>();
+  constexpr int kStage = fwd_stage_floats<BM, BN, TM>();
+  constexpr int kAChunks = kBK / 4;            // chunks of four k (channels) of a pixel
   constexpr int kAPass = kThreads / kAChunks;
-  constexpr int kARows = BM / kAPass;        // A rows each thread copies
+  constexpr int kAPix = BM / kAPass;           // pixels (rows of A) each thread copies
   constexpr int kBChunks = kBK * BN / 4;
 
   const int tid = threadIdx.x;
@@ -241,8 +302,10 @@ __device__ __forceinline__ void fwd_segment(const float* __restrict__ x, const f
   }
   __syncthreads();
 
-  // This thread copies chunk ac (k = 4*ac .. 4*ac+3 of each tile) of rows
-  // ar + kAPass*i, walking K from tile kt0 in steps of kBK.
+  // This thread copies chunk ac (k = 4*ac .. 4*ac+3 of each tile) of kAPix
+  // rows, walking K from tile kt0 in steps of kBK: rows ar + kAPass*p, so
+  // that a warp's copies cover neighbouring pixels; with 16-byte reads into
+  // k-major A, rows ar*kAPix + p, which this thread writes as one vector a k.
   const int ac = tid % kAChunks, ar = tid / kAChunks;
   int dy, dx, ci;
   {
@@ -254,29 +317,50 @@ __device__ __forceinline__ void fwd_segment(const float* __restrict__ x, const f
   }
   const bool vx = vec & kVecX, vb = vec & kVecB;
 
+  // k-major A with vx: a tile's chunks pass through registers, read as one
+  // float4 a pixel when the tile is issued and written after the products
+  // of the tile before it. Every other copy is a cp.async.
+  float ra[kAPix][4];
+  auto put = [&](int slot) {
+    float* sa4 = smem + slot * kStage + 4 * ac * kAS + ar * kAPix;  // k row 4*ac, from row ar*kAPix
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v[kAPix];
+#pragma unroll
+      for (int p = 0; p < kAPix; ++p) v[p] = ra[p][e];
+      store_vec(sa4 + e * kAS, v);
+    }
+  };
   auto load = [&](int kt, int slot) {
     float* sa = smem + slot * kStage;
-    float* sb = sa + BM * kAS;
+    float* sb = sa + kAFloats;
     if (vx) {
       const int koff = (dy * s.win + dx) * s.cin + ci;
 #pragma unroll
-      for (int i = 0; i < kARows; ++i) {
-        const int r = ar + kAPass * i;
+      for (int p = 0; p < kAPix; ++p) {
+        const int r = kKM ? ar * kAPix + p : ar + kAPass * p;
         const int hi = rows.h[r] + dy, wi = rows.w[r] + dx;
         const bool ok = dy < 3 && (unsigned)hi < (unsigned)s.hin && (unsigned)wi < (unsigned)s.win;
-        cp_async16(sa + r * kAS + 4 * ac, ok ? x + rows.base[r] + koff : x, ok);
+        if constexpr (kKM) {
+          const float4 f = ok ? __ldg(reinterpret_cast<const float4*>(x + rows.base[r] + koff))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          ra[p][0] = f.x; ra[p][1] = f.y; ra[p][2] = f.z; ra[p][3] = f.w;
+        } else {
+          cp_async16(sa + r * kAS + 4 * ac, ok ? x + rows.base[r] + koff : x, ok);
+        }
       }
     } else {
       int edy = dy, edx = dx, eci = ci;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int koff = (edy * s.win + edx) * s.cin + eci;
+        const int k = 4 * ac + e;
 #pragma unroll
-        for (int i = 0; i < kARows; ++i) {
-          const int r = ar + kAPass * i;
+        for (int p = 0; p < kAPix; ++p) {
+          const int r = ar + kAPass * p;
           const int hi = rows.h[r] + edy, wi = rows.w[r] + edx;
           const bool ok = edy < 3 && (unsigned)hi < (unsigned)s.hin && (unsigned)wi < (unsigned)s.win;
-          cp_async4(sa + r * kAS + 4 * ac + e, ok ? x + rows.base[r] + koff : x, ok);
+          cp_async4(sa + (kKM ? k * kAS + r : r * kAS + k), ok ? x + rows.base[r] + koff : x, ok);
         }
         k_advance(edy, edx, eci, 1, s.cin);
       }
@@ -303,6 +387,7 @@ __device__ __forceinline__ void fwd_segment(const float* __restrict__ x, const f
       }
     }
   };
+  const bool staged = kKM && vx;
 
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
   float acc[TM][TN];
@@ -311,22 +396,30 @@ __device__ __forceinline__ void fwd_segment(const float* __restrict__ x, const f
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  // The ring: K tile kt0 + t sits in slot t % kStages, copied kStages-1
+  // The ring: K tile kt0 + t sits in slot t % kStages, issued kStages-1
   // tiles ahead.
   const int nt = kt1 - kt0;
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
-    if (t < nt) load(kt0 + t, t);
+    if (t < nt) {
+      load(kt0 + t, t);
+      if (staged) put(t);
+    }
     cp_async_commit();
   }
   for (int t = 0; t < nt; ++t) {
     cp_async_wait<kStages - 2>();  // this thread's copies of tile t have landed
-    __syncthreads();               // everyone's; and the products of tile t-1 are done
+    __syncthreads();               // everyone's, and their stores; the products of tile t-1 are done
     const int nk = t + kStages - 1;
     if (nk < nt) load(kt0 + nk, nk % kStages);  // refills the slot of tile t-1
     cp_async_commit();
     const float* sa = smem + (t % kStages) * kStage;
-    fwd_products<BM, BN, TM, TN>(sa, sa + BM * kAS, ty, tx, acc);
+    if constexpr (kKM) {
+      tile_products<BM, BN, TM, TN, kAS>(sa, sa + kAFloats, ty, tx, acc);
+    } else {
+      m_major_products<BM, BN, TM, TN>(sa, sa + kAFloats, ty, tx, acc);
+    }
+    if (staged && nk < nt) put(nk % kStages);
   }
 
   if (part == nullptr) {
@@ -415,22 +508,6 @@ __global__ void reduce_stream_k(const float* __restrict__ ws, float* __restrict_
 
 template <int BM, int BN>
 __host__ __device__ constexpr int wgrad_stage_floats() { return kBK * (BM + BN); }
-
-// acc[i][j] += A[p][col_of(ty, i)] * G[p][col_of(tx, j)] over the tile's kBK pixels.
-template <int BM, int BN, int TM, int TN>
-__device__ __forceinline__ void wgrad_products(const float* sa, const float* sg, int ty, int tx,
-                                               float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int p = 0; p < kBK; ++p) {
-    float a[TM], b[TN];
-    read_owned<BM, TM>(sa + p * BM, ty, a);
-    read_owned<BN, TN>(sg + p * BN, tx, b);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
 
 template <int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -561,7 +638,7 @@ wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __
     if (nt < tiles) load(mbeg + (long long)nt * kBK, nt % kStages);
     cp_async_commit();
     const float* sa = smem + (t % kStages) * kStage;
-    wgrad_products<BM, BN, TM, TN>(sa, sa + kBK * BM, ty, tx, acc);
+    tile_products<BM, BN, TM, TN, BM>(sa, sa + kBK * BM, ty, tx, acc);
   }
 
   float* out = ws + (long long)blockIdx.z * s.k * s.cout;
@@ -603,7 +680,7 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 template <int BM, int BN, int TM, int TN>
 int launch_fwd(const float* x, const float* w, float* y, float* ws, const Shape& s, int vec,
                int full, int per, cudaStream_t st) {
-  constexpr int smem = kStages * fwd_stage_floats<BM, BN>() * (int)sizeof(float);
+  constexpr int smem = kStages * fwd_stage_floats<BM, BN, TM>() * (int)sizeof(float);
   const long long tiles = (s.m + BM - 1) / BM * ((s.cout + BN - 1) / BN);
   const long long ktiles = (s.k + kBK - 1) / kBK;
   const long long sk = full < tiles && per > 0 ? ((tiles - full) * ktiles + per - 1) / per : 0;
@@ -638,9 +715,9 @@ int launch_wgrad(const float* x, const float* g, float* ws, const Shape& s, int 
 }  // namespace
 
 // Forward blocks by bn, the block's width in columns of Cout (the caller
-// picks it from Cout): 16 -> 256 x 16 rows/columns, 4 x 4 per thread;
-// 32 -> 256 x 32, 8 x 4; 64 -> 128 x 64, 8 x 4; 128 -> 128 x 128, 8 x 8.
-// Rings of 72 to 90 KB, two blocks to an SM.
+// picks it from Cout): 16 -> 256 x 16 rows/columns, 4 x 4 per thread, A
+// m-major; 32 -> 256 x 32, 8 x 4; 64 -> 128 x 64, 8 x 4; 128 -> 128 x 128,
+// 8 x 8, A k-major. Rings of 49 to 84 KB, two blocks to an SM.
 
 // x: (n, hin, win, cin); w: (3, 3, cin, cout); y: (n, ho, wo, cout); all
 // float32. The first `full` output tiles (row-major over (M / BM, Cout /
