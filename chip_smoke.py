@@ -86,6 +86,12 @@ Phases, each fatal on failure (exit code 1, and no result line):
      10 rows) and ``cli serve`` (/classify of 28 × 28 × 1 images, /generate,
      SIGTERM → 0). Then, alone, each arm's eager and graphed ms/step and
      device ms/step;
+  3e. cifar10_snresnet (the SN-ResNet G and projection D) at its published
+     widths, float32, kernel arm, on synthetic device data with phase 3's
+     ZCA statistics: one eager step, then a chunk of K steps (warm-up,
+     capture, replay) bitwise equal to K eager steps (D's kept u among the
+     state's tensors); the per-sample epilogue launched 18 forwards and 6
+     backwards a step; its launches feed phase 7;
   3d. digits: the real-data recipe of the port's campaign
      (``triplegan_tpu_torch/tools/digits_experiment.py``) for seed 1 and
      100 labels: ``cli prepare --dataset digits`` from the data file the
@@ -208,7 +214,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
      must launch 9 epilogues and 7 convs per classify chunk, 4 and 3 per
      generate chunk; outputs checked against each other and the CPU;
   7. kernels: at every (shape, dtype, activation) at which a kernel arm of
-     phases 3, 3c, 3d and 6 launched a kernel (for the epilogue's backward, also the
+     phases 3, 3c, 3d, 3e and 6 launched a kernel (the per-sample epilogue's too,
+     phase 3e's; for the epilogue's backward, also the
      gradients it computed), holds the kernel's wrapper to its plain
      PyTorch version on fresh seeded inputs and times both with CUDA events
      (``time_ms``: the L2 flushed by a read and the device held by a spin
@@ -425,7 +432,8 @@ def counts_zero():
     from triplegan_tpu_torch.ops import conv3x3 as cv
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
-    for counter in (sba.launches, sba.bwd_launches, cv.fwd_launches, cv.wgrad_launches):
+    for counter in (sba.launches, sba.bwd_launches, sba.cond_launches, sba.cond_bwd_launches, cv.fwd_launches,
+                    cv.wgrad_launches):
         counter.clear()
 
 
@@ -1316,6 +1324,81 @@ def config_arm(name: str, dtype: str, batch: int, n_eager: int, data, zca) -> di
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "_counts": counts, "_steps": n, "_players": step_launches(cfg)[1], "_cfg": cfg, "_nets": nets,
             "_runner": runner, "_state": state, "_data": dev_data, "_step": step}
+
+
+SNRESNET = "cifar10_snresnet"
+SNRESNET_TRAIN = 10000   # its synthetic train images (4,000 of them labeled)
+# the per-sample epilogue's launches a step: two class-conditional norms an
+# up-block, three up-blocks, three G passes; backwards in G's own update
+SNRESNET_COND = (18, 6)
+
+
+def snresnet_phase(zca) -> dict:
+    """cifar10_snresnet at its published widths (the SN-ResNet G and D),
+    float32, kernel arm, cuDNN deterministic, on synthetic device data with
+    phase 3's ZCA statistics. The main path: one eager step from a seeded
+    state, then one chunk of ``GRAPH_K`` steps (its warm-up step, its
+    capture, one replay); the chunk must equal ``GRAPH_K`` eager steps from
+    the same state bitwise (every state tensor, D's u among them, and every
+    step's metrics), and the per-sample epilogue's counts, zeroed just
+    before, ``SNRESNET_COND`` a step over the eager, warm-up and captured
+    steps. Its counts are a main path's for phase 7."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.data.datasets import synthetic_dataset
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = config_cfg(SNRESNET, "float32", BATCH)
+        data = synthetic_dataset(image_size=cfg.image_size, channels=cfg.channels, num_classes=cfg.num_classes,
+                                 n_train=SNRESNET_TRAIN, n_test=CONFIG_TEST, num_labeled=cfg.num_labeled)
+        nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
+        dev_data = S.upload_device_data(data, "cuda")
+        step = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca)
+        runner = S.make_scan_device_train_step(cfg, nets, opts, TOTAL_STEPS, GRAPH_K, zca_stats=zca,
+                                               log=lambda *a, **kw: None)
+        state = create_state(cfg, nets, opts, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        counts_zero()  # the main path starts here
+        state, m = step(state, dev_data)
+        eager = [floats(m)]
+        ref = S._clone_state(state)
+        state, _ = runner(state, dev_data)
+        counts = dict(counts_read(), scale_bias_act_cond=sba.cond_launches.copy(),
+                      scale_bias_act_cond_bwd=sba.cond_bwd_launches.copy())  # the main path ends here
+        per_step_m = runner.step_metrics
+        ref_ms = []
+        for _ in range(GRAPH_K):
+            ref, m = step(ref, dev_data)
+            ref_ms.append(m)
+        want = S._stacked(ref_ms)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    bad = [key for key in S.METRICS if not torch.equal(per_step_m[key], want[key])]
+    diff = sum(not torch.equal(a, b) for a, b in zip(S._state_tensors(state), S._state_tensors(ref)))
+    check(not bad and diff == 0, f"{SNRESNET}: the graphed chunk differs from {GRAPH_K} eager steps: "
+                                 f"metrics {bad}, {diff} state tensors")
+    graphed = [{key: float(v[i]) for key, v in per_step_m.items()} for i in range(GRAPH_K)]
+    for t, m in enumerate(eager + graphed):
+        check(all(math.isfinite(v) for v in m.values()), f"{SNRESNET}: step {t + 1} {m}")
+    n = 1 + GRAPH_K + runner.warmup_steps
+    launches = totals(counts)
+    want_cond = (SNRESNET_COND[0] * n, SNRESNET_COND[1] * n)
+    check((launches["scale_bias_act_cond"], launches["scale_bias_act_cond_bwd"]) == want_cond,
+          f"{SNRESNET}: per-sample epilogue launches {launches}, want {want_cond} over {n} steps")
+    per_step = {name: {key: c / n for key, c in cnt.items()} for name, cnt in counts.items()}
+    return {"config": SNRESNET, "dtype": "float32", "batch": BATCH, "k": GRAPH_K, "metrics": eager + graphed,
+            "graph": dict(runner.graph_stats), "bitwise": True, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "_sources": [(f"train {SNRESNET} float32", per_step, {})]}
 
 
 def config_serving(arm, data, zca) -> dict:
@@ -4053,29 +4136,33 @@ def conv_case(op, n, h, w, cin, cout, pad, dtype, gen, flush, reps):
             "max_abs_err": max_err}
 
 
-def sba_case(shape, dtype, act, slope, gen, flush) -> dict:
+def sba_case(shape, dtype, act, slope, gen, flush, per_sample=False) -> dict:
     """Check and time one scale_bias_act kernel call against its plain
-    version on seeded inputs of the given shape."""
+    version on seeded inputs of the given shape; ``per_sample``: the
+    class-conditional epilogue ``scale_bias_act_cond``, k and b (N, C)."""
     import torch
 
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     c = shape[-1]
+    kb = (shape[0], c) if per_sample else (c,)
+    fn, plain = ((sba.scale_bias_act_cond, sba.reference_scale_bias_act_cond) if per_sample
+                 else (sba.scale_bias_act, sba.reference_scale_bias_act))
     # k and b in x's dtype, as the layers pass them
     x = (torch.randn(shape, generator=gen, device=dev) * 2.0).to(dt)
-    k = (torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0).to(dt)
-    b = (torch.randn(c, generator=gen, device=dev) * 0.3).to(dt)
-    got = sba.scale_bias_act(x, k, b, act, slope)
+    k = (torch.randn(kb, generator=gen, device=dev) * 0.5 + 1.0).to(dt)
+    b = (torch.randn(kb, generator=gen, device=dev) * 0.3).to(dt)
+    got = fn(x, k, b, act, slope)
     torch.cuda.synchronize()
-    want = sba.reference_scale_bias_act(x, k, b, act, slope)
-    check(got.dtype == dt and got.shape == x.shape, f"kernel output {got.dtype} {tuple(got.shape)}")
+    want = plain(x, k, b, act, slope)
+    check(got.dtype == dt and got.shape == x.shape, f"{fn.__name__} output {got.dtype} {tuple(got.shape)}")
     err, excess = max_excess(got, want, dt)
-    check(excess <= 0, f"scale_bias_act {act} {slope} {shape} {dtype}: max err {err} exceeds tolerance")
-    tk = time_ms(lambda: sba.scale_bias_act(x, k, b, act, slope), flush, reps=SBA_REPS)
-    tp = time_ms(lambda: sba.reference_scale_bias_act(x, k, b, act, slope), flush, reps=SBA_REPS)
+    check(excess <= 0, f"{fn.__name__} {act} {slope} {shape} {dtype}: max err {err} exceeds tolerance")
+    tk = time_ms(lambda: fn(x, k, b, act, slope), flush, reps=SBA_REPS)
+    tp = time_ms(lambda: plain(x, k, b, act, slope), flush, reps=SBA_REPS)
     esize = x.element_size()
-    nbytes = 2 * x.numel() * esize + 2 * c * esize  # x read, y written, k and b read
+    nbytes = 2 * x.numel() * esize + 2 * k.numel() * esize  # x read, y written, k and b read
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 3 * x.numel() / F32_FLOPS_PER_S * 1e3  # mul, add, activation
     return {"max_abs_err": err, "ms": tk["cold"], "p10_ms": tk["p10"], "p90_ms": tk["p90"],
@@ -4104,42 +4191,56 @@ def bwd_sums_excess(got, terms, depth) -> tuple:
     return float(err.max()), float((err - lim).max()), float((err / lim.clamp_min(1e-300)).max())
 
 
-def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush) -> dict:
+def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush, per_sample=False) -> dict:
     """Check and time one call of the scale_bias_act backward kernel
     (computing the gradients ``needs`` names: "x", "k", "b") against the
-    plain backward on seeded inputs of the given shape."""
+    plain backward on seeded inputs of the given shape; ``per_sample``: the
+    class-conditional epilogue's backward, k and b (N, C), whose dk and db
+    are each sample's sums."""
     import torch
 
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
-    c = shape[-1]
+    n, c = shape[0], shape[-1]
+    kb = (n, c) if per_sample else (c,)
     x = (torch.randn(shape, generator=gen, device=dev) * 2.0).to(dt)
     g = torch.randn(shape, generator=gen, device=dev).to(dt)
-    k = (torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0).to(dt)
-    b = (torch.randn(c, generator=gen, device=dev) * 0.3).to(dt)
-    mask = tuple(n in needs for n in "xkb")
-    run = lambda: sba._backward(x, k, b, g, act, slope, mask)  # noqa: E731
-    plain = lambda: sba.reference_scale_bias_act_bwd(x, k, b, g, act, slope, mask)  # noqa: E731
+    k = (torch.randn(kb, generator=gen, device=dev) * 0.5 + 1.0).to(dt)
+    b = (torch.randn(kb, generator=gen, device=dev) * 0.3).to(dt)
+    mask = tuple(grad in needs for grad in "xkb")
+    flags = sum(1 << i for i, want_it in enumerate(mask) if want_it)
+    if per_sample:
+        name, hw = "scale_bias_act_cond backward", x.numel() // (n * c)
+        run = lambda: sba._cond_backward(x, k, b, g, act, slope, mask)  # noqa: E731
+        plain = lambda: sba.reference_scale_bias_act_cond_bwd(x, k, b, g, act, slope, mask)  # noqa: E731
+        depth = sba.cond_bwd_plan(n, hw, c, dt, act, flags, True)[1] if flags & 6 else 0
+        t = g * sba.act_grad(x * sba._per_sample(k, x) + sba._per_sample(b, x), act, slope)
+        # each sample's sums as columns of their own: (rows a sample, N·C)
+        cols = lambda v: v.reshape(n, hw, c).permute(1, 0, 2).reshape(hw, n * c)  # noqa: E731
+    else:
+        name, m = "scale_bias_act backward", x.numel() // c
+        run = lambda: sba._backward(x, k, b, g, act, slope, mask)  # noqa: E731
+        plain = lambda: sba.reference_scale_bias_act_bwd(x, k, b, g, act, slope, mask)  # noqa: E731
+        depth = sba.bwd_plan(m, c, dt, act, flags, True)[1] if flags & 6 else 0
+        t = sba.reference_bwd_t(x, k, b, g, act, slope)
+        cols = lambda v: v.reshape(m, c)  # noqa: E731
     got = run()
     torch.cuda.synchronize()
     want = plain()
     check(all(v.data_ptr() % 16 == 0 for v in (x, g)), "seeded inputs off 16-byte alignment")
-    m, flags = x.numel() // c, sum(1 << i for i, n in enumerate(mask) if n)
-    depth = sba.bwd_plan(m, c, dt, act, flags, True)[1] if flags & 6 else 0
-    t = sba.reference_bwd_t(x, k, b, g, act, slope)
     errs, shares = [], []
-    for name, i, terms in (("dx", 0, None), ("dk", 1, t * x), ("db", 2, t)):
+    for grad, i, terms in (("dx", 0, None), ("dk", 1, t * x), ("db", 2, t)):
         if not mask[i]:
-            check(got[i] is None, f"scale_bias_act backward computed {name}, not asked for")
+            check(got[i] is None, f"{name} computed {grad}, not asked for")
             continue
-        check(got[i].dtype == dt and got[i].shape == want[i].shape, f"backward {name}: {got[i].dtype}")
+        check(got[i].dtype == dt and got[i].shape == want[i].shape, f"{name} {grad}: {got[i].dtype}")
         if i == 0:  # bitwise, as it rounds where the plain backward does
             e, excess = max_excess(got[i], want[i], dt)
         else:  # against the exact sums of the plain backward's terms
-            e, excess, share = bwd_sums_excess(got[i], terms.reshape(m, c), depth)
+            e, excess, share = bwd_sums_excess(got[i].reshape(-1), cols(terms), depth)
             shares.append(share)
-        check(excess <= 0, f"scale_bias_act backward {name} {act} {slope} {shape} {dtype}: max err {e} "
+        check(excess <= 0, f"{name} {grad} {act} {slope} {shape} {dtype}: max err {e} "
                            f"exceeds tolerance by {excess}")
         errs.append(float((got[i].double() - want[i].double()).abs().max()))
     del got, want, t
@@ -4147,7 +4248,7 @@ def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush) -> dict:
     tp = time_ms(plain, flush, reps=SBA_REPS)
     esize = x.element_size()
     # x and g read, dx written where asked, k and b read, dk and db written
-    nbytes = (2 + mask[0]) * x.numel() * esize + (2 + mask[1] + mask[2]) * c * esize
+    nbytes = (2 + mask[0]) * x.numel() * esize + (2 + mask[1] + mask[2]) * k.numel() * esize
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 10 * x.numel() / F32_FLOPS_PER_S * 1e3  # z, act', t, dx, two sums
     return {"max_abs_err": max(errs), "sum_depth": depth, "sum_err_share": max(shares, default=None),
@@ -4247,7 +4348,8 @@ def kernel_phase(sources) -> tuple:
     """Every kernel against its plain version at each (shape, dtype,
     activation) that a main path launched it at (the epilogue's backward
     also at the gradients it computed there), plus one ragged epilogue (odd
-    channel count) in each dtype, forward and backward."""
+    channel count) in each dtype, forward and backward, per-channel and
+    per-sample."""
     import torch
 
     dev = torch.device("cuda")
@@ -4255,8 +4357,14 @@ def kernel_phase(sources) -> tuple:
     flush = torch.zeros(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     sba_keys = {(RAGGED_SHAPE, dt, "linear", 0.1): {} for dt in ("float32", "bfloat16")}
     bwd_keys = {(RAGGED_SHAPE, dt, "tanh", 0.1, "xkb"): {} for dt in ("float32", "bfloat16")}
+    cond_keys = {(RAGGED_SHAPE, dt, "relu", 0.1): {} for dt in ("float32", "bfloat16")}
+    cond_bwd_keys = {(RAGGED_SHAPE, dt, "relu", 0.1, "xkb"): {} for dt in ("float32", "bfloat16")}
     conv_keys, players = {}, collections.defaultdict(set)
     for source, counts, where in sources:
+        for key, c in counts.get("scale_bias_act_cond", {}).items():
+            cond_keys.setdefault(key, {})[source] = c
+        for key, c in counts.get("scale_bias_act_cond_bwd", {}).items():
+            cond_bwd_keys.setdefault(key, {})[source] = c
         for key, c in counts["scale_bias_act"].items():
             sba_keys.setdefault(key, {})[source] = c
         for key, c in counts["scale_bias_act_bwd"].items():
@@ -4277,6 +4385,18 @@ def kernel_phase(sources) -> tuple:
                "launches": launches, **sba_bwd_case(shape, dtype, act, slope, needs, gen, flush)}
         bwd_rows.append(row)
         emit("scale_bias_act_bwd", row)
+    cond_rows = []
+    for (shape, dtype, act, slope), launches in sorted(cond_keys.items()):
+        row = {"shape": list(shape), "dtype": dtype, "act": act, "slope": slope, "launches": launches,
+               **sba_case(shape, dtype, act, slope, gen, flush, per_sample=True)}
+        cond_rows.append(row)
+        emit("scale_bias_act_cond", row)
+    cond_bwd_rows = []
+    for (shape, dtype, act, slope, needs), launches in sorted(cond_bwd_keys.items()):
+        row = {"shape": list(shape), "dtype": dtype, "act": act, "slope": slope, "needs": needs,
+               "launches": launches, **sba_bwd_case(shape, dtype, act, slope, needs, gen, flush, per_sample=True)}
+        cond_bwd_rows.append(row)
+        emit("scale_bias_act_cond_bwd", row)
     conv_rows = []
     for key, launches in sorted(conv_keys.items()):
         op, n, h, w, cin, cout, pad, dtype = key
@@ -4287,7 +4407,7 @@ def kernel_phase(sources) -> tuple:
         emit("conv3x3", row)
     wino_rows = winograd_rows(gen, flush)
     del flush
-    return sba_rows, bwd_rows, conv_rows, wino_rows
+    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, wino_rows
 
 
 # ---------------------------------------------------------------------------
@@ -4295,16 +4415,17 @@ def kernel_phase(sources) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
+def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, train_runs, serve_arms) -> list:
     """One line per kernel: launches over every main path (the train arms,
-    the graph arms', phase 3c's and the driver's counted runs, the serving
-    arms): the
+    the graph arms', phase 3c's, 3e's and the driver's counted runs, the
+    serving arms): the
     wrappers' counts (``launches_counted``: each launch, or each capture
     of one into a graph) plus the launches that the replays of those runs
     made, counted by kernel name in their profiles
     (``launches_replayed``); and times and bounds summed over one train
     step's launches at each setting (``per_step``), the shipped setting's
-    also at the top level."""
+    also at the top level (the per-sample epilogue's: cifar10_snresnet's,
+    the one setting that launches it)."""
     counted, replayed = collections.Counter(), collections.Counter()
     for arm in train_runs + serve_arms:
         counted.update(arm.get("launches_counted", arm["launches"]))
@@ -4313,18 +4434,22 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
     conv_src = {"float32": csrc + "conv3x3.cu", "bfloat16": csrc + "conv3x3_sm90.cu"}
     sba_src = {"float32": csrc + "scale_bias_act.cu", "bfloat16": csrc + "scale_bias_act.cu"}
     kernels = []
-    for name, rows, sources, replaces in (
-        ("scale_bias_act", sba_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:59"),
-        ("scale_bias_act_bwd", bwd_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:117"),
+    sn_setting = f"{SNRESNET} float32"
+    for name, rows, sources, replaces, top_setting in (
+        ("scale_bias_act", sba_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:59", "shipped"),
+        ("scale_bias_act_bwd", bwd_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:117", "shipped"),
+        ("scale_bias_act_cond", cond_rows, sba_src, None, sn_setting),
+        ("scale_bias_act_cond_bwd", cond_bwd_rows, sba_src, None, sn_setting),
         ("conv3x3_fwd", [r for r in conv_rows if r["op"] != "wgrad"], conv_src,
-         "triplegan_tpu/ops/pallas_conv.py:54"),
+         "triplegan_tpu/ops/pallas_conv.py:54", "shipped"),
         ("conv3x3_wgrad", [r for r in conv_rows if r["op"] == "wgrad"], conv_src,
-         "triplegan_tpu/ops/pallas_conv.py:104"),
+         "triplegan_tpu/ops/pallas_conv.py:104", "shipped"),
     ):
         per_step = {}
         for setting, dtype, batch, _ in SETTINGS + [("host_fused", "float32", BATCH, False),
                                                    ("mesh_rank", "float32", 128 // MESH_WORLD, False)] + [
-                (f"{name} {dtype}", dtype, batch, False) for name in CONFIGS for dtype, batch, _ in CONFIG_ARMS[name]]:
+                (f"{name} {dtype}", dtype, batch, False) for name in CONFIGS for dtype, batch, _ in CONFIG_ARMS[name]
+        ] + [(sn_setting, "float32", BATCH, False)]:
             runs = [(r["launches"]["train " + setting], r) for r in rows if "train " + setting in r["launches"]]
             sums = {key: sum(n * r[key] for n, r in runs) for key in ("ms", "plain_ms", "bound_ms")}
             library = [n * r["library_ms"] for n, r in runs if r["library_ms"] is not None]
@@ -4336,7 +4461,7 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
                 "bound_by": "operations" if ops_bound >= sums["bound_ms"] / 2 else "bytes",
                 "library_ms": sum(library) if library else None,
             }
-        top = per_step["shipped"]
+        top = per_step[top_setting]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4348,12 +4473,13 @@ def summary(sba_rows, bwd_rows, conv_rows, train_runs, serve_arms) -> list:
             "launches_replayed": replayed[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "basis": "top level: sum over one train step's launches at the shipped setting "
-                     "(cifar10_4k, float32, batch 100, share_pseudo_forward off); per_step: "
+            "basis": f"top level: sum over one train step's launches at the {top_setting} setting "
+                     "(shipped: cifar10_4k, float32, batch 100, share_pseudo_forward off); per_step: "
                      "the same at each setting, for the host-streamed fused-classifier step "
                      "(host_fused), for one rank's step of stl10 on a mesh of 2 (mesh_rank: "
-                     "96 x 96, batch 64 a rank), and for each arm of phase 3c (mnist100, svhn1k, "
-                     "cifar10_cond at their published widths: float32 batch 100, bfloat16 batch 384)",
+                     "96 x 96, batch 64 a rank), for each arm of phase 3c (mnist100, svhn1k, "
+                     "cifar10_cond at their published widths: float32 batch 100, bfloat16 batch 384) "
+                     "and for phase 3e (cifar10_snresnet, float32, batch 100)",
             "per_step": per_step,
         })
     return kernels
@@ -4505,6 +4631,11 @@ def main():
         configs = configs_phase(data_dir, zca)
         phases["configs"] = time.perf_counter() - t_start
 
+        # 3e. cifar10_snresnet: the SN-ResNet G and D, graphed
+        snresnet = snresnet_phase(zca)
+        emit("snresnet", {k: v for k, v in snresnet.items() if not k.startswith("_")})
+        phases["snresnet"] = time.perf_counter() - t_start
+
         # 3d. digits: one seed of the real-data recipe, both arms
         digits = digits_phase(data_root)
         phases["digits"] = time.perf_counter() - t_start
@@ -4543,8 +4674,8 @@ def main():
     phases["serve"] = time.perf_counter() - t_start
 
     # 7. kernels, at the shapes the main paths launched them at; the winograd A/B rows
-    sba_rows, bwd_rows, conv_rows, wino_rows = kernel_phase(
-        path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits))
+    sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, wino_rows = kernel_phase(
+        path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits) + snresnet["_sources"])
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
     lost = [w for w in PROFILE_WINDOWS if any(w)]
@@ -4552,19 +4683,21 @@ def main():
                              "windows_that_lost_markers": len(lost), "lost_leading_trailing": lost})
 
     config_runs = [run for rec in configs for run in rec["arms"] + [rec["serving"]] + ([rec["loop"]] if "loop" in rec else [])]
-    kernels = summary(sba_rows, bwd_rows, conv_rows,
-                      train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor, digits],
+    kernels = summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows,
+                      train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor, digits, snresnet],
                       serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
-                       "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "conv_rows": conv_rows,
+                       "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "cond_rows": cond_rows,
+                       "cond_bwd_rows": cond_bwd_rows, "conv_rows": conv_rows,
                        "winograd_rows": wino_rows, "doctor": public(doctor), "debug": debug,
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms], "configs": [public(r) for r in configs],
                        "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),
                        "mesh": public(mesh), "deploy": public(deploy), "digits": public(digits),
+                       "snresnet": public(snresnet),
                        "serve": [public(a) for a in serve_arms],
                        "kernels": kernels, "profile_windows": PROFILE_WINDOWS}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 """The CUDA kernels (scale_bias_act, conv3x3 forward and wgrad: float32
 from conv3x3.cu, bfloat16 from conv3x3_sm90.cu) against their plain
 PyTorch versions, on the card; the float32 conv's bits repeated over 200
-calls; ``device_prefetch``'s copies (their bytes and the consumer's
+calls; the per-sample (class-conditional) epilogue kernels against their
+plain version at the ResNet generator's shapes; ``device_prefetch``'s copies (their bytes and the consumer's
 stream ordered after them) and the native gather in use; the CUDA graph
 chunk under a process group: refused under gloo, and under NCCL (a group
 of this process alone) equal to eager steps bitwise; the phase marks a
@@ -153,6 +154,69 @@ def test_sba_backward_kernel_matches_plain_on_card(c, dtype, cuda):
             for name, i in (("dk", 1), ("db", 2)):
                 ok, err = _sums_ok(got[i], x, k, b, g, act, 0.2, i)
                 assert ok, (name, act, rows, err)
+
+
+# the per-sample (class-conditional batch norm) kernels at the ResNet G's
+# shapes, and at C = 37 (the scalar rows) over 5 samples of 3 × 7 rows
+_COND_SHAPES = [(100, 4, 4, 256), (100, 8, 8, 256), (100, 16, 16, 256), (100, 32, 32, 256), (5, 3, 7, 37)]
+
+
+def _cond_case(shape, dtype, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    n, c = shape[0], shape[-1]
+    arrays = (rng.normal(size=shape) * 2.0, rng.normal(size=(n, c)) * 0.5 + 1.0, rng.normal(size=(n, c)) * 0.3,
+              rng.normal(size=shape))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _COND_SHAPES)
+def test_cond_kernels_match_plain_on_card(shape, dtype, cuda):
+    """The per-sample forward within the epilogue's tolerance of its plain
+    version, its backward's dx bitwise, and each sample's dk and db against
+    the exact sums of the plain terms (``_sums_ok``'s limit at the kernel's
+    depth), each launch counted."""
+    import chip_smoke
+
+    x, k, b, g = _cond_case(shape, _DT[dtype], cuda)
+    n, c = shape[0], shape[-1]
+    hw = x.numel() // (n * c)
+    for act in (sba.ACTS if n < 100 else ("relu",)):
+        before = sba.cond_launches.total(), sba.cond_bwd_launches.total()
+        y = sba.scale_bias_act_cond(x, k, b, act, 0.2)
+        got = sba._cond_backward(x, k, b, g, act, 0.2, (True, True, True))
+        torch.cuda.synchronize()
+        assert (sba.cond_launches.total(), sba.cond_bwd_launches.total()) == (before[0] + 1, before[1] + 1)
+        assert sba.cond_launches[shape, dtype, act, 0.2] >= 1
+        ok, err = _elementwise_ok(y, sba.reference_scale_bias_act_cond(x, k, b, act, 0.2))
+        assert ok, ("forward", act, err)
+        want = sba.reference_scale_bias_act_cond_bwd(x, k, b, g, act, 0.2)
+        assert torch.equal(got[0], want[0]), (act, float((got[0].float() - want[0].float()).abs().max()))
+        t = g * sba.act_grad(x * sba._per_sample(k, x) + sba._per_sample(b, x), act, 0.2)
+        depth = sba.cond_bwd_plan(n, hw, c, x.dtype, act, 7, True)[1]
+        for name, i, terms in (("dk", 1, t * x), ("db", 2, t)):
+            assert got[i].shape == (n, c) and got[i].dtype == x.dtype
+            cols = terms.reshape(n, hw, c).permute(1, 0, 2).reshape(hw, n * c)
+            err, excess, _ = chip_smoke.bwd_sums_excess(got[i].reshape(n * c), cols, depth)
+            assert excess <= 0, (name, act, err)
+
+
+@pytest.mark.cuda
+def test_cond_function_grads_match_plain_on_card(cuda):
+    """Autograd through the per-sample function on the card against the
+    same function on the CPU (its plain version)."""
+    x, k, b, g = _cond_case((100, 8, 8, 256), torch.float32, cuda, seed=3)
+    got = [t.clone().requires_grad_(True) for t in (x, k, b)]
+    cpu = [t.cpu().clone().requires_grad_(True) for t in (x, k, b)]
+    ya = sba.scale_bias_act_cond(*got, "relu", 0.2)
+    yb = sba.scale_bias_act_cond(*cpu, "relu", 0.2)
+    assert torch.equal(ya.cpu(), yb.detach())
+    ga = torch.autograd.grad(ya, got, g)
+    gb = torch.autograd.grad(yb, cpu, g.cpu())
+    assert torch.equal(ga[0].cpu(), gb[0])
+    for a, w in zip(ga[1:], gb[1:]):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -27,6 +27,9 @@ import torch
 
 PLAYERS = ("gen", "disc", "clf")
 _DECONV_PLAYERS = ("gen",)  # whose 4-D kernels are transposed-conv kernels
+# statistics, not parameters: batch norm's running moments and a spectrally
+# normalised layer's power-iteration vector
+STATS = ("mean", "var", "u")
 
 
 def _to_port(player: str, arr) -> torch.Tensor:
@@ -61,27 +64,28 @@ def from_jax(params: dict, bn: dict) -> Dict[str, Dict[str, torch.Tensor]]:
 
 def to_jax(state: Dict[str, Dict[str, torch.Tensor]]):
     """The port's ``{player: state_dict}`` → JAX ``(params, bn)`` nested
-    dicts of numpy arrays: ``mean``/``var`` go to ``bn``, the rest to
-    ``params``."""
+    dicts of numpy arrays: the statistics (``STATS``) go to ``bn``, the rest
+    to ``params``."""
     params: dict = {}
     bn: dict = {}
     for player, sd in state.items():
         params[player], bn[player] = {}, {}
         for key, t in sd.items():
             layer, name = key.split(".")
-            tree = bn if name in ("mean", "var") else params
+            tree = bn if name in STATS else params
             tree[player].setdefault(layer, {})[name] = _to_jax(player, t)
     return params, bn
 
 
 def nested(sd: Dict[str, torch.Tensor]):
     """One player's state_dict ``{"<layer>.<array>": t}`` → its (params,
-    stats) trees ``{layer: {array: t}}``; ``mean``/``var`` go to stats."""
+    stats) trees ``{layer: {array: t}}``; the statistics (``STATS``) go to
+    stats."""
     params: dict = {}
     stats: dict = {}
     for key, t in sd.items():
         layer, name = key.split(".")
-        (stats if name in ("mean", "var") else params).setdefault(layer, {})[name] = t
+        (stats if name in STATS else params).setdefault(layer, {})[name] = t
     return params, stats
 
 

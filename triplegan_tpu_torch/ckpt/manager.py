@@ -4,7 +4,8 @@
 A checkpoint is one file, ``<directory>/<step>``, written by ``torch.save``
 and read back by ``torch.load(weights_only=True)``. It holds all that a
 resumed run needs to continue as if never stopped: every player's
-parameters and batch-norm statistics, each Adam's ``count``, ``mu`` and
+parameters and statistics (batch norm's running moments; a spectrally
+normalised D's power-iteration vectors), each Adam's ``count``, ``mu`` and
 ``nu``, and the state's ``step`` and ``seed`` (the train step's random
 streams depend only on these two).
 

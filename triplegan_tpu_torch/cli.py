@@ -233,7 +233,7 @@ def _generate_samples(cfg, gen, state, n: int, seed: int):
     ``seed`` on the host; JAX's ``PRNGKey(seed)`` gives other numbers."""
     import torch
 
-    dev = next(iter(state.params["gen"]["dense"].values())).device
+    dev = next(t for arrays in state.params["gen"].values() for t in arrays.values()).device
     g = torch.Generator().manual_seed(int(seed))
     z = torch.randn((n, cfg.z_dim), generator=g).to(dev)
     y = torch.randint(0, cfg.num_classes, (n,), generator=g).to(dev)
@@ -350,6 +350,17 @@ def cmd_fid(args):
     print(f"FID ({label}, {len(generated)} gen vs {len(real)} real): {fid:.3f}")
 
 
+def _exit_unless_servable(cfg) -> None:
+    """Exit where ``cfg``'s networks do not serve or export
+    (``export.check_servable``)."""
+    from triplegan_tpu_torch.export import check_servable
+
+    try:
+        check_servable(cfg)
+    except ValueError as e:
+        sys.exit(str(e))
+
+
 def cmd_export(args):
     """Servable artifacts of a checkpoint (``export.py``): the classifier
     (uint8 images → logits, the input transform inside) and/or the
@@ -361,6 +372,8 @@ def cmd_export(args):
     if args.quantize and args.format == "npz":  # before any restore
         sys.exit("--quantize applies to traced artifacts (pt2); npz stores the raw f32 parameters")
     cfg, nets, state, workdir, dev, _ = _restore_run(args, mesh=False)
+    if args.format == "pt2":
+        _exit_unless_servable(cfg)
     # ZCA is part of the classifier's transform only: a generator-only or
     # npz export loads no data
     need_zca = args.what in ("classifier", "both") and args.format != "npz"
@@ -398,6 +411,7 @@ def _serve_source(args):
     from triplegan_tpu_torch.configs.base import apply_runtime, make_networks
 
     cfg = apply_runtime(_load_cfg(args))
+    _exit_unless_servable(cfg)
     dev = resolve_device(args.device)
     run_dir = os.path.join(cfg.workdir, cfg.name)
     ckpt_dir = os.path.join(run_dir, "ckpt")

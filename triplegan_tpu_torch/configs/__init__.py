@@ -1,5 +1,6 @@
 """Per-dataset configs: the port's copy of ``triplegan_tpu/configs`` with
-the same five registry entries and the same values."""
+the same five registry entries and the same values, and one of the port's
+own, ``cifar10_snresnet``."""
 
 from __future__ import annotations
 
@@ -57,6 +58,27 @@ def cifar10_cond() -> ConfigDict:
     return cfg
 
 
+def cifar10_snresnet() -> ConfigDict:
+    """cifar10_4k with the SN-ResNet pair of Miyato & Koyama (cGANs with
+    Projection Discriminator, arXiv:1802.05637) as G and D: G a dense layer
+    to 4×4×256 and three 256-wide up-blocks with class-conditional batch
+    norm, z of 128; D an optimised block and three blocks 128 wide, every
+    weight spectrally normalised, with a projection head. C, the objective
+    and the recipe are cifar10_4k's; D has no noise, dropout or label
+    planes."""
+    cfg = cifar10_4k()
+    cfg.name = "cifar10_snresnet"
+    cfg.arch = "snresnet"
+    cfg.z_dim = 128
+    cfg.gen.widths = (256, 256, 256)           # dense→4×4×256, 3 up-blocks to 32
+    cfg.gen.kernel = 3
+    cfg.disc.widths = (128, 128, 128, 128)     # optimised block, then 3 blocks
+    cfg.disc.strides = (2, 2, 1, 1)            # 2: the block ends in a 2×2 average pool
+    cfg.disc.input_noise = cfg.disc.input_dropout = cfg.disc.block_dropout = 0.0
+    cfg.disc.label_reconcat = False
+    return cfg
+
+
 def stl10() -> ConfigDict:
     """STL-10 96×96 semi-supervised."""
     cfg = base_config()
@@ -80,6 +102,7 @@ REGISTRY = {
     "cifar10_4k": cifar10_4k,
     "cifar10_cond": cifar10_cond,
     "stl10": stl10,
+    "cifar10_snresnet": cifar10_snresnet,
 }
 
 

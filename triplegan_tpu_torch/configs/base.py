@@ -133,6 +133,23 @@ EXEC_KEYS = frozenset({
 })
 
 
+# Keys a config holds only where it departs from the base: ``arch`` (the
+# G and D designs: "conv", the default, the JAX package's networks;
+# "snresnet", ``nn/networks.py``'s ResNet G and SN projection D). A run
+# dir's config.json brings them over even into a config that lacks them,
+# so that a config rebuilt from ``base_config()`` builds the run's networks.
+OPTIONAL_KEYS = frozenset({"arch"})
+ARCHS = ("conv", "snresnet")
+
+
+def arch(cfg: ConfigDict) -> str:
+    """The config's G and D designs (``OPTIONAL_KEYS``)."""
+    name = cfg.get("arch", "conv")
+    if name not in ARCHS:
+        raise ValueError(f"arch must be one of {ARCHS}, got {name!r}")
+    return name
+
+
 def save_config(cfg: ConfigDict, path: str) -> None:
     """Write the resolved config as JSON, keys sorted and tuples as lists,
     as the JAX package's ``save_config`` does: the train driver writes
@@ -147,13 +164,16 @@ def save_config(cfg: ConfigDict, path: str) -> None:
 def merge_saved(cfg: ConfigDict, path: str) -> ConfigDict:
     """Overlay a saved ``config.json`` onto ``cfg`` in place, skipping
     ``EXEC_KEYS``. Tuple fields are re-coerced from JSON lists; keys this
-    code does not know, and values whose type no longer fits, are skipped
-    (the latter with a warning)."""
+    code does not know (but ``OPTIONAL_KEYS``), and values whose type no
+    longer fits, are skipped (the latter with a warning)."""
     with open(path) as f:
         saved = json.load(f)
 
     def _merge(node, d, top, prefix=""):
         for k, v in d.items():
+            if top and k in OPTIONAL_KEYS and k not in node:
+                node[k] = v
+                continue
             if k not in node or (top and k in EXEC_KEYS):
                 continue
             cur = node[k]
@@ -209,9 +229,29 @@ def display(cfg: ConfigDict) -> str:
 
 def make_networks(cfg: ConfigDict):
     """Build the (Generator, Discriminator, Classifier) modules of a
-    config, in the JAX package's order."""
-    from triplegan_tpu_torch.nn.networks import Classifier, Discriminator, Generator
+    config, in the JAX package's order; G and D of its ``arch``."""
+    from triplegan_tpu_torch.nn.networks import (Classifier, Discriminator, Generator, ResNetGenerator,
+                                                 SNResNetDiscriminator)
 
+    clf = Classifier(
+        image_size=cfg.image_size,
+        channels=cfg.channels,
+        num_classes=cfg.num_classes,
+        conv_blocks=tuple(tuple(b) for b in cfg.clf.conv_blocks),
+        tail=tuple(cfg.clf.tail),
+        input_noise=cfg.clf.input_noise,
+        block_dropout=cfg.clf.block_dropout,
+        bn_momentum=cfg.bn_momentum,
+        use_pallas=cfg.use_pallas,
+    )
+    if arch(cfg) == "snresnet":
+        gen = ResNetGenerator(image_size=cfg.image_size, channels=cfg.channels, num_classes=cfg.num_classes,
+                              z_dim=cfg.z_dim, widths=tuple(cfg.gen.widths), kernel=cfg.gen.kernel,
+                              bn_momentum=cfg.bn_momentum, use_pallas=cfg.use_pallas)
+        disc = SNResNetDiscriminator(image_size=cfg.image_size, channels=cfg.channels,
+                                     num_classes=cfg.num_classes, widths=tuple(cfg.disc.widths),
+                                     strides=tuple(cfg.disc.strides), use_pallas=cfg.use_pallas)
+        return gen, disc, clf
     gen = Generator(
         image_size=cfg.image_size,
         channels=cfg.channels,
@@ -232,17 +272,6 @@ def make_networks(cfg: ConfigDict):
         input_dropout=cfg.disc.input_dropout,
         block_dropout=cfg.disc.block_dropout,
         label_reconcat=bool(cfg.disc.get("label_reconcat", True)),
-        use_pallas=cfg.use_pallas,
-    )
-    clf = Classifier(
-        image_size=cfg.image_size,
-        channels=cfg.channels,
-        num_classes=cfg.num_classes,
-        conv_blocks=tuple(tuple(b) for b in cfg.clf.conv_blocks),
-        tail=tuple(cfg.clf.tail),
-        input_noise=cfg.clf.input_noise,
-        block_dropout=cfg.clf.block_dropout,
-        bn_momentum=cfg.bn_momentum,
         use_pallas=cfg.use_pallas,
     )
     return gen, disc, clf

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from triplegan_tpu_torch import bridge
+from triplegan_tpu_torch.configs.base import arch
 from triplegan_tpu_torch.data import ondevice
 from triplegan_tpu_torch.utils.platform import resolve_device
 
@@ -183,6 +184,14 @@ class GenerateModule(nn.Module):
         return self.net.apply(*self.weights.trees(), z, y, train=False)[0]
 
 
+def check_servable(cfg) -> None:
+    """Raise unless ``cfg``'s networks serve and export: the conv networks
+    do; the SN-ResNet pair (``arch`` snresnet) does not yet."""
+    if arch(cfg) != "conv":
+        raise ValueError(f"serving and .pt2 export take the conv networks; {cfg.name} has arch {arch(cfg)!r} "
+                         f"(the SN-ResNet G and D)")
+
+
 def serving_modules(cfg, nets, state, zca_stats=None, device=None, quantize: Optional[str] = None):
     """(ClassifyModule, GenerateModule) of ``state`` (a ``TrainState`` or
     ``{"gen", "clf"}`` state dicts, see ``bridge.py``) on ``device``
@@ -190,6 +199,7 @@ def serving_modules(cfg, nets, state, zca_stats=None, device=None, quantize: Opt
     ``quantize="int8"``."""
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    check_servable(cfg)
     st = serving_state(state)
     st = {p: st[p] for p in ("gen", "clf")}
     if quantize:

@@ -21,6 +21,13 @@ A contiguous NHWC tensor permuted to NCHW is a channels_last view, which
 result permuted back is contiguous NHWC again: the rows of C channels that
 the epilogue kernel reads.
 
+The SN-ResNet pair (``networks.py``) adds layers the JAX package does not
+have: class-conditional batch norm (per-class γ and β tables folded into
+a per-sample epilogue, ``scale_bias_act_cond``), spectral normalisation
+(one power iteration from a kept vector u, σ = u'ᵀ·W·v, W/σ; in the
+kernel arm 1/σ goes into the epilogue as k), nearest 2× upsampling, 2×2
+average pooling and a global sum.
+
 Init functions keep JAX's shapes and scales (normal, std 0.05; g = 1,
 b = 0; BN scale 1, bias 0, mean 0, var 1) and draw from an explicit
 ``torch.Generator``. The stochastic layers (noise, dropout) draw from an
@@ -46,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from triplegan_tpu_torch.ops.conv3x3 import conv3x3
-from triplegan_tpu_torch.ops.scale_bias_act import apply_act, scale_bias_act
+from triplegan_tpu_torch.ops.scale_bias_act import apply_act, scale_bias_act, scale_bias_act_cond
 
 Params = Dict[str, torch.Tensor]
 
@@ -409,6 +416,118 @@ def deconv2d_wn_act_apply(p: Params, x: torch.Tensor, *, stride: int = 2,
     b = p["b"].to(x.dtype) if "b" in p else torch.zeros_like(k)
     y = _deconv_raw(x, v, stride, True).to(x.dtype)
     return _scale_bias_act(y, k, b, act, slope, True)
+
+
+def cond_batchnorm_init(num_classes: int, num_features: int) -> Tuple[Params, Params]:
+    """Class-conditional batch norm: per-class ``gamma`` (ones) and
+    ``beta`` (zeros) tables of (num_classes, C) in place of the affine, and
+    the usual running statistics."""
+    params = {"gamma": torch.ones(num_classes, num_features), "beta": torch.zeros(num_classes, num_features)}
+    return params, {"mean": torch.zeros(num_features), "var": torch.ones(num_features)}
+
+
+def cond_batchnorm_act_apply(p: Params, s: Params, x: torch.Tensor, y: torch.Tensor, *, train: bool = False,
+                             act: Optional[str] = None, slope: float = 0.1, momentum: float = 0.99,
+                             eps: float = 1e-3, use_pallas: bool = False, mesh=None):
+    """Class-conditional batch norm and activation, ``act(x·k_n + b_n)``
+    with k_n = gamma[y_n]·rsqrt(var + eps) and b_n = beta[y_n] − mean·k_n,
+    (N, C) a sample, the moments as in ``batchnorm_act_apply``. With
+    ``use_pallas`` one launch of the per-sample epilogue kernel. Returns
+    (y in x's dtype, new running stats)."""
+    mean, var, new_s = _moments(p, s, x, train, momentum, mesh)
+    yl = y.long()
+    k = p["gamma"][yl] * torch.rsqrt(var + eps)
+    b = p["beta"][yl] - mean * k
+    k, b = k.to(x.dtype), b.to(x.dtype)
+    if use_pallas:
+        return scale_bias_act_cond(x.contiguous(), k, b, act or "linear", slope), new_s
+    n, c = k.shape
+    shape = (n,) + (1,) * (x.dim() - 2) + (c,)
+    return apply_act(x * k.reshape(shape) + b.reshape(shape), act or "linear", slope).to(x.dtype), new_s
+
+
+def conv2d_act_apply(p: Params, x: torch.Tensor, *, act: Optional[str] = None, slope: float = 0.2,
+                     use_pallas: bool = False) -> torch.Tensor:
+    """A stride-1 SAME conv with its bias and activation: with
+    ``use_pallas`` the conv, then bias and activation as one epilogue
+    (k = 1); without it ``conv2d_apply`` and the activation."""
+    if not use_pallas:
+        return apply_act(conv2d_apply(p, x), act or "linear", slope)
+    b = p["b"].to(x.dtype)
+    return _scale_bias_act(_conv(x, p["w"], 1, "SAME", True).to(x.dtype), torch.ones_like(b), b, act, slope, True)
+
+
+# ---------------------------------------------------------------------------
+# Spectral normalisation (Miyato et al., arXiv:1802.05957)
+# ---------------------------------------------------------------------------
+
+
+def sn_matrix(w: torch.Tensor, dense: bool = False) -> torch.Tensor:
+    """The matrix W whose largest singular value normalises a weight: a
+    conv kernel (O, I, kh, kw) as (O, I·kh·kw); a dense kernel (in, out) as
+    (out, in); an embedding (classes, C) as it is."""
+    if dense:
+        return w.t()
+    return w.reshape(w.shape[0], -1)
+
+
+def _l2normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.sqrt(torch.sum(v * v)) + 1e-12)
+
+
+def power_iteration(w_mat: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One power iteration from the kept u, outside autograd: (u', v) with
+    v = normalise(Wᵀu) and u' = normalise(W·v)."""
+    with torch.no_grad():
+        w = w_mat.detach()
+        v = _l2normalize(w.t() @ u)
+        return _l2normalize(w @ v), v
+
+
+def sn_sigma(w_mat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """σ = u'ᵀ·W·v, differentiable in W (u' and v are constants)."""
+    return torch.dot(u, w_mat @ v)
+
+
+def sn_init(gen: torch.Generator, rows: int) -> Params:
+    """A spectrally normalised layer's statistics: the power iteration's
+    vector ``u`` (rows,), drawn normal."""
+    return {"u": torch.randn(rows, generator=gen)}
+
+
+def sn_conv_act_apply(p: Params, sigma: torch.Tensor, x: torch.Tensor, *, act: Optional[str] = None,
+                      slope: float = 0.2, use_pallas: bool = False) -> torch.Tensor:
+    """A spectrally normalised stride-1 SAME conv with its bias and
+    activation: conv(x, W/σ) + b. With ``use_pallas`` the raw-W conv runs
+    and 1/σ goes into the epilogue kernel as k, as the weight-norm convs'
+    g/‖v‖ does; without it, W/σ is convolved."""
+    w, b = p["w"], p["b"]
+    if not use_pallas:
+        return apply_act(_conv(x, (w / sigma).to(x.dtype), 1, "SAME", False) + b.to(x.dtype),
+                         act or "linear", slope).to(x.dtype)
+    k = torch.reciprocal(sigma).to(x.dtype).expand(w.shape[0])
+    return _scale_bias_act(_conv(x, w, 1, "SAME", True).to(x.dtype), k, b.to(x.dtype), act, slope, True)
+
+
+# ---------------------------------------------------------------------------
+# Resampling and pooling of the ResNet blocks
+# ---------------------------------------------------------------------------
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2× upsampling of NHWC x."""
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
+
+
+def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
+    """2×2 average pooling of NHWC x (even sizes)."""
+    n, h, w, c = x.shape
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
+def global_sum_pool(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x, dim=(1, 2))
 
 
 # ---------------------------------------------------------------------------

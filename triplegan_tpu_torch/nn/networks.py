@@ -25,6 +25,11 @@ norm. So a module's ``state_dict`` keys read ``<layer>.<array>``, the JAX
 export's ``params/<player>/<layer>/<array>`` and ``bn/<player>/<layer>/<array>``
 with the player dropped.
 
+``ResNetGenerator`` and ``SNResNetDiscriminator`` are the SN-ResNet pair
+(``arch = "snresnet"``, ``configs/base.py``), with the same contract; the
+discriminator's stats are its power-iteration vectors ``u``, which only
+D's own update keeps (``train/step.py``).
+
 Inputs and images are NHWC. ``use_pallas`` routes every epilogue through
 the Hopper ``scale_bias_act`` kernel and every 3×3 stride-1 conv through
 the Hopper conv kernels (their plain versions on the CPU).
@@ -285,3 +290,160 @@ class Classifier(_Player):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(*self.trees(), x, train=False)[0]
+
+
+# ===========================================================================
+# The SN-ResNet pair (Miyato & Koyama, cGANs with Projection Discriminator,
+# arXiv:1802.05637; code: pfnet-research/sngan_projection, gen_models/
+# resnet_32.py and dis_models/snresnet_32.py)
+# ===========================================================================
+
+
+class ResNetGenerator(_Player):
+    """z → dense ``l1`` → s0×s0×W0, then one up-block a width, then BN,
+    ReLU, a 3×3 conv ``c5`` to RGB and tanh; NHWC images in [-1, 1]. Up-block
+    ``block<i>`` of ``widths[i]`` channels: h = ReLU(cBN ``b1``(x, y)), 2×
+    nearest upsample, 3×3 conv ``c1``; h = ReLU(cBN ``b2``(h, y)), 3×3 conv
+    ``c2``; plus the shortcut, a 1×1 conv ``c_sc`` of x upsampled. The
+    class-conditional batch norms take the integer labels y (no one-hot
+    input). The output dtype follows z."""
+
+    def __init__(self, image_size: int = 32, channels: int = 3, num_classes: int = 10,
+                 z_dim: int = 128, widths: Tuple[int, ...] = (256, 256, 256), kernel: int = 3,
+                 bn_momentum: float = 0.99, use_pallas: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if kernel != 3:
+            raise ValueError(f"the ResNet generator's convs are 3×3, got kernel {kernel}")
+        self.image_size, self.channels, self.num_classes = image_size, channels, num_classes
+        self.z_dim, self.widths = z_dim, tuple(widths)
+        self.bn_momentum = bn_momentum
+        self.use_pallas = use_pallas
+        self._build(generator)
+
+    base_size = Generator.base_size
+
+    def init(self, gen: torch.Generator) -> Tuple[Tree, Tree]:
+        s0, nc = self.base_size, self.num_classes
+        params: Tree = {"l1": L.dense_init(gen, self.z_dim, s0 * s0 * self.widths[0])}
+        stats: Tree = {}
+        cin = self.widths[0]
+        for i, w in enumerate(self.widths):
+            blk = f"block{i + 2}"
+            params[f"{blk}_b1"], stats[f"{blk}_b1"] = L.cond_batchnorm_init(nc, cin)
+            params[f"{blk}_c1"] = L.conv2d_init(gen, cin, w, kernel=3)
+            params[f"{blk}_b2"], stats[f"{blk}_b2"] = L.cond_batchnorm_init(nc, w)
+            params[f"{blk}_c2"] = L.conv2d_init(gen, w, w, kernel=3)
+            params[f"{blk}_c_sc"] = L.conv2d_init(gen, cin, w, kernel=1)
+            cin = w
+        params["b5"], stats["b5"] = L.batchnorm_init(cin)
+        params["c5"] = L.conv2d_init(gen, cin, self.channels, kernel=3)
+        return params, stats
+
+    def apply(self, params: Tree, stats: Tree, z: torch.Tensor, y: torch.Tensor, *,
+              train: bool, mesh=None):
+        s0, pallas = self.base_size, self.use_pallas
+        bn = dict(train=train, act="relu", momentum=self.bn_momentum, use_pallas=pallas, mesh=mesh)
+        h = L.dense_apply(params["l1"], z).reshape(z.shape[0], s0, s0, self.widths[0])
+        new_stats: Tree = {}
+        for i in range(len(self.widths)):
+            blk = f"block{i + 2}"
+            t, new_stats[f"{blk}_b1"] = L.cond_batchnorm_act_apply(params[f"{blk}_b1"], stats[f"{blk}_b1"], h, y, **bn)
+            t = L.conv2d_apply(params[f"{blk}_c1"], L.upsample2x(t), use_pallas=pallas)
+            t, new_stats[f"{blk}_b2"] = L.cond_batchnorm_act_apply(params[f"{blk}_b2"], stats[f"{blk}_b2"], t, y, **bn)
+            t = L.conv2d_apply(params[f"{blk}_c2"], t, use_pallas=pallas)
+            h = t + L.conv2d_apply(params[f"{blk}_c_sc"], L.upsample2x(h), use_pallas=pallas)
+        h, new_stats["b5"] = L.batchnorm_act_apply(params["b5"], stats["b5"], h, **bn)
+        return L.conv2d_act_apply(params["c5"], h, act="tanh", use_pallas=pallas), new_stats
+
+    def forward(self, z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.apply(*self.trees(), z, y, train=False)[0]
+
+
+class SNResNetDiscriminator(_Player):
+    """D(x, y) → real-pair logit, every weight spectrally normalised (W/σ):
+    ``block1``, the optimised block (h = 3×3 ``c1``, ReLU, 3×3 ``c2``, 2×2
+    average pool; shortcut a 1×1 ``c_sc`` of x pooled), then ``block2`` … of
+    ``widths[1:]`` (h = ReLU, ``c1``, ReLU, ``c2``, pooled where its stride
+    is 2; shortcut ``c_sc`` then the pool where it changes the width or
+    pools, else x), then ReLU, a sum over H and W, and ``l5``(h) + ⟨``l_y``
+    [y], h⟩, the projection. No noise or dropout.
+
+    Its statistics are each layer's power-iteration vector ``u``.
+    ``power_iteration(params, stats)`` makes one iteration from the kept u
+    of every layer, outside autograd: {layer: (u', v)}. ``apply`` takes
+    those (``sn``) or makes them, computes each σ = u'ᵀ·W·v in autograd,
+    and returns, in train mode, the stats with u' (the step keeps them from
+    D's own update alone), in eval mode the stats it was given."""
+
+    def __init__(self, image_size: int = 32, channels: int = 3, num_classes: int = 10,
+                 widths: Tuple[int, ...] = (128, 128, 128, 128), strides: Tuple[int, ...] = (2, 2, 1, 1),
+                 use_pallas: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if len(widths) != len(strides) or any(s not in (1, 2) for s in strides):
+            raise ValueError(f"widths {widths} and strides {strides}: one stride (1 or 2) a block")
+        self.image_size, self.channels, self.num_classes = image_size, channels, num_classes
+        self.widths, self.strides = tuple(widths), tuple(strides)
+        self.use_pallas = use_pallas
+        self._build(generator)
+
+    def _shortcut_conv(self, i: int, cin: int) -> bool:
+        return i == 0 or cin != self.widths[i] or self.strides[i] == 2
+
+    def init(self, gen: torch.Generator) -> Tuple[Tree, Tree]:
+        params: Tree = {}
+        stats: Tree = {}
+        cin = self.channels
+        for i, w in enumerate(self.widths):
+            blk = f"block{i + 1}"
+            layers = [("c1", cin, 3), ("c2", w, 3)] + ([("c_sc", cin, 1)] if self._shortcut_conv(i, cin) else [])
+            for name, ci, k in layers:
+                params[f"{blk}_{name}"] = L.conv2d_init(gen, ci, w, kernel=k)
+                stats[f"{blk}_{name}"] = L.sn_init(gen, w)
+            cin = w
+        params["l5"] = L.dense_init(gen, cin, 1)
+        stats["l5"] = L.sn_init(gen, 1)
+        params["l_y"] = {"w": 0.05 * torch.randn(self.num_classes, cin, generator=gen)}
+        stats["l_y"] = L.sn_init(gen, self.num_classes)
+        return params, stats
+
+    @staticmethod
+    def _matrix(name: str, w: torch.Tensor) -> torch.Tensor:
+        return L.sn_matrix(w, dense=name == "l5")
+
+    def power_iteration(self, params: Tree, stats: Tree) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        return {name: L.power_iteration(self._matrix(name, params[name]["w"]), s["u"]) for name, s in stats.items()}
+
+    def apply(self, params: Tree, stats: Tree, x: torch.Tensor, y: torch.Tensor, *,
+              train: bool, generator: Optional[torch.Generator] = None, sn=None):
+        sn = self.power_iteration(params, stats) if sn is None else sn
+        sigma = {name: L.sn_sigma(self._matrix(name, params[name]["w"]), u, v) for name, (u, v) in sn.items()}
+        pallas = self.use_pallas
+
+        def conv(name, h, act=None):
+            return L.sn_conv_act_apply(params[name], sigma[name], h, act=act, use_pallas=pallas)
+
+        h, cin = x, self.channels
+        for i, (w, s) in enumerate(zip(self.widths, self.strides)):
+            blk = f"block{i + 1}"
+            t = conv(f"{blk}_c2", conv(f"{blk}_c1", h if i == 0 else torch.relu(h), act="relu"))
+            if s == 2:
+                t = L.avg_pool2x(t)
+            if not self._shortcut_conv(i, cin):
+                sc = h
+            elif i == 0:  # the optimised block pools first, then convolves
+                sc = conv(f"{blk}_c_sc", L.avg_pool2x(h) if s == 2 else h)
+            else:
+                sc = conv(f"{blk}_c_sc", h)
+                sc = L.avg_pool2x(sc) if s == 2 else sc
+            h, cin = t + sc, w
+        h = L.global_sum_pool(torch.relu(h))
+        l5 = params["l5"]
+        out = h @ (l5["w"].to(h.dtype) / sigma["l5"]) + l5["b"].to(h.dtype)
+        emb = params["l_y"]["w"][y.long()].to(h.dtype) / sigma["l_y"]
+        logit = out[:, 0] + torch.sum(emb * h, dim=-1)
+        new_stats = {name: {"u": u} for name, (u, _) in sn.items()} if train else stats
+        return logit, new_stats
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.apply(*self.trees(), x, y, train=False)[0]

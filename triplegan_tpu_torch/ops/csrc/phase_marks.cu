@@ -27,6 +27,7 @@
     return (int)cudaGetLastError();                                    \
   }
 
+PHASE_MARK(sn)
 PHASE_MARK(d_grad)
 PHASE_MARK(d_adam)
 PHASE_MARK(g_grad)

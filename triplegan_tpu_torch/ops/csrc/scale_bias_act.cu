@@ -9,7 +9,9 @@
 // graph; eager PyTorch fuses nothing, so here it is one kernel (plus a small
 // fixed-order reduce of the per-block sums). It follows every conv of the
 // three networks: batch norm folded into (k, b) in C and G, the weight-norm
-// scale g/|v| in D's convs and G's output deconv.
+// scale g/|v| in D's convs and G's output deconv, 1/sigma in the spectrally
+// normalised convs. Its per-sample variant (the cbn_* kernels), with k and b
+// given per sample, is the class-conditional batch norm of the ResNet G.
 //
 // Bound: bytes. The forward reads x and writes y once; the backward reads x
 // and g and writes dx once (dk and db are C values). A few flops an element,
@@ -416,6 +418,157 @@ sba_bwd_reduce(const float* __restrict__ part, int p, int c, T* __restrict__ dk,
 }
 
 // ---------------------------------------------------------------------------
+// Per-sample scale and bias (class-conditional batch norm): x is (N, HW, C)
+// and k, b are (N, C), y[n, r, c] = act(x[n, r, c]·k[n, c] + b[n, c]); the
+// backward's dk[n, c] = Σ_r t·x and db[n, c] = Σ_r t sum over sample n's HW
+// rows alone. Own names (cbn_*), so that a trace tells them from the
+// per-channel kernels. Grid (bx, N): blockIdx.y is the sample, so a thread
+// loads its sample's k and b once and walks that sample's rows by addition,
+// as the row kernels above walk theirs; no division by HW anywhere.
+// ---------------------------------------------------------------------------
+
+template <typename T, int W, int ACT>
+__global__ void __launch_bounds__(kThreads)
+cbn_fwd_rows(const T* __restrict__ x, const T* __restrict__ k, const T* __restrict__ b,
+             T* __restrict__ y, long long hw, int c, float slope) {
+  const int units = c / W;
+  const long long rs = (long long)gridDim.x * blockDim.y;
+  const long long estep = rs * c;
+  const long long base = (long long)blockIdx.y * hw * c;
+  const T* ks = k + (long long)blockIdx.y * c;
+  const T* bs = b + (long long)blockIdx.y * c;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int ch = u * W;
+    float kf[W], bf[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      kf[i] = to_f(ks[ch + i]);
+      bf[i] = to_f(bs[ch + i]);
+    }
+    long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+    for (long long off = base + r * c + ch; r < hw; r += rs, off += estep) {
+      float v[W];
+      load<T, W>(x + off, v);
+#pragma unroll
+      for (int i = 0; i < W; ++i) v[i] = apply<ACT>(v[i], kf[i], bf[i], slope);
+      store<T, W>(y + off, v);
+    }
+  }
+}
+
+// sba_bwd_rows over one sample's rows: block (blockIdx.x, n) writes its sums
+// to row n·gridDim.x + blockIdx.x of `part`.
+template <typename T, int W, int ACT, int U>
+__global__ void __launch_bounds__(kThreads)
+cbn_bwd_rows(const T* __restrict__ x, const T* __restrict__ k, const T* __restrict__ b,
+             const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
+             long long hw, int c, float slope, int flags) {
+  __shared__ float red[2 * kThreads * W];
+  const bool want_dx = flags & kDx;
+  const bool want_sums = flags & (kDk | kDb);
+  const float slope_t = rnd<T>(slope);
+  const int units = c / W;
+  const int ry = blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const long long rs = (long long)gridDim.x * ry;
+  const long long estep = rs * c;
+  const long long base = (long long)blockIdx.y * hw * c;
+  const T* ks = k + (long long)blockIdx.y * c;
+  const T* bs = b + (long long)blockIdx.y * c;
+  float* prow = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * 2 * c;
+  for (int u0 = 0; u0 < units; u0 += blockDim.x) {
+    const int u = u0 + threadIdx.x;
+    float sk[W], sb[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) sk[i] = sb[i] = 0.f;
+    if (u < units) {
+      const int ch = u * W;
+      float kf[W], bf[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        kf[i] = to_f(ks[ch + i]);
+        bf[i] = to_f(bs[ch + i]);
+      }
+      long long r = (long long)blockIdx.x * ry + threadIdx.y;
+      for (long long off = base + r * c + ch; r < hw; r += U * rs, off += U * estep) {
+        float xv[U][W], gv[U][W];
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          if (r + j * rs < hw) {
+            load<T, W>(x + off + j * estep, xv[j]);
+            load<T, W>(g + off + j * estep, gv[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          if (r + j * rs < hw) {
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              const float t = grad_t<T, ACT>(xv[j][i], gv[j][i], kf[i], bf[i], slope_t);
+              sk[i] = __fadd_rn(sk[i], rnd<T>(__fmul_rn(t, xv[j][i])));
+              sb[i] = __fadd_rn(sb[i], t);
+              gv[j][i] = rnd<T>(__fmul_rn(t, kf[i]));
+            }
+            if (want_dx) store<T, W>(dx + off + j * estep, gv[j]);
+          }
+        }
+      }
+    }
+    if (want_sums) {
+      const int cw = min((int)blockDim.x, units - u0) * W;
+      float* rk = red;
+      float* rb = red + ry * cw;
+      if (u < units) {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          rk[threadIdx.y * cw + threadIdx.x * W + i] = sk[i];
+          rb[threadIdx.y * cw + threadIdx.x * W + i] = sb[i];
+        }
+      }
+      __syncthreads();
+      for (int l = tid; l < 2 * cw; l += nthreads) {
+        const int which = l >= cw ? 1 : 0;
+        const int col = l - which * cw;
+        const float* src = (which ? rb : rk) + col;
+        float s = 0.f;
+        for (int r = 0; r < ry; ++r) s = __fadd_rn(s, src[r * cw]);
+        prow[which * c + u0 * W + col] = s;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// sba_bwd_reduce for each sample: block (x, n) adds the p rows of sample
+// n's part into dk[n, :] and db[n, :], in the same fixed order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+cbn_bwd_reduce(const float* __restrict__ part, int p, int c, T* __restrict__ dk, T* __restrict__ db) {
+  __shared__ float s[8][33];
+  const int width = 2 * c;
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  const float* ps = part + (long long)blockIdx.y * p * width;
+  float a = 0.f;
+  if (col < width) {
+    for (int q = threadIdx.y; q < p; q += 8) a = __fadd_rn(a, ps[(long long)q * width + col]);
+  }
+  s[threadIdx.y][threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < width) {
+    float t = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) t = __fadd_rn(t, s[r][threadIdx.x]);
+    const long long at = (long long)blockIdx.y * c;
+    if (col < c) {
+      if (dk) dk[at + col] = from_f<T>(t);
+    } else if (db) {
+      db[at + col - c] = from_f<T>(t);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -572,6 +725,85 @@ bool bad_args(long long m, int c, int dtype, int act) {
   return m <= 0 || c <= 0 || act < 0 || act > 3 || dtype < 0 || dtype > 1;
 }
 
+// The per-sample kernels: grid.y is the sample, at most 65535 of them.
+bool bad_cond_args(long long n, long long hw, int c, int dtype, int act) {
+  return n <= 0 || n > 65535 || bad_args(hw, c, dtype, act);
+}
+
+// Blocks a sample for the per-sample kernels: the per-channel kernels' one
+// wave of the card shared out over the n samples.
+long long cond_cap(long long n, long long cap) { return cap / n > 0 ? cap / n : 1; }
+
+template <typename T, int ACT>
+void cond_fwd(const T* x, const T* k, const T* b, T* y, long long n, long long hw, int c, float slope,
+              cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const long long cap = (long long)sm_count();
+  if (aligned16(x) && aligned16(y) && c % V == 0) {
+    static const int occ = blocks_per_sm(cbn_fwd_rows<T, V, ACT>);
+    const dim3 blk = row_block(c / V);
+    const dim3 grd(grid(hw, blk.y, cond_cap(n, cap * occ)), (unsigned)n);
+    cbn_fwd_rows<T, V, ACT><<<grd, blk, 0, s>>>(x, k, b, y, hw, c, slope);
+  } else {
+    static const int occ = blocks_per_sm(cbn_fwd_rows<T, 1, ACT>);
+    const dim3 blk = row_block(c);
+    const dim3 grd(grid(hw, blk.y, cond_cap(n, cap * occ)), (unsigned)n);
+    cbn_fwd_rows<T, 1, ACT><<<grd, blk, 0, s>>>(x, k, b, y, hw, c, slope);
+  }
+}
+
+// The per-sample backward's grid: bwd_plan's rules over each sample's hw
+// rows, the wave shared out over the samples. `blocks` is a sample's.
+template <typename T, int ACT>
+BwdPlan cond_bwd_plan(long long n, long long hw, int c, int flags, bool aligned) {
+  constexpr int V = 16 / sizeof(T), U = bwd_unroll<T>();
+  const long long cap = (long long)sm_count();
+  const bool sums = flags & (kDk | kDb);
+  const auto min_rows = [&](int ry) {
+    const long long r = ceil_div(16 * 2 * 4, 3LL * ry * (long long)sizeof(T));
+    return sums && r > U ? r : (long long)U;
+  };
+  BwdPlan p;
+  int occ;
+  if (aligned && c % V == 0) {
+    static const int o = blocks_per_sm(cbn_bwd_rows<T, V, ACT, U>);
+    occ = o;
+    p.layout = kRowsVec;
+    p.block = row_block(c / V);
+  } else {
+    static const int o = blocks_per_sm(cbn_bwd_rows<T, 1, ACT, U>);
+    occ = o;
+    p.layout = kRowsScalar;
+    p.block = row_block(c);
+  }
+  p.blocks = grid(hw, p.block.y * min_rows(p.block.y), cond_cap(n, cap * occ));
+  const long long chain = ceil_div(hw, (long long)p.blocks * p.block.y) + p.block.y;
+  p.depth = sums ? chain + ceil_div(p.blocks, 8) + 8 : 0;
+  return p;
+}
+
+template <typename T, int ACT>
+int cond_bwd(const T* x, const T* k, const T* b, const T* g, T* dx, T* dk, T* db, float* ws,
+             long long ws_blocks, long long n, long long hw, int c, float slope, int flags, cudaStream_t s) {
+  constexpr int U = bwd_unroll<T>();
+  const bool sums = flags & (kDk | kDb);
+  const bool aligned = aligned16(x) && aligned16(g) && (!(flags & kDx) || aligned16(dx));
+  const BwdPlan p = cond_bwd_plan<T, ACT>(n, hw, c, flags, aligned);
+  if (sums && (long long)p.blocks * n > ws_blocks) return (int)cudaErrorInvalidValue;
+  const dim3 grd(p.blocks, (unsigned)n);
+  if (p.layout == kRowsVec) {
+    cbn_bwd_rows<T, 16 / sizeof(T), ACT, U><<<grd, p.block, 0, s>>>(x, k, b, g, dx, ws, hw, c, slope, flags);
+  } else {
+    cbn_bwd_rows<T, 1, ACT, U><<<grd, p.block, 0, s>>>(x, k, b, g, dx, ws, hw, c, slope, flags);
+  }
+  if (sums) {
+    const dim3 red((unsigned)ceil_div(2LL * c, 32), (unsigned)n);
+    cbn_bwd_reduce<T><<<red, dim3(32, 8), 0, s>>>(ws, (int)p.blocks, c, (flags & kDk) ? dk : nullptr,
+                                                 (flags & kDb) ? db : nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // y = act(x·k + b) over m rows of c channels. dtype: 0 = float32,
@@ -628,6 +860,60 @@ extern "C" int scale_bias_act_bwd_launch(const void* x, const void* k, const voi
                                     static_cast<const T*>(g), static_cast<T*>(dx), static_cast<T*>(dk),
                                     static_cast<T*>(db), static_cast<float*>(ws), ws_blocks, m, c, slope, flags,
                                     static_cast<cudaStream_t>(stream));
+  });
+  return rc;
+}
+
+// The per-sample forward: x and y are (n, hw, c), k and b (n, c), all of
+// dtype; y[s, r, :] = act(x[s, r, :]·k[s, :] + b[s, :]). Returns a
+// cudaError_t as int, as above.
+extern "C" int scale_bias_act_cond_launch(const void* x, const void* k, const void* b, void* y, long long n,
+                                          long long hw, int c, int dtype, int act, float slope, void* stream) {
+  if (bad_cond_args(n, hw, c, dtype, act) || !x || !k || !b || !y) return (int)cudaErrorInvalidValue;
+  with_types(dtype, act, [&](auto* t, auto a) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    cond_fwd<T, decltype(a)::value>(static_cast<const T*>(x), static_cast<const T*>(k), static_cast<const T*>(b),
+                                    static_cast<T*>(y), n, hw, c, slope, static_cast<cudaStream_t>(stream));
+  });
+  return (int)cudaGetLastError();
+}
+
+// The per-sample backward's grid: `blocks`, a sample's blocks (the
+// workspace needs n·blocks rows of 2·c floats where dk or db is asked for),
+// and `depth`, as scale_bias_act_bwd_plan's.
+extern "C" int scale_bias_act_cond_bwd_plan(long long n, long long hw, int c, int dtype, int act, int flags,
+                                            int aligned, int* blocks, long long* depth) {
+  if (bad_cond_args(n, hw, c, dtype, act) || flags <= 0 || flags > 7 || !blocks || !depth) {
+    return (int)cudaErrorInvalidValue;
+  }
+  with_types(dtype, act, [&](auto* t, auto a) {
+    const BwdPlan p =
+        cond_bwd_plan<std::remove_pointer_t<decltype(t)>, decltype(a)::value>(n, hw, c, flags, aligned != 0);
+    *blocks = (int)p.blocks;
+    *depth = p.depth;
+  });
+  return (int)cudaGetLastError();
+}
+
+// The per-sample backward: dx (n, hw, c), dk and db (n, c), the flags as
+// scale_bias_act_bwd_launch's; ws holds ws_blocks rows of 2·c floats, at
+// least n times the blocks that scale_bias_act_cond_bwd_plan reports.
+extern "C" int scale_bias_act_cond_bwd_launch(const void* x, const void* k, const void* b, const void* g,
+                                              void* dx, void* dk, void* db, void* ws, long long ws_blocks,
+                                              long long n, long long hw, int c, int dtype, int act, float slope,
+                                              int flags, void* stream) {
+  if (bad_cond_args(n, hw, c, dtype, act) || flags <= 0 || flags > 7 || !x || !k || !b || !g ||
+      ((flags & kDx) && !dx) || ((flags & kDk) && !dk) || ((flags & kDb) && !db) ||
+      ((flags & (kDk | kDb)) && (!ws || ws_blocks < 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int rc = 0;
+  with_types(dtype, act, [&](auto* t, auto a) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    rc = cond_bwd<T, decltype(a)::value>(static_cast<const T*>(x), static_cast<const T*>(k),
+                                         static_cast<const T*>(b), static_cast<const T*>(g), static_cast<T*>(dx),
+                                         static_cast<T*>(dk), static_cast<T*>(db), static_cast<float*>(ws),
+                                         ws_blocks, n, hw, c, slope, flags, static_cast<cudaStream_t>(stream));
   });
   return rc;
 }

@@ -26,6 +26,13 @@ A tensor on the CPU takes the plain versions (``reference_scale_bias_act``,
 ``reference_scale_bias_act_bwd``). A CUDA tensor launches the kernel or
 raises, in the forward and in the backward.
 
+``scale_bias_act_cond`` is the per-sample variant, the class-conditional
+batch norm's epilogue: k and b of (N, C), one row a sample, act(x·k_n +
+b_n) over each sample's rows, its backward summing dk and db over each
+sample's rows alone; its kernels (``cbn_*``) carry their own names and
+launch counters (``cond_launches``, ``cond_bwd_launches``). It is not an
+operator: no exported program holds it.
+
 The forward is also a PyTorch operator, ``torch.ops.triplegan_torch.
 scale_bias_act`` (``scale_bias_act_op``): the kernel for CUDA tensors, the
 plain version for CPU tensors, and a shape-only fake for tracing (the
@@ -298,6 +305,170 @@ def _backward(x, k, b, g, act, slope, needs, lib=None):
         raise RuntimeError(f"scale_bias_act backward kernel launch failed: cudaError {rc}")
     bwd_launches[tuple(x.shape), _DTYPE_NAMES[x.dtype], act, slope,
                  "".join(n for n, want in zip(_NEEDS, needs) if want)] += 1
+    dk = kb[0].to(k.dtype) if needs[1] else None
+    db = kb[1].to(b.dtype) if needs[2] else None
+    return dx, dk, db
+
+
+# ---------------------------------------------------------------------------
+# Per-sample scale and bias: the class-conditional batch norm's epilogue
+# ---------------------------------------------------------------------------
+
+# Launches of the per-sample kernels since the counts were last cleared,
+# keyed as ``launches`` and ``bwd_launches`` are.
+cond_launches: collections.Counter = collections.Counter()
+cond_bwd_launches: collections.Counter = collections.Counter()
+
+
+def _per_sample(v, x):
+    """(N, C) ``v`` in x's dtype, shaped to broadcast over x's middle axes."""
+    return v.to(x.dtype).reshape((x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],))
+
+
+def reference_scale_bias_act_cond(x, k, b, act="relu", slope=0.1):
+    """The plain version of ``scale_bias_act_cond``: x (N, ..., C), k and b
+    (N, C), ``reference_scale_bias_act``'s casts and float32 math."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    z = x.to(ct) * _per_sample(k, x).to(ct) + _per_sample(b, x).to(ct)
+    return apply_act(z, act, slope).to(x.dtype)
+
+
+def reference_scale_bias_act_cond_bwd(x, k, b, g, act="relu", slope=0.1, needs=(True, True, True)):
+    """The plain backward, in x's dtype as ``reference_scale_bias_act_bwd``:
+    t = g·act'(x·k_n + b_n), dx = t·k_n, dk and db summed over each sample's
+    middle axes, (N, C); None where ``needs`` does not ask."""
+    kn = _per_sample(k, x)
+    t = g * act_grad(x * kn + _per_sample(b, x), act, slope)
+    axes = tuple(range(1, x.dim() - 1))
+    dx = (t * kn).to(x.dtype) if needs[0] else None
+    dk = torch.sum(t * x, dim=axes).to(k.dtype) if needs[1] else None
+    db = torch.sum(t, dim=axes).to(b.dtype) if needs[2] else None
+    return dx, dk, db
+
+
+def scale_bias_act_cond(x, k, b, act="relu", slope=0.1):
+    """``act(x·k_n + b_n)`` with k and b given per sample, (N, C) for x of
+    (N, ..., C): differentiable in x, k and b, k and b cast to x's dtype
+    as ``scale_bias_act``'s. CPU tensors take the plain versions, CUDA
+    tensors the per-sample kernels (``cbn_*`` in ``csrc/scale_bias_act.cu``)."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}; expected one of {sorted(ACTS)}")
+    if torch.is_grad_enabled() and (x.requires_grad or k.requires_grad or b.requires_grad):
+        return _ScaleBiasActCond.apply(x, k, b, act, float(slope))
+    return _cond_forward(x, k, b, act, float(slope))
+
+
+class _ScaleBiasActCond(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k, b, act, slope):
+        ctx.save_for_backward(x, k, b)
+        ctx.act, ctx.slope = act, slope
+        return _cond_forward(x, k, b, act, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k, b = ctx.saved_tensors
+        needs = tuple(ctx.needs_input_grad[:3])
+        if x.device.type == "cpu":
+            dx, dk, db = reference_scale_bias_act_cond_bwd(x, k, b, g, ctx.act, ctx.slope, needs)
+        else:
+            dx, dk, db = _cond_backward(x, k, b, g, ctx.act, ctx.slope, needs)
+        return dx, dk, db, None, None
+
+
+_cond_bound = None  # the per-sample (forward, backward, backward's plan), bound once
+
+
+def _cond_lib():
+    global _cond_bound
+    if _cond_bound is None:
+        lib = build.load("scale_bias_act")
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        fwd, bwd = lib.scale_bias_act_cond_launch, lib.scale_bias_act_cond_bwd_launch
+        plan = lib.scale_bias_act_cond_bwd_plan
+        fwd.argtypes = [p, p, p, p, ll, ll, i, i, i, f, p]
+        bwd.argtypes = [p, p, p, p, p, p, p, p, ll, ll, ll, i, i, i, f, i, p]
+        plan.argtypes = [ll, ll, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+        fwd.restype = bwd.restype = plan.restype = i
+        _cond_bound = (fwd, bwd, plan)
+    return _cond_bound
+
+
+def cond_bwd_plan(n, hw, c, dtype, act, flags, aligned):
+    """The per-sample backward's grid, as ``bwd_plan``'s: (a sample's
+    blocks, so n times as many workspace rows of 2·c floats; the depth of
+    its sums)."""
+    key = ("cond", n, hw, c, dtype, act, flags, aligned)
+    plan = _plans.get(key)
+    if plan is None:
+        blocks, depth = ctypes.c_int(), ctypes.c_longlong()
+        rc = _cond_lib()[2](n, hw, c, _DTYPES[dtype], ACTS[act], flags, int(aligned), ctypes.byref(blocks),
+                            ctypes.byref(depth))
+        if rc != 0:
+            raise RuntimeError(f"scale_bias_act_cond backward plan failed: cudaError {rc}")
+        plan = _plans[key] = (blocks.value, depth.value)
+    return plan
+
+
+def _check_cond_cuda(x, k, b):
+    """What the per-sample kernels take: ``_check_cuda``'s x, at least 2-D,
+    and (N, C) k and b on its device: (N, rows a sample, C)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"scale_bias_act_cond takes cpu or cuda tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"scale_bias_act_cond kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() < 2 or x.numel() == 0:
+        raise ValueError(f"scale_bias_act_cond needs a non-empty (N, ..., C) tensor, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("scale_bias_act_cond kernel needs a contiguous x")
+    n, c = x.shape[0], x.shape[-1]
+    for name, v in (("k", k), ("b", b)):
+        if v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+        if v.shape != (n, c):
+            raise ValueError(f"{name} must have shape ({n}, {c}), got {tuple(v.shape)}")
+    return n, x.numel() // (n * c), c
+
+
+def _cond_forward(x, k, b, act, slope):
+    if x.device.type == "cpu":
+        return reference_scale_bias_act_cond(x, k, b, act, slope)
+    n, hw, c = _check_cond_cuda(x, k, b)
+    kc, bc = k.to(x.dtype).contiguous(), b.to(x.dtype).contiguous()
+    y = torch.empty_like(x)
+    rc = _launch(_cond_lib()[0], x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(), y.data_ptr(), n, hw, c,
+                 _DTYPES[x.dtype], ACTS[act], slope)
+    if rc != 0:
+        raise RuntimeError(f"scale_bias_act_cond kernel launch failed: cudaError {rc}")
+    cond_launches[tuple(x.shape), _DTYPE_NAMES[x.dtype], act, slope] += 1
+    return y
+
+
+def _cond_backward(x, k, b, g, act, slope, needs):
+    n, hw, c = _check_cond_cuda(x, k, b)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must match x ({tuple(x.shape)} {x.dtype}), got {tuple(g.shape)} {g.dtype}")
+    flags = sum(1 << i for i, want in enumerate(needs) if want)
+    if not flags:
+        return None, None, None
+    g = g.contiguous()
+    kc, bc = k.to(x.dtype).contiguous(), b.to(x.dtype).contiguous()
+    dx = torch.empty_like(x) if needs[0] else None
+    kb = ws = None
+    ws_blocks = 0
+    if needs[1] or needs[2]:
+        aligned = (x.data_ptr() | g.data_ptr() | (0 if dx is None else dx.data_ptr())) % 16 == 0
+        ws_blocks = n * cond_bwd_plan(n, hw, c, x.dtype, act, flags, aligned)[0]
+        kb = torch.empty((2, n, c), dtype=x.dtype, device=x.device)
+        ws = torch.empty((ws_blocks, 2 * c), dtype=torch.float32, device=x.device)
+    rc = _launch(_cond_lib()[1], x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(), g.data_ptr(),
+                 None if dx is None else dx.data_ptr(), None if kb is None else kb[0].data_ptr(),
+                 None if kb is None else kb[1].data_ptr(), None if ws is None else ws.data_ptr(), ws_blocks,
+                 n, hw, c, _DTYPES[x.dtype], ACTS[act], slope, flags)
+    if rc != 0:
+        raise RuntimeError(f"scale_bias_act_cond backward kernel launch failed: cudaError {rc}")
+    cond_bwd_launches[tuple(x.shape), _DTYPE_NAMES[x.dtype], act, slope,
+                      "".join(name for name, want in zip(_NEEDS, needs) if want)] += 1
     dk = kb[0].to(k.dtype) if needs[1] else None
     db = kb[1].to(b.dtype) if needs[2] else None
     return dx, dk, db

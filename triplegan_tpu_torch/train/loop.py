@@ -72,7 +72,7 @@ from typing import Optional
 import torch
 
 from triplegan_tpu_torch.ckpt.manager import CheckpointManager
-from triplegan_tpu_torch.configs.base import apply_runtime, display, make_networks, save_config
+from triplegan_tpu_torch.configs.base import apply_runtime, arch, display, make_networks, save_config
 from triplegan_tpu_torch.data import ondevice
 from triplegan_tpu_torch.data.datasets import SemiSupervisedData, load_dataset, synthetic_dataset
 from triplegan_tpu_torch.data.pipeline import BatchSampler, device_prefetch
@@ -240,6 +240,8 @@ def train(cfg, data: Optional[SemiSupervisedData] = None, max_steps: Optional[in
         state = restored
         say(f"resumed from step {state.step}", flush=True)
     elif cfg.ddinit:
+        if arch(cfg) != "conv":
+            raise ValueError(f"ddinit is the weight-norm networks' init; {cfg.name} has arch {arch(cfg)!r}")
         state = _apply_ddinit(cfg, nets, state, data, zca, dev)
         say("applied data-dependent weight-norm init", flush=True)
     # Written only after the restore decision: a resume whose config does

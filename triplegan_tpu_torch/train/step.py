@@ -15,7 +15,11 @@ another player's convs is computed). Images another player generated are
 detached, as JAX's ``stop_gradient`` does.
 
 Batch-norm running stats advance only in their own player's pass; the
-cross-forwards run in train mode but their new stats are dropped. C's
+cross-forwards run in train mode but their new stats are dropped. So do a
+spectrally normalised D's power-iteration vectors: D's update makes one
+iteration from the kept u (its own phase, ``sn``, before ``d_grad``), its
+3B-row forward uses them and they become D's new stats; G's and C's
+updates call D with those and drop what their calls return. C's
 stats chain labeled → unlabeled → generated, or unlabeled → labeled →
 generated under ``share_pseudo_forward``; under ``fused_clf_forward`` C
 runs one pass over the three streams concatenated (3B rows), whose batch
@@ -53,7 +57,8 @@ the ranks' noise, dropout, augmentation and draws differ while their
 states stay equal.
 
 The body opens the step's phases in order (``utils/profiling.py::
-phase``): ``d_grad``, ``d_adam``, ``g_grad``, ``g_adam``, ``c_grad``,
+phase``): ``sn`` (a spectrally normalised D's power iterations; only
+there), ``d_grad``, ``d_adam``, ``g_grad``, ``g_adam``, ``c_grad``,
 ``c_adam``, each a player's update before its Adam and the Adam, and
 ``end``, which closes the last. A phase lasts until the next opens. Each
 opening is a host span in a trace and, on the card, a launch of the
@@ -217,6 +222,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
             "shared-only. Pick one."
         )
     non_saturating = bool(cfg.non_saturating_g)
+    spectral = getattr(disc, "power_iteration", None)  # a spectrally normalised D
 
     def pmean(tree):
         return tree if mesh is None else mesh.pmean_tree(tree)
@@ -245,6 +251,10 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
             return apply_zca(x_raw, zm, zw) if zm is not None else x_raw
 
         # ================= D update (G, C at their current values) ==========
+        d_sn = {}
+        if spectral is not None:  # D's power iterations, from the kept u
+            phase("sn", dev)
+            d_sn = {"sn": spectral(params["disc"], bn["disc"])}
         phase("d_grad", dev)
         bd = batch["d"]
         x_l, x_u = preprocess(bd["x_l"]), preprocess(bd["x_u"])
@@ -263,8 +273,8 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
 
         b = x_l.shape[0]
         pd = _with_grad(params["disc"])
-        logit_all, _ = disc.apply(pd, bn["disc"], torch.cat([x_l, x_u, x_g]),
-                                  torch.cat([y_l, y_c, y_gd]), train=True, generator=rng)
+        logit_all, bn_d_new = disc.apply(pd, bn["disc"], torch.cat([x_l, x_u, x_g]),
+                                         torch.cat([y_l, y_c, y_gd]), train=True, generator=rng, **d_sn)
         lr_real, lr_cla, lr_gen = logit_all[:b], logit_all[b:2 * b], logit_all[2 * b:]
         d_total = losses.d_loss(lr_real, lr_cla, lr_gen, alpha)
         d_terms = losses.d_loss_terms(lr_real, lr_cla, lr_gen, alpha)
@@ -278,7 +288,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         z_g, y_gg = bg["z"].to(cdt), bg["y_g"].long()
         pg = _with_grad(params["gen"])
         x_raw, bn_g_new = gen.apply(pg, bn["gen"], z_g, y_gg, train=True, mesh=mesh)
-        logit_g, _ = disc.apply(pd_new, bn["disc"], whiten_gen(x_raw), y_gg, train=True,
+        logit_g, _ = disc.apply(pd_new, bn_d_new, whiten_gen(x_raw), y_gg, train=True,
                                 generator=rng)
         g_total = losses.g_loss(logit_g, alpha, non_saturating)
         gg = pmean(_like(pg, torch.autograd.grad(g_total, _leaves(pg))))
@@ -311,7 +321,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
                 log_g, s3 = clf.apply(pc, s2, x_g_c, train=True, generator=rng, mesh=mesh)
             y_c2 = losses.sample_pseudo_labels(rng, log_u, pseudo_label_mode)
         with torch.no_grad():  # the D signal is stop-gradiented in L_C
-            logit_d_cla, _ = disc.apply(pd_new, bn["disc"], x_u_c, y_c2, train=True,
+            logit_d_cla, _ = disc.apply(pd_new, bn_d_new, x_u_c, y_c2, train=True,
                                         generator=rng)
         c_total, c_terms = losses.c_loss(log_l, y_l_c, logit_d_cla, log_u, y_c2, log_g, y_gc,
                                          alpha, alpha_p_now, mesh)
@@ -322,7 +332,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
 
         new_state = TrainState(
             params={"gen": pg_new, "disc": pd_new, "clf": pc_new},
-            bn={"gen": bn_g_new, "disc": bn["disc"], "clf": s3},
+            bn={"gen": bn_g_new, "disc": bn_d_new, "clf": s3},
             opt={"gen": opt_g_new, "disc": opt_d_new, "clf": opt_c_new},
             step=state.step + 1,
             seed=state.seed,
