@@ -49,8 +49,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
      and the lr decays inside the second. Per arm, the main path is the
      capture and two chunks from a seeded state: the wrappers' counts over
      it must be 5 × step_launches key for key (the capture and its warm-up
-     step; replays add none); the two replays run under torch.profiler,
-     whose device records must hold each hand-written kernel 4 × the count
+     step; replays add none), and a kernel arm must launch the batch-norm
+     moments' kernels (``check_moments``; the plain arm launches none); the
+     two replays run under torch.profiler, whose device records must hold
+     each hand-written kernel (the moments' too) 4 × the count
      a step runs in each chunk (the kernels run inside the graph; the plain
      arm's none) and give the launches the replays made; the chunks must
      equal 8 eager steps from the same state bitwise (every parameter, BN
@@ -91,7 +93,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
      ZCA statistics: one eager step, then a chunk of K steps (warm-up,
      capture, replay) bitwise equal to K eager steps (D's kept u among the
      state's tensors); the per-sample epilogue launched 18 forwards and 6
-     backwards a step; its launches feed phase 7;
+     backwards a step; the batch-norm moments as in phase 3b; its launches
+     feed phase 7;
   3d. digits: the real-data recipe of the port's campaign
      (``triplegan_tpu_torch/tools/digits_experiment.py``) for seed 1 and
      100 labels: ``cli prepare --dataset digits`` from the data file the
@@ -234,7 +237,14 @@ Phases, each fatal on failure (exit code 1, and no result line):
      Winograd A/B rows (``winograd_rows``): ``ops/winograd.py`` at the
      Classifier's SAME convs, float32 and bfloat16, held to
      ``reference_conv3x3`` and timed against the conv kernels and
-     ``F.conv2d``.
+     ``F.conv2d``. Then the batch-norm moments' kernels (``moments_case``)
+     at each shape and dtype this process launched them at and at the
+     ragged shape in each dtype, cold: the forward pair against the float64
+     twin within its summation bound, the backward against the closed form,
+     each timed against its bytes ÷ 3.35 TB/s and against the plain twin;
+     and the moments' counters on each graphed path (line
+     "bn_moments_counters": the cifar10_4k graph arms, phase 3c's arms,
+     phase 3e).
 
 The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
@@ -428,10 +438,27 @@ def time_ms(fn, flush, reps=30, warm=5) -> dict:
             "warm": s.elapsed_time(e) / reps}
 
 
+# Every launch of the batch-norm moments' kernels this process has made,
+# keyed (shape, dtype): ``fold_moments`` adds the counters in before
+# ``counts_zero`` clears them, so that phase 7 checks the kernels at each
+# shape and dtype any path of this process ran them at.
+MOMENTS_SEEN = {"bn_moments": collections.Counter(), "bn_moments_bwd": collections.Counter()}
+
+
+def fold_moments():
+    """Add the moments' counters to ``MOMENTS_SEEN`` and clear them."""
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    for name, counter in (("bn_moments", sba.moments_launches), ("bn_moments_bwd", sba.moments_bwd_launches)):
+        MOMENTS_SEEN[name].update(counter)
+        counter.clear()
+
+
 def counts_zero():
     from triplegan_tpu_torch.ops import conv3x3 as cv
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
+    fold_moments()
     for counter in (sba.launches, sba.bwd_launches, sba.cond_launches, sba.cond_bwd_launches, cv.fwd_launches,
                     cv.wgrad_launches):
         counter.clear()
@@ -448,6 +475,26 @@ def counts_read() -> dict:
 
 def totals(counts: dict) -> dict:
     return {name: c.total() for name, c in counts.items()}
+
+
+def moments_read() -> dict:
+    """The batch-norm moments' counters since counts_zero: the kernels'
+    forward pairs and backwards, keyed by (shape, dtype)."""
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    return {"bn_moments": sba.moments_launches.copy(), "bn_moments_bwd": sba.moments_bwd_launches.copy()}
+
+
+def check_moments(moments: dict, use_pallas: bool, what: str) -> dict:
+    """A main path's moments counters: a kernel arm launches the forward
+    pair and the backward; a plain arm launches neither. Returns the
+    totals."""
+    tot = totals(moments)
+    if use_pallas:
+        check(tot["bn_moments"] > 0 and tot["bn_moments_bwd"] > 0, f"{what}: batch-norm moments {tot}")
+    else:
+        check(tot["bn_moments"] == tot["bn_moments_bwd"] == 0, f"{what}: the plain arm launched the moments {tot}")
+    return tot
 
 
 # ---------------------------------------------------------------------------
@@ -908,7 +955,8 @@ GRAPH_TOTAL, GRAPH_WARMUP_EPOCHS, GRAPH_DECAY_FRAC = 64, 2, 6 / 64
 # namespace of their sources; "<" after a template's name, "(" otherwise)
 HAND_KERNELS = {"sba_fwd": ("sba_fwd_rows<", "sba_fwd_c3<"), "sba_bwd": ("sba_bwd_rows<", "sba_bwd_c3<"),
                 "sba_bwd_reduce": ("sba_bwd_reduce<",), "conv_fwd": ("fwd_kernel<",),
-                "conv_wgrad": ("wgrad_kernel<",), "conv_reduce": ("reduce_stream_k(", "reduce_splits(")}
+                "conv_wgrad": ("wgrad_kernel<",), "conv_reduce": ("reduce_stream_k(", "reduce_splits("),
+                "bnm_fwd": ("bnm_fwd_rows<",), "bnm_reduce": ("bnm_reduce(",), "bnm_bwd": ("bnm_bwd_rows<",)}
 # Kineto keeps only the device records that lie inside its capture window,
 # which is taken on the host's clock; a card timestamp converted to that
 # clock can land a little past it (a profile that stopped right after its
@@ -1001,6 +1049,13 @@ def replayed_launches(prof: dict) -> dict:
     return {name: prof["groups"][group]["launches"] for name, group in WRAPPER_GROUP.items()}
 
 
+def moments_replayed(prof: dict) -> dict:
+    """The batch-norm moments' forward pairs and backwards that
+    ``device_kernels`` counted (by their row kernels)."""
+    return {"bn_moments": prof["groups"]["bnm_fwd"]["launches"],
+            "bn_moments_bwd": prof["groups"]["bnm_bwd"]["launches"]}
+
+
 def graph_arm(setting, use_pallas, data, zca) -> dict:
     """One (setting, arm): 2·K eager steps from a seeded state, and two
     chunks of K steps through ``make_scan_device_train_step`` from the same
@@ -1057,6 +1112,7 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
     counts = counts_read()  # the warm-up step and the capture
     prof = device_kernels(one_chunk, reps=2)
     after = counts_read()  # the main path ends here
+    moments = moments_read()
     state = holder["state"]
     check(after == counts, f"{name}: a replay counted launches: {totals(after)} vs {totals(counts)}")
     for c, (m, per_step) in enumerate(chunks):
@@ -1078,7 +1134,7 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
 
     launches = totals(counts)
     n = k + runner.warmup_steps
-    per_step = hand_kernels_per_step(counts, n)
+    per_step = hand_kernels_per_step(counts, n, moments)
     in_chunk = {g: v["launches"] / prof["reps"] for g, v in prof["groups"].items()}
     check(all(in_chunk[g] == k * per_step[g] for g in HAND_KERNELS),
           f"{name} use_pallas={use_pallas}: a replayed chunk ran {in_chunk}, want {k} × {per_step}")
@@ -1086,7 +1142,7 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
         check_step_launches(cfg, counts, n, f"{name} graph, at capture")
     else:
         check(not any(launches.values()), f"{name} plain graph arm launched kernels: {launches}")
-    replayed = replayed_launches(prof)
+    replayed = dict(replayed_launches(prof), **moments_replayed(prof))
     arm = {"setting": name, "dtype": dtype, "batch": batch, "use_pallas": use_pallas, "k": k,
            "eager_ms_per_step": 1e3 * statistics.mean(secs[1:]), "bitwise_last": True, "bitwise_mean": True,
            "graph": dict(runner.graph_stats), "launches_counted": launches, "launches_replayed": replayed,
@@ -1094,7 +1150,9 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
            "replayed_chunks": {"kernels_per_step": per_step, "kernels_in_chunk": in_chunk,
                                "device_ms_per_step": prof["device_us"] / prof["reps"] / k / 1e3,
                                "groups": prof["groups"], "top_device": prof["top_device"]},
-           "_runner": runner, "_state": state, "_data": dev_data, "_counts": counts}
+           "moments": check_moments(moments, use_pallas, f"{name} graph"),
+           "_runner": runner, "_state": state, "_data": dev_data, "_counts": counts, "_moments": moments,
+           "_steps": n}
     arm["eager_img_s"] = batch * 1e3 / arm["eager_ms_per_step"]
     return arm
 
@@ -1130,13 +1188,14 @@ def time_graph_turn(arm, chunks=3) -> dict:
             "device_ms_per_step": s.elapsed_time(e) / k}
 
 
-def hand_kernels_per_step(counts: dict, n_steps: int) -> dict:
+def hand_kernels_per_step(counts: dict, n_steps: int, moments: dict) -> dict:
     """The hand-written kernels one step runs, by ``HAND_KERNELS`` group,
-    from the wrappers' counts over ``n_steps`` steps and the plans: a
-    backward that computes dk or db runs ``sba_bwd_reduce`` after it; a
-    float32 forward whose plan shares tiles out stream-K runs
-    ``reduce_stream_k``; a filter gradient split over pixels runs
-    ``reduce_splits``."""
+    from the wrappers' counts and the moments' (``moments_read``) over
+    ``n_steps`` steps and the plans: a backward that computes dk or db runs
+    ``sba_bwd_reduce`` after it; a float32 forward whose plan shares tiles
+    out stream-K runs ``reduce_stream_k``; a filter gradient split over
+    pixels runs ``reduce_splits``; a moments forward runs ``bnm_fwd_rows``
+    and ``bnm_reduce``, its backward ``bnm_bwd_rows``."""
     from triplegan_tpu_torch.ops import conv3x3 as cv
 
     conv_reduce = 0
@@ -1152,7 +1211,9 @@ def hand_kernels_per_step(counts: dict, n_steps: int) -> dict:
     return {"sba_fwd": counts["scale_bias_act"].total() / n_steps, "sba_bwd": bwd.total() / n_steps,
             "sba_bwd_reduce": sum(c for key, c in bwd.items() if set(key[-1]) & set("kb")) / n_steps,
             "conv_fwd": counts["conv3x3_fwd"].total() / n_steps,
-            "conv_wgrad": counts["conv3x3_wgrad"].total() / n_steps, "conv_reduce": conv_reduce / n_steps}
+            "conv_wgrad": counts["conv3x3_wgrad"].total() / n_steps, "conv_reduce": conv_reduce / n_steps,
+            "bnm_fwd": moments["bn_moments"].total() / n_steps, "bnm_reduce": moments["bn_moments"].total() / n_steps,
+            "bnm_bwd": moments["bn_moments_bwd"].total() / n_steps}
 
 
 def cudnn_cost_graphed(arm) -> dict:
@@ -1287,6 +1348,7 @@ def config_arm(name: str, dtype: str, batch: int, n_eager: int, data, zca) -> di
     ref = S._clone_state(state)
     runner.prepare(state, dev_data)
     counts = counts_read()  # the eager steps, the warm-up step and the capture
+    moments = moments_read()
     chunk = []
     prof = device_kernels(lambda: chunk.append(runner(state, dev_data)), reps=1)
     check(counts_read() == counts, f"{what}: the replay counted launches")  # the main path ends here
@@ -1309,11 +1371,11 @@ def config_arm(name: str, dtype: str, batch: int, n_eager: int, data, zca) -> di
 
     n = n_eager + k + runner.warmup_steps
     launches = check_step_launches(cfg, counts, n, what)
-    per_step = hand_kernels_per_step(counts, n)
+    per_step = hand_kernels_per_step(counts, n, moments)
     in_chunk = {g: v["launches"] for g, v in prof["groups"].items()}
     check(all(in_chunk[g] == k * per_step[g] for g in HAND_KERNELS),
           f"{what}: the replayed chunk ran {in_chunk}, want {k} × {per_step}")
-    replayed = replayed_launches(prof)
+    replayed = dict(replayed_launches(prof), **moments_replayed(prof))
     return {"config": name, "dtype": dtype, "batch": batch, "eager_steps": n_eager, "k": k,
             "metrics": eager + graphed, "graph": dict(runner.graph_stats), "bitwise": True,
             "launches_counted": launches, "launches_replayed": replayed,
@@ -1322,7 +1384,8 @@ def config_arm(name: str, dtype: str, batch: int, n_eager: int, data, zca) -> di
             "replayed_chunk": {"kernels_per_step": per_step, "groups": prof["groups"],
                                "device_ms_per_step": prof["device_us"] / k / 1e3, "top_device": prof["top_device"]},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "_counts": counts, "_steps": n, "_players": step_launches(cfg)[1], "_cfg": cfg, "_nets": nets,
+            "_counts": counts, "_moments": moments, "_steps": n, "_players": step_launches(cfg)[1], "_cfg": cfg,
+            "_nets": nets,
             "_runner": runner, "_state": state, "_data": dev_data, "_step": step}
 
 
@@ -1374,6 +1437,7 @@ def snresnet_phase(zca) -> dict:
         state, _ = runner(state, dev_data)
         counts = dict(counts_read(), scale_bias_act_cond=sba.cond_launches.copy(),
                       scale_bias_act_cond_bwd=sba.cond_bwd_launches.copy())  # the main path ends here
+        moments = moments_read()
         per_step_m = runner.step_metrics
         ref_ms = []
         for _ in range(GRAPH_K):
@@ -1397,8 +1461,9 @@ def snresnet_phase(zca) -> dict:
     per_step = {name: {key: c / n for key, c in cnt.items()} for name, cnt in counts.items()}
     return {"config": SNRESNET, "dtype": "float32", "batch": BATCH, "k": GRAPH_K, "metrics": eager + graphed,
             "graph": dict(runner.graph_stats), "bitwise": True, "launches": launches,
+            "moments": check_moments(moments, True, SNRESNET),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "_sources": [(f"train {SNRESNET} float32", per_step, {})]}
+            "_sources": [(f"train {SNRESNET} float32", per_step, {})], "_moments": moments, "_steps": n}
 
 
 def config_serving(arm, data, zca) -> dict:
@@ -1626,6 +1691,8 @@ def configs_phase(data_dir: str, zca) -> list:
                             {name: {key: c / a["_steps"] for key, c in counts.items()}
                              for name, counts in a["_counts"].items()}, a["_players"]) for a in mine]
         rec["_sources"].append((f"serve {rec['config']}", rec["serving"].pop("_counts"), {}))
+        rec["_moments"] = {f"{a['config']} {a['dtype']}": (a["dtype"], a["batch"], a["_moments"], a["_steps"])
+                           for a in mine}
         if "loop" in rec:
             rec["_sources"].append((f"loop {rec['config']}", rec["loop"].pop("_counts"), {}))
         if rec["config"] == "mnist100":
@@ -3603,6 +3670,7 @@ def nccl_chunk(data, data_root, dev) -> dict:
 
         prof = device_kernels(one_chunk, reps=1)
         counts = counts_read()  # the main path ends here
+        moments = moments_read()
         state = holder["state"]
         want = S._stacked(ms)
         bad = [k for k in S.METRICS if not torch.equal(runner.step_metrics[k], want[k])]
@@ -3613,11 +3681,11 @@ def nccl_chunk(data, data_root, dev) -> dict:
               f"nccl chunk: {diff} of {len(got)} state tensors differ from {MESH_STEPS} eager steps'")
         n = 2 * MESH_STEPS + 1
         launches = check_step_launches(cfg, counts, n, "nccl chunk")
-        per_step = hand_kernels_per_step(counts, n)
+        per_step = hand_kernels_per_step(counts, n, moments)
         in_chunk = {g: v["launches"] for g, v in prof["groups"].items()}
         check(all(in_chunk[g] == MESH_STEPS * per_step[g] for g in HAND_KERNELS),
               f"nccl chunk: the replay ran {in_chunk}, want {MESH_STEPS} × {per_step}")
-        replayed = replayed_launches(prof)
+        replayed = dict(replayed_launches(prof), **moments_replayed(prof))
         res = {"steps": MESH_STEPS, "bitwise": True, "backend": mesh.backend, "collectives": mesh.collectives,
                "capture_s": capture_s, "graph": dict(runner.graph_stats),
                "nccl_kernels_in_replay": prof["nccl"], "replay_device_ms_per_step":
@@ -4171,6 +4239,59 @@ def sba_case(shape, dtype, act, slope, gen, flush, per_sample=False) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def moments_case(shape, dtype, gen, flush) -> dict:
+    """The batch-norm moments' kernels at one shape, cold: the forward pair
+    (``bnm_fwd_rows`` and ``bnm_reduce``, float64 sums) against the float64
+    twin within its rounding to float32, 2⁻²⁴ of the value, plus
+    γ_{n+1}·Σ|terms|/M at u = 2⁻⁵³ (n the kernels' summation depth, one
+    more for the division), the backward (``bnm_bwd_rows``) against the
+    closed form in float64 within 4 float32 roundings of its two terms; each
+    timed against its bytes ÷ 3.35 TB/s (the forward reads x, the backward
+    reads x and writes dx) and against the plain twin (its forward;
+    autograd's backward of it)."""
+    import torch
+
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    c = shape[-1]
+    m = math.prod(shape) // c
+    x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(dt)
+    dm, dq = (torch.randn(c, generator=gen, device=dev) for _ in range(2))
+    got = sba._moments_forward(x)
+    dx = sba._moments_backward(x, dm, dq)
+    torch.cuda.synchronize()
+    u, depth = 2.0 ** -24, sba.moments_plan(m, c, dt)[1]
+    xd = x.double().reshape(m, c)
+    want = sba.reference_bn_moments(xd)
+    share = 0.0
+    for g, w, terms in zip(got, want, (xd.abs(), xd * xd)):
+        n = (depth + 1) * 2.0 ** -53
+        lim = n / (1 - n) * terms.sum(0) / m + u * w.abs()
+        share = max(share, float(((g.double() - w).abs() / lim).max()))
+    check(share <= 1.0, f"bn_moments {shape} {dtype}: the sums take {share} of their limit")
+    want_dx = sba.reference_bn_moments_bwd(x.double(), dm.double(), dq.double())
+    lim = 4 * u * (dm.double().abs() / m + (2 * x.double() * dq.double() / m).abs())
+    if dt == torch.bfloat16:
+        lim = lim + bf16_ulp(want_dx)
+    dx_share = float(((dx.double() - want_dx).abs() / lim.clamp_min(1e-300)).max())
+    check(dx_share <= 1.0, f"bn_moments backward {shape} {dtype}: dx takes {dx_share} of its limit")
+    del xd, want, want_dx
+    xr = x.clone().requires_grad_(True)
+    outs = sba.reference_bn_moments(xr)
+    tf = time_ms(lambda: sba._moments_forward(x), flush, reps=SBA_REPS)
+    tb = time_ms(lambda: sba._moments_backward(x, dm, dq), flush, reps=SBA_REPS)
+    pf = time_ms(lambda: sba.reference_bn_moments(x), flush, reps=SBA_REPS)
+    pb = time_ms(lambda: torch.autograd.grad(outs, xr, (dm, dq), retain_graph=True), flush, reps=SBA_REPS)
+    nbytes = x.numel() * x.element_size()
+    return {"sum_limit_share": share, "dx_limit_share": dx_share, "depth": depth,
+            "blocks": sba.moments_plan(m, c, dt)[0],
+            "fwd_ms": tf["cold"], "fwd_p10_ms": tf["p10"], "fwd_p90_ms": tf["p90"], "fwd_warm_ms": tf["warm"],
+            "fwd_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "fwd_plain_ms": pf["cold"],
+            "bwd_ms": tb["cold"], "bwd_p10_ms": tb["p10"], "bwd_p90_ms": tb["p90"], "bwd_warm_ms": tb["warm"],
+            "bwd_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3, "bwd_plain_ms": pb["cold"], "bound_by": "bytes"}
+
+
 def bwd_sums_excess(got, terms, depth) -> tuple:
     """A backward's channel sums ``got`` (C,) against the exact (float64)
     sums of their terms ``terms`` (M, C), the plain backward's t·x or t:
@@ -4344,12 +4465,16 @@ def path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, d
     return sources
 
 
-def kernel_phase(sources) -> tuple:
+def kernel_phase(sources, moments_paths) -> tuple:
     """Every kernel against its plain version at each (shape, dtype,
     activation) that a main path launched it at (the epilogue's backward
     also at the gradients it computed there), plus one ragged epilogue (odd
     channel count) in each dtype, forward and backward, per-channel and
-    per-sample."""
+    per-sample; and the batch-norm moments' kernels at each (shape, dtype)
+    this process launched them at (``MOMENTS_SEEN``) and at the ragged
+    shape in each dtype, with their launches in this process and per step
+    on the paths ``moments_paths`` gives (setting: (dtype, batch,
+    ``moments_read()``, steps))."""
     import torch
 
     dev = torch.device("cuda")
@@ -4405,9 +4530,23 @@ def kernel_phase(sources) -> tuple:
                **conv_case(op, n, h, w, cin, cout, pad, getattr(torch, dtype), gen, flush, reps=5)}
         conv_rows.append(row)
         emit("conv3x3", row)
+    fold_moments()
+    seen = MOMENTS_SEEN["bn_moments"] + MOMENTS_SEEN["bn_moments_bwd"]
+    moment_rows = []
+    for shape, dtype in sorted(set(seen) | {(RAGGED_SHAPE, dt) for dt in ("float32", "bfloat16")}):
+        launches = {"this process": [MOMENTS_SEEN["bn_moments"][shape, dtype],
+                                     MOMENTS_SEEN["bn_moments_bwd"][shape, dtype]]}
+        for path, (_, _, cnt, n) in moments_paths.items():
+            if (shape, dtype) in cnt["bn_moments"] + cnt["bn_moments_bwd"]:
+                launches["train " + path] = [cnt["bn_moments"][shape, dtype] / n,
+                                             cnt["bn_moments_bwd"][shape, dtype] / n]
+        row = {"shape": list(shape), "dtype": dtype, "launches_fwd_bwd": launches,
+               **moments_case(shape, dtype, gen, flush)}
+        moment_rows.append(row)
+        emit("bn_moments", row)
     wino_rows = winograd_rows(gen, flush)
     del flush
-    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, wino_rows
+    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, wino_rows, moment_rows
 
 
 # ---------------------------------------------------------------------------
@@ -4415,7 +4554,7 @@ def kernel_phase(sources) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, train_runs, serve_arms) -> list:
+def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows, train_runs, serve_arms) -> list:
     """One line per kernel: launches over every main path (the train arms,
     the graph arms', phase 3c's, 3e's and the driver's counted runs, the
     serving arms): the
@@ -4482,7 +4621,41 @@ def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, train_runs,
                      "and for phase 3e (cifar10_snresnet, float32, batch 100)",
             "per_step": per_step,
         })
+    kernels.append(moments_summary(moment_rows, replayed))
     return kernels
+
+
+def moments_summary(rows, replayed) -> dict:
+    """The batch-norm moments' line of the summary: launches in this
+    process (``launches_counted``: every forward pair, main paths and their
+    checks alike) plus those the profiled replays made (``replayed``, by
+    kernel name); and each setting's forward pairs and backwards a step
+    (the rows' ``train`` launches) times their cold ms, plain ms and
+    bound, the shipped setting's at the top level."""
+    per_step = {}
+    for row in rows:
+        for source, (nf, nb) in row["launches_fwd_bwd"].items():
+            if not source.startswith("train "):
+                continue
+            rec = per_step.setdefault(source[len("train "):], {
+                "dtype": row["dtype"], "source": "triplegan_tpu_torch/ops/csrc/scale_bias_act.cu",
+                "launches_fwd_bwd": [0, 0], "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+                "library_ms": None, "max_limit_share": 0.0})
+            rec["launches_fwd_bwd"] = [rec["launches_fwd_bwd"][0] + nf, rec["launches_fwd_bwd"][1] + nb]
+            for key in ("ms", "plain_ms", "bound_ms"):
+                rec[key] += nf * row["fwd_" + key] + nb * row["bwd_" + key]
+            rec["max_limit_share"] = max(rec["max_limit_share"], row["sum_limit_share"], row["dx_limit_share"])
+    top = per_step.get("shipped", {})
+    counted = sum(MOMENTS_SEEN["bn_moments"].values())
+    return {"name": "bn_moments", "route": "cuda", "source": "triplegan_tpu_torch/ops/csrc/scale_bias_act.cu",
+            "replaces": None, "launches": counted + replayed["bn_moments"], "launches_counted": counted,
+            "launches_replayed": replayed["bn_moments"],
+            "max_limit_share": max((max(r["sum_limit_share"], r["dx_limit_share"]) for r in rows), default=None),
+            **{key: top.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "basis": "forward pairs (bnm_fwd_rows + bnm_reduce) and backwards (bnm_bwd_rows); top level: sum "
+                     "over one shipped train step's launches (cifar10_4k graph arm, float32, batch 100); "
+                     "per_step: the same for each graph arm, each arm of phase 3c and phase 3e",
+            "per_step": per_step}
 
 
 # ---------------------------------------------------------------------------
@@ -4674,16 +4847,27 @@ def main():
     phases["serve"] = time.perf_counter() - t_start
 
     # 7. kernels, at the shapes the main paths launched them at; the winograd A/B rows
-    sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, wino_rows = kernel_phase(
-        path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits) + snresnet["_sources"])
+    moments_paths = {arm["setting"]: (arm["dtype"], arm["batch"], arm["_moments"], arm["_steps"])
+                     for arm in graph_arms if arm["use_pallas"]}
+    for rec in configs:
+        moments_paths.update(rec["_moments"])
+    moments_paths[f"{SNRESNET} float32"] = ("float32", BATCH, snresnet["_moments"], snresnet["_steps"])
+    sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, wino_rows, moment_rows = kernel_phase(
+        path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits) + snresnet["_sources"],
+        moments_paths)
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
     lost = [w for w in PROFILE_WINDOWS if any(w)]
     emit("profile_markers", {"windows": len(PROFILE_WINDOWS), "markers_a_side": PROFILE_MARKERS,
                              "windows_that_lost_markers": len(lost), "lost_leading_trailing": lost})
 
+    # the moments' counters on each graphed path (the cifar10_4k graph arms'
+    # capture and chunks, phase 3c's arms, phase 3e's steps)
+    emit("bn_moments_counters", {path: {"steps": n, **{name: {str(key): c for key, c in cnt.items()}
+                                                       for name, cnt in counters.items()}}
+                                 for path, (_, _, counters, n) in moments_paths.items()})
     config_runs = [run for rec in configs for run in rec["arms"] + [rec["serving"]] + ([rec["loop"]] if "loop" in rec else [])]
-    kernels = summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows,
+    kernels = summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows,
                       train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor, digits, snresnet],
                       serve_arms)
     if args.out:
@@ -4691,7 +4875,7 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "cond_rows": cond_rows,
-                       "cond_bwd_rows": cond_bwd_rows, "conv_rows": conv_rows,
+                       "cond_bwd_rows": cond_bwd_rows, "conv_rows": conv_rows, "bn_moments_rows": moment_rows,
                        "winograd_rows": wino_rows, "doctor": public(doctor), "debug": debug,
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms], "configs": [public(r) for r in configs],

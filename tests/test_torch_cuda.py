@@ -2,7 +2,9 @@
 from conv3x3.cu, bfloat16 from conv3x3_sm90.cu) against their plain
 PyTorch versions, on the card; the float32 conv's bits repeated over 200
 calls; the per-sample (class-conditional) epilogue kernels against their
-plain version at the ResNet generator's shapes; ``device_prefetch``'s copies (their bytes and the consumer's
+plain version at the ResNet generator's shapes; the batch-norm moments' kernels at every batch-norm shape
+of the benchmark's two cells against the float64 twin, and at ragged, misaligned and strided inputs;
+``device_prefetch``'s copies (their bytes and the consumer's
 stream ordered after them) and the native gather in use; the CUDA graph
 chunk under a process group: refused under gloo, and under NCCL (a group
 of this process alone) equal to eager steps bitwise; the phase marks a
@@ -25,6 +27,9 @@ n the kernel's summation depth, plus one bfloat16 ulp at bfloat16
 8·sqrt(K)·2⁻²⁴·(the plain op on |inputs|), K the length of each sum (the
 two take float32 sums in different orders), plus one bfloat16 ulp of the
 value where the output is bfloat16 (both round a float32 sum once).
+The moments: the exact (float64) moments rounded once to float32, plus the
+float64 sums' own γ_n·Σ|terms|/M at u = 2⁻⁵³; their backward within 4
+float32 roundings of its two terms, one bfloat16 ulp at bfloat16.
 """
 
 import numpy as np
@@ -217,6 +222,141 @@ def test_cond_function_grads_match_plain_on_card(cuda):
     assert torch.equal(ga[0].cpu(), gb[0])
     for a, w in zip(ga[1:], gb[1:]):
         torch.testing.assert_close(a.cpu(), w, rtol=1e-5, atol=1e-4)
+
+
+# every train-mode batch norm's input in the two benchmark cells: C's three
+# block widths and its 6 × 6 tail; the DCGAN G's; the ResNet G's cBNs and b5;
+# and a dense batch norm (mnist100's G)
+_MOMENT_SHAPES = [(100, 32, 32, 128), (100, 16, 16, 256), (100, 6, 6, 512), (100, 6, 6, 256), (100, 6, 6, 128),
+                  (100, 4, 4, 512), (100, 8, 8, 256), (100, 4, 4, 256), (100, 32, 32, 256), (100, 500)]
+
+
+def _moments_case(shape, dtype, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    x = rng.normal(size=shape) * 1.5 + rng.normal(size=(c,)) * 0.5
+    dmean, dmean_sq = rng.normal(size=(c,)), rng.normal(size=(c,))
+    return (torch.from_numpy(x.astype(np.float32)).to(dev).to(dtype),
+            *(torch.from_numpy(v.astype(np.float32)).to(dev) for v in (dmean, dmean_sq)))
+
+
+def _moments_ok(got, x, depth):
+    """(mean, mean_sq) against the float64 twin: the exact moments rounded
+    once to float32 (2⁻²⁴ of the value), plus the float64 sums' error,
+    γ_{n+1}·Σ|terms|/M with u = 2⁻⁵³ and n = ``depth``, the most additions a
+    term goes through (one more for the division); the squares of float32
+    values are exact in float64."""
+    u = 2.0 ** -53
+    xd = x.double().reshape(-1, x.shape[-1])
+    m = xd.shape[0]
+    want = sba.reference_bn_moments(xd)
+    worst = 0.0
+    for g, w, terms in zip(got, want, (xd.abs(), xd * xd)):
+        n = depth + 1
+        lim = n * u / (1 - n * u) * terms.sum(0) / m + 2.0 ** -24 * w.abs()
+        worst = max(worst, float(((g.double() - w).abs() / lim).max()))
+    return worst <= 1.0, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _MOMENT_SHAPES)
+def test_moments_kernels_match_the_float64_twin_on_card(shape, cuda):
+    """The moments' forward pair against the float64 twin within its
+    summation bound, and the backward against the closed form in float64
+    within a few float32 roundings, each launch counted; float32 at every
+    cell shape, bfloat16 at the 2-D and 32 × 32 ones."""
+    dtypes = ["float32"] + (["bfloat16"] if shape[-1] in (128, 500) else [])
+    for dtype in dtypes:
+        x, dmean, dmean_sq = _moments_case(shape, _DT[dtype], cuda)
+        m, c = x.numel() // shape[-1], shape[-1]
+        before = sba.moments_launches.total(), sba.moments_bwd_launches.total()
+        got = sba._moments_forward(x)
+        dx = sba._moments_backward(x, dmean, dmean_sq)
+        torch.cuda.synchronize()
+        assert (sba.moments_launches.total(), sba.moments_bwd_launches.total()) == (before[0] + 1, before[1] + 1)
+        assert sba.moments_launches[shape, dtype] >= 1 and sba.moments_bwd_launches[shape, dtype] >= 1
+        assert all(v.dtype == torch.float32 and v.shape == (c,) for v in got)
+        ok, worst = _moments_ok(got, x, sba.moments_plan(m, c, x.dtype)[1])
+        assert ok, (dtype, worst)
+        want = sba.reference_bn_moments_bwd(x.double(), dmean.double(), dmean_sq.double())
+        assert dx.dtype == x.dtype and dx.shape == x.shape
+        ok, err = _elementwise_ok(dx, want.to(x.dtype)) if dtype == "bfloat16" else (
+            bool(((dx.double() - want).abs() <= 4 * 2.0 ** -24 * (dmean.double().abs() / m
+                                                                  + (2 * x.double() * dmean_sq.double() / m).abs())
+                  ).all()), float((dx.double() - want).abs().max()))
+        assert ok, (dtype, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moments_kernels_are_bitwise_repeatable_on_card(dtype, cuda):
+    x, dmean, dmean_sq = _moments_case((100, 32, 32, 256), _DT[dtype], cuda, seed=4)
+    first = sba._moments_forward(x), sba._moments_backward(x, dmean, dmean_sq)
+    for _ in range(5):
+        again = sba._moments_forward(x), sba._moments_backward(x, dmean, dmean_sq)
+        assert all(torch.equal(a, b) for a, b in zip(first[0], again[0]))
+        assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+def test_moments_function_on_card_matches_its_plain_path(cuda):
+    """Autograd through ``bn_moments`` on the card (the kernels) against the
+    same Function on the CPU (its plain path), a cotangent missing too."""
+    x, dmean, dmean_sq = _moments_case((100, 8, 8, 256), torch.float32, cuda, seed=5)
+    xa, xb = x.clone().requires_grad_(True), x.cpu().requires_grad_(True)
+    ma, mb = sba.bn_moments(xa), sba.bn_moments(xb)
+    for a, b in zip(ma, mb):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    for cot in ((dmean, dmean_sq), (dmean, None)):
+        outs = [v for v, g in zip(ma, cot) if g is not None]
+        (ga,) = torch.autograd.grad(outs, xa, [g for g in cot if g is not None], retain_graph=True)
+        (gb,) = torch.autograd.grad([v for v, g in zip(mb, cot) if g is not None], xb,
+                                    [g.cpu() for g in cot if g is not None], retain_graph=True)
+        torch.testing.assert_close(ga.cpu(), gb, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moments_kernels_take_ragged_misaligned_and_strided_inputs(dtype, cuda):
+    """Rows of single channels (C = 3, and C = 6 or 12, not whole 16-byte
+    units), a view off 16-byte alignment and a transposed view each launch
+    the kernels (the view as a contiguous copy), forward and backward
+    through ``bn_moments``, and match the float64 twin as the aligned
+    shapes do; a CPU tensor takes the twin and launches nothing; another
+    CUDA dtype raises."""
+    dt = _DT[dtype]
+    x3 = torch.randn(10, 4, 4, 3, device=cuda).to(dt)
+    xr = torch.randn(10, 5, 5, 6 if dtype == "float32" else 12, device=cuda).to(dt)
+    base = torch.randn(10 * 16 + 1, device=cuda).to(dt)
+    off = base[1:].view(10, 16)  # not 16-byte aligned
+    strided = torch.randn(16, 10, device=cuda).to(dt).t()
+    for x in (x3, xr, off, strided):
+        c = x.shape[-1]
+        m = x.numel() // c
+        xg = x.detach().requires_grad_(True)
+        dmean, dmean_sq = torch.randn(c, device=cuda), torch.randn(c, device=cuda)
+        before = sba.moments_launches.total(), sba.moments_bwd_launches.total()
+        got = sba.bn_moments(xg)
+        (dx,) = torch.autograd.grad(got, xg, (dmean, dmean_sq))
+        torch.cuda.synchronize()
+        assert (sba.moments_launches.total(), sba.moments_bwd_launches.total()) == (before[0] + 1, before[1] + 1)
+        xc = x.contiguous()
+        ok, worst = _moments_ok(got, xc, sba.moments_plan(m, c, dt, xc.data_ptr() % 16 == 0)[1])
+        assert ok, (tuple(x.shape), worst)
+        want = sba.reference_bn_moments_bwd(x.double(), dmean.double(), dmean_sq.double())
+        assert dx.dtype == dt and dx.shape == x.shape
+        ok, err = _elementwise_ok(dx, want.to(dt)) if dtype == "bfloat16" else (
+            bool(((dx.double() - want).abs() <= 4 * 2.0 ** -24 * (dmean.double().abs() / m
+                                                                  + (2 * x.double() * dmean_sq.double() / m).abs())
+                  ).all()), float((dx.double() - want).abs().max()))
+        assert ok, (tuple(x.shape), err)
+    cpu = torch.randn(10, 8).to(dt)
+    before = sba.moments_launches.total()
+    for g, w in zip(sba.bn_moments(cpu), sba.reference_bn_moments(cpu)):
+        assert torch.equal(g, w)
+    assert sba.moments_launches.total() == before
+    with pytest.raises(TypeError):
+        sba.bn_moments(torch.randn(10, 8, device=cuda, dtype=torch.float16))
 
 
 @pytest.mark.cuda

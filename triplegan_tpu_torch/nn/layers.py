@@ -11,8 +11,10 @@ taps directly.
 ``use_pallas`` routes every 3×3 stride-1 conv (the Classifier's SAME convs
 and its VALID ``t0``, the Discriminator's stride-1 convs, and the
 Generator's subpixel phase convs) through the Hopper conv kernels
-(``ops/conv3x3.py``) and every epilogue through the Hopper
-``scale_bias_act`` kernel; on the CPU those take their plain versions.
+(``ops/conv3x3.py``), every epilogue through the Hopper
+``scale_bias_act`` kernel and every train-mode batch norm's moments
+through the ``bn_moments`` kernels; on the CPU those take their plain
+versions.
 1×1 convs, stride-2 convs and every conv with ``use_pallas`` off go to
 ``F.conv2d``.
 
@@ -53,7 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from triplegan_tpu_torch.ops.conv3x3 import conv3x3
-from triplegan_tpu_torch.ops.scale_bias_act import apply_act, scale_bias_act, scale_bias_act_cond
+from triplegan_tpu_torch.ops.scale_bias_act import (apply_act, bn_moments, reference_bn_moments, scale_bias_act,
+                                                    scale_bias_act_cond)
 
 Params = Dict[str, torch.Tensor]
 
@@ -324,10 +327,13 @@ def batchnorm_init(num_features: int) -> Tuple[Params, Params]:
     return params, state
 
 
-def _moments(p: Params, s: Params, x: torch.Tensor, train: bool, momentum: float, mesh=None):
-    """(mean, var, new running stats). In train mode the batch moments in
-    float32 over all axes but the channel axis, the biased variance
-    max(E[x²] − E[x]², 0), and the running stats advanced as
+def _moments(p: Params, s: Params, x: torch.Tensor, train: bool, momentum: float, mesh=None,
+             use_pallas: bool = False):
+    """(mean, var, new running stats). In train mode the batch moments E[x]
+    and E[x²] in float32 over all axes but the channel axis (with
+    ``use_pallas`` from ``bn_moments``, the hand-written kernels for a CUDA
+    x; else from ``reference_bn_moments``), the biased
+    variance max(E[x²] − E[x]², 0), and the running stats advanced as
     momentum·old + (1 − momentum)·new, outside autograd; in eval mode the
     running stats, unchanged. With a ``mesh`` (``parallel/mesh.py``) E[x]
     and E[x²] are averaged over its ranks before the variance (sync-BN, as
@@ -336,10 +342,7 @@ def _moments(p: Params, s: Params, x: torch.Tensor, train: bool, momentum: float
     moments."""
     if not train:
         return s["mean"], s["var"], s
-    axes = tuple(range(x.dim() - 1))
-    xf = x.float()
-    mean = torch.mean(xf, dim=axes)
-    mean_sq = torch.mean(torch.square(xf), dim=axes)
+    mean, mean_sq = bn_moments(x) if use_pallas else reference_bn_moments(x)
     if mesh is not None:
         mean, mean_sq = mesh.pmean_grad(torch.stack([mean, mean_sq])).unbind()
     var = torch.clamp_min(mean_sq - mean * mean, 0.0)
@@ -377,7 +380,7 @@ def batchnorm_act_apply(p: Params, s: Params, x: torch.Tensor, *, train: bool = 
     b = bias − mean·k, from the batch moments (train; synced over ``mesh``
     as in ``_moments``) or the running stats (eval). Returns (y in x's
     dtype, new running stats)."""
-    mean, var, new_s = _moments(p, s, x, train, momentum, mesh)
+    mean, var, new_s = _moments(p, s, x, train, momentum, mesh, use_pallas)
     k = p["scale"] * torch.rsqrt(var + eps)
     b = p["bias"] - mean * k
     return _scale_bias_act(x, k.to(x.dtype), b.to(x.dtype), act, slope, use_pallas), new_s
@@ -434,7 +437,7 @@ def cond_batchnorm_act_apply(p: Params, s: Params, x: torch.Tensor, y: torch.Ten
     (N, C) a sample, the moments as in ``batchnorm_act_apply``. With
     ``use_pallas`` one launch of the per-sample epilogue kernel. Returns
     (y in x's dtype, new running stats)."""
-    mean, var, new_s = _moments(p, s, x, train, momentum, mesh)
+    mean, var, new_s = _moments(p, s, x, train, momentum, mesh, use_pallas)
     yl = y.long()
     k = p["gamma"][yl] * torch.rsqrt(var + eps)
     b = p["beta"][yl] - mean * k

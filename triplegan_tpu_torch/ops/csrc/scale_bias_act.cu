@@ -12,6 +12,8 @@
 // scale g/|v| in D's convs and G's output deconv, 1/sigma in the spectrally
 // normalised convs. Its per-sample variant (the cbn_* kernels), with k and b
 // given per sample, is the class-conditional batch norm of the ResNet G.
+// The bnm_* kernels compute the train-mode batch-norm moments that k and b
+// are folded from, and their gradient (their own notes are below).
 //
 // Bound: bytes. The forward reads x and writes y once; the backward reads x
 // and g and writes dx once (dk and db are C values). A few flops an element,
@@ -569,6 +571,167 @@ cbn_bwd_reduce(const float* __restrict__ part, int p, int c, T* __restrict__ dk,
 }
 
 // ---------------------------------------------------------------------------
+// Batch-norm moments (bnm_*): the train-mode mean and mean of squares per
+// channel that every batch norm folds into the epilogue's k and b, and their
+// gradient. Replaces no TPU kernel: the JAX package computes them in jnp,
+// which XLA fuses into one pass; eager PyTorch takes a column reduce of x, a
+// full write of x² and a second column reduce, and its autograd some dozen
+// passes over the map backward. Own names (bnm_*), so that no epilogue or
+// conv pattern of the benchmark counts them.
+//
+// Bound: bytes. The forward reads x once (its partial sums are under 1/8 of
+// that); the backward, dx = dmean/N + x·(2·dmean_sq/N), reads x and writes
+// dx once. The layout is the row kernels' above: a thread owns a unit of W
+// channels (a 16-byte load where C is a multiple of W and x is 16-byte
+// aligned, else W = 1), walks rows by addition and keeps U rows in flight.
+// (On an H100 the forward streams a 105 MB float32 map at ≈70% of 3.35 TB/s
+// cold, whether U is 2, 4 or 8, with the next U rows' loads started before
+// the current U are added, with blocks on contiguous chunks of rows, or with
+// read-only loads; the backward, which also writes, at ≈90%: PERF.md §6.)
+//
+// The forward sums in float64: each square of a float is exact there, and
+// sums of up to ~10^7 terms lose nothing a float32 mean can show, so mean
+// and mean_sq are the exact moments rounded once to float32, whatever the
+// order of the sums. float64 adds run at half the float32 rate, far above
+// what the stream needs.
+// The order is fixed (a thread's rows, its block's threads over ty, then the
+// blocks in order in bnm_reduce): no atomics, so two calls are bitwise equal.
+// ---------------------------------------------------------------------------
+
+constexpr int kBnmU = 4;  // rows in flight a thread
+
+// Σx and Σx² per channel over the block's rows, written to its row of
+// `part` (the Σx of each channel, then the Σx²). Block (ux, ry) as the row
+// kernels': thread (tx, ty) owns unit tx (and tx + ux, ...).
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+bnm_fwd_rows(const T* __restrict__ x, double* __restrict__ part, long long m, int c) {
+  __shared__ double red[2 * kThreads * W];
+  const int units = c / W;
+  const int ry = blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const long long rs = (long long)gridDim.x * ry;
+  const long long estep = rs * c;
+  for (int u0 = 0; u0 < units; u0 += blockDim.x) {
+    const int u = u0 + threadIdx.x;
+    double s1[W], s2[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) s1[i] = s2[i] = 0;
+    if (u < units) {
+      long long r = (long long)blockIdx.x * ry + threadIdx.y;
+      for (long long off = r * c + u * W; r < m; r += kBnmU * rs, off += kBnmU * estep) {
+        float v[kBnmU][W];
+#pragma unroll
+        for (int j = 0; j < kBnmU; ++j) {
+          if (r + j * rs < m) load<T, W>(x + off + j * estep, v[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kBnmU; ++j) {
+          if (r + j * rs < m) {
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              const double a = v[j][i];
+              s1[i] = __dadd_rn(s1[i], a);
+              s2[i] = __dadd_rn(s2[i], __dmul_rn(a, a));
+            }
+          }
+        }
+      }
+    }
+    const int cw = min((int)blockDim.x, units - u0) * W;  // channels of this pass
+    double* r1 = red;
+    double* r2 = red + ry * cw;
+    if (u < units) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        r1[threadIdx.y * cw + threadIdx.x * W + i] = s1[i];
+        r2[threadIdx.y * cw + threadIdx.x * W + i] = s2[i];
+      }
+    }
+    __syncthreads();
+    for (int l = tid; l < 2 * cw; l += nthreads) {
+      const int which = l >= cw ? 1 : 0;
+      const int col = l - which * cw;
+      const double* src = (which ? r2 : r1) + col;
+      double t = 0;
+      for (int q = 0; q < ry; ++q) t = __dadd_rn(t, src[q * cw]);
+      part[(long long)blockIdx.x * 2 * c + which * c + u0 * W + col] = t;
+    }
+    __syncthreads();
+  }
+}
+
+// mean[c] = Σ_p part[p][c] / m and mean_sq[c] = Σ_p part[p][C + c] / m
+// over the p blocks, rounded once to float32, in a fixed order: thread
+// (tx, ty) of a (32, R) block adds the rows p ≡ ty (mod R) of column
+// 32·blockIdx.x + tx in order, then row ty = 0 adds the R.
+constexpr int kBnmReduceRows = 32;
+
+__global__ void __launch_bounds__(32 * kBnmReduceRows)
+bnm_reduce(const double* __restrict__ part, int p, int c, long long m,
+           float* __restrict__ mean, float* __restrict__ mean_sq) {
+  __shared__ double s[kBnmReduceRows][33];
+  const int width = 2 * c;
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  double a = 0;
+  if (col < width) {
+#pragma unroll 4
+    for (int q = threadIdx.y; q < p; q += kBnmReduceRows) a = __dadd_rn(a, part[(long long)q * width + col]);
+  }
+  s[threadIdx.y][threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < width) {
+    double t = 0;
+#pragma unroll
+    for (int r = 0; r < kBnmReduceRows; ++r) t = __dadd_rn(t, s[r][threadIdx.x]);
+    const float v = __double2float_rn(__ddiv_rn(t, (double)m));
+    if (col < c) {
+      mean[col] = v;
+    } else {
+      mean_sq[col - c] = v;
+    }
+  }
+}
+
+// dx[m, c] = dmean[c]/M + x[m, c]·(2·dmean_sq[c]/M), in float32 and
+// rounded once to T; a null cotangent counts as zero.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+bnm_bwd_rows(const T* __restrict__ x, const float* __restrict__ dmean, const float* __restrict__ dmean_sq,
+             T* __restrict__ dx, long long m, int c) {
+  const int units = c / W;
+  const float mf = (float)m;
+  const long long rs = (long long)gridDim.x * blockDim.y;
+  const long long estep = rs * c;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int ch = u * W;
+    float a[W], b[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      a[i] = dmean ? __fdiv_rn(dmean[ch + i], mf) : 0.f;
+      b[i] = dmean_sq ? __fdiv_rn(__fmul_rn(2.f, dmean_sq[ch + i]), mf) : 0.f;
+    }
+    long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+    for (long long off = r * c + ch; r < m; r += kBnmU * rs, off += kBnmU * estep) {
+      float v[kBnmU][W];
+#pragma unroll
+      for (int j = 0; j < kBnmU; ++j) {
+        if (r + j * rs < m) load<T, W>(x + off + j * estep, v[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kBnmU; ++j) {
+        if (r + j * rs < m) {
+#pragma unroll
+          for (int i = 0; i < W; ++i) v[j][i] = __fadd_rn(a[i], __fmul_rn(v[j][i], b[i]));
+          store<T, W>(dx + off + j * estep, v[j]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -615,13 +778,19 @@ void with_act(int act, F&& f) {
   }
 }
 
+// f(T*) for the run-time dtype: 0 float32, else bfloat16.
+template <typename F>
+void with_dtype(int dtype, F&& f) {
+  if (dtype == 0) {
+    f((float*)nullptr);
+  } else {
+    f((__nv_bfloat16*)nullptr);
+  }
+}
+
 template <typename F>
 void with_types(int dtype, int act, F&& f) {
-  if (dtype == 0) {
-    with_act<float>(act, f);
-  } else {
-    with_act<__nv_bfloat16>(act, f);
-  }
+  with_dtype(dtype, [&](auto* t) { with_act<std::remove_pointer_t<decltype(t)>>(act, f); });
 }
 
 template <typename T, int ACT>
@@ -804,6 +973,70 @@ int cond_bwd(const T* x, const T* k, const T* b, const T* g, T* dx, T* dk, T* db
   return (int)cudaGetLastError();
 }
 
+// The moments' grid for m rows of c channels: the row layout of 16-byte
+// units where c is a multiple of V and x (and dx) 16-byte aligned, else of
+// single channels (W = 1); one wave of the card at the kernel's occupancy,
+// or fewer blocks where a thread would otherwise take fewer than U rows or,
+// in the forward, so few that the blocks' 2·c float64 partial sums exceed
+// 1/8 of the bytes they read.
+struct BnmPlan {
+  bool vec;
+  dim3 block;
+  unsigned blocks;
+};
+
+template <typename T>
+BnmPlan bnm_plan(long long m, int c, bool aligned, bool fwd) {
+  constexpr int V = 16 / sizeof(T);
+  BnmPlan p;
+  p.vec = aligned && c % V == 0;
+  int occ;
+  if (p.vec) {
+    static const int of = blocks_per_sm(bnm_fwd_rows<T, V>), ob = blocks_per_sm(bnm_bwd_rows<T, V>);
+    occ = fwd ? of : ob;
+    p.block = row_block(c / V);
+  } else {
+    static const int of = blocks_per_sm(bnm_fwd_rows<T, 1>), ob = blocks_per_sm(bnm_bwd_rows<T, 1>);
+    occ = fwd ? of : ob;
+    p.block = row_block(c);
+  }
+  long long rows = kBnmU;
+  if (fwd) {
+    const long long r = ceil_div(8 * 2 * (long long)sizeof(double), (long long)p.block.y * (long long)sizeof(T));
+    if (r > rows) rows = r;
+  }
+  p.blocks = grid(m, p.block.y * rows, (long long)sm_count() * occ);
+  return p;
+}
+
+template <typename T>
+int bnm_fwd(const T* x, double* ws, int ws_blocks, float* mean, float* mean_sq, long long m, int c,
+            cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const BnmPlan p = bnm_plan<T>(m, c, aligned16(x), true);
+  if ((long long)p.blocks > ws_blocks) return (int)cudaErrorInvalidValue;
+  if (p.vec) {
+    bnm_fwd_rows<T, V><<<p.blocks, p.block, 0, s>>>(x, ws, m, c);
+  } else {
+    bnm_fwd_rows<T, 1><<<p.blocks, p.block, 0, s>>>(x, ws, m, c);
+  }
+  const unsigned cols = (unsigned)ceil_div(2LL * c, 32);
+  bnm_reduce<<<cols, dim3(32, kBnmReduceRows), 0, s>>>(ws, (int)p.blocks, c, m, mean, mean_sq);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bnm_bwd(const T* x, const float* dmean, const float* dmean_sq, T* dx, long long m, int c, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const BnmPlan p = bnm_plan<T>(m, c, aligned16(x) && aligned16(dx), false);
+  if (p.vec) {
+    bnm_bwd_rows<T, V><<<p.blocks, p.block, 0, s>>>(x, dmean, dmean_sq, dx, m, c);
+  } else {
+    bnm_bwd_rows<T, 1><<<p.blocks, p.block, 0, s>>>(x, dmean, dmean_sq, dx, m, c);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // y = act(x·k + b) over m rows of c channels. dtype: 0 = float32,
@@ -914,6 +1147,53 @@ extern "C" int scale_bias_act_cond_bwd_launch(const void* x, const void* k, cons
                                          static_cast<const T*>(b), static_cast<const T*>(g), static_cast<T*>(dx),
                                          static_cast<T*>(dk), static_cast<T*>(db), static_cast<float*>(ws),
                                          ws_blocks, n, hw, c, slope, flags, static_cast<cudaStream_t>(stream));
+  });
+  return rc;
+}
+
+// The batch-norm moments' forward grid for m rows of c channels and
+// whether x is 16-byte aligned: `blocks`, the rows of 2·c float64 values its
+// workspace needs, and `depth`, the most float64 additions any term goes
+// through on its way into a sum (a thread's rows, its block's threads, the
+// reduce's two levels). Returns a cudaError_t as int.
+extern "C" int bn_moments_plan(long long m, int c, int dtype, int aligned, int* blocks, long long* depth) {
+  if (bad_args(m, c, dtype, 0) || !blocks || !depth) return (int)cudaErrorInvalidValue;
+  with_dtype(dtype, [&](auto* t) {
+    const BnmPlan p = bnm_plan<std::remove_pointer_t<decltype(t)>>(m, c, aligned != 0, true);
+    *blocks = (int)p.blocks;
+    *depth = ceil_div(m, (long long)p.blocks * p.block.y) + p.block.y + ceil_div(p.blocks, kBnmReduceRows) +
+             kBnmReduceRows;
+  });
+  return (int)cudaGetLastError();
+}
+
+// mean[c] = Σ_m x[m, c] / m and mean_sq[c] = Σ_m x[m, c]² / m, float32
+// (c,) each, for x of m rows of c channels (dtype 0 float32, 1 bfloat16);
+// ws holds ws_blocks rows of 2·c float64 values, at least the blocks
+// bn_moments_plan reports. Returns a cudaError_t as int, as above.
+extern "C" int bn_moments_launch(const void* x, void* ws, int ws_blocks, void* mean, void* mean_sq, long long m,
+                                 int c, int dtype, void* stream) {
+  if (bad_args(m, c, dtype, 0) || !x || !ws || !mean || !mean_sq) return (int)cudaErrorInvalidValue;
+  int rc = 0;
+  with_dtype(dtype, [&](auto* t) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    rc = bnm_fwd<T>(static_cast<const T*>(x), static_cast<double*>(ws), ws_blocks, static_cast<float*>(mean),
+                    static_cast<float*>(mean_sq), m, c, static_cast<cudaStream_t>(stream));
+  });
+  return rc;
+}
+
+// The moments' gradient: dx = dmean/m + x·(2·dmean_sq/m), in x's dtype, for
+// the float32 (c,) cotangents dmean and dmean_sq (either null: zero).
+// Returns a cudaError_t as int, as above.
+extern "C" int bn_moments_bwd_launch(const void* x, const void* dmean, const void* dmean_sq, void* dx, long long m,
+                                     int c, int dtype, void* stream) {
+  if (bad_args(m, c, dtype, 0) || !x || !dx) return (int)cudaErrorInvalidValue;
+  int rc = 0;
+  with_dtype(dtype, [&](auto* t) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    rc = bnm_bwd<T>(static_cast<const T*>(x), static_cast<const float*>(dmean), static_cast<const float*>(dmean_sq),
+                    static_cast<T*>(dx), m, c, static_cast<cudaStream_t>(stream));
   });
   return rc;
 }

@@ -33,6 +33,16 @@ sample's rows alone; its kernels (``cbn_*``) carry their own names and
 launch counters (``cond_launches``, ``cond_bwd_launches``). It is not an
 operator: no exported program holds it.
 
+``bn_moments`` gives a train-mode batch norm's moments, E[x] and E[x²] per
+channel in float32, from which k and b are folded: one read of x by
+``bnm_fwd_rows``, summing in float64, and a fixed-order reduce of its
+per-block sums (``bnm_reduce``), so the exact moments rounded once; and a
+closed-form backward, dx = dmean/N + x·(2·dmean_sq/N), in one pass
+(``bnm_bwd_rows``), where eager autograd of the plain formula takes a dozen
+passes over the map. A CPU tensor takes the plain twin
+``reference_bn_moments``; a CUDA tensor launches the kernels (a
+non-contiguous one as a contiguous copy) or raises.
+
 The forward is also a PyTorch operator, ``torch.ops.triplegan_torch.
 scale_bias_act`` (``scale_bias_act_op``): the kernel for CUDA tensors, the
 plain version for CPU tensors, and a shape-only fake for tracing (the
@@ -130,24 +140,44 @@ def reference_scale_bias_act_bwd(x, k, b, g, act="leaky_relu", slope=0.1, needs=
     return dx, dk, db
 
 
-_bound = None  # (forward, backward, backward's plan) entry points, bound once
+_bound = None  # every C entry point of the library, by name, bound once
 _plans: dict = {}
 
 
-def _lib():
-    """The bound C entry points (forward, backward, backward's plan), built
-    and bound at the first call."""
+def _entry(name: str):
+    """The C entry point ``name`` of ``csrc/scale_bias_act.cu``, bound with
+    its argument types; the library is built and all of them bound at the
+    first call."""
     global _bound
     if _bound is None:
         lib = build.load("scale_bias_act")
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        fwd, bwd, plan = lib.scale_bias_act_launch, lib.scale_bias_act_bwd_launch, lib.scale_bias_act_bwd_plan
-        fwd.argtypes = [p, p, p, p, ll, i, i, i, f, p]
-        bwd.argtypes = [p, p, p, p, p, p, p, p, i, ll, i, i, i, f, i, p]
-        plan.argtypes = [ll, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
-        fwd.restype = bwd.restype = plan.restype = i
-        _bound = (fwd, bwd, plan)
-    return _bound
+        pi, pll = ctypes.POINTER(i), ctypes.POINTER(ll)
+        signatures = {
+            "scale_bias_act_launch": [p, p, p, p, ll, i, i, i, f, p],
+            "scale_bias_act_bwd_launch": [p, p, p, p, p, p, p, p, i, ll, i, i, i, f, i, p],
+            "scale_bias_act_bwd_plan": [ll, i, i, i, i, i, pi, pll],
+            "scale_bias_act_cond_launch": [p, p, p, p, ll, ll, i, i, i, f, p],
+            "scale_bias_act_cond_bwd_launch": [p, p, p, p, p, p, p, p, ll, ll, ll, i, i, i, f, i, p],
+            "scale_bias_act_cond_bwd_plan": [ll, ll, i, i, i, i, i, pi, pll],
+            "bn_moments_plan": [ll, i, i, i, pi, pll],
+            "bn_moments_launch": [p, p, i, p, p, ll, i, i, p],
+            "bn_moments_bwd_launch": [p, p, p, p, ll, i, i, p],
+        }
+        bound = {}
+        for entry, argtypes in signatures.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, i
+            bound[entry] = fn
+        _bound = bound
+    return _bound[name]
+
+
+def _lib():
+    """The per-channel epilogue's entry points (forward, backward,
+    backward's plan)."""
+    return (_entry("scale_bias_act_launch"), _entry("scale_bias_act_bwd_launch"),
+            _entry("scale_bias_act_bwd_plan"))
 
 
 def bwd_plan(m, c, dtype, act, flags, aligned, lib=None):
@@ -376,24 +406,6 @@ class _ScaleBiasActCond(torch.autograd.Function):
         return dx, dk, db, None, None
 
 
-_cond_bound = None  # the per-sample (forward, backward, backward's plan), bound once
-
-
-def _cond_lib():
-    global _cond_bound
-    if _cond_bound is None:
-        lib = build.load("scale_bias_act")
-        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        fwd, bwd = lib.scale_bias_act_cond_launch, lib.scale_bias_act_cond_bwd_launch
-        plan = lib.scale_bias_act_cond_bwd_plan
-        fwd.argtypes = [p, p, p, p, ll, ll, i, i, i, f, p]
-        bwd.argtypes = [p, p, p, p, p, p, p, p, ll, ll, ll, i, i, i, f, i, p]
-        plan.argtypes = [ll, ll, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
-        fwd.restype = bwd.restype = plan.restype = i
-        _cond_bound = (fwd, bwd, plan)
-    return _cond_bound
-
-
 def cond_bwd_plan(n, hw, c, dtype, act, flags, aligned):
     """The per-sample backward's grid, as ``bwd_plan``'s: (a sample's
     blocks, so n times as many workspace rows of 2·c floats; the depth of
@@ -402,7 +414,7 @@ def cond_bwd_plan(n, hw, c, dtype, act, flags, aligned):
     plan = _plans.get(key)
     if plan is None:
         blocks, depth = ctypes.c_int(), ctypes.c_longlong()
-        rc = _cond_lib()[2](n, hw, c, _DTYPES[dtype], ACTS[act], flags, int(aligned), ctypes.byref(blocks),
+        rc = _entry("scale_bias_act_cond_bwd_plan")(n, hw, c, _DTYPES[dtype], ACTS[act], flags, int(aligned), ctypes.byref(blocks),
                             ctypes.byref(depth))
         if rc != 0:
             raise RuntimeError(f"scale_bias_act_cond backward plan failed: cudaError {rc}")
@@ -436,7 +448,7 @@ def _cond_forward(x, k, b, act, slope):
     n, hw, c = _check_cond_cuda(x, k, b)
     kc, bc = k.to(x.dtype).contiguous(), b.to(x.dtype).contiguous()
     y = torch.empty_like(x)
-    rc = _launch(_cond_lib()[0], x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(), y.data_ptr(), n, hw, c,
+    rc = _launch(_entry("scale_bias_act_cond_launch"), x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(), y.data_ptr(), n, hw, c,
                  _DTYPES[x.dtype], ACTS[act], slope)
     if rc != 0:
         raise RuntimeError(f"scale_bias_act_cond kernel launch failed: cudaError {rc}")
@@ -461,7 +473,7 @@ def _cond_backward(x, k, b, g, act, slope, needs):
         ws_blocks = n * cond_bwd_plan(n, hw, c, x.dtype, act, flags, aligned)[0]
         kb = torch.empty((2, n, c), dtype=x.dtype, device=x.device)
         ws = torch.empty((ws_blocks, 2 * c), dtype=torch.float32, device=x.device)
-    rc = _launch(_cond_lib()[1], x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(), g.data_ptr(),
+    rc = _launch(_entry("scale_bias_act_cond_bwd_launch"), x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(), g.data_ptr(),
                  None if dx is None else dx.data_ptr(), None if kb is None else kb[0].data_ptr(),
                  None if kb is None else kb[1].data_ptr(), None if ws is None else ws.data_ptr(), ws_blocks,
                  n, hw, c, _DTYPES[x.dtype], ACTS[act], slope, flags)
@@ -472,3 +484,135 @@ def _cond_backward(x, k, b, g, act, slope, needs):
     dk = kb[0].to(k.dtype) if needs[1] else None
     db = kb[1].to(b.dtype) if needs[2] else None
     return dx, dk, db
+
+
+# ---------------------------------------------------------------------------
+# Batch-norm moments: the train-mode E[x] and E[x²] that k and b fold from
+# ---------------------------------------------------------------------------
+
+# Calls since the counts were last cleared, keyed by (x's shape, x's dtype):
+# the moments' forward pair (``bnm_fwd_rows`` and its ``bnm_reduce``) and
+# backward kernel (``bnm_bwd_rows``).
+moments_launches: collections.Counter = collections.Counter()
+moments_bwd_launches: collections.Counter = collections.Counter()
+
+
+def reference_bn_moments(x):
+    """(E[x], E[x²]) over every axis but the last, computed in float32 (in
+    float64 for a float64 x, which only the CPU takes): the batch norm's
+    plain train-mode moments, differentiable by autograd."""
+    axes = tuple(range(x.dim() - 1))
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    return torch.mean(xf, dim=axes), torch.mean(torch.square(xf), dim=axes)
+
+
+def reference_bn_moments_bwd(x, dmean, dmean_sq):
+    """The moments' gradient in closed form: dx = dmean/N + x·(2·dmean_sq/N)
+    over N rows, in ``reference_bn_moments``'s precision and cast to x's
+    dtype; a cotangent of None counts as zero (None where both are)."""
+    if dmean is None and dmean_sq is None:
+        return None
+    ct = torch.promote_types(x.dtype, torch.float32)
+    n = x.numel() // x.shape[-1]
+    zero = torch.zeros(x.shape[-1], dtype=ct, device=x.device)
+    a = zero if dmean is None else dmean.to(ct) / n
+    b = zero if dmean_sq is None else (2 * dmean_sq.to(ct)) / n
+    return (a + x.to(ct) * b).to(x.dtype)
+
+
+def bn_moments(x):
+    """(E[x], E[x²]) per channel (last axis) in float32, differentiable in
+    x: ``reference_bn_moments`` for a CPU x, the hand-written kernels
+    (``_BNMoments``) for a CUDA x, which must be float32 or bfloat16 and
+    not empty."""
+    if x.device.type == "cpu":
+        return reference_bn_moments(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_moments takes cpu or cuda tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"bn_moments kernels take float32 or bfloat16, got {x.dtype}")
+    if x.dim() < 1 or x.numel() == 0:
+        raise ValueError(f"bn_moments needs a non-empty tensor, got shape {tuple(x.shape)}")
+    return _BNMoments.apply(x.contiguous())
+
+
+class _BNMoments(torch.autograd.Function):
+    """The moments with their closed-form gradient: the kernels for a CUDA
+    x, the plain versions for a CPU x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x)
+        if x.device.type == "cpu":
+            return reference_bn_moments(x)
+        return _moments_forward(x)
+
+    @staticmethod
+    def backward(ctx, dmean, dmean_sq):
+        (x,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None
+        if x.device.type == "cpu":
+            return reference_bn_moments_bwd(x, dmean, dmean_sq)
+        return _moments_backward(x, dmean, dmean_sq)
+
+
+def moments_plan(m, c, dtype, aligned=True):
+    """The moments' forward grid for m rows of c channels (``aligned``:
+    whether x is 16-byte aligned): (its blocks, the workspace rows of 2·c
+    float64 sums it fills; depth, the most float64 additions any term goes
+    through on its way into a sum)."""
+    key = ("moments", m, c, dtype, aligned)
+    plan = _plans.get(key)
+    if plan is None:
+        blocks, depth = ctypes.c_int(), ctypes.c_longlong()
+        rc = _entry("bn_moments_plan")(m, c, _DTYPES[dtype], int(aligned), ctypes.byref(blocks),
+                                       ctypes.byref(depth))
+        if rc != 0:
+            raise RuntimeError(f"bn_moments plan failed: cudaError {rc}")
+        plan = _plans[key] = (blocks.value, depth.value)
+    return plan
+
+
+def _check_moments_cuda(x):
+    """What the moments' kernels take: a non-empty contiguous float32 or
+    bfloat16 CUDA x. Returns its channels."""
+    if x.device.type != "cuda" or x.dtype not in _DTYPES or x.dim() < 1 or x.numel() == 0 or not x.is_contiguous():
+        raise ValueError(f"the bn_moments kernels take a non-empty contiguous float32 or bfloat16 CUDA tensor, "
+                         f"got {x.device} {x.dtype} {tuple(x.shape)}")
+    return x.shape[-1]
+
+
+def _moments_forward(x):
+    """(mean, mean_sq) of a CUDA x, by one launch of the row kernel and one
+    of its reduce."""
+    c = _check_moments_cuda(x)
+    m = x.numel() // c
+    blocks = moments_plan(m, c, x.dtype, x.data_ptr() % 16 == 0)[0]
+    ws = torch.empty((blocks, 2 * c), dtype=torch.float64, device=x.device)
+    mean = torch.empty(c, dtype=torch.float32, device=x.device)
+    mean_sq = torch.empty(c, dtype=torch.float32, device=x.device)
+    rc = _launch(_entry("bn_moments_launch"), x.device, x.data_ptr(), ws.data_ptr(), blocks, mean.data_ptr(),
+                 mean_sq.data_ptr(), m, c, _DTYPES[x.dtype])
+    if rc != 0:
+        raise RuntimeError(f"bn_moments kernel launch failed: cudaError {rc}")
+    moments_launches[tuple(x.shape), _DTYPE_NAMES[x.dtype]] += 1
+    return mean, mean_sq
+
+
+def _moments_backward(x, dmean, dmean_sq):
+    """dx of a CUDA x for the float32 cotangents (either None: zero), by
+    one launch of the backward kernel; None where both are None."""
+    c = _check_moments_cuda(x)
+    if dmean is None and dmean_sq is None:
+        return None
+    dx = torch.empty_like(x)
+    dm, dq = (None if v is None else v.to(device=x.device, dtype=torch.float32).contiguous()
+              for v in (dmean, dmean_sq))
+    rc = _launch(_entry("bn_moments_bwd_launch"), x.device, x.data_ptr(), None if dm is None else dm.data_ptr(),
+                 None if dq is None else dq.data_ptr(), dx.data_ptr(), x.numel() // c, c, _DTYPES[x.dtype])
+    if rc != 0:
+        raise RuntimeError(f"bn_moments backward kernel launch failed: cudaError {rc}")
+    moments_bwd_launches[tuple(x.shape), _DTYPE_NAMES[x.dtype]] += 1
+    return dx
