@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's training and serving paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json] [--profile] [--steps N]
+    python3 chip_smoke.py [--out results.json]
+
+It checks; it does not measure the port. The port's times are the
+benchmark's (``python3 benchmark/run.py --workload <cell> --seed <n>
+--seconds 50 --trace 1``); the only times here are phase 7's, each
+kernel's cold time at the shapes the main paths launched.
 
 Phases, each fatal on failure (exit code 1, and no result line):
 
@@ -32,16 +37,16 @@ Phases, each fatal on failure (exit code 1, and no result line):
        bench:   bfloat16 compute over float32 weights, batch 384,
                 share_pseudo_forward on;
      each in both arms (use_pallas True: the Hopper kernels; False: plain
-     PyTorch and cuDNN), from the same seeded state, in turns (kernel,
-     plain, plain, kernel). The kernels' launch counts, keyed by the shape
-     of each call, are cleared just before each arm's steps and read just
-     after: the kernel arm must launch each conv kernel at exactly the
-     shapes and counts that the step's convs imply (``step_launches``), the
-     epilogue's forward kernel the count its layers imply and its backward
+     PyTorch and cuDNN), from the same seeded state, 2 eager steps each
+     (the second the first on weights an update wrote). The kernels'
+     launch counts, keyed by the shape of each call, are cleared just
+     before each arm's steps and read just after: the kernel arm must
+     launch each conv kernel at exactly the shapes and counts that the
+     step's convs imply (``step_launches``), the epilogue's forward kernel
+     the count its layers imply and its backward
      kernel the count of those in passes that carry a gradient (43 a step at
      both settings), the plain arm nothing.
      Losses must be finite; the two arms' step-1 metrics must agree;
-     ms/step and img/s are timed;
   3b. graph: the same two settings and both arms through
      make_scan_device_train_step, 4 steps a chunk captured as one CUDA
      graph, cuDNN deterministic (the eager reference too); 64 steps in the
@@ -57,12 +62,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
      arm's none) and give the launches the replays made; the chunks must
      equal 8 eager steps from the same state bitwise (every parameter, BN
      stat, Adam moment, and every step's metrics: both reductions, "last"
-     and "mean"). Then eager and graphed ms/step and img/s (host clock,
-     each ending in a device→host read), the host µs a chunk takes to
-     dispatch and device ms/step (CUDA events after a device spin), in
-     turns (kernel, plain, plain, kernel); the graph's nodes,
-     capture-and-instantiate seconds and pool bytes; and for the shipped
-     kernel arm, a turn with cuDNN's deterministic algorithms off;
+     and "mean"); the graph's nodes, capture-and-instantiate seconds and
+     pool bytes are reported;
   3c. configs: mnist100, svhn1k and cifar10_cond at their published
      widths (``configs_phase``), kernel arm, cuDNN deterministic, each on
      its synthetic device data (60000, 8192 and 50000 train images;
@@ -86,8 +87,7 @@ Phases, each fatal on failure (exit code 1, and no result line):
      README's recipe: ``cli train`` 8 steps on the mnist shards, then
      ``cli eval`` (train's last error), ``cli sample`` (a grayscale PNG of
      10 rows) and ``cli serve`` (/classify of 28 × 28 × 1 images, /generate,
-     SIGTERM → 0). Then, alone, each arm's eager and graphed ms/step and
-     device ms/step;
+     SIGTERM → 0);
   3e. cifar10_snresnet (the SN-ResNet G and projection D) at its published
      widths, float32, kernel arm, on synthetic device data with phase 3's
      ZCA statistics: one eager step, then a chunk of K steps (warm-up,
@@ -123,7 +123,7 @@ Phases, each fatal on failure (exit code 1, and no result line):
      pseudo-labels) on the card with the kernels and on the CPU with their
      plain versions, on the same batches;
   4b. debug: one eager shipped step on a host batch unchecked and under
-     ``utils/debug.py::checkify_step`` (its slowdown; the same metrics); the
+     ``utils/debug.py::checkify_step`` (the same metrics); the
      D stream's z poisoned with NaN must raise naming an aten operator, and
      an Inf that first appears in a gradient (on autograd's device thread)
      must raise naming the backward's node and its forward line; one
@@ -134,10 +134,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
      that phase 2b's ``cli prepare`` made, 4 steps an epoch with an eval, a
      sample grid and a checkpoint each epoch: through ``python -m triplegan_tpu_torch.cli``,
      an 8-step run, alone (metrics logged at steps 2, 4, 6, 8, test errors
-     at 4 and 8, grids at 4 and 8, checkpoints 4 and 8 kept; the eager
-     loop's pace). Then side by side: ``eval``, which must print the 8-step
-     run's final error; ``sample`` (an RGB PNG 160 wide, 320 high); a
-     4-step run resumed for 4 more, whose step-8 checkpoint must equal the
+     at 4 and 8, grids at 4 and 8, checkpoints 4 and 8 kept). Then side by
+     side: ``eval``, which must print the 8-step run's final error;
+     ``sample`` (an RGB PNG 160 wide, 320 high); a 4-step run resumed for 4
+     more, whose step-8 checkpoint must equal the
      8-step run's bitwise; a run stopped by a STOP file (exit 75, a
      checkpoint at a step N ≤ 4), then re-run with ``--set scan_steps=4``
      to step 8 (it resumes from N; a chunk of 4 steps as a CUDA graph, then
@@ -150,10 +150,21 @@ Phases, each fatal on failure (exit code 1, and no result line):
      key, the epilogue counts their implied numbers, every shape one that
      phase 3 launched (so phase 7 holds it against the plain versions);
      each replay under torch.profiler must run each wrapper's kernel 4 ×
-     its launches a step; the plain arm launches nothing. Then, alone,
-     an eval and two checkpoint saves timed (the seconds ``save`` blocks the
-     loop, and until the file is published: saves are asynchronous) and the
-     graphed loop's pace (12 steps, a log every 4);
+     its launches a step; the plain arm launches nothing. Then, alone: an
+     eval of that run's final state, which must give its test error; two
+     saves of the state (asynchronous, as the loop makes them) whose leaves
+     must be equal; and a graphed run of 12 steps, a log every 4, which
+     must log at steps 4, 8 and 12;
+  5d. deploy: the 8-step run of phase 5 as a user ships it: ``cli export``
+     (float32 and int8 ``.pt2``), ``cli serve`` of the run dir, ``cli
+     inception``, ``fid``, ``predict`` and ``eval`` from the checkpoint and
+     from the artifact, side by side; the float32 artifacts' call pair on
+     the card launching each kernel as C's and G's forwards imply (by the
+     wrappers and, under torch.profiler, by kernel name), against
+     in-process serving (1e-4), the same artifacts on the CPU (1e-4) and the
+     int8 artifact (0.05 of the largest logit); predict's labels from the
+     checkpoint and the artifact equal; then one more train step, /reload,
+     and the server's SIGTERM exit 0;
   5b. host: the host-streamed path at the shipped setting with ddinit and
      the fused classifier (data_on_device off, ddinit on, fused_clf_forward
      on; kernel arm). In this process: ddinit on the card, its launches
@@ -174,11 +185,9 @@ Phases, each fatal on failure (exit code 1, and no result line):
      and maskbwd, TRIPLEGAN_SMALLCIN=patches, TRIPLEGAN_DECONV=transpose),
      each one eager shipped step per arm: launches as the variant implies
      (patches and transpose move convs off the kernels), finite losses,
-     step-1 metrics of the two arms agreeing. Then, alone: ms/step of the
-     host-streamed step against the same step on device data and phase 3's
-     device-data step, in turns; the host-to-device copies of one
-     profiled host-streamed step (none pageable); and one batch's copies
-     from device_prefetch's pinned buffers timed with CUDA events;
+     step-1 metrics of the two arms agreeing. Then, alone: device_prefetch's
+     host buffers pinned, and the host-to-device copies of one profiled
+     host-streamed step (none pageable);
   5c. mesh: data parallelism (``parallel/mesh.py``) on stl10 at its
      published widths (96 × 96, batch 128, float32, kernel arm) on the
      stl10 shards phase 2b's ``cli prepare`` made, 2 ranks on the one card
@@ -206,10 +215,7 @@ Phases, each fatal on failure (exit code 1, and no result line):
      device-data steps against the same 4 steps as one captured CUDA graph
      with the all-reduces inside, bitwise, its launches (2·4 + 1) ×
      step_launches and its replay's kernels counted by name in the profile
-     (and whether NCCL's kernels appear there). Numbers, no gate: a rank's
-     ms/step against one process's step on the global batch, and the host
-     ms a step a rank spends in its collectives (gloo through the host on
-     one shared card: not what NCCL across cards would take);
+     (and whether NCCL's kernels appear there);
   6. serve: as in slice 1: cifar10_4k at full width from seeded weights
      (written and read back in the JAX package's npz export format), per
      compute dtype and arm, an HTTP server on an ephemeral port driven
@@ -262,11 +268,6 @@ profile brackets its calls with 256 launches of a marker kernel on each
 side and must keep a marker on each side (``device_kernels``): in some
 states of this long process a window has lost its first records. Line
 "profile_markers" gives the windows that lost markers, and how many.
-
-With --profile, one extra step per train arm and 10 chunks per serving
-arm run under torch.profiler (device busy share, kernels by device time,
-and each train arm's in-step device time of the epilogue kernels, forward
-and backward).
 
 The last three lines of standard output are the kernels' JSON summary,
 nvidia-smi's line again, and ``{"ok": true, "device": {...}}``.
@@ -337,9 +338,10 @@ RAGGED_SHAPE = (7, 13, 11, 37)  # an epilogue off every path: odd C, scalar load
 SBA_REPS = 60                 # cold repetitions of each epilogue row
 CONV_REPEATS = 20             # float32 conv calls held bitwise to the first
 SPIN_CYCLES = 1_000_000       # ≈0.5 ms of device spin before each timed call
-# the epilogue kernels' names in a profile (in-step device time, --profile)
-EPILOGUE_KERNELS = {"epilogue_fwd": ("sba_fwd",), "epilogue_bwd": ("sba_bwd",)}
 TOTAL_STEPS = 10_000
+# phase 3's eager steps an arm: the second is the first whose losses are
+# computed from weights an update wrote
+TRAIN_STEPS = 2
 # (name, compute dtype, batch, share_pseudo_forward)
 SETTINGS = [("shipped", "float32", 100, False), ("bench", "bfloat16", 384, True)]
 
@@ -842,7 +844,7 @@ def profile_calls(fn, reps: int, top: int, groups=None) -> dict:
                            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]]}
 
 
-def train_arm(setting, use_pallas, data, zca, n_steps, profile) -> dict:
+def train_arm(setting, use_pallas, data, zca) -> dict:
     import torch
 
     from triplegan_tpu_torch.configs import make_networks
@@ -861,13 +863,10 @@ def train_arm(setting, use_pallas, data, zca, n_steps, profile) -> dict:
     torch.cuda.synchronize()
 
     counts_zero()  # the main path starts here
-    metrics, secs = [], []
-    for _ in range(n_steps):
-        t0 = time.perf_counter()
+    metrics = []
+    for _ in range(TRAIN_STEPS):
         state, m = step(state, dev_data)
-        m = {k: float(v) for k, v in m.items()}  # waits for the step
-        secs.append(time.perf_counter() - t0)
-        metrics.append(m)
+        metrics.append({k: float(v) for k, v in m.items()})  # waits for the step
     counts = counts_read()  # the main path ends here
     launches = totals(counts)
 
@@ -877,11 +876,8 @@ def train_arm(setting, use_pallas, data, zca, n_steps, profile) -> dict:
                      "y": torch.as_tensor(data.y_test, device="cuda"),
                      "mask": torch.ones(n_test, device="cuda")})
     arm = {"setting": name, "dtype": dtype, "batch": batch, "share_pseudo_forward": share,
-           "use_pallas": use_pallas, "steps": n_steps, "step_s": secs,
-           "ms_per_step": 1e3 * statistics.mean(secs[1:]),
-           "img_s": batch / statistics.mean(secs[1:]),
-           "first_step_s": secs[0], "launches": launches,
-           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+           "use_pallas": use_pallas, "steps": TRAIN_STEPS, "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
            "eval_correct": int(out["correct"]), "eval_count": int(out["count"]),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "metrics": metrics,
            "_counts": counts}
@@ -889,19 +885,16 @@ def train_arm(setting, use_pallas, data, zca, n_steps, profile) -> dict:
         check(sorted(m) == sorted(METRICS), f"metrics {sorted(m)}")
         check(all(math.isfinite(v) for v in m.values()), f"{name} arm {use_pallas}: step {t} {m}")
     if use_pallas:
-        check_step_launches(cfg, counts, n_steps, f"{name} kernel arm")
+        check_step_launches(cfg, counts, TRAIN_STEPS, f"{name} kernel arm")
         arm["_players"] = step_launches(cfg)[1]
     else:
         check(not any(launches.values()), f"{name} plain arm launched kernels: {launches}")
-    if profile:
-        arm["profile"] = profile_calls(lambda: float(step(state, dev_data)[1]["loss_c"]), reps=1, top=10,
-                                       groups=EPILOGUE_KERNELS)
     del state, step, dev_data
     torch.cuda.empty_cache()
     return arm
 
 
-def train_phase(n_steps: int, profile: bool):
+def train_phase():
     import torch
 
     from triplegan_tpu_torch.data.datasets import synthetic_dataset
@@ -909,28 +902,15 @@ def train_phase(n_steps: int, profile: bool):
 
     data = synthetic_dataset(image_size=32, channels=3, num_classes=10, n_train=4096, n_test=256,
                              num_labeled=512)
-    t0 = time.perf_counter()
     zca = fit_zca(data.x_unlabel)
-    emit("zca_fit", {"images": 4096, "seconds": time.perf_counter() - t0})
     arms = []
     for setting in SETTINGS:
-        # In turns (kernel, plain, plain, kernel), so a drift of clocks or
-        # host load over the run falls on both arms; each turn is a main-path
-        # run with its own launch counts. The first turn of each arm is
-        # reported (and profiled); ms/step is the mean of its two turns.
         pair = {}
-        for use_pallas in (True, False, False, True):
+        for use_pallas in (True, False):
             torch.cuda.reset_peak_memory_stats()
-            arm = train_arm(setting, use_pallas, data, zca, n_steps, profile and use_pallas not in pair)
-            arms.append(arm)
-            if use_pallas in pair:
-                first = pair[use_pallas]
-                first["ms_per_step_turns"] = [first["ms_per_step"], arm["ms_per_step"]]
-                first["ms_per_step"] = statistics.mean(first["ms_per_step_turns"])
-                first["img_s"] = first["batch"] * 1e3 / first["ms_per_step"]
-                emit("train", public(first))
-            else:
-                pair[use_pallas] = arm
+            pair[use_pallas] = train_arm(setting, use_pallas, data, zca)
+            arms.append(pair[use_pallas])
+            emit("train", public(pair[use_pallas]))
         a, b = pair[True]["metrics"][0], pair[False]["metrics"][0]
         diffs = {k: abs(a[k] - b[k]) for k in a}
         if setting[1] == "float32":
@@ -990,9 +970,9 @@ def device_kernels(fn, reps: int) -> dict:
     ``PROFILE_MARKERS`` marker kernels right before and right after them,
     of which the profile must keep at least one on each side): from its raw
     device records but the markers, the launches and device µs of each
-    ``HAND_KERNELS`` group, the device µs in all, the launches of NCCL's
-    kernels (names holding "nccl"), and the 10 kernels with the most device
-    time (names cut to 80 characters); and the markers lost."""
+    ``HAND_KERNELS`` group, the launches of NCCL's kernels (names holding
+    "nccl"), and the 10 kernels with the most device time (names cut to 80
+    characters); and the markers lost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1038,7 +1018,7 @@ def device_kernels(fn, reps: int) -> dict:
         hand.update({name[:160]: rec[0] for name, rec in hit.items()})
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     return {"reps": reps, "markers_lost": 2 * PROFILE_MARKERS - len(marks),
-            "groups": groups, "device_us": sum(r[1] for r in by_name.values()),
+            "groups": groups,
             "nccl": sum(r[0] for name, r in by_name.items() if "nccl" in name.lower()),
             "top_device": [{"name": n[:80], "launches": r[0], "us": r[1]} for n, r in top],
             "_hand": hand, "_all": {name[:160]: rec[0] for name, rec in by_name.items()}}
@@ -1069,8 +1049,7 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
     The graphed chunks must equal the eager steps bitwise (every
     parameter, BN stat, Adam moment, and every step's metrics, so both
     reductions, "last" and "mean", which run after a replay), with α_P and
-    the lr changing inside the chunks. Leaves the runner and its state for
-    the timing turns."""
+    the lr changing inside the chunks."""
     import torch
 
     from triplegan_tpu_torch.configs import make_networks
@@ -1087,12 +1066,9 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
     state = create_state(cfg, nets, opts, device="cuda")
     k = GRAPH_K
 
-    eager, ms, secs = S._clone_state(state), [], []
+    eager, ms = S._clone_state(state), []
     for _ in range(2 * k):
-        t0 = time.perf_counter()
         eager, m = step(eager, dev_data)
-        float(m["loss_c"])  # waits for the step
-        secs.append(time.perf_counter() - t0)
         ms.append(m)
     alpha = [float(m["alpha_p"]) for m in ms]
     lr = [float(m["lr_frac"]) for m in ms]
@@ -1143,49 +1119,14 @@ def graph_arm(setting, use_pallas, data, zca) -> dict:
     else:
         check(not any(launches.values()), f"{name} plain graph arm launched kernels: {launches}")
     replayed = dict(replayed_launches(prof), **moments_replayed(prof))
-    arm = {"setting": name, "dtype": dtype, "batch": batch, "use_pallas": use_pallas, "k": k,
-           "eager_ms_per_step": 1e3 * statistics.mean(secs[1:]), "bitwise_last": True, "bitwise_mean": True,
-           "graph": dict(runner.graph_stats), "launches_counted": launches, "launches_replayed": replayed,
-           "launches": {key: launches[key] + replayed[key] for key in launches},
-           "replayed_chunks": {"kernels_per_step": per_step, "kernels_in_chunk": in_chunk,
-                               "device_ms_per_step": prof["device_us"] / prof["reps"] / k / 1e3,
-                               "groups": prof["groups"], "top_device": prof["top_device"]},
-           "moments": check_moments(moments, use_pallas, f"{name} graph"),
-           "_runner": runner, "_state": state, "_data": dev_data, "_counts": counts, "_moments": moments,
-           "_steps": n}
-    arm["eager_img_s"] = batch * 1e3 / arm["eager_ms_per_step"]
-    return arm
-
-
-def time_graph_turn(arm, chunks=3) -> dict:
-    """One timing turn of a graph arm: ``chunks`` chunks on the host clock,
-    each ending in a device→host read, the host µs each call takes to
-    return (its dispatch), and one chunk between CUDA events after a device
-    spin (so the window holds device work only): device ms/step. A capture
-    that the runner needs first (``prepare``) is not timed."""
-    import torch
-
-    runner, data, k = arm["_runner"], arm["_data"], arm["k"]
-    state = arm["_state"]
-    runner.prepare(state, data)
-    torch.cuda.synchronize()
-    secs, dispatch = [], []
-    for _ in range(chunks):
-        t0 = time.perf_counter()
-        state, m = runner(state, data)
-        t1 = time.perf_counter()
-        float(m["loss_c"])
-        secs.append(time.perf_counter() - t0)
-        dispatch.append(t1 - t0)
-    torch.cuda._sleep(4 * SPIN_CYCLES)
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    state, m = runner(state, data)
-    e.record()
-    torch.cuda.synchronize()
-    arm["_state"] = state
-    return {"ms_per_step": 1e3 * statistics.mean(secs) / k, "dispatch_us": 1e6 * statistics.mean(dispatch),
-            "device_ms_per_step": s.elapsed_time(e) / k}
+    return {"setting": name, "dtype": dtype, "batch": batch, "use_pallas": use_pallas, "k": k,
+            "bitwise_last": True, "bitwise_mean": True, "graph": dict(runner.graph_stats),
+            "replays": runner.replays, "launches_counted": launches, "launches_replayed": replayed,
+            "launches": {key: launches[key] + replayed[key] for key in launches},
+            "replayed_chunks": {"kernels_per_step": per_step, "kernels_in_chunk": in_chunk,
+                                "groups": prof["groups"], "top_device": prof["top_device"]},
+            "moments": check_moments(moments, use_pallas, f"{name} graph"),
+            "_counts": counts, "_moments": moments, "_steps": n}
 
 
 def hand_kernels_per_step(counts: dict, n_steps: int, moments: dict) -> dict:
@@ -1216,28 +1157,10 @@ def hand_kernels_per_step(counts: dict, n_steps: int, moments: dict) -> dict:
             "bnm_bwd": moments["bn_moments_bwd"].total() / n_steps}
 
 
-def cudnn_cost_graphed(arm) -> dict:
-    """What cuDNN's deterministic algorithms (which the driver turns on)
-    cost a graphed step: one timing turn of the arm with them off (a
-    capture of its own), against its turns with them on."""
-    import torch
-
-    torch.backends.cudnn.deterministic = False
-    try:
-        off = time_graph_turn(arm)
-    finally:
-        torch.backends.cudnn.deterministic = True
-    return {"ms_per_step_off": off["ms_per_step"], "device_ms_per_step_off": off["device_ms_per_step"],
-            "cost_device_ms_per_step": arm["graph_device_ms_per_step"] - off["device_ms_per_step"]}
-
-
 def graph_phase(data, zca) -> list:
     """cifar10_4k at full width, both settings and both arms, with cuDNN in
     its deterministic algorithms (as the driver runs; the eager reference
-    runs with the same setting): per arm the main path of ``graph_arm``;
-    then timing in turns (kernel, plain, plain, kernel), whose replays are
-    outside the counted main path; then, for the shipped kernel arm, the
-    cost of cuDNN's deterministic algorithms under the graph."""
+    runs with the same setting): per arm the main path of ``graph_arm``."""
     import torch
 
     det = torch.backends.cudnn.deterministic
@@ -1245,23 +1168,10 @@ def graph_phase(data, zca) -> list:
     out = []
     try:
         for setting in SETTINGS:
-            arms = {p: graph_arm(setting, p, data, zca) for p in (True, False)}
-            turns = {True: [], False: []}
-            for p in (True, False, False, True):
-                turns[p].append(time_graph_turn(arms[p]))
-            for p, arm in arms.items():
-                for key in ("ms_per_step", "dispatch_us", "device_ms_per_step"):
-                    arm[key + "_turns"] = [t[key] for t in turns[p]]
-                    arm["graph_" + key] = statistics.mean(arm[key + "_turns"])
-                arm["graph_img_s"] = arm["batch"] * 1e3 / arm["graph_ms_per_step"]
-                check(arm["_runner"].captures == 1, f"{setting[0]}: captured {arm['_runner'].captures} times")
-                arm["replays"] = arm["_runner"].replays
-                if p and setting[0] == "shipped":
-                    arm["cudnn_deterministic_cost"] = cudnn_cost_graphed(arm)
-                emit("graph", public(arm))
-                out.append({k: v for k, v in arm.items() if k not in ("_runner", "_state", "_data")})
-            del arms
-            torch.cuda.empty_cache()
+            for p in (True, False):
+                out.append(graph_arm(setting, p, data, zca))
+                emit("graph", public(out[-1]))
+                torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.deterministic = det
     return out
@@ -1320,7 +1230,7 @@ def config_arm(name: str, dtype: str, batch: int, n_eager: int, data, zca) -> di
     records must hold each hand-written kernel K × the count a step runs;
     the chunk must equal K eager steps from the same state bitwise (every
     state tensor, every step's metrics), which run after it. Leaves the
-    runner, its state and the eager step for ``config_timing``."""
+    state for ``config_serving``."""
     import torch
 
     from triplegan_tpu_torch.configs import make_networks
@@ -1382,11 +1292,10 @@ def config_arm(name: str, dtype: str, batch: int, n_eager: int, data, zca) -> di
             "launches": {key: launches[key] + replayed[key] for key in launches},
             "launches_per_step": step_totals(cfg),
             "replayed_chunk": {"kernels_per_step": per_step, "groups": prof["groups"],
-                               "device_ms_per_step": prof["device_us"] / k / 1e3, "top_device": prof["top_device"]},
+                               "top_device": prof["top_device"]},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "_counts": counts, "_moments": moments, "_steps": n, "_players": step_launches(cfg)[1], "_cfg": cfg,
-            "_nets": nets,
-            "_runner": runner, "_state": state, "_data": dev_data, "_step": step}
+            "_nets": nets, "_state": state}
 
 
 SNRESNET = "cifar10_snresnet"
@@ -1610,28 +1519,6 @@ def mnist_cli_chain(data_dir: str, workdir: str) -> dict:
             "side_by_side_seconds": time.perf_counter() - t0, "healthz": health}
 
 
-def config_timing(arm) -> dict:
-    """With nothing else running: ms/step of 3 eager steps from a copy of
-    the arm's state (host clock, each ending in a device→host read), and
-    one ``time_graph_turn`` of 2 chunks (graphed ms/step, a chunk's
-    dispatch µs, device ms/step)."""
-    import torch
-
-    from triplegan_tpu_torch.train import step as S
-
-    st, secs = S._clone_state(arm["_state"]), []
-    torch.cuda.synchronize()
-    for _ in range(3):
-        t0 = time.perf_counter()
-        st, m = arm["_step"](st, arm["_data"])
-        float(m["loss_c"])
-        secs.append(time.perf_counter() - t0)
-    del st
-    turn = time_graph_turn(arm, chunks=2)
-    return {"eager_ms_per_step": 1e3 * statistics.mean(secs), "graph_ms_per_step": turn["ms_per_step"],
-            "graph_dispatch_us": turn["dispatch_us"], "graph_device_ms_per_step": turn["device_ms_per_step"]}
-
-
 def configs_phase(data_dir: str, zca) -> list:
     """mnist100, svhn1k and cifar10_cond at their published widths, kernel
     arm, cuDNN deterministic. Side by side with ``mnist_cli_chain`` (a
@@ -1642,8 +1529,7 @@ def configs_phase(data_dir: str, zca) -> list:
     ``card_vs_cpu`` of the configuration (``deterministic``, batch
     ``CONFIG_CPU_BATCH``: mnist100 at its published widths; svhn1k and
     cifar10_cond gated at a few channels, their published widths reported
-    ungated) and, for those two, ``config_loop`` on the prepared shards.
-    Then, alone, ``config_timing`` of every arm."""
+    ungated) and, for those two, ``config_loop`` on the prepared shards."""
     import shutil
 
     import torch
@@ -1661,6 +1547,8 @@ def configs_phase(data_dir: str, zca) -> list:
             cz = zca if config_cfg(name, "float32", BATCH).zca else None
             rec = {"config": name, "data_seconds": time.perf_counter() - t0, "train_images": CONFIG_TRAIN[name]}
             mine = [config_arm(name, dtype, batch, n_eager, data, cz) for dtype, batch, n_eager in CONFIG_ARMS[name]]
+            for arm in mine:
+                emit("config_arm", public(arm))
             rec["serving"] = config_serving(mine[0], data, cz)
             # mnist100 at its published widths; the others' two steps there are
             # ill-conditioned (PERF.md), so they are held at a few channels and
@@ -1677,9 +1565,6 @@ def configs_phase(data_dir: str, zca) -> list:
             res.append(rec)
             del data
         cli_chain = f_cli.result()
-        for arm in arms:
-            arm.update(config_timing(arm))
-            emit("config_arm", public(arm))
     finally:
         ex.shutdown(wait=True)
         torch.backends.cudnn.deterministic = det
@@ -2056,13 +1941,12 @@ def card_vs_cpu_phase(data, zca) -> dict:
 
 def debug_phase(data, zca) -> dict:
     """One eager shipped step (cifar10_4k, float32, batch 100, kernel arm,
-    ``make_train_step`` on a host batch from ``BatchSampler``) timed
-    unchecked and under ``utils/debug.py::checkify_step`` (twice: the first
-    call pays the dispatch mode's first use; the slowdown is the second's),
-    whose metrics must equal the unchecked step's within phase 3's
-    float32 tolerance; the same step with the D stream's ``z`` poisoned
-    (NaN) must raise ``NonFiniteError`` naming an aten operator; a step
-    whose first Inf appears in a gradient (the derivative of sqrt at 0, run
+    ``make_train_step`` on a host batch from ``BatchSampler``) unchecked
+    and under ``utils/debug.py::checkify_step``, whose metrics must equal
+    the unchecked step's within phase 3's float32 tolerance; the same
+    step with the D stream's ``z`` poisoned (NaN) must raise
+    ``NonFiniteError`` naming an aten operator; a step whose first Inf
+    appears in a gradient (the derivative of sqrt at 0, run
     by autograd's device thread) must raise naming ``SqrtBackward0``. Then
     one ``utils/profiling.py::trace`` window around one step, whose Chrome
     trace must hold each group of hand-written kernels by name
@@ -2088,18 +1972,11 @@ def debug_phase(data, zca) -> dict:
     def on_card(batch):
         return {k: {kk: torch.as_tensor(v, device="cuda") for kk, v in s.items()} for k, s in batch.items()}
 
-    def timed(fn, batch):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, m = fn(state, on_card(batch))
-        m = {k: float(v) for k, v in m.items()}
-        return time.perf_counter() - t0, m
+    def metrics(fn, batch):
+        return {k: float(v) for k, v in fn(state, on_card(batch))[1].items()}
 
-    step(state, on_card(host))  # warm-up: cuDNN's plans, the kernels' first calls
     checked = checkify_step(step)
-    plain_s, want = timed(step, host)
-    first_checked_s, _ = timed(checked, host)  # the dispatch mode's first use included
-    checked_s, got = timed(checked, host)
+    want, got = metrics(step, host), metrics(checked, host)
     for k in want:
         check(abs(got[k] - want[k]) <= 1e-3 * (1 + abs(want[k])), f"checkify changed {k}: {got[k]} vs {want[k]}")
     poisoned = {k: dict(v) for k, v in host.items()}
@@ -2141,8 +2018,6 @@ def debug_phase(data, zca) -> dict:
     for name, n in in_trace.items():
         check(n > 0, f"the trace window's Chrome trace holds no {name} kernel ({HAND_KERNELS[WRAPPER_GROUP[name]]})")
     res = {"config": "cifar10_4k float32 batch 100 kernel arm, make_train_step on a host batch",
-           "step_seconds": plain_s, "first_checked_step_seconds": first_checked_s,
-           "checked_step_seconds": checked_s, "checkify_slowdown": checked_s / plain_s,
            "poisoned_error": poisoned_msg, "gradient_error": grad_msg, "trace_kernels": in_trace,
            "trace_kernels_implied": step_totals(cfg), "trace_device_kernels": len(names), "trace_mb": trace_mb}
     emit("debug", res)
@@ -2449,15 +2324,15 @@ def step_totals(cfg) -> dict:
             "conv3x3_wgrad": sum(c for key, c in convs.items() if key[0] == "wgrad")}
 
 
-def driver_timing(data_dir, workdir, inproc, n_steps=12) -> dict:
-    """With nothing else running: one eval and two checkpoint saves of the
-    in-process run's final state, timed (the seconds ``save`` blocks, and
-    the seconds until the file is published); and the graphed loop's own pace:
-    an in-process run of ``n_steps`` steps (shipped setting, kernel arm,
-    cuDNN deterministic as the driver runs) with ``scan_steps=4``, a log
-    every 4 steps and no eval, grid or checkpoint before the end; ms/step
-    from the log records after the first 4 steps (each window one chunk,
-    ending in the read of the metrics)."""
+def driver_rechecks(data_dir, workdir, inproc, n_steps=12) -> dict:
+    """With nothing else running: one eval of the in-process run's final
+    state, which must give the run's test error; two checkpoint saves of
+    that state in turn, as the loop makes them (the first also allocates
+    the manager's pinned host buffers), at two step numbers, whose leaves
+    must be equal bitwise; and an in-process run of ``n_steps`` steps
+    (shipped setting, kernel arm, cuDNN deterministic as the driver runs)
+    with ``scan_steps=4``, a log every 4 steps and no eval, grid or
+    checkpoint before the end, which must log at every fourth step."""
     import torch
 
     from triplegan_tpu_torch.ckpt.manager import CheckpointManager
@@ -2472,60 +2347,41 @@ def driver_timing(data_dir, workdir, inproc, n_steps=12) -> dict:
     sampler = BatchSampler(train_loop._resolve_data(cfg), cfg.batch_size)
     zca = train_loop._resolve_zca(cfg, sampler.data, os.path.join(cfg.workdir, cfg.name))
     eval_step = make_eval_step(cfg, make_networks(cfg), zca)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     err = evaluate_error(eval_step, state, train_loop._test_stream(sampler, torch.device("cuda")))
-    eval_s = time.perf_counter() - t0
     check(err == res["test_error"], f"re-evaluated error {err} != the run's {res['test_error']}")
-    # two saves of the state in turn, as the loop makes them (the first also
-    # allocates the manager's pinned host buffers): how long save blocks the
-    # loop, and how long until the file is published
-    saver = CheckpointManager(os.path.join(workdir, "save_timing"))
-    blocks, published = [], []
+    saver = CheckpointManager(os.path.join(workdir, "saves"))
     for step_no in (state.step, state.step + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         check(saver.save(step_no, state), f"save {step_no} refused")
-        blocks.append(time.perf_counter() - t0)
         saver.wait()
-        published.append(time.perf_counter() - t0)
-    ckpt_bytes = os.path.getsize(os.path.join(saver.directory, str(state.step)))
     check(not ckpt_equal(os.path.join(saver.directory, str(state.step)),
                          os.path.join(saver.directory, str(state.step + 1))), "the two saves differ")
 
     det = torch.backends.cudnn.deterministic
     try:
-        cfg = driver_cfg(workdir, data_dir, "pace", f"scan_steps={GRAPH_K}", "log_every=4",
+        cfg = driver_cfg(workdir, data_dir, "graphed", f"scan_steps={GRAPH_K}", "log_every=4",
                          "eval_every_epochs=0", "ckpt_every_epochs=0")
         run = train_loop.train(cfg, max_steps=n_steps, verbose=False, device="cuda")
     finally:
         torch.backends.cudnn.deterministic = det
-    check(run["steps"] == n_steps, f"loop timing run: {run['steps']} steps")
+    check(run["steps"] == n_steps, f"graphed loop run: {run['steps']} steps")
     with open(os.path.join(run["workdir"], "metrics.jsonl")) as f:
-        recs = [json.loads(ln) for ln in f]
-    ms = {r["step"]: 1e3 * cfg.batch_size / r["images_per_sec"] for r in recs if "images_per_sec" in r}
-    check(sorted(ms) == list(range(4, n_steps + 1, 4)), f"loop timing logged at {sorted(ms)}")
-    return {"eval_seconds": eval_s, "ckpt_save_blocks_seconds": blocks, "ckpt_save_published_seconds": published,
-            "ckpt_bytes": ckpt_bytes,
-            "graphed_loop_ms_per_step_by_log": ms,
-            "graphed_loop_ms_per_step": statistics.mean(v for st, v in ms.items() if st > 4)}
+        logged = sorted(r["step"] for r in map(json.loads, f) if "images_per_sec" in r)
+    check(logged == list(range(4, n_steps + 1, 4)), f"graphed loop logged at {logged}")
+    return {"reevaluated_error": err, "saves_equal": True, "graphed_loop_logged_at": logged}
 
 
-def driver_phase(train_arms, graph_arms, data_dir) -> dict:
+def driver_phase(train_arms, data_dir) -> dict:
     """The train driver end to end, through the CLI as a user calls it, on
     cifar10_4k at full width (float32, batch 100, kernel arm; 4 steps an
     epoch, an eval, a sample grid and a checkpoint each epoch, a log every
-    2 steps): a straight 8-step run, alone (the eager loop's pace comes
-    from its log records); then, side by side (four threads, each running
-    its CLI processes in turn, and this process): ``cli eval`` of the
+    2 steps): a straight 8-step run, alone; then, side by side (four
+    threads, each running its CLI processes in turn, and this process): ``cli eval`` of the
     straight run, which must print its final test error; ``cli sample``; a
     run of 4 steps resumed for 4 more, whose step-8 checkpoint must equal
     the straight run's bitwise; a run stopped by a STOP file and resumed to
     step 8 as a CUDA graph (``--set scan_steps=4``), bitwise equal to the
     straight run; and the in-process graphed run whose launches are
-    counted. Then, alone again, ``driver_timing``."""
-    bare = next(a for a in train_arms if a["setting"] == "shipped" and a["use_pallas"])
-    bare_graph = next(a for a in graph_arms if a["setting"] == "shipped" and a["use_pallas"])
+    counted. Then, alone again, ``driver_rechecks``."""
     # beside the data, whose directory the caller removes: the straight
     # run's w1 stays for the deploy phase
     tmp = tempfile.mkdtemp(prefix="driver_", dir=os.path.dirname(data_dir))
@@ -2546,10 +2402,6 @@ def driver_phase(train_arms, graph_arms, data_dir) -> dict:
             check(os.path.exists(os.path.join(run1, f"samples_{it:08d}.png")), f"no sample grid at {it}")
         kept = sorted(int(n) for n in os.listdir(os.path.join(run1, "ckpt")) if n.isdigit())
         check(kept == [4, 8], f"checkpoints kept {kept}")
-        # ms/step by log record; the records at steps 4 and 8 time steps 3-4
-        # and 7-8 alone (the one at 6 also holds step 4's eval, grid and
-        # checkpoint, the one at 2 the first step)
-        loop_ms = {r["step"]: 1e3 * BATCH / r["images_per_sec"] for r in recs if "images_per_sec" in r}
 
         grid = os.path.join(tmp, "grid.png")
         t0 = time.perf_counter()
@@ -2575,7 +2427,7 @@ def driver_phase(train_arms, graph_arms, data_dir) -> dict:
         check(stop["resumed_done"] == done, f"graphed re-run: {stop['resumed_done']}; straight: {done}")
         diff = ckpt_equal(os.path.join(run1, "ckpt", "8"), os.path.join(w3, "cifar10_4k", "ckpt", "8"))
         check(not diff, f"the graphed re-run's step-8 checkpoint differs from the eager run's at {diff[:10]}")
-        timing = driver_timing(data_dir, os.path.join(tmp, "w5"), inproc)
+        rechecks = driver_rechecks(data_dir, os.path.join(tmp, "w5"), inproc)
     finally:
         import shutil
 
@@ -2585,9 +2437,7 @@ def driver_phase(train_arms, graph_arms, data_dir) -> dict:
            "straight_8_seconds": straight_s, "side_by_side_seconds": side_by_side_s,
            "resume_4_4_seconds": resume_s, "eval_seconds_cli": eval_s, "sample_seconds_cli": sample_s,
            **stop, "graphed_bitwise": True, "final": done,
-           "loop_ms_per_step_by_log": loop_ms, "loop_ms_per_step": statistics.mean([loop_ms[4], loop_ms[8]]),
-           "bare_step_ms_per_step": bare["ms_per_step"], "bare_graphed_ms_per_step": bare_graph["graph_ms_per_step"],
-           "resume_bitwise": True, **{k: v for k, v in inproc.items() if not k.startswith("_")}, **timing}
+           "resume_bitwise": True, **{k: v for k, v in inproc.items() if not k.startswith("_")}, **rechecks}
     emit("driver", res)
     return res
 
@@ -2598,7 +2448,6 @@ def driver_phase(train_arms, graph_arms, data_dir) -> dict:
 
 DEPLOY_SAMPLES = 1000   # generated samples an inception or fid run scores
 DEPLOY_PREDICT = 250    # images a predict labels: chunks 100, 100, 50 (+50 pad)
-DEPLOY_CALLS = 10       # timed calls of each serving function, after 2 untimed
 
 
 def served_inputs(cfg, n: int):
@@ -2611,20 +2460,6 @@ def served_inputs(cfg, n: int):
 
 def max_diff(a, b) -> float:
     return float((a.double().cpu() - b.double().cpu()).abs().max())
-
-
-def call_ms(fn, *args) -> float:
-    """ms a call of ``fn`` on the card's tensors, host clock, warm."""
-    import torch
-
-    for _ in range(2):
-        fn(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(DEPLOY_CALLS):
-        fn(*args)
-    torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0) / DEPLOY_CALLS
 
 
 def serve_start(run_args) -> tuple:
@@ -2711,8 +2546,7 @@ def deploy_phase(driver, data_dir) -> dict:
         (atol 1e-4); the int8 artifact's logits against the float32 ones
         (within 0.05 of the largest logit or of 1); the files' sizes;
       * ``serve_and_reload`` on the server, its extra train step after
-        every other CLI run has ended;
-      * alone, a call's ms of each artifact and of in-process serving."""
+        every other CLI run has ended."""
     import torch
 
     from triplegan_tpu_torch.cli import _load_zca, _restore_run
@@ -2829,8 +2663,6 @@ def deploy_phase(driver, data_dir) -> dict:
             proc.kill()
             proc.wait()
     side_by_side_s = time.perf_counter() - t0
-    ms = {"artifact_classify": call_ms(ac, ti), "inprocess_classify": call_ms(classify, ti),
-          "artifact_generate": call_ms(ag, tz, ty), "inprocess_generate": call_ms(generate, tz, ty)}
     del art, cpu
     torch.cuda.empty_cache()
 
@@ -2851,7 +2683,7 @@ def deploy_phase(driver, data_dir) -> dict:
     res = {"config": "cifar10_4k float32 batch 100 kernel arm, the driver's run at step 8",
            "export_seconds": export_s, "sizes_bytes": sizes,
            "launches": launches, "launches_by_kernel_name": by_name, "profiles": len(profiled),
-           "_counts": counts, "artifact_vs_inprocess": vs_inproc, "call_ms": ms, "artifact_card_vs_cpu": vs_cpu,
+           "_counts": counts, "artifact_vs_inprocess": vs_inproc, "artifact_card_vs_cpu": vs_cpu,
            "int8_vs_float32": int8, "eval_artifact": err, "predict": predict, "scores": scores,
            "cli_seconds": {name: r[0] for name, r in done.items()},
            "serve": {"start_seconds": serve_start_s, **served},
@@ -2868,7 +2700,6 @@ def deploy_phase(driver, data_dir) -> dict:
 HOST_SETS = ["data_on_device=False", "ddinit=True", "fused_clf_forward=True"]
 HOST_STEPS = 6          # counted host-streamed steps; the first 4 byte-checked
 HOST_BYTE_STEPS = 4
-HOST_TURN_STEPS = 6     # steps a timing turn
 # the layer variants the JAX package reads from the environment, each at a
 # value with which it computes another layer
 VARIANTS = [("TRIPLEGAN_DROPOUT_BITS", "8"), ("TRIPLEGAN_MAXPOOL", "reshape"), ("TRIPLEGAN_MAXPOOL", "maskbwd"),
@@ -2998,7 +2829,7 @@ def host_arm(data, zca) -> dict:
     sampler's host batch bytewise. The plain arm's first step from the
     same ddinit state on the same batch must agree with the kernel arm's
     (phase 3's float32 tolerance) and launch nothing. Leaves the state,
-    step, stream and first host batch for the timing turns."""
+    step, stream and first host batch for ``host_copies``."""
     import torch
 
     from triplegan_tpu_torch.configs import make_networks
@@ -3029,7 +2860,6 @@ def host_arm(data, zca) -> dict:
     torch.cuda.synchronize()
     seen, metrics = [], []
     counts_zero()  # the main path starts here
-    t0 = time.perf_counter()
     for t in range(HOST_STEPS):
         batch = next(batches)
         if t < HOST_BYTE_STEPS:
@@ -3037,7 +2867,6 @@ def host_arm(data, zca) -> dict:
         state, m = step(state, batch)
         metrics.append(m)
     metrics = [{k: float(v) for k, v in m.items()} for m in metrics]  # waits for the steps
-    first_s = time.perf_counter() - t0
     counts = counts_read()  # the main path ends here
     check(native.native_available(), "the sampler's gathers did not go through the native library")
     for t, got in enumerate(seen):
@@ -3066,187 +2895,34 @@ def host_arm(data, zca) -> dict:
     arm = {"config": "cifar10_4k float32 batch 100 kernel arm, data_on_device=False, ddinit, fused_clf_forward",
            "steps": HOST_STEPS, "ddinit": dd, "ddinit_launches": dd["launches"], "launches": launches,
            "launches_per_step": {k: v / HOST_STEPS for k, v in launches.items()},
-           "native_gather": True, "bytes_checked_steps": HOST_BYTE_STEPS, "first_run_s": first_s,
+           "native_gather": True, "bytes_checked_steps": HOST_BYTE_STEPS,
            "metrics": metrics, "plain_step1": pm, "arms_abs_diff": diffs,
            "_counts": counts, "_dd_counts": dd_counts, "_players": players,
            "_state": state, "_step": step, "_batches": batches, "_cfg": cfg, "_host0": host[0]}
     return arm
 
 
-def htod_batch_copy(batch, reps=20) -> dict:
-    """One host batch's copies to the card as ``device_prefetch`` makes
-    them (from its pinned buffers, ``non_blocking``, on a side stream):
-    the median device time of ``reps`` rounds between CUDA events on that
-    stream, with the bytes and the rate."""
-    import torch
-
+def host_copies(arm) -> dict:
+    """With nothing else running: ``device_prefetch``'s host buffers for
+    the first host batch must be pinned, and one host-streamed step of
+    ``host_arm`` under torch.profiler must make no host-to-device copy from
+    pageable memory (its copies' records by name; Kineto does not always
+    keep the side stream's copies)."""
     from triplegan_tpu_torch.data.pipeline import _leaves, _PinnedSlot
 
-    dev = torch.device("cuda")
-    slot = _PinnedSlot(batch)
-    slot.fill(batch)
-    bufs = list(_leaves(slot.bufs))
-    check(all(b.is_pinned() for b in bufs), "device_prefetch's host buffers are not pinned")
-    stream = torch.cuda.Stream(device=dev)
-    pairs = []
-    with torch.cuda.stream(stream):
-        for _ in range(reps):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record(stream)
-            outs = [b.to(dev, non_blocking=True) for b in bufs]
-            e.record(stream)
-            pairs.append((s, e))
-    torch.cuda.synchronize()
-    del outs
-    nbytes = sum(b.numel() * b.element_size() for b in bufs)
-    us = statistics.median(1e3 * s.elapsed_time(e) for s, e in pairs)
-    return {"tensors": len(bufs), "bytes": nbytes, "us": us, "gb_s": nbytes / us / 1e3}
-
-
-class FeedClock:
-    """Host seconds of the parts of ``device_prefetch``'s ``next`` while
-    active, by wrapping the pipeline functions it looks up at each call:
-    the sampler (``next_triple``: its RandomState draws and its native
-    gathers), the gathers alone (``gather_rows``, with ``threads`` threads
-    where given), the pinned slot's wait on the event of its last copies
-    and its refill (``_PinnedSlot.fill``), and the hand-over to the
-    consumer's stream. What ``next`` spends beyond these is the ``.to()``
-    launches, the event record and the generator's own work."""
-
-    def __init__(self, threads=None):
-        self.threads = threads
-        self.s = collections.Counter()
-
-    def __enter__(self):
-        from triplegan_tpu_torch.data import pipeline as P
-
-        self._saved = (P.gather_rows, P.BatchSampler.next_triple, P._PinnedSlot.fill, P._hand_over)
-        gather, next_triple, fill, hand_over = self._saved
-        s, threads = self.s, self.threads
-
-        def timed(part, fn):
-            def run(*a, **k):
-                t0 = time.perf_counter()
-                try:
-                    return fn(*a, **k)
-                finally:
-                    s[part] += time.perf_counter() - t0
-            return run
-
-        def timed_fill(slot, batch):
-            t0 = time.perf_counter()
-            if slot.done is not None:
-                slot.done.synchronize()
-            t1 = time.perf_counter()
-            fill(slot, batch)
-            s["slot_wait"] += t1 - t0
-            s["slot_fill"] += time.perf_counter() - t1
-
-        P.gather_rows = timed("gather", gather if threads is None else
-                              lambda src, idx: gather(src, idx, n_threads=threads))
-        P.BatchSampler.next_triple = timed("sampler", next_triple)
-        P._PinnedSlot.fill = timed_fill
-        P._hand_over = timed("hand_over", hand_over)
-        return self
-
-    def __exit__(self, *exc):
-        from triplegan_tpu_torch.data import pipeline as P
-
-        P.gather_rows, P.BatchSampler.next_triple, P._PinnedSlot.fill, P._hand_over = self._saved
-
-    def ms_per_step(self, steps: int) -> dict:
-        ms = {k: 1e3 * self.s[k] / steps for k in ("next", "sampler", "gather", "slot_wait", "slot_fill",
-                                                    "hand_over")}
-        ms["draws"] = ms["sampler"] - ms["gather"]
-        ms["launches_and_rest"] = ms["next"] - sum(ms[k] for k in ("sampler", "slot_wait", "slot_fill",
-                                                                   "hand_over"))
-        return ms
-
-
-def gather_ms(data, reps=50) -> dict:
-    """Median host ms of one native gather of a batch of random rows of
-    the unlabeled images, at 1 thread and at 8 (the JAX package's count
-    on an 8-core host), with nothing else running."""
-    from triplegan_tpu_torch.data import native
-
-    rng = np.random.RandomState(SEED)
-    out = {}
-    for threads in (1, 8):
-        ts = []
-        for _ in range(reps):
-            idx = rng.randint(0, len(data.x_unlabel), size=BATCH)
-            t0 = time.perf_counter()
-            native.gather_rows(data.x_unlabel, idx, n_threads=threads)
-            ts.append(1e3 * (time.perf_counter() - t0))
-        out[f"threads_{threads}"] = statistics.median(ts)
-    return out
-
-
-def host_timing(arm, data, zca) -> dict:
-    """ms/step, each turn ``HOST_TURN_STEPS`` steps ending in a read of
-    the last step's metrics, in turns (host, host with 8-thread gathers,
-    device fused, device, device, device fused, host with 8-thread
-    gathers, host): the host-streamed fused step of ``host_arm`` (its
-    gathers at the default thread count, and at the JAX package's 8), the same step
-    on device-resident data, and phase 3's shipped device-data step (three
-    classifier passes). For the host-streamed turns, the host ms a step
-    spends in ``next`` on the prefetcher, in parts (``FeedClock``); one
-    gather timed alone at each thread count (``gather_ms``); then one
-    host-streamed step under torch.profiler, its host-to-device copies'
-    records by name (none may be pageable; Kineto does not always keep
-    the side stream's copies), and one batch's copies timed with CUDA
-    events (``htod_batch_copy``)."""
-    import torch
-
-    from triplegan_tpu_torch.configs import make_networks
-    from triplegan_tpu_torch.train import step as S
-    from triplegan_tpu_torch.train.schedule import make_optimizers
-    from triplegan_tpu_torch.train.state import create_state
-
-    dev_data = S.upload_device_data(data, "cuda")
-    runs = {"host": [arm["_step"], arm["_state"], None]}
-    runs["host_8threads"] = runs["host"]  # the same step, state and prefetcher
-    for name, cfg in (("device_fused", host_cfg(True)), ("device", train_cfg("float32", BATCH, False, True))):
-        nets = make_networks(cfg)
-        opts = make_optimizers(cfg, TOTAL_STEPS)
-        runs[name] = [S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca),
-                      create_state(cfg, nets, opts, device="cuda"), dev_data]
+    check(all(b.is_pinned() for b in _leaves(_PinnedSlot(arm["_host0"]).bufs)),
+          "device_prefetch's host buffers are not pinned")
     batches = arm["_batches"]
-    turns = collections.defaultdict(list)
-    clocks = {"host": FeedClock(), "host_8threads": FeedClock(threads=8)}
-    for name in ("host", "host_8threads", "device_fused", "device", "device", "device_fused", "host_8threads",
-                 "host"):
-        step, state, data_ = runs[name]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(HOST_TURN_STEPS):
-            if data_ is None:
-                with clocks[name] as clock:
-                    t1 = time.perf_counter()
-                    batch = next(batches)
-                    clock.s["next"] += time.perf_counter() - t1
-            state, m = step(state, data_ if data_ is not None else batch)
-        float(m["loss_c"])
-        turns[name].append(1e3 * (time.perf_counter() - t0) / HOST_TURN_STEPS)
-        runs[name][1] = state
-    feed = {name: clock.ms_per_step(HOST_TURN_STEPS * len(turns[name])) for name, clock in clocks.items()}
 
     def one_step():
-        step, state, _ = runs["host"]
-        runs["host"][1], m = step(state, next(batches))
+        arm["_state"], m = arm["_step"](arm["_state"], next(batches))
         float(m["loss_c"])
 
     copies = device_memcpy(one_step)
     batches.close()
     check(not any("Pageable" in name for name in copies),
           f"host-streamed copies not all from pinned memory: {sorted(copies)}")
-    ms = {name: statistics.mean(v) for name, v in turns.items()}
-    return {"ms_per_step": ms, "ms_per_step_turns": dict(turns), "steps_a_turn": HOST_TURN_STEPS,
-            "img_s": {k: BATCH * 1e3 / v for k, v in ms.items()},
-            "host_over_device_fused": ms["host"] / ms["device_fused"],
-            "host_feed_ms_per_step": feed["host"]["next"], "feed_ms_per_step": feed,
-            "gather_ms_alone": gather_ms(data),
-            "htod_profiled_step": copies, "htod_batch_copy": htod_batch_copy(arm["_host0"])}
+    return {"htod_profiled_step": copies}
 
 
 def host_cli_chain(workdir, data_dir) -> dict:
@@ -3342,7 +3018,7 @@ def variant_counts(res) -> dict:
 def host_phase(data, zca, data_dir) -> dict:
     """Phase 5b: the two host-streamed CLI chains (``host_cli_chain``) and
     the five variants' subprocesses (``variant_run``) side by side, while
-    this process runs ``host_arm``; then, alone, ``host_timing``. The two
+    this process runs ``host_arm``; then, alone, ``host_copies``. The two
     chains' step-8 checkpoints must be equal bitwise."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
     try:
@@ -3357,13 +3033,13 @@ def host_phase(data, zca, data_dir) -> dict:
         diff = ckpt_equal(*(os.path.join(tmp, f"h{i}", "cifar10_4k", "ckpt", "8") for i in range(2)))
         check(not diff, f"the two host-streamed CLI runs' step-8 checkpoints differ at {diff[:10]}")
         check(chain_res[0]["done"] == chain_res[1]["done"], f"host-streamed CLI runs: {chain_res}")
-        timing = host_timing(arm, data, zca)
+        copies = host_copies(arm)
     finally:
         import shutil
 
         shutil.rmtree(tmp, ignore_errors=True)
     res = {**{k: v for k, v in arm.items() if not k.startswith("_")}, "side_by_side_seconds": side_by_side_s,
-           "cli_chains": chain_res, "cli_checkpoints_bitwise": True, "variants": variant_res, **timing,
+           "cli_chains": chain_res, "cli_checkpoints_bitwise": True, "variants": variant_res, **copies,
            "launches_counted": {k: arm["launches"][k] + sum(v["launches"][k] for v in variant_res)
                                 + arm["ddinit_launches"][k] for k in arm["launches"]}}
     emit("host", res)
@@ -3477,7 +3153,7 @@ def mesh_rank(mesh, plan) -> dict:
     stl10 on this rank's rows of the global host batch; (2) ``MESH_STEPS``
     device-data steps of the shipped stl10 (noise, dropout, augmentation,
     sampled pseudo-labels), its launches counted from just before to just
-    after, timed a step with the host seconds its collectives took; (3) the
+    after; (3) the
     driver, ``train()`` 4 steps and resumed for 4 more, with an eval, a
     grid and a checkpoint every 4 (each checkpoint's state hashed when it is
     saved), its launches counted; (4) a ``train()`` run whose coordinator
@@ -3523,18 +3199,13 @@ def mesh_rank(mesh, plan) -> dict:
     step = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, mesh=mesh)
     dev_data = S.upload_device_data(data, dev)
     torch.cuda.synchronize()
-    secs, coll_s, coll_n, ms = [], [], [], []
+    ms = []
     counts_zero()  # the main path starts here
     for _ in range(MESH_STEPS):
-        c0, s0, t0 = mesh.collectives, mesh.collective_s, time.perf_counter()
         state, m = step(state, dev_data)
         ms.append(floats(m))  # waits for the step
-        secs.append(time.perf_counter() - t0)
-        coll_s.append(mesh.collective_s - s0)
-        coll_n.append(mesh.collectives - c0)
     counts = counts_read()  # the main path ends here
-    out["stochastic"] = {"metrics": ms, "digest": state_hash(state), "counts": counts, "step_s": secs,
-                         "collective_s": coll_s, "collectives": coll_n,
+    out["stochastic"] = {"metrics": ms, "digest": state_hash(state), "counts": counts,
                          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     del state, step, dev_data
     torch.cuda.empty_cache()
@@ -3590,10 +3261,10 @@ def mesh_rank(mesh, plan) -> dict:
     return out
 
 
-def single_steps(cfg, data, dev, n, batch=None):
-    """``n`` steps of ``cfg`` on one process (no mesh) from the seeded
-    state: on ``batch`` (a host batch, through make_train_step) or on
-    device data; (state, metrics of each, seconds of each, launches)."""
+def single_step(cfg, dev, batch):
+    """One step of ``cfg`` on one process (no mesh) from the seeded state
+    on ``batch`` (a host batch, through make_train_step): (state, its
+    metrics, launches)."""
     import torch
 
     from triplegan_tpu_torch.configs import make_networks
@@ -3605,20 +3276,12 @@ def single_steps(cfg, data, dev, n, batch=None):
     apply_runtime(cfg)
     nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
     state = create_state(cfg, nets, opts, device=dev)
-    if batch is None:
-        step, x = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS), S.upload_device_data(data, dev)
-    else:
-        step = S.make_train_step(cfg, nets, opts, TOTAL_STEPS, pseudo_label_mode="argmax")
-        x = device_batch(batch, dev)
+    step = S.make_train_step(cfg, nets, opts, TOTAL_STEPS, pseudo_label_mode="argmax")
+    x = device_batch(batch, dev)
     torch.cuda.synchronize()
-    ms, secs = [], []
     counts_zero()
-    for _ in range(n):
-        t0 = time.perf_counter()
-        state, m = step(state, x)
-        ms.append(floats(m))
-        secs.append(time.perf_counter() - t0)
-    return state, ms, secs, counts_read()
+    state, m = step(state, x)
+    return state, floats(m), counts_read()
 
 
 def nccl_chunk(data, data_root, dev) -> dict:
@@ -3660,9 +3323,7 @@ def nccl_chunk(data, data_root, dev) -> dict:
         for _ in range(MESH_STEPS):
             eager, m = step(eager, dev_data)
             ms.append(m)
-        t0 = time.perf_counter()
         runner.prepare(state, dev_data)
-        capture_s = time.perf_counter() - t0
         holder = {}
 
         def one_chunk():
@@ -3687,9 +3348,8 @@ def nccl_chunk(data, data_root, dev) -> dict:
               f"nccl chunk: the replay ran {in_chunk}, want {MESH_STEPS} × {per_step}")
         replayed = dict(replayed_launches(prof), **moments_replayed(prof))
         res = {"steps": MESH_STEPS, "bitwise": True, "backend": mesh.backend, "collectives": mesh.collectives,
-               "capture_s": capture_s, "graph": dict(runner.graph_stats),
-               "nccl_kernels_in_replay": prof["nccl"], "replay_device_ms_per_step":
-                   prof["device_us"] / MESH_STEPS / 1e3, "top_device": prof["top_device"],
+               "graph": dict(runner.graph_stats), "nccl_kernels_in_replay": prof["nccl"],
+               "top_device": prof["top_device"],
                "launches_counted": launches, "launches_replayed": replayed,
                "launches": {k: launches[k] + replayed[k] for k in launches}, "_counts": counts}
         del state, eager, runner, step, dev_data
@@ -3715,11 +3375,7 @@ def mesh_phase(data_root, dev) -> dict:
     bitwise equal to the state the ranks saved, and continued there to
     step 8 within ``states_agree`` of the ranks' resumed run; (4) the STOP
     file stops both ranks at step 2, preempted, checkpointed; and in every
-    part the two ranks' states bitwise equal. Then ``nccl_chunk``, and the
-    numbers (no gate): a rank's ms/step at mesh (2,) against one process's
-    step on the global batch, and the host ms a step a rank spent in its
-    collectives: gloo's, through the host on one shared card, so not what
-    NCCL across cards would take."""
+    part the two ranks' states bitwise equal. Then ``nccl_chunk``."""
     import shutil
 
     import torch
@@ -3760,9 +3416,9 @@ def mesh_phase(data_root, dev) -> dict:
     cfg = stl10_cfg(deterministic=True)
     lr = float(cfg.lr_c)
     batch = BatchSampler(data, cfg.batch_size, seed=SEED).next_triple(cfg.z_dim, cfg.num_classes)
-    single, single_m, _, single_counts = single_steps(cfg, data, dev, 1, batch)
+    single, single_m, single_counts = single_step(cfg, dev, batch)
     equiv = {"state": states_agree(r0["equiv"]["flat"], state_flat(single), 1, lr, "mesh vs one process"),
-             "metrics_max_rel_diff": metrics_within(r0["equiv"]["metrics"], single_m[0], "mesh vs one process"),
+             "metrics_max_rel_diff": metrics_within(r0["equiv"]["metrics"], single_m, "mesh vs one process"),
              "ranks_bitwise_equal": True}
     del single
 
@@ -3822,21 +3478,12 @@ def mesh_phase(data_root, dev) -> dict:
     nccl = nccl_chunk(data, data_root, dev)
     emit("mesh_nccl", public(nccl))
 
-    # numbers: a rank's step at mesh (2,) against one process's global-batch step
-    _, _, single_secs, _ = single_steps(stl10_cfg(), data, dev, MESH_STEPS)
     res = {"config": "stl10", "world": MESH_WORLD, "backend": "gloo", "device": f"{dev} (both ranks)",
            "global_batch": cfg.batch_size, "rank_batch": cfg.batch_size // MESH_WORLD,
-           "equivalence": equiv, "continuation": continued,
-           "rank_ms_per_step": 1e3 * statistics.mean(st["step_s"][1:]),
-           "single_ms_per_step": 1e3 * statistics.mean(single_secs[1:]),
-           "rank_step_s": st["step_s"], "single_step_s": single_secs,
-           "collective_host_ms_per_step": 1e3 * statistics.mean(st["collective_s"][1:]),
-           "collectives_per_step": st["collectives"], "rank_peak_mem_gb": st["peak_mem_gb"],
+           "equivalence": equiv, "continuation": continued, "rank_peak_mem_gb": st["peak_mem_gb"],
            "driver_seconds": r0["loop"]["seconds"], "continuation_seconds": cont_s, "ranks_seconds": ranks_s,
            "stop": r0["stop"]["steps"], "test_error": [r["test_error"] for r in r0["loop"]["runs"]],
-           "nccl": public(nccl), "seconds": time.perf_counter() - t_start,
-           "note": "both ranks share one card and gloo stages every all-reduce through the host: "
-                   "not representative of NCCL across cards"}
+           "nccl": public(nccl), "seconds": time.perf_counter() - t_start}
     c = lambda d: {k: collections.Counter(v) for k, v in d.items()}  # noqa: E731
     rank_counts = {name: c(r[part]["counts"]) for name, r, part in
                    (("rank0 equiv", r0, "equiv"), ("rank1 equiv", r1, "equiv"), ("rank0 stochastic", r0, "stochastic"),
@@ -3935,7 +3582,7 @@ def start_arm(cfg, state, zca, images) -> dict:
     """Start one server for one (compute dtype, use_pallas) arm and drive
     the main path through it: /healthz, /classify, /generate twice,
     /metrics, with the kernels' launch counts set to 0 just before and
-    read just after. The server keeps running for the timing turns."""
+    read just after. The server keeps running until ``stop_arm``."""
     from triplegan_tpu_torch.configs import make_networks
     from triplegan_tpu_torch.serve import app_from_state, make_server
 
@@ -4004,49 +3651,6 @@ def stop_arm(arm):
     check(not arm["_thread"].is_alive(), "server thread did not stop")
 
 
-def time_arm(arm, images, z, y) -> dict:
-    """Images/s of one arm, warm: the server's per-chunk function at the
-    static batch (host→device copy, forward, device→host copy; 10 chunks
-    after 2 warm-up chunks), and whole HTTP requests of 250 (median of 2)."""
-    import torch
-
-    app, base = arm["_app"], arm["_base"]
-    out = {}
-    for name, fn, args in (("classify", app.classify, (images[:BATCH],)),
-                           ("generate", app.generate, (z[:BATCH], y[:BATCH]))):
-        for _ in range(2):
-            fn(*args)
-        torch.cuda.synchronize()
-        reps = 10
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-        out[f"{name}_img_s"] = reps * BATCH / (time.perf_counter() - t0)
-    for name, body, ctype in (
-        ("classify", npy(images), "application/x-npy"),
-        ("generate", json.dumps({"n": N_REQ, "seed": 3}).encode(), "application/json"),
-    ):
-        secs = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            http("POST", base + "/" + name, body, ctype)
-            secs.append(time.perf_counter() - t0)
-        out[f"http_{name}_img_s"] = N_REQ / statistics.median(secs)
-    return out
-
-
-def profile_arm(arm, images, z, y) -> dict:
-    """torch.profiler over 10 chunks of each serving function."""
-    app = arm["_app"]
-    out = {}
-    for name, fn, args in (("classify", app.classify, (images[:BATCH],)),
-                           ("generate", app.generate, (z[:BATCH], y[:BATCH]))):
-        fn(*args)
-        out[name] = profile_calls(lambda: fn(*args), reps=10, top=6)
-    return out
-
-
 def cpu_reference(cfg, state, zca, images, z, y):
     """The plain path on the CPU (float32, use_pallas off) on a few inputs."""
     import torch
@@ -4059,7 +3663,7 @@ def cpu_reference(cfg, state, zca, images, z, y):
             generate(torch.from_numpy(z), torch.from_numpy(y)).numpy())
 
 
-def serve_phase(profile: bool) -> list:
+def serve_phase() -> list:
     from triplegan_tpu_torch import bridge
     from triplegan_tpu_torch.configs import get_config, make_networks
 
@@ -4082,20 +3686,6 @@ def serve_phase(profile: bool) -> list:
                 cfg = get_config("cifar10_4k")
                 cfg.compute_dtype, cfg.use_pallas = dtype, use_pallas
                 arms[dtype, use_pallas] = start_arm(cfg, state, zca, images)
-
-        # Timing in turns within each dtype (kernel, plain, plain, kernel),
-        # so a drift of clocks or host load over the run falls on both arms.
-        for dtype in ("float32", "bfloat16"):
-            for use_pallas in (True, False, False, True):
-                arm = arms[dtype, use_pallas]
-                for key, v in time_arm(arm, images, z, y).items():
-                    arm.setdefault("_turns", {}).setdefault(key, []).append(v)
-        for arm in arms.values():
-            for key, vals in arm.pop("_turns").items():
-                arm[key] = statistics.mean(vals)
-                arm[key + "_turns"] = vals
-            if profile:
-                arm["profile"] = profile_arm(arm, images, z, y)
     finally:
         for arm in arms.values():
             stop_arm(arm)
@@ -4658,111 +4248,20 @@ def moments_summary(rows, replayed) -> dict:
             "per_step": per_step}
 
 
-# ---------------------------------------------------------------------------
-# --eager-step-ab: an eager shipped step of two trees, in turns
-# ---------------------------------------------------------------------------
-
-AB_STEPS = 12
-
-
-def eager_step_ms(n_steps: int) -> dict:
-    """In this process, with the package that ``sys.path`` finds first: the
-    kernels built, then phase 3's shipped kernel arm (cifar10_4k, float32,
-    batch 100, eager, device data) for ``n_steps`` steps (ms/step over all
-    but the first), and the host µs a call of each forward wrapper outside
-    autograd (``scale_bias_act`` and ``conv3x3`` at (8, 8, 8, 16) float32,
-    where the host's share of a call dominates)."""
-    import torch
-
-    import triplegan_tpu_torch
-    from triplegan_tpu_torch.data.datasets import synthetic_dataset
-    from triplegan_tpu_torch.data.zca import fit_zca
-    from triplegan_tpu_torch.ops import conv3x3 as cv
-    from triplegan_tpu_torch.ops import scale_bias_act as sba
-
-    build_phase()
-    data = synthetic_dataset(image_size=32, channels=3, num_classes=10, n_train=4096, n_test=256,
-                             num_labeled=512)
-    arm = train_arm(SETTINGS[0], True, data, fit_zca(data.x_unlabel), n_steps, False)
-    x = torch.randn(8, 8, 8, 16, device="cuda")
-    k, b = torch.ones(16, device="cuda"), torch.zeros(16, device="cuda")
-    w = torch.randn(3, 3, 16, 16, device="cuda") * 0.1
-
-    def us(fn, reps=2000):
-        for _ in range(50):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return 1e6 * (time.perf_counter() - t0) / reps
-
-    with torch.no_grad():
-        host = {"scale_bias_act": us(lambda: sba.scale_bias_act(x, k, b, "leaky_relu", 0.1)),
-                "conv3x3": us(lambda: cv.conv3x3(x, w, "SAME"))}
-    return {"package": os.path.dirname(triplegan_tpu_torch.__file__), "ms_per_step": arm["ms_per_step"],
-            "step_s": arm["step_s"], "launches_per_step": arm["launches_per_step"],
-            "host_us_per_call_no_grad": host}
-
-
-def eager_step_ab(parent: str) -> dict:
-    """``eager_step_ms`` of the tree at ``parent`` (e.g. a ``git archive`` of
-    an earlier commit) and of this checkout, each in a process of its own,
-    in turns (parent, this, this, parent); the mean of each tree's turns."""
-    turns = []
-    for tree in (parent, REPO, REPO, parent):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--eager-step-ms", os.path.abspath(tree),
-                               "--steps", str(AB_STEPS)], cwd=tree, capture_output=True, text=True, timeout=1200)
-        check(proc.returncode == 0, f"eager step of {tree} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-        rec = json.loads(proc.stdout.strip().splitlines()[-1])
-        emit("eager_step", {"tree": tree, **rec})
-        turns.append((tree, rec))
-    res = {}
-    for name, tree in (("before", parent), ("after", REPO)):
-        recs = [r for t, r in turns if t == tree]
-        res[name] = {"tree": tree, "ms_per_step": statistics.mean(r["ms_per_step"] for r in recs),
-                     "ms_per_step_turns": [r["ms_per_step"] for r in recs],
-                     "host_us_per_call_no_grad": {k: statistics.mean(r["host_us_per_call_no_grad"][k] for r in recs)
-                                                  for k in recs[0]["host_us_per_call_no_grad"]}}
-    emit("eager_step_ab", res)
-    return res
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write every result as JSON here")
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace each train and serving arm with torch.profiler")
-    ap.add_argument("--steps", type=int, default=5,
-                    help="train steps per arm (the first is not timed)")
     ap.add_argument("--variant-step", metavar="DATA_DIR", default=None,
                     help="(phase 5b's subprocesses) one step per arm under the layer variant the "
                          "environment sets, on the prepared data in DATA_DIR")
-    ap.add_argument("--eager-step-ab", metavar="TREE", default=None,
-                    help="only time an eager shipped step (and the forward wrappers' host cost) of "
-                         "the checkout at TREE and of this one, in turns, and print both")
-    ap.add_argument("--eager-step-ms", metavar="TREE", default=None,
-                    help="(--eager-step-ab's subprocesses) the timing, with TREE's package")
     args = ap.parse_args()
-    check(args.steps >= 2, "--steps must be at least 2")
 
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs only on a CUDA device")
-    sys.path.insert(0, args.eager_step_ms or os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO)
     from triplegan_tpu_torch.utils.platform import resolve_device
-
-    if args.eager_step_ms:
-        resolve_device(None)
-        print(json.dumps(eager_step_ms(args.steps)), flush=True)
-        return
-    if args.eager_step_ab:
-        print(smi_line(), flush=True)
-        eager_step_ab(args.eager_step_ab)
-        print(smi_line(), flush=True)
-        return
 
     if args.variant_step:
         resolve_device(None)
@@ -4793,7 +4292,7 @@ def main():
         phases["doctor"] = time.perf_counter() - t_start
 
         # 3. train
-        train_arms, data, zca = train_phase(args.steps, args.profile)
+        train_arms, data, zca = train_phase()
         phases["train"] = time.perf_counter() - t_start
 
         # 3b. K train steps a dispatch, as a CUDA graph
@@ -4822,7 +4321,7 @@ def main():
         phases["debug"] = time.perf_counter() - t_start
 
         # 5. the train driver through the CLI, on the shards cli prepare made
-        driver = driver_phase(train_arms, graph_arms, data_dir)
+        driver = driver_phase(train_arms, data_dir)
         phases["driver"] = time.perf_counter() - t_start
 
         # 5d. export, qualify, score, serve and reload the driver's run
@@ -4842,7 +4341,7 @@ def main():
         shutil.rmtree(data_root, ignore_errors=True)
 
     # 6. serve
-    serve_arms = serve_phase(args.profile)
+    serve_arms = serve_phase()
     torch.cuda.synchronize(dev)
     phases["serve"] = time.perf_counter() - t_start
 

@@ -113,7 +113,8 @@ def test_cli_prepare_digits_runs_without_scikit_learn(tmp_path):
     code = ("import sys; sys.modules['sklearn'] = None\n"
             "from triplegan_tpu_torch.cli import main\n"
             f"main(['prepare', '--dataset', 'digits', '--data-dir', {str(tmp_path)!r}])\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "prepared digits" in out.stdout
     assert _arrays(str(tmp_path / "digits" / "test.npz"))["labels"].shape == (500,)
@@ -457,11 +458,15 @@ def test_parity_against_the_committed_jax_populations(tmp_path, shift, verdict):
 @pytest.fixture(scope="module")
 def tiny_run(tmp_path_factory):
     root = tmp_path_factory.mktemp("e2e")
-    rc = digits_experiment.main([
-        "--data-dir", str(root / "data"), "--workdir", str(root / "runs"), "--seeds", "1",
-        "--num-labeled", "20", "--epochs", "1", "--warmup-epochs", "1", "--baseline-steps", "3",
-        "--eval-every-epochs", "1", "--ckpt-every-epochs", "1", "--device", "cpu",
-    ])
+    # The CLI stages are subprocesses: one thread each, as this process has,
+    # since the suite's other workers share the cores.
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        rc = digits_experiment.main([
+            "--data-dir", str(root / "data"), "--workdir", str(root / "runs"), "--seeds", "1",
+            "--num-labeled", "20", "--epochs", "1", "--warmup-epochs", "1", "--baseline-steps", "3",
+            "--eval-every-epochs", "1", "--ckpt-every-epochs", "1", "--device", "cpu",
+        ])
     return root, rc
 
 

@@ -96,7 +96,8 @@ def test_check_workdir_torn_tmp(tmp_path):
     assert _levels(doctor.check_workdir(str(tmp_path / "nowhere"))) == ["warn"]
 
 
-def test_check_device_cpu_probe():
+def test_check_device_cpu_probe(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the probe's subprocess runs the plain kernels
     findings, visible, memory = doctor.check_device(timeout_s=300, device="cpu")
     assert findings[0][0] == "ok", findings
     assert "cpu, as asked" in findings[0][2] and "nothing built" in findings[0][2]

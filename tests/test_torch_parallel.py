@@ -317,6 +317,7 @@ def test_multihost_fields_join_a_tcp_process_group(tmp_path):
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    env["OMP_NUM_THREADS"] = "1"
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = [subprocess.Popen([sys.executable, "-c", _MULTIHOST_RANK, f"localhost:{port}", str(r)], cwd=root,
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
