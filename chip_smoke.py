@@ -239,11 +239,16 @@ Phases, each fatal on failure (exit code 1, and no result line):
      order). The shapes include phase 5b's: the classifier at 3B rows,
      ddinit's, the variants'; and phase 5c's: stl10's 96 × 96 layers at a
      rank's batch of 64 (D at 192 rows, Cin = 3 + 10), at the global batch
-     of 128, in its evals and its grid; and the doctor probe's. Then the
-     Winograd A/B rows (``winograd_rows``): ``ops/winograd.py`` at the
-     Classifier's SAME convs, float32 and bfloat16, held to
-     ``reference_conv3x3`` and timed against the conv kernels and
-     ``F.conv2d``. Then the batch-norm moments' kernels (``moments_case``)
+     of 128, in its evals and its grid; and the doctor probe's. A float32
+     forward or input gradient that ``f32_wino_plan`` sends through the
+     Winograd pipeline is held to the pipeline's plain twin and to the
+     plain direct conv (tolerances below) and timed beside the forward
+     kernel (``conv3x3_direct``) and its own bound (its row's "path" is
+     "winograd"). Before them, line "winograd_share":
+     for each of the benchmark's two cells' configurations (the shipped
+     graph arm, phase 3e), the share of a step's float32 forward and
+     input-gradient operations that took the pipeline, held to at least
+     ``WINOGRAD_SHARE_MIN``. Then the batch-norm moments' kernels (``moments_case``)
      at each shape and dtype this process launched them at and at the
      ragged shape in each dtype, cold: the forward pair against the float64
      twin within its summation bound, the backward against the closed form,
@@ -285,11 +290,11 @@ Tolerances.
   on |inputs|), K the length of each sum (both sum in float32, in other
   orders), plus one bfloat16 ulp of the value where the output is
   bfloat16 (both round a float32 sum once).
-- Winograd against ``reference_conv3x3`` (u = 2⁻²⁴, M =
-  ``winograd_magnitude``: the computation on magnitudes, which bounds the
-  terms any rounding acts on; n = Cin + 32 additions in an output's
-  chain): float32 (n + 9·Cin)·u·M; bfloat16 2·2⁻⁹·M + n·u·M plus two
-  bfloat16 ulps (V and U are rounded to bfloat16, each side's output once).
+- the Winograd pipeline (u = 2⁻²⁴, M = ``winograd_magnitude``: the
+  computation on magnitudes, which bounds the terms any rounding acts on;
+  n = Cin + 32 additions in an output's chain): against the plain direct
+  conv (n + 9·Cin)·u·M, against its plain twin ``winograd_nopad`` 2·n·u·M
+  (each within γ_n·M of the exact value).
 - checkify: the checked step's metrics within 1e-3·(1 + |m|) of the
   unchecked step's (the train arms' float32 tolerance).
 - train arms, step-1 metrics: float32 within 1e-3·(1 + |m|); bfloat16
@@ -462,17 +467,34 @@ def counts_zero():
 
     fold_moments()
     for counter in (sba.launches, sba.bwd_launches, sba.cond_launches, sba.cond_bwd_launches, cv.fwd_launches,
-                    cv.wgrad_launches):
+                    cv.wino_launches, cv.wgrad_launches):
         counter.clear()
 
 
+def takes_winograd(key) -> bool:
+    """Whether a conv launch key (role, n, h, w, cin, cout, halo, dtype)
+    runs the float32 Winograd pipeline (``f32_wino_plan``) rather than the
+    forward kernel."""
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+
+    role, n, h, w, cin, cout, pad, dtype = key
+    return (role != "wgrad" and dtype == "float32"
+            and cv.f32_wino_plan(n, h + 2 * pad - 2, w + 2 * pad - 2, cin, cout) is not None)
+
+
 def counts_read() -> dict:
-    """Each kernel's launches since counts_zero, keyed by the call's shape."""
+    """Each kernel's launches since counts_zero, keyed by the call's shape;
+    "conv3x3_fwd" counts the forward wrapper's calls, the forward kernel's
+    (``fwd_launches``) and the Winograd pipeline's (``wino_launches``),
+    each of which must hold only the shapes ``f32_wino_plan`` sends it."""
     from triplegan_tpu_torch.ops import conv3x3 as cv
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
+    astray = [key for key in cv.fwd_launches if takes_winograd(key)] + [
+        key for key in cv.wino_launches if not takes_winograd(key)]
+    check(not astray, f"conv launches on the path f32_wino_plan does not give their shape: {astray}")
     return {"scale_bias_act": sba.launches.copy(), "scale_bias_act_bwd": sba.bwd_launches.copy(),
-            "conv3x3_fwd": cv.fwd_launches.copy(), "conv3x3_wgrad": cv.wgrad_launches.copy()}
+            "conv3x3_fwd": cv.fwd_launches + cv.wino_launches, "conv3x3_wgrad": cv.wgrad_launches.copy()}
 
 
 def totals(counts: dict) -> dict:
@@ -936,7 +958,9 @@ GRAPH_TOTAL, GRAPH_WARMUP_EPOCHS, GRAPH_DECAY_FRAC = 64, 2, 6 / 64
 HAND_KERNELS = {"sba_fwd": ("sba_fwd_rows<", "sba_fwd_c3<"), "sba_bwd": ("sba_bwd_rows<", "sba_bwd_c3<"),
                 "sba_bwd_reduce": ("sba_bwd_reduce<",), "conv_fwd": ("fwd_kernel<",),
                 "conv_wgrad": ("wgrad_kernel<",), "conv_reduce": ("reduce_stream_k(", "reduce_splits("),
-                "bnm_fwd": ("bnm_fwd_rows<",), "bnm_reduce": ("bnm_reduce(",), "bnm_bwd": ("bnm_bwd_rows<",)}
+                "bnm_fwd": ("bnm_fwd_rows<",), "bnm_reduce": ("bnm_reduce(",), "bnm_bwd": ("bnm_bwd_rows<",),
+                "wino_filter": ("wino_filter(",), "wino_input": ("wino_input<",), "wino_gemm": ("wino_gemm<",),
+                "wino_output": ("wino_output<",)}
 # Kineto keeps only the device records that lie inside its capture window,
 # which is taken on the host's clock; a card timestamp converted to that
 # clock can land a little past it (a profile that stopped right after its
@@ -952,9 +976,10 @@ PROFILE_MARGIN_S = 0.2
 PROFILE_MARKERS = 256
 PROFILE_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
 PROFILE_WINDOWS = []  # (leading, trailing) markers lost, a window each
-# the group whose launches are each wrapper's own (one a call)
-WRAPPER_GROUP = {"scale_bias_act": "sba_fwd", "scale_bias_act_bwd": "sba_bwd", "conv3x3_fwd": "conv_fwd",
-                 "conv3x3_wgrad": "conv_wgrad"}
+# the groups whose launches are each wrapper's own (one a call: a float32
+# forward runs the forward kernel or the Winograd pipeline's products)
+WRAPPER_GROUP = {"scale_bias_act": ("sba_fwd",), "scale_bias_act_bwd": ("sba_bwd",),
+                 "conv3x3_fwd": ("conv_fwd", "wino_gemm"), "conv3x3_wgrad": ("conv_wgrad",)}
 
 
 def graph_cfg(setting, use_pallas):
@@ -1026,7 +1051,7 @@ def device_kernels(fn, reps: int) -> dict:
 
 def replayed_launches(prof: dict) -> dict:
     """Each wrapper's kernel launches that ``device_kernels`` counted."""
-    return {name: prof["groups"][group]["launches"] for name, group in WRAPPER_GROUP.items()}
+    return {name: sum(prof["groups"][g]["launches"] for g in groups) for name, groups in WRAPPER_GROUP.items()}
 
 
 def moments_replayed(prof: dict) -> dict:
@@ -1133,28 +1158,34 @@ def hand_kernels_per_step(counts: dict, n_steps: int, moments: dict) -> dict:
     """The hand-written kernels one step runs, by ``HAND_KERNELS`` group,
     from the wrappers' counts and the moments' (``moments_read``) over
     ``n_steps`` steps and the plans: a backward that computes dk or db runs
-    ``sba_bwd_reduce`` after it; a float32 forward whose plan shares tiles
-    out stream-K runs ``reduce_stream_k``; a filter gradient split over
-    pixels runs ``reduce_splits``; a moments forward runs ``bnm_fwd_rows``
-    and ``bnm_reduce``, its backward ``bnm_bwd_rows``."""
+    ``sba_bwd_reduce`` after it; a float32 forward that ``f32_wino_plan``
+    gives a plan runs the four ``wino_*`` kernels, one whose forward plan
+    shares tiles out stream-K runs ``fwd_kernel`` and ``reduce_stream_k``;
+    a filter gradient split over pixels runs ``reduce_splits``; a moments
+    forward runs ``bnm_fwd_rows`` and ``bnm_reduce``, its backward
+    ``bnm_bwd_rows``."""
     from triplegan_tpu_torch.ops import conv3x3 as cv
 
-    conv_reduce = 0
-    for (role, n, h, w, cin, cout, pad, dt), c in (counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]).items():
+    conv_reduce = wino = 0
+    for key, c in (counts["conv3x3_fwd"] + counts["conv3x3_wgrad"]).items():
+        role, n, h, w, cin, cout, pad, dt = key
         m = n * (h + 2 * pad - 2) * (w + 2 * pad - 2)
         if role == "wgrad":
             splits = (cv.f32_wgrad_plan(m, cin, cout)[2] if dt == "float32" else
                       cv.sm90_wgrad_plan(m, -(-cin // 8) * 8, -(-cout // 8) * 8)[1])
             conv_reduce += c * (splits > 1)
+        elif takes_winograd(key):
+            wino += c
         elif dt == "float32":
             conv_reduce += c * (cv.f32_fwd_plan(m, cin, cout)[2] > 0)
     bwd = counts["scale_bias_act_bwd"]
     return {"sba_fwd": counts["scale_bias_act"].total() / n_steps, "sba_bwd": bwd.total() / n_steps,
             "sba_bwd_reduce": sum(c for key, c in bwd.items() if set(key[-1]) & set("kb")) / n_steps,
-            "conv_fwd": counts["conv3x3_fwd"].total() / n_steps,
+            "conv_fwd": (counts["conv3x3_fwd"].total() - wino) / n_steps,
             "conv_wgrad": counts["conv3x3_wgrad"].total() / n_steps, "conv_reduce": conv_reduce / n_steps,
             "bnm_fwd": moments["bn_moments"].total() / n_steps, "bnm_reduce": moments["bn_moments"].total() / n_steps,
-            "bnm_bwd": moments["bn_moments_bwd"].total() / n_steps}
+            "bnm_bwd": moments["bn_moments_bwd"].total() / n_steps,
+            **{g: wino / n_steps for g in ("wino_filter", "wino_input", "wino_gemm", "wino_output")}}
 
 
 def graph_phase(data, zca) -> list:
@@ -2013,10 +2044,11 @@ def debug_phase(data, zca) -> dict:
         import shutil
 
         shutil.rmtree(logdir, ignore_errors=True)
-    in_trace = {name: sum(1 for n in names if any("(anonymous namespace)::" + f in n for f in HAND_KERNELS[group]))
-                for name, group in WRAPPER_GROUP.items()}
+    frags = {name: [f for g in groups for f in HAND_KERNELS[g]] for name, groups in WRAPPER_GROUP.items()}
+    in_trace = {name: sum(1 for n in names if any("(anonymous namespace)::" + f in n for f in frags[name]))
+                for name in WRAPPER_GROUP}
     for name, n in in_trace.items():
-        check(n > 0, f"the trace window's Chrome trace holds no {name} kernel ({HAND_KERNELS[WRAPPER_GROUP[name]]})")
+        check(n > 0, f"the trace window's Chrome trace holds no {name} kernel ({frags[name]})")
     res = {"config": "cifar10_4k float32 batch 100 kernel arm, make_train_step on a host batch",
            "poisoned_error": poisoned_msg, "gradient_error": grad_msg, "trace_kernels": in_trace,
            "trace_kernels_implied": step_totals(cfg), "trace_device_kernels": len(names), "trace_mb": trace_mb}
@@ -3723,11 +3755,18 @@ def serve_phase() -> list:
 
 def conv_case(op, n, h, w, cin, cout, pad, dtype, gen, flush, reps):
     """Check and time one conv kernel call against its plain version and
-    the library call that computes the same function."""
+    the library call that computes the same function. A float32 forward
+    that ``f32_wino_plan`` sends through the Winograd pipeline is held to
+    the pipeline's plain twin (``winograd_nopad``) and to the plain direct
+    conv within the Winograd bounds, and timed beside its own bound (the
+    16 products' operations, or the pipeline's bytes: x, V and M each
+    written and read, U, y) and beside the forward kernel
+    (``conv3x3_direct``)."""
     import torch
     import torch.nn.functional as F
 
     from triplegan_tpu_torch.ops import conv3x3 as cv
+    from triplegan_tpu_torch.ops.winograd import winograd_magnitude, winograd_nopad
 
     dev = torch.device("cuda")
     x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(dtype)
@@ -3760,13 +3799,20 @@ def conv_case(op, n, h, w, cin, cout, pad, dtype, gen, flush, reps):
         k_len = 9 * cin
         flops = 2.0 * n * ho * wo * 9 * cin * cout
         nbytes = (x.numel() + wt.numel() + n * ho * wo * cout) * x.element_size()
+    wino = cv.f32_wino_plan(n, ho, wo, cin, cout) if op != "wgrad" and dtype == torch.float32 else None
     got = run()
     torch.cuda.synchronize()
     want = plain()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"conv3x3 {op} {(n, h, w, cin, cout, pad)}: {tuple(got.shape)} {got.dtype}")
     err = (got.double() - want.double()).abs()
-    lim = 8.0 * math.sqrt(k_len) * 2.0 ** -24 * abs_ref.double()
+    if wino is None:
+        lim = 8.0 * math.sqrt(k_len) * 2.0 ** -24 * abs_ref.double()
+    else:  # n_w = Cin + 32 additions in a Winograd output's chain, M its terms' magnitudes
+        n_w, mag = cin + 32, winograd_magnitude(x, wt, pad).double()
+        lim = (n_w + 9 * cin) * 2.0 ** -24 * mag
+        twin_err = (got.double() - winograd_nopad(x, wt, pad).double()).abs()
+        twin_lim = 2 * n_w * 2.0 ** -24 * mag
     if got.dtype == torch.bfloat16:
         lim = lim + bf16_ulp(torch.maximum(got.abs(), want.abs()))
     case = f"conv3x3 {op} {(n, h, w, cin, cout, pad)} {dtype}"
@@ -3775,7 +3821,21 @@ def conv_case(op, n, h, w, cin, cout, pad, dtype, gen, flush, reps):
     if not bool((err <= lim).all()):
         fail(f"{case}: max err {float(err.max())} exceeds tolerance (worst excess {float((err - lim).max())}); "
              f"the call's tensors: {save_failing(f'conv3x3_{op}', **ins, got=got, want=want)}")
+    if wino is not None and not bool((twin_err <= twin_lim).all()):
+        fail(f"{case}: Winograd pipeline against its plain twin: max err {float(twin_err.max())} exceeds "
+             f"tolerance; the call's tensors: {save_failing(f'conv3x3_{op}', **ins, got=got, want=want)}")
     max_err = float(err.max())
+    wino_row = {}
+    if wino is not None:
+        _, tiles, ws = wino
+        t_ops = 2.0 * 16 * tiles * cin * cout / F32_FLOPS_PER_S * 1e3
+        v_m = ws - 16 * cin * -(-cout // 4) * 4  # V and M, each written once and read once
+        t_bytes = (x.numel() + wt.numel() + n * ho * wo * cout + 2 * v_m) * 4 / HBM_BYTES_PER_S * 1e3
+        wino_row = {"path": "winograd", "max_err_share": float((err / lim).max()),
+                    "twin_err_share": float((twin_err / twin_lim).max()),
+                    "wino_bound_ms": max(t_ops, t_bytes), "wino_bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "products_ms_at_peak": t_ops, "bytes_ms_at_peak": t_bytes}
+        del twin_err, twin_lim, mag
     if dtype == torch.float32:  # a fixed summation order: every call gives the first call's bits
         for rep in range(CONV_REPEATS):
             again = run()
@@ -3786,12 +3846,14 @@ def conv_case(op, n, h, w, cin, cout, pad, dtype, gen, flush, reps):
     tk = time_ms(run, flush, reps=reps, warm=2)
     tp = time_ms(plain, flush, reps=reps, warm=2)
     tl = time_ms(library, flush, reps=reps, warm=2)
+    if wino is not None:
+        wino_row["direct_ms"] = time_ms(lambda: cv.conv3x3_direct(x, wt, pad), flush, reps=reps, warm=2)["cold"]
     peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {"ms": tk["cold"], "plain_ms": tp["cold"], "library_ms": tl["cold"],
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "tflop_s": flops / (tk["cold"] * 1e9),
-            "max_abs_err": max_err}
+            "max_abs_err": max_err, "path": "direct", **wino_row}
 
 
 def sba_case(shape, dtype, act, slope, gen, flush, per_sample=False) -> dict:
@@ -3969,51 +4031,34 @@ def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush, per_sample=False) 
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def winograd_rows(gen, flush) -> list:
-    """``ops/winograd.py::conv3x3_winograd`` (an A/B arm that no main path
-    calls) at cifar10_4k's Classifier SAME convs (batch 100; every H and W
-    there is even), float32 and bfloat16: held to ``reference_conv3x3`` on
-    the same inputs within its tolerance (u = 2⁻²⁴, M =
-    ``winograd_magnitude``, n = Cin + 32 additions in a Winograd output's
-    chain: float32 (n + 9·Cin)·u·M; bfloat16 2·2⁻⁹·M + n·u·M plus two
-    bfloat16 ulps, for V and U rounded to bfloat16), and timed cold
-    (``time_ms``) against the conv kernel of that dtype (``conv3x3``, SAME)
-    and ``F.conv2d``."""
-    import torch
-    import torch.nn.functional as F
+# the paths of the benchmark's two cells' configurations, and the least share
+# of their float32 forward and input-gradient operations a step that the
+# Winograd pipeline must take
+WINOGRAD_PATHS = ("train shipped", f"train {SNRESNET} float32")
+WINOGRAD_SHARE_MIN = 0.98
 
-    from triplegan_tpu_torch.ops import conv3x3 as cv
-    from triplegan_tpu_torch.ops.winograd import conv3x3_winograd, winograd_magnitude
 
-    cfg = train_cfg("float32", BATCH, False, True)
-    shapes = sorted({(h, cin, cout) for h, cin, cout, halo in conv_layers(cfg)[2] if halo == 1 and h % 2 == 0})
-    rows, u = [], 2.0 ** -24
-    for dtype in (torch.float32, torch.bfloat16):
-        for h, cin, cout in shapes:
-            x = torch.randn((BATCH, h, h, cin), generator=gen, device="cuda").to(dtype)
-            w = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") / math.sqrt(9 * cin)).to(dtype)
-            got = conv3x3_winograd(x, w)
-            torch.cuda.synchronize()
-            want = cv.reference_conv3x3(x, w)
-            check(got.shape == want.shape and got.dtype == want.dtype, f"winograd {(h, cin, cout)}: {got.dtype}")
-            mag, n = winograd_magnitude(x, w).double(), cin + 32
-            if dtype == torch.float32:
-                lim = (n + 9 * cin) * u * mag
-            else:
-                lim = 2 * 2.0 ** -9 * mag + n * u * mag + 2 * bf16_ulp(torch.maximum(got.abs(), want.abs()))
-            err = (got.double() - want.double()).abs()
-            check(bool((err <= lim).all()), f"winograd {(BATCH, h, h, cin, cout)} {dtype}: max err "
-                                            f"{float(err.max())} exceeds its tolerance")
-            row = {"input": [BATCH, h, h, cin], "cout": cout, "dtype": str(dtype).split(".")[-1],
-                   "max_abs_err": float(err.max()), "max_err_share": float((err / lim).max())}
-            del got, want, mag, err, lim
-            xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-            for name, fn in (("winograd", lambda: conv3x3_winograd(x, w)), ("kernel", lambda: cv.conv3x3(x, w)),
-                             ("library", lambda: F.conv2d(xc, wc, padding=1))):
-                row[f"{name}_ms"] = time_ms(fn, flush, reps=5, warm=2)["cold"]
-            rows.append(row)
-            emit("winograd", row)
-    return rows
+def winograd_share(sources) -> dict:
+    """For each of ``WINOGRAD_PATHS`` among ``sources`` (``path_launches``'s
+    (path, per-step counts, players)): the share of one step's float32
+    forward and input-gradient operations (the direct conv's count,
+    2·n·ho·wo·9·cin·cout a call) whose calls took the Winograd pipeline,
+    which must be at least ``WINOGRAD_SHARE_MIN``."""
+    out = {}
+    for path, counts, _ in sources:
+        if path not in WINOGRAD_PATHS:
+            continue
+        total = wino = 0.0
+        for key, c in counts["conv3x3_fwd"].items():
+            role, n, h, w, cin, cout, pad, dtype = key
+            flops = c * 2.0 * n * (h + 2 * pad - 2) * (w + 2 * pad - 2) * 9 * cin * cout
+            total += flops
+            wino += flops * takes_winograd(key)
+        out[path] = {"gflop_a_step": total / 1e9, "winograd_share": wino / total}
+        check(wino / total >= WINOGRAD_SHARE_MIN, f"{path}: the Winograd pipeline took {wino / total:.4f} of the "
+                                                  f"forward and input-gradient operations, under {WINOGRAD_SHARE_MIN}")
+    check(set(out) == set(WINOGRAD_PATHS), f"winograd_share found the paths {sorted(out)} of {WINOGRAD_PATHS}")
+    return out
 
 
 def path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits) -> list:
@@ -4134,9 +4179,8 @@ def kernel_phase(sources, moments_paths) -> tuple:
                **moments_case(shape, dtype, gen, flush)}
         moment_rows.append(row)
         emit("bn_moments", row)
-    wino_rows = winograd_rows(gen, flush)
     del flush
-    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, wino_rows, moment_rows
+    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows
 
 
 # ---------------------------------------------------------------------------
@@ -4345,15 +4389,16 @@ def main():
     torch.cuda.synchronize(dev)
     phases["serve"] = time.perf_counter() - t_start
 
-    # 7. kernels, at the shapes the main paths launched them at; the winograd A/B rows
+    # 7. kernels, at the shapes the main paths launched them at
     moments_paths = {arm["setting"]: (arm["dtype"], arm["batch"], arm["_moments"], arm["_steps"])
                      for arm in graph_arms if arm["use_pallas"]}
     for rec in configs:
         moments_paths.update(rec["_moments"])
     moments_paths[f"{SNRESNET} float32"] = ("float32", BATCH, snresnet["_moments"], snresnet["_steps"])
-    sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, wino_rows, moment_rows = kernel_phase(
-        path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits) + snresnet["_sources"],
-        moments_paths)
+    sources = path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits) + snresnet["_sources"]
+    emit("winograd_share", winograd_share(sources))
+    sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows = kernel_phase(
+        sources, moments_paths)
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
     lost = [w for w in PROFILE_WINDOWS if any(w)]
@@ -4375,7 +4420,7 @@ def main():
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "cond_rows": cond_rows,
                        "cond_bwd_rows": cond_bwd_rows, "conv_rows": conv_rows, "bn_moments_rows": moment_rows,
-                       "winograd_rows": wino_rows, "doctor": public(doctor), "debug": debug,
+                       "doctor": public(doctor), "debug": debug,
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms], "configs": [public(r) for r in configs],
                        "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),

@@ -132,13 +132,18 @@ def test_cpu_call_does_not_count_or_build(monkeypatch):
         raise AssertionError("a CPU call must not build the kernel")
 
     monkeypatch.setattr(build, "_nvcc", no_nvcc)
-    before = (cv.fwd_launches.copy(), cv.wgrad_launches.copy(), cv.fwd_block_launches.copy())
+    before = (cv.fwd_launches.copy(), cv.wgrad_launches.copy(), cv.fwd_block_launches.copy(),
+              cv.wino_launches.copy())
     for dtype in (torch.float32, torch.bfloat16):  # bfloat16 would take conv3x3_sm90 on the card
         x = torch.randn(2, 5, 5, 4, dtype=dtype, requires_grad=True)
         w = torch.randn(3, 3, 4, 6, requires_grad=True)
         torch.autograd.grad(cv.conv3x3(x, w).float().sum(), (x, w))
         cv.conv3x3_wgrad(x.detach(), torch.randn(2, 5, 5, 6, dtype=dtype), 1)
-    assert (cv.fwd_launches, cv.wgrad_launches, cv.fwd_block_launches) == before
+    # a shape the card would send through the Winograd pipeline
+    x, w = torch.randn(1, 32, 32, 64), torch.randn(3, 3, 64, 32)
+    assert cv.f32_wino_plan(1, 32, 32, 64, 32) is not None
+    assert torch.equal(cv.conv3x3_nopad(x, w, 1), cv.reference_conv3x3_nopad(cv._pad_hw(x, 1), w))
+    assert (cv.fwd_launches, cv.wgrad_launches, cv.fwd_block_launches, cv.wino_launches) == before
     assert "conv3x3" not in build._loaded and "conv3x3_sm90" not in build._loaded
 
 
@@ -266,6 +271,103 @@ def test_f32_forward_block_of_the_shipped_c_convs():
     assert cv.f32_fwd_block(cv.f32_fwd_plan(100 * 32 * 32, 13, 32)[0]) == (256, 32, "k-major")
     assert cv.f32_fwd_block(cv.f32_fwd_plan(100 * 32 * 32, 32, 13)[0]) == (256, 16, "m-major")
     assert cv.f32_fwd_block(cv.f32_fwd_plan(100 * 16 * 16, 128, 12)[0]) == (256, 16, "m-major")
+
+
+# The calls of the two cells that stay on the forward kernel: under 64
+# input channels (the first layers, D's 13 -> 32 and 42 -> 64 convs, and
+# the input gradients of their outputs) or under 32 output channels (G's
+# output phase convs to 4 × 3 pixels, and the input gradients into D's and
+# C's first layers).
+_CELL_DIRECT = {("dgrad", 100, 16, 16, 12, 128, 1), ("dgrad", 100, 32, 32, 3, 256, 1),
+                ("dgrad", 100, 32, 32, 32, 13, 1), ("dgrad", 100, 32, 32, 128, 3, 1),
+                ("fwd", 100, 16, 16, 42, 64, 1), ("fwd", 100, 16, 16, 128, 12, 1), ("fwd", 100, 32, 32, 3, 128, 1),
+                ("fwd", 100, 32, 32, 13, 32, 1), ("fwd", 100, 32, 32, 256, 3, 1), ("fwd", 300, 16, 16, 42, 64, 1),
+                ("fwd", 300, 32, 32, 3, 128, 1), ("fwd", 300, 32, 32, 13, 32, 1)}
+
+
+def _direct_flops(key, calls=1):
+    _, n, h, w, cin, cout, pad = key
+    return calls * 2.0 * n * (h + 2 * pad - 2) * (w + 2 * pad - 2) * 9 * cin * cout
+
+
+def test_f32_wino_plan_at_the_cells_shapes():
+    """The Winograd rule is a function of the shape alone: at every
+    forward and input-gradient call of the benchmark's two cells it gives
+    the same answer twice (and after its cache is cleared), sends every
+    call with at least 64 input and 32 output channels through the
+    pipeline and the narrow ones to the forward kernel, and so covers at
+    least 98% of each cell's direct forward and input-gradient operations;
+    the plan's block width and workspace follow the shape."""
+    from conv_cells import CELL_CONVS
+
+    chosen = {}
+    for key in CELL_CONVS:
+        _, n, h, w, cin, cout, pad = key
+        ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
+        chosen[key] = cv.f32_wino_plan(n, ho, wo, cin, cout)
+    cv.f32_wino_plan.cache_clear()
+    for key, plan in chosen.items():
+        _, n, h, w, cin, cout, pad = key
+        ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
+        assert cv.f32_wino_plan(n, ho, wo, cin, cout) == plan
+        assert (plan is None) == (key in _CELL_DIRECT), key
+        if plan is not None:
+            bn, tiles, ws = plan
+            cp, tp = -(-cout // 4) * 4, -(-tiles // 4) * 4
+            assert tiles == n * -(-ho // 2) * -(-wo // 2) >= 256
+            assert bn == (64 if cp <= 64 else 128)
+            assert ws == 16 * (cin * cp + cin * tp + tiles * cp)
+    for cell in ("cifar10_4k", "cifar10_snresnet"):
+        total = sum(_direct_flops(k, c[cell]) for k, c in CELL_CONVS.items() if cell in c)
+        wino = sum(_direct_flops(k, c[cell]) for k, c in CELL_CONVS.items() if cell in c and chosen[k])
+        assert wino / total >= 0.98, (cell, wino / total)
+
+
+def test_f32_wino_plan_edges():
+    # the least channels and tiles it takes, any halo's output size, odd ones too
+    assert cv.f32_wino_plan(1, 31, 33, 64, 32) == (64, 16 * 17, 16 * (64 * 32 + 64 * 272 + 272 * 32))
+    assert cv.f32_wino_plan(1, 31, 33, 63, 32) is None
+    assert cv.f32_wino_plan(1, 31, 33, 64, 31) is None
+    assert cv.f32_wino_plan(1, 32, 30, 64, 64) is None  # 240 tiles
+    assert cv.f32_wino_plan(1, 32, 32, 64, 65)[0] == 128  # 68 columns: one block of 128
+
+
+def test_cell_conv_table_is_one_step_of_each_cell(monkeypatch):
+    """``tests/conv_cells.py``, the table the rule's test and the card's
+    Winograd tests read, against the forward wrapper's calls in one step of
+    each cell's configuration at its widths (batch 2, rows scaled to the
+    cells' 100)."""
+    from conv_cells import CELL_CONVS
+    from triplegan_tpu_torch.configs import get_config, make_networks
+    from triplegan_tpu_torch.data.datasets import synthetic_dataset
+    from triplegan_tpu_torch.data.zca import ZCAStats
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    got = {}
+    real = cv.conv3x3_nopad
+    for name in ("cifar10_4k", "cifar10_snresnet"):
+        cfg = get_config(name)
+        assert cfg.batch_size == 100 and cfg.compute_dtype == "float32" and cfg.use_pallas
+        cfg.batch_size = 2
+        nets, opts = make_networks(cfg), make_optimizers(cfg, 100)
+        state = create_state(cfg, nets, opts, device="cpu")
+        data = S.upload_device_data(synthetic_dataset(cfg.image_size, cfg.channels, 10, n_train=64, n_test=4,
+                                                      num_labeled=20), "cpu")
+        d = cfg.image_size ** 2 * cfg.channels
+        zca = ZCAStats(mean=np.zeros(d, np.float32), whiten=np.eye(d, dtype=np.float32)) if cfg.zca else None
+        step = S.make_device_train_step(cfg, nets, opts, 100, zca_stats=zca)
+
+        def spy(x, w, pad=0, role="fwd", name=name):
+            n, h, wd, cin = x.shape
+            calls = got.setdefault((role, n * 50, h, wd, cin, w.shape[3], pad), {})
+            calls[name] = calls.get(name, 0) + 1
+            return real(x, w, pad, role)
+
+        monkeypatch.setattr(cv, "conv3x3_nopad", spy)
+        step(state, data)
+    assert got == CELL_CONVS
 
 
 _SM90_SHAPES = [(100 * 32 * 32, 3, 128), (384 * 32 * 32, 128, 128), (384 * 16 * 16, 256, 256),

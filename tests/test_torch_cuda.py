@@ -538,7 +538,10 @@ def test_conv_kernels_match_plain_on_card(shape, dtype, cuda):
 
     key = ("fwd", n, h, w, cin, cout, pad, dtype)
     before = cv.fwd_launches.total()
-    got = cv.conv3x3_nopad(x, wt, pad)
+    # the forward kernel, also where f32_wino_plan sends conv3x3_nopad's call
+    # through the Winograd pipeline (19 × 30 × 30, 64 -> 200; its test is
+    # tests/test_torch_winograd_cuda.py)
+    got = cv.conv3x3_direct(x, wt, pad)
     torch.cuda.synchronize()
     assert cv.fwd_launches.total() == before + 1 and cv.fwd_launches[key] >= 1
     want = cv.reference_conv3x3_nopad(xp, wt)
@@ -555,10 +558,14 @@ def test_conv_kernels_match_plain_on_card(shape, dtype, cuda):
 
 
 # The shipped step's C convs at batch 100, forward and input gradient (the
-# forward kernel on the cotangent against the flipped kernel, halo 2 - 1):
-# 128 -> 128 at 32x32 runs 792 whole 128 x 128 tiles and shares the last 8
-# out stream-K; 256 -> 256 at 16x16 one whole wave of 264 tiles, then 136
-# tiles stream-K. Both take the k-major im2col tile.
+# forward kernel on the cotangent against the flipped kernel, halo 2 - 1).
+# The step runs them through the Winograd pipeline: one launch of it, none
+# of the forward kernel, within the pipeline's bound against the exact conv
+# (tests/test_torch_winograd_cuda.py). The forward kernel
+# (``conv3x3_direct``) at the same calls: 128 -> 128 at 32x32 runs 792 whole
+# 128 x 128 tiles and shares the last 8 out stream-K; 256 -> 256 at 16x16
+# one whole wave of 264 tiles, then 136 tiles stream-K. Both take the
+# k-major im2col tile.
 _SHIPPED_C_CONVS = [(100, 32, 32, 128, 128, 1), (100, 16, 16, 256, 256, 1)]
 
 
@@ -575,15 +582,25 @@ def test_f32_shipped_c_convs_match_plain_on_card(shape, role, cuda):
     else:  # x is the cotangent of a cout -> cin conv's output, wt that conv's flipped kernel
         w0 = torch.from_numpy((rng.normal(size=(3, 3, cout, cin)) / np.sqrt(9 * cout)).astype(np.float32))
         wt = w0.flip((0, 1)).transpose(2, 3).contiguous().to(cuda)
+    from triplegan_tpu_torch.ops.winograd import winograd_magnitude
+
+    key = (role, n, h, w, cin, cout, pad, "float32")
+    assert cv.f32_wino_plan(n, h, w, cin, cout) is not None
+    before = (cv.wino_launches[key], cv.fwd_launches.total())
+    shipped = cv.conv3x3_nopad(x, wt, pad, role=role)
+    torch.cuda.synchronize()
+    assert (cv.wino_launches[key], cv.fwd_launches.total()) == (before[0] + 1, before[1])
+    xp = cv._pad_hw(x, pad)
+    exact = cv.reference_conv3x3_nopad(cv._pad_hw(x.double(), pad), wt.double())
+    lim = (cin + 32) * 2.0 ** -24 * winograd_magnitude(x, wt, pad).double()
+    assert bool(((shipped.double() - exact).abs() <= lim).all()), float((shipped.double() - exact).abs().max())
+
     plan = cv.f32_fwd_plan(n * h * w, cin, cout)
     assert plan[2] > 0 and cv.f32_fwd_block(plan[0]) == (128, 128, "k-major")  # stream-K runs too
-    before = (cv.fwd_launches[role, n, h, w, cin, cout, pad, "float32"],
-              cv.fwd_block_launches[128, 128, "k-major"])
-    got = cv.conv3x3_nopad(x, wt, pad, role=role)
+    before = (cv.fwd_launches[key], cv.fwd_block_launches[128, 128, "k-major"])
+    got = cv.conv3x3_direct(x, wt, pad, role=role)
     torch.cuda.synchronize()
-    assert (cv.fwd_launches[role, n, h, w, cin, cout, pad, "float32"],
-            cv.fwd_block_launches[128, 128, "k-major"]) == (before[0] + 1, before[1] + 1)
-    xp = cv._pad_hw(x, pad)
+    assert (cv.fwd_launches[key], cv.fwd_block_launches[128, 128, "k-major"]) == (before[0] + 1, before[1] + 1)
     want = cv.reference_conv3x3_nopad(xp, wt)
     lim = _conv_limit(cv.reference_conv3x3_nopad(xp.abs(), wt.abs()).float(), 9 * cin, got, want)
     assert bool(((got.double() - want.double()).abs() <= lim).all()), float((got.double() - want.double()).abs().max())

@@ -14,7 +14,13 @@ Two CUDA sources replace the TPU kernels of
   the filter gradient's split over pixels (``f32_wgrad_plan``); both sum
   their partials in a fixed order. The kernels read any channel count and alignment
   (16-byte copies where they can, 4-byte ones elsewhere), so no operand is
-  padded or copied;
+  padded or copied. A forward (or input gradient) with at least 64 input
+  and 32 output channels runs instead through Winograd F(2×2, 3×3)
+  (``f32_wino_plan``): four kernels (the filter, input and output
+  transforms and 16 products on the same product loop), 16 multiply-adds a
+  2×2 output and channel pair where the direct conv does 36, into
+  workspaces this wrapper allocates; its plain twin is
+  ``ops/winograd.py::winograd_nopad``;
 * bfloat16: ``csrc/conv3x3_sm90.cu``, an implicit GEMM on the tensor cores
   (``wgmma``, fed by a ring of ``cp.async`` and TMA copies). The wrapper
   packs the forward's weight into a K-major, zero-padded matrix
@@ -31,7 +37,11 @@ Semantics, as in the JAX package:
   the sum over the nine taps accumulates in float32 and the result is in
   x's dtype. Deterministic on the card: the same shapes take the same
   plan, and a split's partial sums are added in a fixed order. The kernel reads the halo with bounds checks instead of
-  materializing the padded copy.
+  materializing the padded copy. Through Winograd the float32 result
+  differs from the exact value by at most (Cin + 32)·2⁻²⁴·M, M the conv
+  computed on magnitudes through the transforms
+  (``ops/winograd.py::winograd_magnitude``); the direct kernel's by at
+  most 9·Cin·2⁻²⁴ times the plain conv on magnitudes.
 * ``conv3x3_wgrad(x, g, pad)``: dW[dy,dx] = Σ x_halo[n,h+dy,w+dx,:]ᵀ ·
   g[n,h,w,:], float32 (3, 3, Cin, Cout). Deterministic on the card: the
   reduction over N·H·W is split over blocks into a float32 workspace and
@@ -79,6 +89,10 @@ wgrad_launches: collections.Counter = collections.Counter()
 # Float32 forward kernel launches by block, keyed by ``f32_fwd_block``:
 # (rows, columns, the im2col tile's layout).
 fwd_block_launches: collections.Counter = collections.Counter()
+# Float32 forwards and input gradients run through the Winograd pipeline
+# (``f32_wino_plan``) instead of the forward kernel, keyed as
+# ``fwd_launches``: each call is one launch of each of its four kernels.
+wino_launches: collections.Counter = collections.Counter()
 
 # The float32 kernels: 16 of K (forward) or pixels (wgrad) a stage; two
 # blocks fit on each of the H100's 132 SMs, so a wave is 264.
@@ -87,6 +101,10 @@ _F32_WAVE = 2 * 132
 _F32_MIN_CHUNK = 512
 _F32_MIN_RUN = 8  # K tiles of a forward stream-K run
 _F32_SK_SAVES = 16  # K tiles a run must save against a whole tile for stream-K to pay
+# The float32 Winograd pipeline (``f32_wino_plan``) takes a forward with at
+# least this many input channels, output channels and 2×2 output tiles:
+# below each the direct kernel was as fast or faster on the card (PERF.md).
+_WINO_MIN_CIN, _WINO_MIN_COUT, _WINO_MIN_TILES = 64, 32, 256
 # The bfloat16 kernels: blocks of 128 rows, 64 of K (or of pixels) a
 # stage; two blocks fit on each of the H100's 132 SMs, so a wave is 264.
 _SM90_BM, _SM90_BK = 128, 64
@@ -142,6 +160,15 @@ def _lib():
         wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
         wgrad.restype = i
     return fwd, wgrad
+
+
+def _lib_wino():
+    wino = build.load("conv3x3").conv3x3_wino_launch
+    if wino.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        wino.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        wino.restype = i
+    return wino
 
 
 def _lib_sm90():
@@ -234,8 +261,21 @@ def _dtype_name(t: torch.Tensor) -> str:
 def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "fwd") -> torch.Tensor:
     """VALID 3×3 conv of NHWC x read with a zero halo of ``pad`` pixels;
     w is HWIO (3, 3, Cin, Cout). CPU tensors take the plain version, CUDA
-    tensors the Hopper kernel (w must then be in x's dtype). ``role`` only
-    labels the launch count: "fwd", or "dgrad" where x is a cotangent."""
+    tensors the Hopper kernels (w must then be in x's dtype): at float32
+    the Winograd pipeline where ``f32_wino_plan`` gives a plan, else the
+    forward kernel. ``role`` only labels the launch count: "fwd", or
+    "dgrad" where x is a cotangent."""
+    return _forward(x, w, pad, role, winograd=True)
+
+
+def conv3x3_direct(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "fwd") -> torch.Tensor:
+    """``conv3x3_nopad`` through the forward kernel at every shape: the
+    direct conv that ``f32_wino_plan`` weighs the Winograd pipeline
+    against, for the checks and timings on the card."""
+    return _forward(x, w, pad, role, winograd=False)
+
+
+def _forward(x, w, pad, role, winograd):
     ho, wo = _out_hw(x, pad)
     if x.device.type == "cpu":
         return reference_conv3x3_nopad(_pad_hw(x, pad), w)
@@ -245,6 +285,7 @@ def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "f
         raise ValueError(f"w must be (3, 3, {cin}, Cout), got {tuple(w.shape)}")
     cout = w.shape[3]
     y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    wino = f32_wino_plan(n, ho, wo, cin, cout) if winograd and x.dtype == torch.float32 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if x.dtype == torch.bfloat16:
@@ -255,6 +296,11 @@ def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "f
             fwd, _ = _lib_sm90()
             rc = fwd(xk.data_ptr(), wp.data_ptr(), y.data_ptr(), n, hin, win, cin8, cout, pad,
                      bn, wp.shape[0], wp.shape[1], stream)
+        elif wino is not None:
+            bn, _, ws_len = wino
+            ws = torch.empty(ws_len, dtype=torch.float32, device=x.device)
+            rc = _lib_wino()(x.data_ptr(), w.data_ptr(), ws.data_ptr(), y.data_ptr(), n, hin, win, cin, cout,
+                             pad, bn, stream)
         else:
             bn, full, per, ws_len = f32_fwd_plan(n * ho * wo, cin, cout)
             block = f32_fwd_block(bn)
@@ -264,9 +310,13 @@ def conv3x3_nopad(x: torch.Tensor, w: torch.Tensor, pad: int = 0, role: str = "f
                      hin, win, cin, cout, pad, bn, full, per, stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 forward kernel launch failed: cudaError {rc}")
-    fwd_launches[role, n, hin, win, cin, cout, pad, _dtype_name(x)] += 1
-    if x.dtype == torch.float32:
-        fwd_block_launches[block] += 1
+    key = role, n, hin, win, cin, cout, pad, _dtype_name(x)
+    if wino is not None:
+        wino_launches[key] += 1
+    else:
+        fwd_launches[key] += 1
+        if x.dtype == torch.float32:
+            fwd_block_launches[block] += 1
     return y
 
 
@@ -319,6 +369,25 @@ def f32_fwd_plan(m: int, cin: int, cout: int):
         return bn, tiles, 0, 0
     segments = math.ceil(per / ktiles) + 1  # output tiles a run can touch
     return bn, full, per, math.ceil(iters / per) * segments * bm * bn
+
+
+@functools.lru_cache(maxsize=None)
+def f32_wino_plan(n: int, ho: int, wo: int, cin: int, cout: int):
+    """(bn, tiles, ws) of the float32 forward of an (n, ho, wo, cout)
+    output from cin channels through Winograd F(2×2, 3×3), or None where
+    the direct kernel takes it: under ``_WINO_MIN_CIN`` input channels,
+    ``_WINO_MIN_COUT`` output channels or ``_WINO_MIN_TILES`` 2×2 output
+    tiles, where the transforms cost more than the products save. tiles =
+    n·⌈ho/2⌉·⌈wo/2⌉; the products' blocks are bn columns wide (64, or 128
+    above 64 channels); ws floats of workspace hold U (16 × cin × cp), V
+    (16 × cin × tp) and M (16 × tiles × cp), cp and tp being cout and tiles
+    rounded up to multiples of 4. A function of the shapes alone, so
+    results repeat."""
+    tiles = n * -(-ho // 2) * -(-wo // 2)
+    if cin < _WINO_MIN_CIN or cout < _WINO_MIN_COUT or tiles < _WINO_MIN_TILES:
+        return None
+    cp, tp = _ceil_to(cout, 4), _ceil_to(tiles, 4)
+    return (64 if cp <= 64 else 128), tiles, 16 * (cin * cp + cin * tp + tiles * cp)
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,6 +4,8 @@
 //
 // Replaces, for float32, the TPU kernels of triplegan_tpu/ops/pallas_conv.py:
 //   fwd_kernel   <- _fwd_kernel    (launched by conv3x3_nopad)
+//   wino_*       <- _fwd_kernel    (launched by conv3x3_nopad for the wide
+//                                   convs: Winograd F(2x2, 3x3), below)
 //   wgrad_kernel <- _wgrad_kernel  (launched by conv3x3_wgrad)
 // bfloat16 calls go to conv3x3_sm90.cu.
 //
@@ -68,7 +70,18 @@
 //   pixels' (n, h, w) from tile to tile by additions. The M reduction is
 //   split over grid z into a float32 workspace (splits * K * Cout) and a
 //   second kernel sums the partials in a fixed order.
-// Both kernels are deterministic: the caller plans the splits from the
+// - Winograd (wino_*): with the product loop at the card's FMA rate (cuBLAS's
+//   float32 SGEMM reaches 42.3 TFLOP/s at 700 W), only fewer operations are
+//   faster. F(2x2, 3x3) does a wide conv's forward in 16 products of depth
+//   Cin where the direct conv does 36 multiply-adds a 2x2 output: four
+//   kernels (filter, input and output transforms through device memory,
+//   and 16 independent products on the wgrad's loop). Measured on the
+//   card (H100 SXM, 700 W) at the two training cells' calls: the
+//   products at 41-44 TFLOP/s, each call 0.52-0.83 of the forward kernel's
+//   time where Cin >= 64 and Cout >= 32; the caller takes the forward
+//   kernel below those widths, where the transforms cost more than the
+//   products save (ops/conv3x3.py f32_wino_plan).
+// All kernels are deterministic: the caller plans the splits from the
 // shapes alone, and no float atomics are used, so two runs give the same
 // bits. Offsets into x, g and y are 64-bit.
 //
@@ -661,6 +674,293 @@ __global__ void reduce_splits(const float* __restrict__ ws, float* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// Winograd F(2x2, 3x3): the forward kernel's role (forward and input
+// gradient) for the wide convs, as four kernels
+// ---------------------------------------------------------------------------
+//
+// Output tile (ty, tx) of image n, its 2x2 outputs at rows 2ty, 2ty+1 and
+// columns 2tx, 2tx+1, reads the 4x4 patch of xh from (2ty, 2tx); tiles are
+// T = N * th * tw, th = ceil(Ho / 2), tw = ceil(Wo / 2), t = (n*th + ty)*tw +
+// tx. With U = G w G^T and V = B^T d B for a filter w and a patch d,
+// y = A^T (U . V) A over Cin, so the conv becomes 16 independent products
+// M[p] = V[p] (T x Cin) . U[p] (Cin x Cout), one per position p = 4i + j of
+// the 4x4 Winograd domain: 16 * Cin multiply-adds per 2x2 outputs and
+// output channel where the direct conv does 36 * Cin. The transforms'
+// constants are 0, +-1 and +-1/2, so every value is a float32 sum or
+// difference of float32 values (U is summed in float64 and rounded once).
+// Workspaces, float32, 16-byte aligned (cp = Cout and tp = T rounded up to
+// multiples of 4, so that every row starts on 16 bytes):
+//   U (16, Cin, cp): wino_filter, zeros in columns Cout .. cp-1;
+//   V (16, Cin, tp): wino_input, k-major (the products' reduction runs
+//     along rows), zeros in columns T .. tp-1;
+//   M (16, T, cp): wino_gemm, rows of output tiles.
+// wino_gemm is the filter gradient's product loop over two k-major tiles
+// fed by 16-byte cp.async copies (tile_products), blockIdx.y the position;
+// wino_output applies A^T . A and writes y, masking the second row or
+// column of a tile that lies past an odd Ho or Wo. Every sum runs in a fixed
+// order and no atomics are used, so two runs give the same bits.
+
+struct WinoShape {
+  int hin, win, cin, cout, pad, ho, wo, th, tw, cp;
+  long long t, tp;
+};
+
+// U[p][ci][co] = (G w[.,.,ci,co] G^T)[p / 4][p % 4], G = [[1,0,0], [1/2,1/2,1/2],
+// [1/2,-1/2,1/2], [0,0,1]]: summed in float64, rounded once.
+__global__ void wino_filter(const float* __restrict__ w, float* __restrict__ u, WinoShape s) {
+  const long long total = (long long)s.cin * s.cp;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int ci = (int)(i / s.cp), co = (int)(i - (long long)ci * s.cp);
+    double g[3][3];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        g[dy][dx] = co < s.cout ? (double)w[((long long)(dy * 3 + dx) * s.cin + ci) * s.cout + co] : 0.0;
+    double gt[4][3];  // G g
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      gt[0][c] = g[0][c];
+      gt[1][c] = 0.5 * (g[0][c] + g[1][c] + g[2][c]);
+      gt[2][c] = 0.5 * (g[0][c] - g[1][c] + g[2][c]);
+      gt[3][c] = g[2][c];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // (G g) G^T
+      const double row[4] = {gt[r][0], 0.5 * (gt[r][0] + gt[r][1] + gt[r][2]),
+                             0.5 * (gt[r][0] - gt[r][1] + gt[r][2]), gt[r][2]};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) u[((long long)(4 * r + c) * s.cin + ci) * s.cp + co] = (float)row[c];
+    }
+  }
+}
+
+// V[p][c][t] = (B^T d B)[p / 4][p % 4] for the 4x4 patch d of channel c of
+// tile t, B^T = [[1,0,-1,0], [0,1,1,0], [0,-1,1,0], [0,1,0,-1]]; zeros for
+// t >= T. A thread takes VW channels of one tile (VW = 4: float4 reads,
+// Cin % 4 == 0 and x 16-byte aligned). A block of 256 takes 32 tiles
+// (blockIdx.x, a lane each, so that each store of a warp writes 32
+// consecutive t) by 8 groups of VW channels (blockIdx.y, a warp each, so
+// that the block's reads of a pixel fill whole 32-byte sectors, which the
+// warps share through L1 with the overlapping patches of their tiles).
+template <int VW>
+__global__ void __launch_bounds__(256) wino_input(const float* __restrict__ x, float* __restrict__ v, WinoShape s) {
+  const long long t = (long long)blockIdx.x * 32 + threadIdx.x % 32;
+  const int c = (blockIdx.y * 8 + threadIdx.x / 32) * VW;
+  if (t < s.tp && c < s.cin) {
+    float d[4][4][VW];
+    if (t < s.t) {
+      const int per_n = s.th * s.tw;
+      const int nn = (int)(t / per_n);
+      const int rem = (int)(t - (long long)nn * per_n);
+      const int ty = rem / s.tw;
+      const int h0 = 2 * ty - s.pad, w0 = 2 * (rem - ty * s.tw) - s.pad;
+      const float* base = x + (long long)nn * s.hin * s.win * s.cin + c;
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const bool ok = (unsigned)(h0 + a) < (unsigned)s.hin && (unsigned)(w0 + b) < (unsigned)s.win;
+          const float* src = base + ((long long)(h0 + a) * s.win + (w0 + b)) * s.cin;
+          if constexpr (VW == 4) {
+            const float4 f = ok ? __ldg(reinterpret_cast<const float4*>(src)) : make_float4(0.f, 0.f, 0.f, 0.f);
+            d[a][b][0] = f.x; d[a][b][1] = f.y; d[a][b][2] = f.z; d[a][b][3] = f.w;
+          } else {
+            d[a][b][0] = ok ? __ldg(src) : 0.f;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int e = 0; e < VW; ++e) d[a][b][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      float bd[4][4];  // B^T d
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        bd[0][b] = d[0][b][e] - d[2][b][e];
+        bd[1][b] = d[1][b][e] + d[2][b][e];
+        bd[2][b] = d[2][b][e] - d[1][b][e];
+        bd[3][b] = d[1][b][e] - d[3][b][e];
+      }
+      float* out = v + (long long)(c + e) * s.tp + t;
+      const long long pstride = (long long)s.cin * s.tp;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // (B^T d) B
+        out[(4 * r + 0) * pstride] = bd[r][0] - bd[r][2];
+        out[(4 * r + 1) * pstride] = bd[r][1] + bd[r][2];
+        out[(4 * r + 2) * pstride] = bd[r][2] - bd[r][1];
+        out[(4 * r + 3) * pstride] = bd[r][1] - bd[r][3];
+      }
+    }
+  }
+}
+
+template <int BM, int BN>
+__host__ __device__ constexpr int wino_stage_floats() { return kBK * (BM + BN); }
+
+// M[p] rows m0 .. m0+BM-1, columns n0 .. n0+BN-1, of V[p]^T (T x Cin) . U[p]
+// (Cin x cp), p = blockIdx.y: both operands' k-major tiles of kBK rows
+// arrive through the ring by 16-byte copies (zeros past Cin and past tp),
+// and every output's fmaf chain runs in ascending k.
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+wino_gemm(const float* __restrict__ v, const float* __restrict__ u, float* __restrict__ m, WinoShape s) {
+  static_assert((BM / TM) * (BN / TN) == kThreads, "one accumulator tile per thread");
+  constexpr int kStage = wino_stage_floats<BM, BN>();
+  constexpr int kAChunks = kBK * BM / 4, kBChunks = kBK * BN / 4;
+  extern __shared__ __align__(16) float smem[];
+
+  const int tid = threadIdx.x;
+  const int p = blockIdx.y;
+  const int ntn = (s.cp + BN - 1) / BN;
+  const long long m0 = (long long)(blockIdx.x / ntn) * BM;
+  const int n0 = (blockIdx.x % ntn) * BN;
+  const float* vp = v + (long long)p * s.cin * s.tp;
+  const float* up = u + (long long)p * s.cin * s.cp;
+
+  auto load = [&](int kt, int slot) {
+    float* sa = smem + slot * kStage;
+    float* sb = sa + kBK * BM;
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int c = 0; c < (kAChunks + kThreads - 1) / kThreads; ++c) {
+      const int idx = tid + c * kThreads;
+      if (kAChunks % kThreads != 0 && idx >= kAChunks) break;
+      const int kr = idx / (BM / 4), cc = idx % (BM / 4);
+      const int k = k0 + kr;
+      const long long col = m0 + 4 * cc;
+      const bool ok = k < s.cin && col < s.tp;
+      cp_async16(sa + kr * BM + 4 * cc, ok ? vp + (long long)k * s.tp + col : v, ok);
+    }
+#pragma unroll
+    for (int c = 0; c < (kBChunks + kThreads - 1) / kThreads; ++c) {
+      const int idx = tid + c * kThreads;
+      if (kBChunks % kThreads != 0 && idx >= kBChunks) break;
+      const int kr = idx / (BN / 4), cc = idx % (BN / 4);
+      const int k = k0 + kr, col = n0 + 4 * cc;
+      const bool ok = k < s.cin && col < s.cp;
+      cp_async16(sb + kr * BN + 4 * cc, ok ? up + (long long)k * s.cp + col : u, ok);
+    }
+  };
+
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  // The ring as in fwd_segment.
+  const int tiles = (s.cin + kBK - 1) / kBK;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < tiles) load(t, t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nt = t + kStages - 1;
+    if (nt < tiles) load(nt, nt % kStages);
+    cp_async_commit();
+    const float* sa = smem + (t % kStages) * kStage;
+    tile_products<BM, BN, TM, TN, BM>(sa, sa + kBK * BM, ty, tx, acc);
+  }
+
+  float* mp = m + (long long)p * s.t * s.cp;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long row = m0 + col_of<BM, TM>(ty, i);
+    if (row < s.t) store_row<BN, TN>(mp + row * s.cp, acc[i], n0, tx, s.cp, true);
+  }
+}
+
+// y's 2x2 outputs of tile t, channels c .. c+3: A^T M A, A^T = [[1,1,1,0],
+// [0,1,-1,-1]], from M[p][t][c .. c+3] (float4 reads; channels fastest
+// across threads). Outputs past Ho, Wo or Cout are not written; VY: float4
+// stores (Cout % 4 == 0 and y 16-byte aligned).
+template <bool VY>
+__global__ void wino_output(const float* __restrict__ m, float* __restrict__ y, WinoShape s) {
+  const int cq = s.cp / 4;
+  const long long total = s.t * cq;
+  const long long pstride = s.t * s.cp;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long t = i / cq;
+    const int c = (int)(i - t * cq) * 4;
+    float mv[4][4][4];
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      const float4 f = *reinterpret_cast<const float4*>(m + p * pstride + t * s.cp + c);
+      mv[p / 4][p % 4][0] = f.x; mv[p / 4][p % 4][1] = f.y; mv[p / 4][p % 4][2] = f.z; mv[p / 4][p % 4][3] = f.w;
+    }
+    const int per_n = s.th * s.tw;
+    const int nn = (int)(t / per_n);
+    const int rem = (int)(t - (long long)nn * per_n);
+    const int ty = rem / s.tw, tx = rem - ty * s.tw;
+    float out[2][2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float am[2][4];  // A^T M
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        am[0][j] = mv[0][j][e] + mv[1][j][e] + mv[2][j][e];
+        am[1][j] = mv[1][j][e] - mv[2][j][e] - mv[3][j][e];
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {  // (A^T M) A
+        out[a][0][e] = am[a][0] + am[a][1] + am[a][2];
+        out[a][1][e] = am[a][1] - am[a][2] - am[a][3];
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int h = 2 * ty + a;
+      if (h >= s.ho) continue;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int w = 2 * tx + b;
+        if (w >= s.wo) continue;
+        float* dst = y + (((long long)nn * s.ho + h) * s.wo + w) * s.cout + c;
+        if constexpr (VY) {
+          *reinterpret_cast<float4*>(dst) = make_float4(out[a][b][0], out[a][b][1], out[a][b][2], out[a][b][3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (c + e < s.cout) dst[e] = out[a][b][e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// Blocks for an elementwise pass over `total` items: 256 threads, at most
+// 16 waves of the card's 132 SMs (the kernels stride over the rest).
+unsigned elementwise_blocks(long long total) {
+  long long blocks = (total + 255) / 256;
+  return (unsigned)(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
+}
+
+template <int BM, int BN, int TM, int TN>
+int launch_wino_gemm(const float* v, const float* u, float* m, const WinoShape& s, cudaStream_t st) {
+  constexpr int smem = kStages * wino_stage_floats<BM, BN>() * (int)sizeof(float);
+  const auto kernel = wino_gemm<BM, BN, TM, TN>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (s.t + BM - 1) / BM * ((s.cp + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)blocks, 16), kThreads, smem, st>>>(v, u, m, s);
+  return (int)cudaGetLastError();
+}
+
 bool make_shape(int n, int hin, int win, int cin, int cout, int pad, Shape* s) {
   if (n <= 0 || hin <= 0 || win <= 0 || cin <= 0 || cout <= 0 || pad < 0 || pad > 2) return false;
   s->n = n; s->hin = hin; s->win = win; s->cin = cin; s->cout = cout; s->pad = pad;
@@ -782,5 +1082,52 @@ extern "C" int conv3x3_wgrad_launch(const float* x, const float* g, float* ws, f
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 8) blocks = 132 * 8;
   reduce_splits<<<(unsigned)blocks, 256, 0, st>>>(ws, out, total, splits);
+  return (int)cudaGetLastError();
+}
+
+// Winograd F(2x2, 3x3) in the forward kernel's role: y = conv(xh, w) as
+// above, through wino_filter, wino_input, wino_gemm and wino_output. ws
+// holds U, V and M one after the other: 16 * (cin * cp + cin * tp + T * cp)
+// floats, 16-byte aligned, cp = cout and tp = T = n * ceil(ho / 2) *
+// ceil(wo / 2) rounded up to multiples of 4. bn, the product blocks' width
+// in columns of cp: 64 (128 x 64, 8 x 4 a thread) or 128 (128 x 128, 8 x 8).
+// Returns a cudaError_t as int, as conv3x3_fwd_launch does.
+extern "C" int conv3x3_wino_launch(const float* x, const float* w, float* ws, float* y, int n, int hin,
+                                   int win, int cin, int cout, int pad, int bn, void* stream) {
+  Shape sh;
+  if (!make_shape(n, hin, win, cin, cout, pad, &sh) || !aligned16(ws) || (bn != 64 && bn != 128)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  WinoShape s;
+  s.hin = hin; s.win = win; s.cin = cin; s.cout = cout; s.pad = pad;
+  s.ho = sh.ho; s.wo = sh.wo;
+  s.th = (s.ho + 1) / 2; s.tw = (s.wo + 1) / 2;
+  s.cp = (cout + 3) / 4 * 4;
+  s.t = (long long)n * s.th * s.tw;
+  s.tp = (s.t + 3) / 4 * 4;
+  if ((long long)s.th * s.tw > 0x7fffffffLL || (s.tp + 31) / 32 > 0x7fffffffLL || (cin + 7) / 8 > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  float* u = ws;
+  float* v = u + 16LL * cin * s.cp;
+  float* m = v + 16LL * cin * s.tp;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  wino_filter<<<elementwise_blocks((long long)cin * s.cp), 256, 0, st>>>(w, u, s);
+  const unsigned tile_groups = (unsigned)((s.tp + 31) / 32);
+  if (cin % 4 == 0 && aligned16(x)) {
+    wino_input<4><<<dim3(tile_groups, (cin / 4 + 7) / 8), 256, 0, st>>>(x, v, s);
+  } else {
+    wino_input<1><<<dim3(tile_groups, (cin + 7) / 8), 256, 0, st>>>(x, v, s);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int rc = bn == 128 ? launch_wino_gemm<128, 128, 8, 8>(v, u, m, s, st)
+                           : launch_wino_gemm<128, 64, 8, 4>(v, u, m, s, st);
+  if (rc != 0) return rc;
+  if (cout % 4 == 0 && aligned16(y)) {
+    wino_output<true><<<elementwise_blocks(s.t * (s.cp / 4)), 256, 0, st>>>(m, y, s);
+  } else {
+    wino_output<false><<<elementwise_blocks(s.t * (s.cp / 4)), 256, 0, st>>>(m, y, s);
+  }
   return (int)cudaGetLastError();
 }
