@@ -95,6 +95,17 @@ Phases, each fatal on failure (exit code 1, and no result line):
      state's tensors); the per-sample epilogue launched 18 forwards and 6
      backwards a step; the batch-norm moments as in phase 3b; its launches
      feed phase 7;
+  3f. cifar10_stylegan2 (the StyleGAN2 G and D, lazy R1) at its published
+     widths, float32, kernel arm, batch 64, on synthetic device data with
+     its own ZCA fit: two chunks of K steps from step 0, the first opening
+     with D's R1 update (two graphs in one pool), bitwise equal to 2·K eager
+     steps; the modulation epilogue launched 21 forwards and 7 backwards a
+     step; R1's second-order Functions counted, its wide input gradients
+     through the Winograd pipeline; R1's gradient of D, kernel arm against
+     plain, on the card; then a replay of each graph under torch.profiler,
+     each hand-written kernel (the ``cbn_*`` input scales and the ``mod_*``
+     epilogues among them) run as many times as the eager steps' counts
+     give; its launches feed phase 7 (the modulation epilogue's rows);
   3d. digits: the real-data recipe of the port's campaign
      (``triplegan_tpu_torch/tools/digits_experiment.py``) for seed 1 and
      100 labels: ``cli prepare --dataset digits`` from the data file the
@@ -466,8 +477,8 @@ def counts_zero():
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
     fold_moments()
-    for counter in (sba.launches, sba.bwd_launches, sba.cond_launches, sba.cond_bwd_launches, cv.fwd_launches,
-                    cv.wino_launches, cv.wgrad_launches):
+    for counter in (sba.launches, sba.bwd_launches, sba.cond_launches, sba.cond_bwd_launches, sba.noise_launches,
+                    sba.noise_bwd_launches, cv.fwd_launches, cv.wino_launches, cv.wgrad_launches):
         counter.clear()
 
 
@@ -960,7 +971,9 @@ HAND_KERNELS = {"sba_fwd": ("sba_fwd_rows<", "sba_fwd_c3<"), "sba_bwd": ("sba_bw
                 "conv_wgrad": ("wgrad_kernel<",), "conv_reduce": ("reduce_stream_k(", "reduce_splits("),
                 "bnm_fwd": ("bnm_fwd_rows<",), "bnm_reduce": ("bnm_reduce(",), "bnm_bwd": ("bnm_bwd_rows<",),
                 "wino_filter": ("wino_filter(",), "wino_input": ("wino_input<",), "wino_gemm": ("wino_gemm<",),
-                "wino_output": ("wino_output<",)}
+                "wino_output": ("wino_output<",), "cbn_fwd": ("cbn_fwd_rows<",), "cbn_bwd": ("cbn_bwd_rows<",),
+                "cbn_bwd_reduce": ("cbn_bwd_reduce<",), "mod_fwd": ("mod_fwd_rows<",),
+                "mod_bwd": ("mod_bwd_rows<",), "mod_bwd_reduce": ("mod_bwd_reduce(",)}
 # Kineto keeps only the device records that lie inside its capture window,
 # which is taken on the host's clock; a card timestamp converted to that
 # clock can land a little past it (a profile that stopped right after its
@@ -1163,7 +1176,10 @@ def hand_kernels_per_step(counts: dict, n_steps: int, moments: dict) -> dict:
     shares tiles out stream-K runs ``fwd_kernel`` and ``reduce_stream_k``;
     a filter gradient split over pixels runs ``reduce_splits``; a moments
     forward runs ``bnm_fwd_rows`` and ``bnm_reduce``, its backward
-    ``bnm_bwd_rows``."""
+    ``bnm_bwd_rows``; the per-sample and the modulation epilogues (counts
+    "scale_bias_act_cond" and "scale_bias_act_noise", where ``counts`` has
+    them, and their "_bwd") run ``cbn_*`` and ``mod_*`` as the per-channel
+    one runs ``sba_*``."""
     from triplegan_tpu_torch.ops import conv3x3 as cv
 
     conv_reduce = wino = 0
@@ -1178,9 +1194,15 @@ def hand_kernels_per_step(counts: dict, n_steps: int, moments: dict) -> dict:
             wino += c
         elif dt == "float32":
             conv_reduce += c * (cv.f32_fwd_plan(m, cin, cout)[2] > 0)
-    bwd = counts["scale_bias_act_bwd"]
-    return {"sba_fwd": counts["scale_bias_act"].total() / n_steps, "sba_bwd": bwd.total() / n_steps,
-            "sba_bwd_reduce": sum(c for key, c in bwd.items() if set(key[-1]) & set("kb")) / n_steps,
+
+    def epilogue(fwd_name, group):
+        fwd = counts.get(fwd_name, collections.Counter())
+        bwd = counts.get(fwd_name + "_bwd", collections.Counter())
+        return {group + "_fwd": fwd.total() / n_steps, group + "_bwd": bwd.total() / n_steps,
+                group + "_bwd_reduce": sum(c for key, c in bwd.items() if set(key[-1]) & set("kb")) / n_steps}
+
+    return {**epilogue("scale_bias_act", "sba"), **epilogue("scale_bias_act_cond", "cbn"),
+            **epilogue("scale_bias_act_noise", "mod"),
             "conv_fwd": (counts["conv3x3_fwd"].total() - wino) / n_steps,
             "conv_wgrad": counts["conv3x3_wgrad"].total() / n_steps, "conv_reduce": conv_reduce / n_steps,
             "bnm_fwd": moments["bn_moments"].total() / n_steps, "bnm_reduce": moments["bn_moments"].total() / n_steps,
@@ -1404,6 +1426,178 @@ def snresnet_phase(zca) -> dict:
             "moments": check_moments(moments, True, SNRESNET),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "_sources": [(f"train {SNRESNET} float32", per_step, {})], "_moments": moments, "_steps": n}
+
+
+STYLEGAN2 = "cifar10_stylegan2"
+STYLEGAN2_TRAIN = 10000   # its synthetic train images (4,000 of them labeled)
+STYLEGAN2_BATCH = 64      # the configuration's own (mb 64)
+# the modulated convs' epilogue a step: seven modulated convs a G pass, three
+# G passes; backwards in G's own update
+STYLEGAN2_MOD = (21, 7)
+
+
+def stylegan2_counts() -> dict:
+    """``counts_read`` with the per-sample and the modulation epilogues'
+    counters."""
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    return dict(counts_read(), scale_bias_act_cond=sba.cond_launches.copy(),
+                scale_bias_act_cond_bwd=sba.cond_bwd_launches.copy(),
+                scale_bias_act_noise=sba.noise_launches.copy(), scale_bias_act_noise_bwd=sba.noise_bwd_launches.copy())
+
+
+def stylegan2_phase() -> dict:
+    """cifar10_stylegan2 at its published widths (the StyleGAN2 G and D,
+    StyleGAN2-ADA's cifar configuration), float32, kernel arm, cuDNN
+    deterministic, on synthetic device data, ZCA as configured (its own
+    fit). The main path: two chunks of ``GRAPH_K`` steps from step 0, the
+    first opening with D's R1 update and the second without (two graphs in
+    one pool, three warm-up steps), which must equal 2·``GRAPH_K`` eager
+    steps from the same state bitwise (every state tensor, G's w_avg and
+    EMA copy among them, and every step's metrics); the modulation
+    epilogue's counts ``STYLEGAN2_MOD`` a step over the warm-up and
+    captured steps; the R1 steps' second-order Functions counted, the
+    conv's input gradients through the Winograd pipeline; R1's gradient of
+    D on the card, kernel arm against the plain arm, within 1e-3 of its
+    norm; then three more chunks, from steps 8, 12 and 16, the first and
+    the last each a replay of one of the two graphs under torch.profiler:
+    its device records must hold each hand-written kernel as many times as
+    the eager steps' counts give (an R1 step's and three plain steps', or
+    four plain steps'). Its counts are a main path's for phase 7, which
+    holds each modulation epilogue shape against its plain twin."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.data.datasets import synthetic_dataset
+    from triplegan_tpu_torch.data.zca import fit_zca
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+    from triplegan_tpu_torch.train import step as S
+    from triplegan_tpu_torch.train.schedule import make_optimizers
+    from triplegan_tpu_torch.train.state import create_state
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = config_cfg(STYLEGAN2, "float32", STYLEGAN2_BATCH)
+        data = synthetic_dataset(image_size=cfg.image_size, channels=cfg.channels, num_classes=cfg.num_classes,
+                                 n_train=STYLEGAN2_TRAIN, n_test=CONFIG_TEST, num_labeled=cfg.num_labeled)
+        zca = fit_zca(data.x_unlabel)
+        nets, opts = make_networks(cfg), make_optimizers(cfg, TOTAL_STEPS)
+        dev_data = S.upload_device_data(data, "cuda")
+        step = S.make_device_train_step(cfg, nets, opts, TOTAL_STEPS, zca_stats=zca)
+        runner = S.make_scan_device_train_step(cfg, nets, opts, TOTAL_STEPS, GRAPH_K, zca_stats=zca,
+                                               log=lambda *a, **kw: None)
+        state = create_state(cfg, nets, opts, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        counts_zero()  # the main path starts here
+        for c in (sba.second_order_launches, cv.second_order_launches):
+            c.clear()
+        ref = S._clone_state(state)
+        per_step_m = []
+        for _ in range(2):
+            state, _ = runner(state, dev_data)
+            per_step_m.append(runner.step_metrics)
+        counts = stylegan2_counts()
+        second = {"conv": cv.second_order_launches.copy(), "epilogue": sba.second_order_launches.copy()}
+        wino = cv.wino_launches.copy()  # the main path ends here
+        moments = moments_read()
+        ref_ms, eager = [], []
+        for _ in range(2 * GRAPH_K):
+            counts_zero()
+            ref, m = step(ref, dev_data)
+            ref_ms.append(m)
+            eager.append(hand_kernels_per_step(stylegan2_counts(), 1, moments_read()))
+        want = S._stacked(ref_ms)
+        got = {key: torch.cat([m[key] for m in per_step_m]) for key in S.METRICS}
+        bad = [key for key in S.METRICS if not torch.equal(got[key], want[key])]
+        diff = sum(not torch.equal(a, b) for a, b in zip(S._state_tensors(state), S._state_tensors(ref)))
+        r1 = r1_on_card(cfg, state, dev_data)
+        holder = {"state": state}
+
+        def one_chunk():
+            holder["state"], _ = runner(holder["state"], dev_data)
+
+        prof = {"plain": device_kernels(one_chunk, reps=1)}  # steps 8 to 11
+        one_chunk()  # 12 to 15
+        prof["r1"] = device_kernels(one_chunk, reps=1)  # 16 to 19: R1 at 16
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(not bad and diff == 0, f"{STYLEGAN2}: the graphed chunks differ from {2 * GRAPH_K} eager steps: "
+                                 f"metrics {bad}, {diff} state tensors")
+    check((runner.captures, runner.replays, runner.warmup_steps) == (2, 5, 3),
+          f"{STYLEGAN2}: {runner.captures} captures, {runner.replays} replays and {runner.warmup_steps} warm-ups, "
+          f"want 2, 5 and 3")
+    check({p: o.count for p, o in state.opt.items()} == {"gen": 8, "disc": 9, "clf": 8},
+          f"{STYLEGAN2}: Adam counts {[(p, o.count) for p, o in state.opt.items()]} after one R1 step of 8")
+    graphed = [{key: float(v) for key, v in zip(S.METRICS, row)} for row in torch.stack([got[k] for k in S.METRICS], 1)]
+    for t, m in enumerate(graphed):
+        check(all(math.isfinite(v) for v in m.values()), f"{STYLEGAN2}: step {t} {m}")
+    n = 2 * GRAPH_K + runner.warmup_steps  # each captured step counts once, so do the warm-ups
+    launches = totals(counts)
+    want_mod = (STYLEGAN2_MOD[0] * n, STYLEGAN2_MOD[1] * n)
+    check((launches["scale_bias_act_noise"], launches["scale_bias_act_noise_bwd"]) == want_mod,
+          f"{STYLEGAN2}: modulation epilogue launches {launches}, want {want_mod} over {n} steps")
+    roles = {k[0] for k in second["conv"]}
+    check({"dgrad2", "wgrad2"} <= roles and {k[0] for k in second["epilogue"]} == {"channel"},
+          f"{STYLEGAN2}: R1's second-order Functions {roles}, {set(second['epilogue'])}")
+    wide = [k for k in second["conv"] if k[0] == "dgrad2" and k[4] == 512]
+    check(wide and all(("dgrad",) + k[1:] in wino for k in wide),
+          f"{STYLEGAN2}: R1's wide input gradients {wide} did not all run through the Winograd pipeline")
+    r1_step, plain_step = eager[0], eager[1]
+    check(all(e == plain_step for e in eager[1:]), f"{STYLEGAN2}: the plain eager steps ran {eager[1:]}")
+    replayed = collections.Counter()
+    chunks = {}
+    for name, kernels in (("plain", {g: GRAPH_K * plain_step[g] for g in HAND_KERNELS}),
+                          ("r1", {g: r1_step[g] + (GRAPH_K - 1) * plain_step[g] for g in HAND_KERNELS})):
+        in_chunk = {g: prof[name]["groups"][g]["launches"] for g in HAND_KERNELS}
+        check(in_chunk == kernels, f"{STYLEGAN2}: a replay of the {name} graph ran {in_chunk}, want {kernels}")
+        replayed.update(replayed_launches(prof[name]))
+        replayed.update({"scale_bias_act_noise": in_chunk["mod_fwd"], "scale_bias_act_noise_bwd": in_chunk["mod_bwd"],
+                         "scale_bias_act_cond": in_chunk["cbn_fwd"], "scale_bias_act_cond_bwd": in_chunk["cbn_bwd"]})
+        chunks[name] = {"kernels_in_chunk": in_chunk, "groups": prof[name]["groups"],
+                        "top_device": prof[name]["top_device"]}
+    per_step = {name: {key: c / n for key, c in cnt.items()} for name, cnt in counts.items()}
+    return {"config": STYLEGAN2, "dtype": "float32", "batch": STYLEGAN2_BATCH, "k": GRAPH_K, "metrics": graphed,
+            "graph": dict(runner.graph_stats), "bitwise": True, "launches": launches,
+            "launches_replayed": dict(replayed),
+            "kernels_per_step": {"r1": r1_step, "plain": plain_step}, "replayed_chunks": chunks,
+            "second_order": {"conv": {str(k): c for k, c in second["conv"].items()},
+                             "epilogue": {str(k): c for k, c in second["epilogue"].items()}},
+            "r1_on_card": r1, "moments": check_moments(moments, True, STYLEGAN2),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "_sources": [(f"train {STYLEGAN2} float32", per_step, {})], "_steps": n}
+
+
+def r1_on_card(cfg, state, dev_data) -> dict:
+    """R1's gradient of D (the penalty of 64 real images) on the card, in
+    the kernel arm and in the plain arm (cuDNN, TF32 off), from the same
+    state: their largest leaf gap over the plain gradient's norm."""
+    import torch
+
+    from triplegan_tpu_torch.configs import make_networks
+    from triplegan_tpu_torch.data import ondevice
+
+    x = ondevice.standard_pipeline(dev_data["x_l"][:STYLEGAN2_BATCH], dtype=torch.float32)
+    y = dev_data["y_l"][:STYLEGAN2_BATCH]
+    grads = {}
+    for pallas in (True, False):
+        cfg.use_pallas = pallas
+        disc = make_networks(cfg)[1]
+        pd = {l: {k: t.detach().clone().requires_grad_(True) for k, t in a.items()}
+              for l, a in state.params["disc"].items()}
+        xr = x.detach().clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(disc.apply(pd, {}, xr, y, train=True)[0].sum(), xr, create_graph=True)
+        pen = torch.square(gx).sum(dim=(1, 2, 3)).mean()
+        leaves = [t for a in pd.values() for t in a.values()]
+        grads[pallas] = torch.autograd.grad(pen, leaves, allow_unused=True, materialize_grads=True)
+    cfg.use_pallas = True
+    norm = math.sqrt(sum(float(torch.sum(torch.square(t))) for t in grads[False]))
+    gap = max(float((a - b).abs().max()) for a, b in zip(grads[True], grads[False])) / norm
+    check(gap <= 1e-3, f"{STYLEGAN2}: R1's gradient of D, kernel arm against plain, {gap} of its norm")
+    return {"gap_over_norm": gap, "norm": norm}
 
 
 def config_serving(arm, data, zca) -> dict:
@@ -4031,6 +4225,83 @@ def sba_bwd_case(shape, dtype, act, slope, needs, gen, flush, per_sample=False) 
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def noise_inputs(shape, gen):
+    """Seeded inputs of the modulation epilogue at ``shape``: x (some of
+    its outputs past the clamp of 256), a cotangent, k (N, C), b (C,) and
+    q of x's shape but the last axis, float32 on the card."""
+    import torch
+
+    dev = torch.device("cuda")
+    n, c = shape[0], shape[-1]
+    x = 64.0 * torch.randn(shape, generator=gen, device=dev)
+    g = torch.randn(shape, generator=gen, device=dev)
+    k = torch.randn((n, c), generator=gen, device=dev)
+    b = torch.randn(c, generator=gen, device=dev)
+    q = torch.randn(shape[:-1], generator=gen, device=dev)
+    return x, g, k, b, q
+
+
+def noise_case(shape, act, slope, clamp, gen, flush) -> dict:
+    """The modulation epilogue's forward (``mod_fwd_rows``) at one shape
+    against its plain twin on the CPU, equal; timed against its bytes (x
+    read, y written, k, b and q read) ÷ 3.35 TB/s and against the plain
+    twin on the card."""
+    import torch
+
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    x, _, k, b, q = noise_inputs(shape, gen)
+    got = sba._noise_forward(x, k, b, q, act, slope, clamp).cpu()
+    want = sba.reference_scale_bias_act_noise(x.cpu(), k.cpu(), b.cpu(), q.cpu(), act, slope, clamp)
+    equal = bool(torch.equal(got, want))
+    check(equal, f"scale_bias_act_noise {act} {shape}: mod_fwd_rows differs from its plain twin")
+    tk = time_ms(lambda: sba._noise_forward(x, k, b, q, act, slope, clamp), flush, reps=SBA_REPS)
+    tp = time_ms(lambda: sba.reference_scale_bias_act_noise(x, k, b, q, act, slope, clamp), flush, reps=SBA_REPS)
+    nbytes = (2 * x.numel() + k.numel() + b.numel() + q.numel()) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * x.numel() / F32_FLOPS_PER_S * 1e3  # mul, two adds, activation, clamp
+    return {"equal": equal, "max_abs_err": float((got - want).abs().max()), "ms": tk["cold"], "p10_ms": tk["p10"],
+            "p90_ms": tk["p90"], "warm_ms": tk["warm"], "plain_ms": tp["cold"], "plain_warm_ms": tp["warm"],
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def noise_bwd_case(shape, act, slope, clamp, needs, gen, flush) -> dict:
+    """The modulation epilogue's backward (``mod_bwd_rows`` and, for dk or
+    db, ``mod_bwd_reduce``) at one shape and the gradients ``needs`` names
+    ("x", "k", "b", "q") against its plain twin on the CPU: dx bitwise, the
+    sums dk, db, dq within 1e-5 of the largest plain value's magnitude;
+    timed against its bytes (x and the cotangent read, dx written, k, b and
+    q read, dk, db and dq written where asked) ÷ 3.35 TB/s and against the
+    plain twin on the card."""
+    import torch
+
+    from triplegan_tpu_torch.ops import scale_bias_act as sba
+
+    x, g, k, b, q = noise_inputs(shape, gen)
+    mask = tuple(grad in needs for grad in "xkbq")
+    got = [None if t is None else t.cpu() for t in sba._noise_backward(x, k, b, q, g, act, slope, clamp, mask)]
+    want = sba.reference_scale_bias_act_noise_bwd(*(t.cpu() for t in (x, k, b, q, g)), act, slope, clamp, mask)
+    dx_bitwise = not mask[0] or bool(torch.equal(got[0], want[0]))
+    sums_rel = [float((a - w).abs().max() / w.abs().max()) for a, w, m in zip(got[1:], want[1:], mask[1:]) if m]
+    check(dx_bitwise and max(sums_rel, default=0.0) <= 1e-5,
+          f"scale_bias_act_noise backward {act} {shape} {needs}: dx bitwise {dx_bitwise}, sums {sums_rel}")
+    errs = [float((a - w).abs().max()) for a, w, m in zip(got, want, mask) if m]
+    del got, want
+    run = lambda: sba._noise_backward(x, k, b, q, g, act, slope, clamp, mask)  # noqa: E731
+    plain = lambda: sba.reference_scale_bias_act_noise_bwd(x, k, b, q, g, act, slope, clamp, mask)  # noqa: E731
+    tk = time_ms(run, flush, reps=SBA_REPS)
+    tp = time_ms(plain, flush, reps=SBA_REPS)
+    nbytes = ((2 + mask[0]) * x.numel() + (1 + mask[3]) * q.numel() + (1 + mask[1]) * k.numel()
+              + (1 + mask[2]) * b.numel()) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 12 * x.numel() / F32_FLOPS_PER_S * 1e3  # z, act', the mask, t, dx, three sums
+    return {"dx_bitwise": dx_bitwise, "sums_rel": sums_rel, "max_abs_err": max(errs, default=0.0),
+            "ms": tk["cold"], "p10_ms": tk["p10"], "p90_ms": tk["p90"], "warm_ms": tk["warm"],
+            "plain_ms": tp["cold"], "plain_warm_ms": tp["warm"], "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 # the paths of the benchmark's two cells' configurations, and the least share
 # of their float32 forward and input-gradient operations a step that the
 # Winograd pipeline must take
@@ -4109,7 +4380,9 @@ def kernel_phase(sources, moments_paths) -> tuple:
     this process launched them at (``MOMENTS_SEEN``) and at the ragged
     shape in each dtype, with their launches in this process and per step
     on the paths ``moments_paths`` gives (setting: (dtype, batch,
-    ``moments_read()``, steps))."""
+    ``moments_read()``, steps)); the modulation epilogue, forward and
+    backward, at each shape and set of gradients a main path launched it
+    at."""
     import torch
 
     dev = torch.device("cuda")
@@ -4119,8 +4392,13 @@ def kernel_phase(sources, moments_paths) -> tuple:
     bwd_keys = {(RAGGED_SHAPE, dt, "tanh", 0.1, "xkb"): {} for dt in ("float32", "bfloat16")}
     cond_keys = {(RAGGED_SHAPE, dt, "relu", 0.1): {} for dt in ("float32", "bfloat16")}
     cond_bwd_keys = {(RAGGED_SHAPE, dt, "relu", 0.1, "xkb"): {} for dt in ("float32", "bfloat16")}
+    noise_keys, noise_bwd_keys = {}, {}
     conv_keys, players = {}, collections.defaultdict(set)
     for source, counts, where in sources:
+        for key, c in counts.get("scale_bias_act_noise", {}).items():
+            noise_keys.setdefault(key, {})[source] = c
+        for key, c in counts.get("scale_bias_act_noise_bwd", {}).items():
+            noise_bwd_keys.setdefault(key, {})[source] = c
         for key, c in counts.get("scale_bias_act_cond", {}).items():
             cond_keys.setdefault(key, {})[source] = c
         for key, c in counts.get("scale_bias_act_cond_bwd", {}).items():
@@ -4157,6 +4435,18 @@ def kernel_phase(sources, moments_paths) -> tuple:
                "launches": launches, **sba_bwd_case(shape, dtype, act, slope, needs, gen, flush, per_sample=True)}
         cond_bwd_rows.append(row)
         emit("scale_bias_act_cond_bwd", row)
+    noise_rows = []
+    for (shape, dtype, act, slope, clamp), launches in sorted(noise_keys.items()):
+        row = {"shape": list(shape), "dtype": dtype, "act": act, "slope": slope, "clamp": clamp,
+               "launches": launches, **noise_case(shape, act, slope, clamp, gen, flush)}
+        noise_rows.append(row)
+        emit("scale_bias_act_noise", row)
+    noise_bwd_rows = []
+    for (shape, dtype, act, slope, clamp, needs), launches in sorted(noise_bwd_keys.items()):
+        row = {"shape": list(shape), "dtype": dtype, "act": act, "slope": slope, "clamp": clamp, "needs": needs,
+               "launches": launches, **noise_bwd_case(shape, act, slope, clamp, needs, gen, flush)}
+        noise_bwd_rows.append(row)
+        emit("scale_bias_act_noise_bwd", row)
     conv_rows = []
     for key, launches in sorted(conv_keys.items()):
         op, n, h, w, cin, cout, pad, dtype = key
@@ -4180,7 +4470,7 @@ def kernel_phase(sources, moments_paths) -> tuple:
         moment_rows.append(row)
         emit("bn_moments", row)
     del flush
-    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows
+    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows
 
 
 # ---------------------------------------------------------------------------
@@ -4188,7 +4478,8 @@ def kernel_phase(sources, moments_paths) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows, train_runs, serve_arms) -> list:
+def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows,
+            train_runs, serve_arms) -> list:
     """One line per kernel: launches over every main path (the train arms,
     the graph arms', phase 3c's, 3e's and the driver's counted runs, the
     serving arms): the
@@ -4198,7 +4489,8 @@ def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows
     (``launches_replayed``); and times and bounds summed over one train
     step's launches at each setting (``per_step``), the shipped setting's
     also at the top level (the per-sample epilogue's: cifar10_snresnet's,
-    the one setting that launches it)."""
+    the modulation epilogue's: cifar10_stylegan2's, the one setting that
+    launches each)."""
     counted, replayed = collections.Counter(), collections.Counter()
     for arm in train_runs + serve_arms:
         counted.update(arm.get("launches_counted", arm["launches"]))
@@ -4207,12 +4499,14 @@ def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows
     conv_src = {"float32": csrc + "conv3x3.cu", "bfloat16": csrc + "conv3x3_sm90.cu"}
     sba_src = {"float32": csrc + "scale_bias_act.cu", "bfloat16": csrc + "scale_bias_act.cu"}
     kernels = []
-    sn_setting = f"{SNRESNET} float32"
+    sn_setting, sg_setting = f"{SNRESNET} float32", f"{STYLEGAN2} float32"
     for name, rows, sources, replaces, top_setting in (
         ("scale_bias_act", sba_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:59", "shipped"),
         ("scale_bias_act_bwd", bwd_rows, sba_src, "triplegan_tpu/ops/pallas_fused.py:117", "shipped"),
         ("scale_bias_act_cond", cond_rows, sba_src, None, sn_setting),
         ("scale_bias_act_cond_bwd", cond_bwd_rows, sba_src, None, sn_setting),
+        ("scale_bias_act_noise", noise_rows, sba_src, None, sg_setting),
+        ("scale_bias_act_noise_bwd", noise_bwd_rows, sba_src, None, sg_setting),
         ("conv3x3_fwd", [r for r in conv_rows if r["op"] != "wgrad"], conv_src,
          "triplegan_tpu/ops/pallas_conv.py:54", "shipped"),
         ("conv3x3_wgrad", [r for r in conv_rows if r["op"] == "wgrad"], conv_src,
@@ -4222,7 +4516,7 @@ def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows
         for setting, dtype, batch, _ in SETTINGS + [("host_fused", "float32", BATCH, False),
                                                    ("mesh_rank", "float32", 128 // MESH_WORLD, False)] + [
                 (f"{name} {dtype}", dtype, batch, False) for name in CONFIGS for dtype, batch, _ in CONFIG_ARMS[name]
-        ] + [(sn_setting, "float32", BATCH, False)]:
+        ] + [(sn_setting, "float32", BATCH, False), (sg_setting, "float32", STYLEGAN2_BATCH, False)]:
             runs = [(r["launches"]["train " + setting], r) for r in rows if "train " + setting in r["launches"]]
             sums = {key: sum(n * r[key] for n, r in runs) for key in ("ms", "plain_ms", "bound_ms")}
             library = [n * r["library_ms"] for n, r in runs if r["library_ms"] is not None]
@@ -4251,8 +4545,9 @@ def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows
                      "the same at each setting, for the host-streamed fused-classifier step "
                      "(host_fused), for one rank's step of stl10 on a mesh of 2 (mesh_rank: "
                      "96 x 96, batch 64 a rank), for each arm of phase 3c (mnist100, svhn1k, "
-                     "cifar10_cond at their published widths: float32 batch 100, bfloat16 batch 384) "
-                     "and for phase 3e (cifar10_snresnet, float32, batch 100)",
+                     "cifar10_cond at their published widths: float32 batch 100, bfloat16 batch 384), "
+                     "for phase 3e (cifar10_snresnet, float32, batch 100) and for phase 3f "
+                     "(cifar10_stylegan2, float32, batch 64)",
             "per_step": per_step,
         })
     kernels.append(moments_summary(moment_rows, replayed))
@@ -4352,6 +4647,11 @@ def main():
         emit("snresnet", {k: v for k, v in snresnet.items() if not k.startswith("_")})
         phases["snresnet"] = time.perf_counter() - t_start
 
+        # 3f. cifar10_stylegan2: the StyleGAN2 G and D with lazy R1, graphed
+        stylegan2 = stylegan2_phase()
+        emit("stylegan2", {k: v for k, v in stylegan2.items() if not k.startswith("_")})
+        phases["stylegan2"] = time.perf_counter() - t_start
+
         # 3d. digits: one seed of the real-data recipe, both arms
         digits = digits_phase(data_root)
         phases["digits"] = time.perf_counter() - t_start
@@ -4395,9 +4695,10 @@ def main():
     for rec in configs:
         moments_paths.update(rec["_moments"])
     moments_paths[f"{SNRESNET} float32"] = ("float32", BATCH, snresnet["_moments"], snresnet["_steps"])
-    sources = path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits) + snresnet["_sources"]
+    sources = (path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits)
+               + snresnet["_sources"] + stylegan2["_sources"])
     emit("winograd_share", winograd_share(sources))
-    sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows = kernel_phase(
+    sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows = kernel_phase(
         sources, moments_paths)
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
@@ -4411,21 +4712,23 @@ def main():
                                                        for name, cnt in counters.items()}}
                                  for path, (_, _, counters, n) in moments_paths.items()})
     config_runs = [run for rec in configs for run in rec["arms"] + [rec["serving"]] + ([rec["loop"]] if "loop" in rec else [])]
-    kernels = summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, conv_rows, moment_rows,
-                      train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor, digits, snresnet],
+    kernels = summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows,
+                      train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor, digits, snresnet,
+                                                               stylegan2],
                       serve_arms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "cond_rows": cond_rows,
-                       "cond_bwd_rows": cond_bwd_rows, "conv_rows": conv_rows, "bn_moments_rows": moment_rows,
+                       "cond_bwd_rows": cond_bwd_rows, "noise_rows": noise_rows, "noise_bwd_rows": noise_bwd_rows,
+                       "conv_rows": conv_rows, "bn_moments_rows": moment_rows,
                        "doctor": public(doctor), "debug": debug,
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms], "configs": [public(r) for r in configs],
                        "card_vs_cpu": card_cpu, "driver": public(driver), "host": public(host),
                        "mesh": public(mesh), "deploy": public(deploy), "digits": public(digits),
-                       "snresnet": public(snresnet),
+                       "snresnet": public(snresnet), "stylegan2": public(stylegan2),
                        "serve": [public(a) for a in serve_arms],
                        "kernels": kernels, "profile_windows": PROFILE_WINDOWS}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

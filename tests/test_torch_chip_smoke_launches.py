@@ -6,7 +6,9 @@ variant that moves convs off the kernels (or does not); and the
 configurations of phase 3c (mnist100, svhn1k, cifar10_cond). The wrappers
 count only on the card, so the calls are counted here by spies that key
 them as the wrappers do (the epilogue's forward and backward by count),
-and ``check_step_launches``, the card run's check, must pass on them."""
+and ``check_step_launches``, the card run's check, must pass on them; and
+``hand_kernels_per_step``, which the card run holds each replay's kernels
+to, for each epilogue family."""
 
 import collections
 
@@ -195,3 +197,28 @@ def test_the_digits_supervised_arm_launches_what_chip_smoke_implies(monkeypatch)
     want = collections.Counter({k: 2 * c for k, c in step_convs.items()}) + eval_convs
     assert counts["conv3x3_fwd"] + counts["conv3x3_wgrad"] == want
     assert (calls["epilogues"], calls["epilogue_bwds"]) == (2 * step_fwd + eval_fwd, 2 * step_bwd)
+
+
+def test_hand_kernels_per_step_maps_each_epilogue_family_to_its_kernels():
+    """The per-channel, per-sample and modulation epilogues' counts (keys
+    as their wrappers key them, the gradients last) as the kernels a step
+    runs: a forward each, a backward each, and the backward's reduce where
+    dk or db is asked for; every group of ``HAND_KERNELS`` given."""
+    shape = (2, 4, 4, 8)
+    counts = {"conv3x3_fwd": collections.Counter(), "conv3x3_wgrad": collections.Counter(),
+              "scale_bias_act": collections.Counter({(shape, "float32", "relu", 0.1): 6}),
+              "scale_bias_act_bwd": collections.Counter({(shape, "float32", "relu", 0.1, "x"): 2,
+                                                         (shape, "float32", "relu", 0.1, "xb"): 4}),
+              "scale_bias_act_cond": collections.Counter({(shape, "float32", "linear", 0.1): 4}),
+              "scale_bias_act_cond_bwd": collections.Counter({(shape, "float32", "linear", 0.1, "xk"): 2}),
+              "scale_bias_act_noise": collections.Counter({(shape, "float32", "leaky_relu", 0.2, 256.0): 6}),
+              "scale_bias_act_noise_bwd": collections.Counter({(shape, "float32", "leaky_relu", 0.2, 256.0, "xq"): 2,
+                                                               (shape, "float32", "leaky_relu", 0.2, 256.0, "xkbq"): 2})}
+    moments = {"bn_moments": collections.Counter(), "bn_moments_bwd": collections.Counter()}
+    per_step = chip_smoke.hand_kernels_per_step(counts, 2, moments)
+    assert set(per_step) == set(chip_smoke.HAND_KERNELS)
+    assert {g: per_step[g] for g in per_step if g[:3] in ("sba", "cbn", "mod")} == {
+        "sba_fwd": 3, "sba_bwd": 3, "sba_bwd_reduce": 2, "cbn_fwd": 2, "cbn_bwd": 1, "cbn_bwd_reduce": 1,
+        "mod_fwd": 3, "mod_bwd": 2, "mod_bwd_reduce": 1}
+    plain = {k: v for k, v in counts.items() if "cond" not in k and "noise" not in k}
+    assert all(chip_smoke.hand_kernels_per_step(plain, 2, moments)[g] == 0 for g in per_step if g[:3] in ("cbn", "mod"))

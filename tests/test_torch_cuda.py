@@ -10,7 +10,10 @@ chunk under a process group: refused under gloo, and under NCCL (a group
 of this process alone) equal to eager steps bitwise; the phase marks a
 profiled replay runs; the forward kernels
 as PyTorch operators, and a ``.pt2`` artifact exported on the card that
-launches them there and runs its plain versions once moved to the CPU.
+launches them there and runs its plain versions once moved to the CPU;
+StyleGAN2's modulation epilogue (``mod_*``) against its plain version,
+the conv of 513 input channels, and R1's double backward through the
+Winograd pipeline against float64 on the CPU.
 Skips where there is no CUDA device (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -1199,3 +1202,84 @@ def test_graphed_supervised_step_equals_eager_steps_bitwise_on_card(cuda, batch)
     assert eager.state.opt["clf"].count == graphed.state.opt["clf"].count == 3
     x_test = rng.randint(0, 256, (50, 28, 28, 1)).astype(np.uint8)
     assert eager.error(x_test, np.zeros(50)) == graphed.error(x_test, np.zeros(50))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, clamp", [((64, 32, 32, 512), 256.0), ((64, 4, 4, 512), 256.0),
+                                          ((3, 5, 7, 128), 1.0), ((2, 3, 3, 1024), 0.5)])
+def test_noise_epilogue_matches_plain_on_card(shape, clamp, cuda):
+    """The modulated conv's epilogue (``mod_*``): the forward equal to the
+    plain version (both compute x·k + b + q, the activation and the clamp
+    in float32 with one rounding each); the backward's dx bitwise (the
+    kernel forms t = g·act'·mask and t·k as the plain one does) and dk, db,
+    dq within 1e-5 of their largest magnitude (float32 sums of at most a
+    few thousand terms in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, c = shape[0], shape[-1]
+    x, gy = (2.0 * torch.randn(shape, generator=g, device=cuda) for _ in range(2))
+    k, b = torch.randn((n, c), generator=g, device=cuda), torch.randn(c, generator=g, device=cuda)
+    q = torch.randn(shape[:-1], generator=g, device=cuda)
+    cpu = [t.cpu() for t in (x, k, b, q)]
+    sba.noise_launches.clear()
+    y = sba.scale_bias_act_noise(x, k, b, q, "leaky_relu", 0.2, clamp)
+    assert torch.equal(y.cpu(), sba.reference_scale_bias_act_noise(*cpu, "leaky_relu", 0.2, clamp))
+    assert sba.noise_launches[shape, "float32", "leaky_relu", 0.2, clamp] == 1
+    got = sba._noise_backward(x, k, b, q, gy, "leaky_relu", 0.2, clamp, (True, True, True, True))
+    want = sba.reference_scale_bias_act_noise_bwd(*cpu, gy.cpu(), "leaky_relu", 0.2, clamp)
+    assert torch.equal(got[0].cpu(), want[0])
+    for a, w in zip(got[1:], want[1:]):
+        assert float((a.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_conv_of_513_input_channels_matches_plain_on_card(cuda):
+    """StyleGAN2 D's 4×4 conv after the minibatch stddev: 513 → 512 channels
+    (Winograd by ``f32_wino_plan`` at 64 rows), forward and both gradients
+    within the module's bound, 8·sqrt(K)·2⁻²⁴ of the plain op on |inputs|."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((64, 4, 4, 513), generator=g, device=cuda)
+    w = torch.randn((3, 3, 513, 512), generator=g, device=cuda) / 68.0
+    assert cv.f32_wino_plan(64, 4, 4, 513, 512) is not None
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = cv.conv3x3(xs, ws, "SAME")
+    gy = torch.randn(y.shape, generator=g, device=cuda)
+    dx, dw = torch.autograd.grad(y, (xs, ws), gy)
+    def plain(xv, wv, gv):  # float64 on the CPU: the op and its two gradients
+        xr, wr = xv.clone().requires_grad_(True), wv.clone().requires_grad_(True)
+        yr = cv.reference_conv3x3(xr, wr, "SAME")
+        return (yr.detach(), *torch.autograd.grad(yr, (xr, wr), gv))
+
+    xd, wd, gd = (t.double().cpu() for t in (x, w, gy))
+    want, mag = plain(xd, wd, gd), plain(xd.abs(), wd.abs(), gd.abs())
+    for got, wv, mv, k in zip((y, dx, dw), want, mag, (9 * 513, 9 * 512, 64 * 16)):
+        assert bool(((got.double().cpu() - wv).abs() <= 8 * k ** 0.5 * 2.0 ** -24 * mv).all())
+
+
+@pytest.mark.cuda
+def test_r1_double_backward_through_the_winograd_path_matches_float64_on_card(cuda):
+    """R1's gradient of a two-conv chain (512 → 512 at 16 × 16, 8 rows,
+    both convs' forwards and input gradients on the Winograd pipeline, the
+    epilogue between) in parameters, on the card in float32, against the
+    CPU's plain versions in float64: within 1e-4 of each gradient's largest
+    magnitude; the second-order Functions counted."""
+    import math
+
+    cv.second_order_launches.clear()
+    sba.second_order_launches.clear()
+    torch.manual_seed(0)
+    n, hw, c = 8, 16, 512  # 512 tiles of 2 × 2: the Winograd pipeline's
+    xc = torch.randn(n, hw, hw, c, dtype=torch.float64)
+    w1, w2 = (torch.randn(3, 3, c, c, dtype=torch.float64) / math.sqrt(9 * c) for _ in range(2))
+    k, b = torch.rand(c, dtype=torch.float64) + 0.5, torch.randn(c, dtype=torch.float64) * 0.1
+    out = {}
+    for dev, dt in (("cpu", torch.float64), (cuda, torch.float32)):
+        xs = xc.to(dev, dt).requires_grad_(True)
+        ws = [t.to(dev, dt).requires_grad_(True) for t in (w1, w2)]
+        bb = b.to(dev, dt).requires_grad_(True)
+        h = sba.scale_bias_act(cv.conv3x3(xs, ws[0], "SAME").contiguous(), k.to(dev, dt), bb, "leaky_relu", 0.2)
+        (gx,) = torch.autograd.grad(torch.square(cv.conv3x3(h, ws[1], "SAME")).sum(), xs, create_graph=True)
+        out[str(dev)] = [t.double().cpu() for t in torch.autograd.grad(torch.square(gx).sum(), ws + [bb])]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert any(key[0] == "dgrad2" and key[-1] == "float32" for key in cv.second_order_launches)
+    assert any(key[0] == "channel" and key[2] == "float32" for key in sba.second_order_launches)

@@ -27,9 +27,16 @@ import torch
 
 PLAYERS = ("gen", "disc", "clf")
 _DECONV_PLAYERS = ("gen",)  # whose 4-D kernels are transposed-conv kernels
-# statistics, not parameters: batch norm's running moments and a spectrally
-# normalised layer's power-iteration vector
-STATS = ("mean", "var", "u")
+# statistics, not parameters: batch norm's running moments, a spectrally
+# normalised layer's power-iteration vector, StyleGAN2's running mean of w;
+# and every array named with EMA_SUFFIX, a moving average of the parameter
+# of that name (StyleGAN2's G keeps one of each)
+STATS = ("mean", "var", "u", "w_avg")
+EMA_SUFFIX = "_ema"
+
+
+def is_stat(name: str) -> bool:
+    return name in STATS or name.endswith(EMA_SUFFIX)
 
 
 def _to_port(player: str, arr) -> torch.Tensor:
@@ -64,7 +71,7 @@ def from_jax(params: dict, bn: dict) -> Dict[str, Dict[str, torch.Tensor]]:
 
 def to_jax(state: Dict[str, Dict[str, torch.Tensor]]):
     """The port's ``{player: state_dict}`` → JAX ``(params, bn)`` nested
-    dicts of numpy arrays: the statistics (``STATS``) go to ``bn``, the rest
+    dicts of numpy arrays: the statistics (``is_stat``) go to ``bn``, the rest
     to ``params``."""
     params: dict = {}
     bn: dict = {}
@@ -72,20 +79,20 @@ def to_jax(state: Dict[str, Dict[str, torch.Tensor]]):
         params[player], bn[player] = {}, {}
         for key, t in sd.items():
             layer, name = key.split(".")
-            tree = bn if name in STATS else params
+            tree = bn if is_stat(name) else params
             tree[player].setdefault(layer, {})[name] = _to_jax(player, t)
     return params, bn
 
 
 def nested(sd: Dict[str, torch.Tensor]):
     """One player's state_dict ``{"<layer>.<array>": t}`` → its (params,
-    stats) trees ``{layer: {array: t}}``; the statistics (``STATS``) go to
+    stats) trees ``{layer: {array: t}}``; the statistics (``is_stat``) go to
     stats."""
     params: dict = {}
     stats: dict = {}
     for key, t in sd.items():
         layer, name = key.split(".")
-        (stats if name in STATS else params).setdefault(layer, {})[name] = t
+        (stats if is_stat(name) else params).setdefault(layer, {})[name] = t
     return params, stats
 
 

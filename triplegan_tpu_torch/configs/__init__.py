@@ -1,6 +1,6 @@
 """Per-dataset configs: the port's copy of ``triplegan_tpu/configs`` with
-the same five registry entries and the same values, and one of the port's
-own, ``cifar10_snresnet``."""
+the same five registry entries and the same values, and two of the port's
+own, ``cifar10_snresnet`` and ``cifar10_stylegan2``."""
 
 from __future__ import annotations
 
@@ -79,6 +79,47 @@ def cifar10_snresnet() -> ConfigDict:
     return cfg
 
 
+def cifar10_stylegan2() -> ConfigDict:
+    """cifar10_4k with the StyleGAN2 pair (Karras et al., arXiv:1912.04958)
+    as G and D, at StyleGAN2-ADA's cifar configuration (arXiv:2006.06676;
+    NVlabs/stylegan2-ada-pytorch train.py cfg_specs['cifar']): 512 channels
+    at every resolution from 4 to 32, z and w of 512, a 2-layer mapping
+    (lr multiplier 0.01, w_avg β 0.995), conv_clamp 256; D ``orig`` with a
+    minibatch stddev over groups of 32 (one plane) and a projection onto
+    its own 8-layer label mapping (cmap 512); the lazy R1 penalty γ = 0.01
+    every 16 steps; G's EMA copy with a half-life of 500 kimg ramped over
+    0.05 of the images seen. Batch 64 (``mb``). C, the objective, Adam and
+    the data pipeline are cifar10_4k's."""
+    cfg = cifar10_4k()
+    cfg.name = "cifar10_stylegan2"
+    cfg.arch = "stylegan2"
+    cfg.z_dim = 512
+    cfg.batch_size = 64
+    cfg.gen.widths = (512, 512, 512, 512)      # channels at 4, 8, 16, 32
+    cfg.gen.kernel = 3
+    cfg.gen.w_dim = 512
+    cfg.gen.map_layers = 2
+    cfg.gen.map_lr_mult = 0.01
+    cfg.gen.w_avg_beta = 0.995
+    cfg.gen.conv_clamp = 256.0
+    cfg.gen.noise_init = 0.1                   # StyleGAN2 starts the strengths at 0
+    cfg.gen.ema_kimg = 500.0
+    cfg.gen.ema_rampup = 0.05
+    cfg.disc.widths = (512, 512, 512, 512)     # blocks at 32, 16, 8, the epilogue at 4
+    cfg.disc.strides = (2, 2, 2, 1)            # each block ends in a filtered stride-2 conv
+    cfg.disc.input_noise = cfg.disc.input_dropout = cfg.disc.block_dropout = 0.0
+    cfg.disc.label_reconcat = False
+    cfg.disc.cmap_dim = 512
+    cfg.disc.map_layers = 8
+    cfg.disc.map_lr_mult = 0.01
+    cfg.disc.mbstd_group = 32
+    cfg.disc.mbstd_channels = 1
+    cfg.disc.conv_clamp = 256.0
+    cfg.r1_gamma = 0.01
+    cfg.r1_interval = 16
+    return cfg
+
+
 def stl10() -> ConfigDict:
     """STL-10 96×96 semi-supervised."""
     cfg = base_config()
@@ -103,6 +144,7 @@ REGISTRY = {
     "cifar10_cond": cifar10_cond,
     "stl10": stl10,
     "cifar10_snresnet": cifar10_snresnet,
+    "cifar10_stylegan2": cifar10_stylegan2,
 }
 
 

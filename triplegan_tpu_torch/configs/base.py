@@ -135,11 +135,20 @@ EXEC_KEYS = frozenset({
 
 # Keys a config holds only where it departs from the base: ``arch`` (the
 # G and D designs: "conv", the default, the JAX package's networks;
-# "snresnet", ``nn/networks.py``'s ResNet G and SN projection D). A run
-# dir's config.json brings them over even into a config that lacks them,
-# so that a config rebuilt from ``base_config()`` builds the run's networks.
-OPTIONAL_KEYS = frozenset({"arch"})
-ARCHS = ("conv", "snresnet")
+# "snresnet", ``nn/networks.py``'s ResNet G and SN projection D;
+# "stylegan2", its StyleGAN2 G and D) and StyleGAN2's lazy R1 penalty,
+# ``r1_gamma`` and ``r1_interval`` (an R1 update of D every that many
+# steps; 0 or absent: none). A run dir's config.json brings them over even
+# into a config that lacks them, so that a config rebuilt from
+# ``base_config()`` builds the run's networks. The StyleGAN2 pair's sizes
+# are keys of ``gen`` and ``disc`` that only its configs hold, named here
+# by their dotted paths.
+OPTIONAL_KEYS = frozenset({"arch", "r1_gamma", "r1_interval"}
+                          | {f"gen.{k}" for k in ("w_dim", "map_layers", "map_lr_mult", "w_avg_beta", "conv_clamp",
+                                                  "noise_init", "ema_kimg", "ema_rampup")}
+                          | {f"disc.{k}" for k in ("cmap_dim", "map_layers", "map_lr_mult", "mbstd_group",
+                                                   "mbstd_channels", "conv_clamp")})
+ARCHS = ("conv", "snresnet", "stylegan2")
 
 
 def arch(cfg: ConfigDict) -> str:
@@ -171,7 +180,7 @@ def merge_saved(cfg: ConfigDict, path: str) -> ConfigDict:
 
     def _merge(node, d, top, prefix=""):
         for k, v in d.items():
-            if top and k in OPTIONAL_KEYS and k not in node:
+            if prefix + k in OPTIONAL_KEYS and k not in node:
                 node[k] = v
                 continue
             if k not in node or (top and k in EXEC_KEYS):
@@ -231,7 +240,8 @@ def make_networks(cfg: ConfigDict):
     """Build the (Generator, Discriminator, Classifier) modules of a
     config, in the JAX package's order; G and D of its ``arch``."""
     from triplegan_tpu_torch.nn.networks import (Classifier, Discriminator, Generator, ResNetGenerator,
-                                                 SNResNetDiscriminator)
+                                                 SNResNetDiscriminator, StyleGAN2Discriminator,
+                                                 StyleGAN2Generator)
 
     clf = Classifier(
         image_size=cfg.image_size,
@@ -251,6 +261,18 @@ def make_networks(cfg: ConfigDict):
         disc = SNResNetDiscriminator(image_size=cfg.image_size, channels=cfg.channels,
                                      num_classes=cfg.num_classes, widths=tuple(cfg.disc.widths),
                                      strides=tuple(cfg.disc.strides), use_pallas=cfg.use_pallas)
+        return gen, disc, clf
+    if arch(cfg) == "stylegan2":
+        g, d = cfg.gen, cfg.disc
+        gen = StyleGAN2Generator(image_size=cfg.image_size, channels=cfg.channels, num_classes=cfg.num_classes,
+                                 z_dim=cfg.z_dim, w_dim=g.w_dim, widths=tuple(g.widths), map_layers=g.map_layers,
+                                 map_lr_mult=g.map_lr_mult, w_avg_beta=g.w_avg_beta, conv_clamp=g.conv_clamp,
+                                 noise_init=g.noise_init, use_pallas=cfg.use_pallas)
+        disc = StyleGAN2Discriminator(image_size=cfg.image_size, channels=cfg.channels,
+                                      num_classes=cfg.num_classes, widths=tuple(d.widths), cmap_dim=d.cmap_dim,
+                                      map_layers=d.map_layers, map_lr_mult=d.map_lr_mult,
+                                      mbstd_group=d.mbstd_group, mbstd_channels=d.mbstd_channels,
+                                      conv_clamp=d.conv_clamp, use_pallas=cfg.use_pallas)
         return gen, disc, clf
     gen = Generator(
         image_size=cfg.image_size,

@@ -184,12 +184,16 @@ class GenerateModule(nn.Module):
         return self.net.apply(*self.weights.trees(), z, y, train=False)[0]
 
 
+_ARCH_NAMES = {"snresnet": "the SN-ResNet G and D", "stylegan2": "the StyleGAN2 G and D"}
+
+
 def check_servable(cfg) -> None:
     """Raise unless ``cfg``'s networks serve and export: the conv networks
-    do; the SN-ResNet pair (``arch`` snresnet) does not yet."""
+    do; the SN-ResNet pair (``arch`` snresnet) and the StyleGAN2 pair
+    (``stylegan2``) do not yet."""
     if arch(cfg) != "conv":
         raise ValueError(f"serving and .pt2 export take the conv networks; {cfg.name} has arch {arch(cfg)!r} "
-                         f"(the SN-ResNet G and D)")
+                         f"({_ARCH_NAMES[arch(cfg)]})")
 
 
 def serving_modules(cfg, nets, state, zca_stats=None, device=None, quantize: Optional[str] = None):

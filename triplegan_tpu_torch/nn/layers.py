@@ -30,6 +30,22 @@ a per-sample epilogue, ``scale_bias_act_cond``), spectral normalisation
 kernel arm 1/σ goes into the epilogue as k), nearest 2× upsampling, 2×2
 average pooling and a global sum.
 
+The StyleGAN2 pair (``networks.py``) adds StyleGAN2-ADA's layers
+(Karras et al., arXiv:1912.04958 and arXiv:2006.06676; NVlabs/
+stylegan2-ada-pytorch ``training/networks.py``): equalised-learning-rate
+dense and conv layers (each weight drawn N(0, 1) and scaled by its gain
+1/√fan_in, times the lr multiplier, at use), the second-moment
+normalisation of the mapping's inputs, the modulated conv (x ⊙ s, the
+shared-weight conv, then the demodulation d, the noise, the bias, leaky
+ReLU times √2 and the clamp, as StyleGAN2-ADA trains: in the kernel arm
+x ⊙ s is one launch of the per-sample epilogue with act linear, and what
+follows the conv one launch of ``scale_bias_act_noise``, with √2 folded
+into k, b and the noise term, as leaky ReLU is positively homogeneous),
+ToRGB, the FIR filter [1, 3, 3, 1] ⊗ [1, 3, 3, 1] / 64 (upfirdn2d's
+paddings), the up-conv (a stride-2 transposed conv and the filter at gain
+4, ``F.conv_transpose2d``), D's filtered stride-2 conv and the minibatch
+standard deviation.
+
 Init functions keep JAX's shapes and scales (normal, std 0.05; g = 1,
 b = 0; BN scale 1, bias 0, mean 0, var 1) and draw from an explicit
 ``torch.Generator``. The stochastic layers (noise, dropout) draw from an
@@ -56,7 +72,7 @@ import torch.nn.functional as F
 
 from triplegan_tpu_torch.ops.conv3x3 import conv3x3
 from triplegan_tpu_torch.ops.scale_bias_act import (apply_act, bn_moments, reference_bn_moments, scale_bias_act,
-                                                    scale_bias_act_cond)
+                                                    scale_bias_act_cond, scale_bias_act_noise)
 
 Params = Dict[str, torch.Tensor]
 
@@ -510,6 +526,189 @@ def sn_conv_act_apply(p: Params, sigma: torch.Tensor, x: torch.Tensor, *, act: O
                          act or "linear", slope).to(x.dtype)
     k = torch.reciprocal(sigma).to(x.dtype).expand(w.shape[0])
     return _scale_bias_act(_conv(x, w, 1, "SAME", True).to(x.dtype), k, b.to(x.dtype), act, slope, True)
+
+
+# ---------------------------------------------------------------------------
+# StyleGAN2 (Karras et al., arXiv:1912.04958; StyleGAN2-ADA's layers,
+# arXiv:2006.06676, NVlabs/stylegan2-ada-pytorch training/networks.py)
+# ---------------------------------------------------------------------------
+
+SQRT2 = math.sqrt(2.0)
+LRELU_SLOPE = 0.2
+_FIR_TAPS = (1.0, 3.0, 3.0, 1.0)
+
+
+def eq_dense_init(gen, in_dim, out_dim, *, lr_mult=1.0, bias_init=0.0) -> Params:
+    """An equalised-learning-rate dense layer, as StyleGAN2-ADA's
+    ``FullyConnectedLayer``: ``w`` (in, out) drawn N(0, 1/lr_mult²), ``b``
+    filled with ``bias_init``; both scaled by lr_mult at use."""
+    return {"w": _normal(gen, (in_dim, out_dim), 1.0 / lr_mult), "b": torch.full((out_dim,), float(bias_init))}
+
+
+def eq_dense_apply(p: Params, x: torch.Tensor, *, lr_mult: float = 1.0, act: bool = False) -> torch.Tensor:
+    """x·(w·lr_mult/√in) + b·lr_mult, then (``act``) leaky ReLU(0.2) times
+    √2."""
+    w = p["w"] * (lr_mult / math.sqrt(p["w"].shape[0]))
+    y = x @ w.to(x.dtype) + (p["b"] * lr_mult).to(x.dtype)
+    return F.leaky_relu(y, LRELU_SLOPE) * SQRT2 if act else y
+
+
+def normalize_2nd_moment(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    return x * torch.rsqrt(torch.mean(torch.square(x), dim=-1, keepdim=True) + eps)
+
+
+def _fir1d(x: torch.Tensor, axis: int, gain: float) -> torch.Tensor:
+    """The taps [1, 3, 3, 1]/8 times ``gain`` along ``axis`` (VALID: 3
+    fewer), as sums of shifted slices: the filter is symmetric, so its
+    convolution is its correlation, and the slices' autograd (adds and
+    scalar products) is twice differentiable at elementwise cost, where a
+    depthwise conv's double backward runs a conv a channel."""
+    n = x.shape[axis] - 3
+    s = [x.narrow(axis, a, n) for a in range(4)]
+    return (s[0] + s[3]) * (gain * _FIR_TAPS[0] / 8) + (s[1] + s[2]) * (gain * _FIR_TAPS[1] / 8)
+
+
+def upfirdn(x: torch.Tensor, *, up: int = 1, pad: int = 0, pad_after: Optional[int] = None,
+            gain: float = 1.0) -> torch.Tensor:
+    """upfirdn2d of NHWC x with the FIR filter [1, 3, 3, 1] ⊗ [1, 3, 3, 1] /
+    64: zeros inserted after each pixel (``up`` 2), ``pad`` pixels of zeros
+    before and ``pad_after`` (default ``pad``) after on H and W, the filter
+    times ``gain`` (√gain a pass, H then W, ``_fir1d``). Returns contiguous
+    NHWC."""
+    n, h, w, c = x.shape
+    if up > 1:
+        x = F.pad(x.reshape(n, h, 1, w, 1, c), (0, 0, 0, up - 1, 0, 0, 0, up - 1)).reshape(n, h * up, w * up, c)
+    after = pad if pad_after is None else pad_after
+    x = F.pad(x, (0, 0, pad, after, pad, after))
+    g1 = math.sqrt(gain)
+    return _fir1d(_fir1d(x, 1, g1), 2, g1).contiguous()
+
+
+def down_conv(x: torch.Tensor, w_oihw: torch.Tensor) -> torch.Tensor:
+    """StyleGAN2-ADA's ``conv2d_resample`` with down = 2 and a 3×3 kernel:
+    the FIR filter with 2 pixels of zeros each side, then a VALID stride-2
+    conv (``F.conv2d``); (N, H, W, Cin) → (N, H/2, W/2, Cout)."""
+    xb = upfirdn(x, pad=2)
+    return F.conv2d(xb.permute(0, 3, 1, 2), w_oihw.to(x.dtype), stride=2).permute(0, 2, 3, 1).contiguous()
+
+
+def up_conv(x: torch.Tensor, w_oihw: torch.Tensor) -> torch.Tensor:
+    """StyleGAN2-ADA's ``conv2d_resample`` with up = 2 and a 3×3 kernel:
+    the stride-2 transposed conv by the (O, I) kernel taken as (I, O),
+    unflipped (``F.conv_transpose2d``: (N, H, W) → 2H + 1, 2W + 1), then
+    the FIR filter at gain 4 with a pixel of zeros each side → 2H, 2W."""
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w_oihw.transpose(0, 1).to(x.dtype), stride=2)
+    return upfirdn(y.permute(0, 2, 3, 1), pad=1, gain=4.0)
+
+
+def upsample_image(img: torch.Tensor) -> torch.Tensor:
+    """``upfirdn2d.upsample2d``: zeros inserted, paddings (2, 1), the filter
+    at gain 4."""
+    return upfirdn(img, up=2, pad=2, pad_after=1, gain=4.0)
+
+
+def modulated_init(gen, cin: int, cout: int, w_dim: int, *, kernel: int = 3, noise_init: float = 0.0) -> Params:
+    """A modulated layer: kernel ``w`` (Cout, Cin, k, k) drawn N(0, 1), bias
+    ``b`` 0, its affine ``aw`` (w_dim, Cin) N(0, 1) and ``ab`` 1 (the style
+    starts at 1), and with ``noise_init`` not None the noise strength
+    ``r``."""
+    p: Params = {"w": _normal(gen, (cout, cin, kernel, kernel), 1.0), "b": torch.zeros(cout),
+                 "aw": _normal(gen, (w_dim, cin), 1.0), "ab": torch.ones(cin)}
+    if noise_init is not None:
+        p["r"] = torch.tensor(float(noise_init))
+    return p
+
+
+def _styles(p: Params, w_lat: torch.Tensor) -> torch.Tensor:
+    return eq_dense_apply({"w": p["aw"], "b": p["ab"]}, w_lat)
+
+
+def _scale_input(x: torch.Tensor, s: torch.Tensor, use_pallas: bool) -> torch.Tensor:
+    """x ⊙ s_n over channels: one launch of the per-sample epilogue (act
+    linear, no bias) in the kernel arm."""
+    if use_pallas:
+        return scale_bias_act_cond(x.contiguous(), s.to(x.dtype), torch.zeros_like(s, dtype=x.dtype), "linear")
+    return x * s.to(x.dtype)[:, None, None, :]
+
+
+def modulated_conv_apply(p: Params, x: torch.Tensor, w_lat: torch.Tensor, *, up: bool = False,
+                         noise: Optional[torch.Tensor] = None, clamp: float = 256.0,
+                         use_pallas: bool = False) -> torch.Tensor:
+    """StyleGAN2's modulated and demodulated 3×3 layer, trained as
+    StyleGAN2-ADA trains it: s = A(w) (bias 1), d_j = (Σ_{i,u,v} (W_jiuv·
+    s_i)² + 1e-8)^−½, y = conv(x ⊙ s, W) (``up``: the up-conv), then
+    clamp(lrelu(y·d + r·ν + b)·√2, ±clamp). ``noise`` ν (N, H, W) at the
+    output's size, or None (no noise term). With ``use_pallas`` the 3×3
+    conv runs on the Hopper conv kernels and the rest on the epilogue
+    kernels."""
+    w = p["w"]
+    s = _styles(p, w_lat)
+    d = torch.rsqrt(torch.square(s) @ torch.sum(torch.square(w), dim=(2, 3)).t() + 1e-8)
+    xs = _scale_input(x, s, use_pallas)
+    y = up_conv(xs, w) if up else _conv(xs, w, 1, "SAME", use_pallas)
+    n, h, wd, c = y.shape
+    q = (torch.zeros((n, h, wd), dtype=y.dtype, device=y.device) if noise is None
+         else noise.to(y.dtype) * p["r"].to(y.dtype))
+    if use_pallas:
+        return scale_bias_act_noise(y.contiguous(), (d * SQRT2).to(y.dtype), (p["b"] * SQRT2).to(y.dtype),
+                                    q * SQRT2, "leaky_relu", LRELU_SLOPE, clamp)
+    z = y * d.to(y.dtype)[:, None, None, :] + q[..., None] + p["b"].to(y.dtype)
+    return torch.clamp(F.leaky_relu(z, LRELU_SLOPE) * SQRT2, -clamp, clamp)
+
+
+def torgb_apply(p: Params, x: torch.Tensor, w_lat: torch.Tensor, *, clamp: float = 256.0,
+                use_pallas: bool = False) -> torch.Tensor:
+    """ToRGB: a 1×1 modulated conv without demodulation, the style scaled
+    by 1/√Cin, plus the bias, clamped to ±clamp."""
+    s = _styles(p, w_lat) * (1.0 / math.sqrt(p["w"].shape[1]))
+    y = _conv_nhwc(_scale_input(x, s, use_pallas), p["w"].to(x.dtype), 1, "SAME")
+    return torch.clamp(y + p["b"].to(y.dtype), -clamp, clamp)
+
+
+def eq_conv_act_apply(p: Params, x: torch.Tensor, *, down: bool = False, clamp: float = 256.0,
+                      use_pallas: bool = False) -> torch.Tensor:
+    """StyleGAN2-ADA's ``Conv2dLayer`` with leaky ReLU: the conv by w times
+    its gain 1/√(Cin·k²) (``down``: the filtered stride-2 conv), plus b,
+    leaky ReLU(0.2) times √2, clamped to ±clamp. With ``use_pallas`` the
+    conv runs on the raw w (a 3×3 stride-1 one on the Hopper conv kernels)
+    and √2·gain and √2·b go into the per-channel epilogue kernel as k and
+    b; the clamp follows it."""
+    w = p["w"]
+    gain = 1.0 / math.sqrt(w.shape[1] * w.shape[2] * w.shape[3])
+    if not use_pallas:
+        w = w * gain
+    y = down_conv(x, w) if down else _conv(x, w, 1, "SAME", use_pallas)
+    if use_pallas:
+        c = y.shape[-1]
+        k = torch.full((c,), SQRT2 * gain, dtype=y.dtype, device=y.device)
+        y = scale_bias_act(y.contiguous(), k, (p["b"] * SQRT2).to(y.dtype), "leaky_relu", LRELU_SLOPE)
+    else:
+        y = F.leaky_relu(y + p["b"].to(y.dtype), LRELU_SLOPE) * SQRT2
+    return torch.clamp(y, -clamp, clamp)
+
+
+def minibatch_stddev(x: torch.Tensor, group: int, channels: int = 1, streams: int = 1) -> torch.Tensor:
+    """StyleGAN2's minibatch standard deviation of NHWC x, one more
+    ``channels`` planes: each of the ``streams`` equal runs of rows is cut
+    as StyleGAN2-ADA cuts a batch, into groups of G = min(group, rows) whose
+    members stand rows/G apart (row i in group i mod rows/G); a group's
+    stddev over its members, +1e-8 under the root, is averaged over the
+    channels of each of ``channels`` slices and the pixels, and given to
+    each member as its planes."""
+    n, h, w, c = x.shape
+    if n % streams:
+        raise ValueError(f"{n} rows do not cut into {streams} equal streams")
+    outs = []
+    for xs in x.split(n // streams):
+        m = xs.shape[0]
+        g = min(group, m)
+        if m % g:
+            raise ValueError(f"a stream of {m} rows does not cut into groups of {g}")
+        y = xs.reshape(g, -1, h, w, channels, c // channels)
+        y = torch.sqrt(torch.mean(torch.square(y - y.mean(dim=0)), dim=0) + 1e-8)
+        y = y.mean(dim=(1, 2, 4))  # (m / g, channels)
+        outs.append(y.repeat(g, 1)[:, None, None, :].expand(m, h, w, channels))
+    return torch.cat([x, torch.cat(outs).to(x.dtype)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,11 @@ with the player dropped.
 ``ResNetGenerator`` and ``SNResNetDiscriminator`` are the SN-ResNet pair
 (``arch = "snresnet"``, ``configs/base.py``), with the same contract; the
 discriminator's stats are its power-iteration vectors ``u``, which only
-D's own update keeps (``train/step.py``).
+D's own update keeps (``train/step.py``). ``StyleGAN2Generator`` and
+``StyleGAN2Discriminator`` are the StyleGAN2 pair (``arch = "stylegan2"``):
+G's ``apply`` draws its noise planes from ``generator``, its stats are the
+running mean of w and its EMA copy (``ema_update``); D's ``apply`` takes
+the number of row streams its minibatch stddev keeps apart.
 
 Inputs and images are NHWC. ``use_pallas`` routes every epilogue through
 the Hopper ``scale_bias_act`` kernel and every 3×3 stride-1 conv through
@@ -130,7 +134,9 @@ class Generator(_Player):
         return params, stats
 
     def apply(self, params: Tree, stats: Tree, z: torch.Tensor, y: torch.Tensor, *,
-              train: bool, mesh=None):
+              train: bool, mesh=None, generator: Optional[torch.Generator] = None):
+        """(images, new stats); ``generator`` is taken and not drawn from
+        (G has no noise)."""
         s0 = self.base_size
         bn = dict(train=train, act="relu", momentum=self.bn_momentum, use_pallas=self.use_pallas,
                   mesh=mesh)
@@ -341,7 +347,8 @@ class ResNetGenerator(_Player):
         return params, stats
 
     def apply(self, params: Tree, stats: Tree, z: torch.Tensor, y: torch.Tensor, *,
-              train: bool, mesh=None):
+              train: bool, mesh=None, generator: Optional[torch.Generator] = None):
+        """(images, new stats); ``generator`` is taken and not drawn from."""
         s0, pallas = self.base_size, self.use_pallas
         bn = dict(train=train, act="relu", momentum=self.bn_momentum, use_pallas=pallas, mesh=mesh)
         h = L.dense_apply(params["l1"], z).reshape(z.shape[0], s0, s0, self.widths[0])
@@ -444,6 +451,206 @@ class SNResNetDiscriminator(_Player):
         logit = out[:, 0] + torch.sum(emb * h, dim=-1)
         new_stats = {name: {"u": u} for name, (u, _) in sn.items()} if train else stats
         return logit, new_stats
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.apply(*self.trees(), x, y, train=False)[0]
+
+
+# ===========================================================================
+# The StyleGAN2 pair (Karras et al., Analyzing and Improving the Image
+# Quality of StyleGAN, arXiv:1912.04958; at StyleGAN2-ADA's cifar
+# configuration, arXiv:2006.06676, NVlabs/stylegan2-ada-pytorch train.py
+# cfg_specs['cifar'] and training/networks.py)
+# ===========================================================================
+
+
+def _ema_stats(params: Tree) -> Tree:
+    """A moving-average copy of every parameter, under its name with
+    ``bridge.EMA_SUFFIX``."""
+    return {layer: {name + bridge.EMA_SUFFIX: t.clone() for name, t in arrays.items()}
+            for layer, arrays in params.items()}
+
+
+class StyleGAN2Generator(_Player):
+    """G(z, y): the mapping, then the skip synthesis. Mapping: x =
+    n(z) ⊕ n(``embed``(onehot y)), n the second-moment normalisation, then
+    ``map_layers`` dense layers ``map<i>`` (leaky ReLU·√2, lr multiplier
+    ``map_lr_mult``) to w, which every layer's style takes. Synthesis, a
+    block a resolution from 4 (``widths[i]`` channels at 4·2^i): at 4 the
+    learned constant ``b4_const`` and the modulated 3×3 ``b4_conv1``; above,
+    the modulated up-conv ``b<r>_conv0`` and ``b<r>_conv1``; each block's
+    ``b<r>_torgb`` adds to the image, the image so far FIR-upsampled.
+    Every modulated conv draws its noise plane ν ~ N(0, 1) of (N, H, W) from
+    ``generator`` in that order (without one, no noise term). NHWC images,
+    unbounded but for the clamp, in z's dtype.
+
+    Its statistics: ``map<last>``'s ``w_avg``, the running mean of w,
+    advanced by each train-mode call as w_avg ← lerp(mean w, w_avg,
+    ``w_avg_beta``) (the step keeps G's own update's); and every
+    parameter's moving average, G's EMA copy (``<name>_ema``), which
+    ``ema_update`` advances and ``apply`` does not read."""
+
+    def __init__(self, image_size: int = 32, channels: int = 3, num_classes: int = 10, z_dim: int = 512,
+                 w_dim: int = 512, widths: Tuple[int, ...] = (512, 512, 512, 512), map_layers: int = 2,
+                 map_lr_mult: float = 0.01, w_avg_beta: float = 0.995, conv_clamp: float = 256.0,
+                 noise_init: float = 0.1, use_pallas: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if image_size != 4 * 2 ** (len(widths) - 1):
+            raise ValueError(f"{len(widths)} blocks from 4x4 make {4 * 2 ** (len(widths) - 1)}, not {image_size}")
+        self.image_size, self.channels, self.num_classes = image_size, channels, num_classes
+        self.z_dim, self.w_dim, self.widths = z_dim, w_dim, tuple(widths)
+        self.map_layers, self.map_lr_mult, self.w_avg_beta = map_layers, map_lr_mult, w_avg_beta
+        self.conv_clamp, self.noise_init = conv_clamp, noise_init
+        self.use_pallas = use_pallas
+        self._build(generator)
+
+    @property
+    def resolutions(self) -> Tuple[int, ...]:
+        return tuple(4 * 2 ** i for i in range(len(self.widths)))
+
+    def init(self, gen: torch.Generator) -> Tuple[Tree, Tree]:
+        wd, r0 = self.w_dim, self.noise_init
+        params: Tree = {"embed": L.eq_dense_init(gen, self.num_classes, wd)}
+        for i in range(self.map_layers):
+            params[f"map{i}"] = L.eq_dense_init(gen, self.z_dim + wd if i == 0 else wd, wd,
+                                                lr_mult=self.map_lr_mult)
+        params["b4_const"] = {"w": L._normal(gen, (4, 4, self.widths[0]), 1.0)}
+        cin = self.widths[0]
+        for res, w in zip(self.resolutions, self.widths):
+            if res > 4:
+                params[f"b{res}_conv0"] = L.modulated_init(gen, cin, w, wd, noise_init=r0)
+            params[f"b{res}_conv1"] = L.modulated_init(gen, w, w, wd, noise_init=r0)
+            params[f"b{res}_torgb"] = L.modulated_init(gen, w, self.channels, wd, kernel=1, noise_init=None)
+            cin = w
+        stats = _ema_stats(params)
+        stats[f"map{self.map_layers - 1}"]["w_avg"] = torch.zeros(wd)
+        return params, stats
+
+    def mapping(self, params: Tree, z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        e = L.eq_dense_apply(params["embed"], L.onehot(y, self.num_classes, dtype=z.dtype))
+        h = torch.cat([L.normalize_2nd_moment(z), L.normalize_2nd_moment(e)], dim=-1)
+        for i in range(self.map_layers):
+            h = L.eq_dense_apply(params[f"map{i}"], h, lr_mult=self.map_lr_mult, act=True)
+        return h
+
+    def apply(self, params: Tree, stats: Tree, z: torch.Tensor, y: torch.Tensor, *, train: bool, mesh=None,
+              generator: Optional[torch.Generator] = None):
+        if mesh is not None:
+            raise ValueError("the StyleGAN2 generator runs on one process")
+        w = self.mapping(params, z, y)
+        new_stats = stats
+        if train:
+            last = f"map{self.map_layers - 1}"
+            with torch.no_grad():
+                w_avg = torch.lerp(w.detach().mean(dim=0), stats[last]["w_avg"].to(w.dtype), self.w_avg_beta)
+            new_stats = {**stats, last: {**stats[last], "w_avg": w_avg}}
+        conv = dict(clamp=self.conv_clamp, use_pallas=self.use_pallas)
+        n = z.shape[0]
+
+        def noise(res):
+            if generator is None:
+                return None
+            return torch.randn((n, res, res), generator=generator, device=z.device, dtype=z.dtype)
+
+        x = params["b4_const"]["w"].to(z.dtype).expand(n, 4, 4, self.widths[0])
+        img = None
+        for res in self.resolutions:
+            if res > 4:
+                x = L.modulated_conv_apply(params[f"b{res}_conv0"], x, w, up=True, noise=noise(res), **conv)
+            x = L.modulated_conv_apply(params[f"b{res}_conv1"], x, w, noise=noise(res), **conv)
+            rgb = L.torgb_apply(params[f"b{res}_torgb"], x, w, **conv)
+            img = rgb if img is None else L.upsample_image(img) + rgb
+        return img, new_stats
+
+    @staticmethod
+    def ema_update(params: Tree, stats: Tree, beta: torch.Tensor) -> Tree:
+        """``stats`` with every EMA array advanced to lerp(p, p_ema, beta)
+        (StyleGAN2-ADA's G_ema), outside autograd."""
+        out = {}
+        with torch.no_grad():
+            for layer, arrays in stats.items():
+                out[layer] = dict(arrays)
+                for name, p in params.get(layer, {}).items():
+                    e = arrays[name + bridge.EMA_SUFFIX]
+                    out[layer][name + bridge.EMA_SUFFIX] = torch.lerp(p, e, beta.to(e.dtype))
+        return out
+
+    def forward(self, z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.apply(*self.trees(), z, y, train=False)[0]
+
+
+class StyleGAN2Discriminator(_Player):
+    """D(x, y), StyleGAN2-ADA's ``orig`` architecture with a projection:
+    ``b<r>_fromrgb`` (1×1) at the input's resolution, then a block a
+    resolution down to 8 (``widths[i]`` channels): the 3×3 ``b<r>_conv0``
+    and the filtered stride-2 3×3 ``b<r>_conv1``; at 4×4 the minibatch
+    stddev (groups of ``mbstd_group``, ``mbstd_channels`` planes), the 3×3
+    ``b4_conv``, the dense ``b4_fc`` of the flattened (H, W, C) map, the
+    dense ``b4_out`` to ``cmap_dim``; the logit Σ(h ⊙ cmap(y))/√cmap_dim,
+    cmap D's own label mapping (``cmap_embed``, the second-moment
+    normalisation, ``map_layers`` dense layers ``cmap<i>``). Every conv and
+    dense layer is leaky ReLU·√2 (the output ones linear), convs clamped.
+    No statistics. ``apply``'s ``streams`` says how many equal runs of
+    rows the batch holds (the step's three kinds of pairs): the stddev
+    groups never cross one."""
+
+    def __init__(self, image_size: int = 32, channels: int = 3, num_classes: int = 10,
+                 widths: Tuple[int, ...] = (512, 512, 512, 512), cmap_dim: int = 512, map_layers: int = 8,
+                 map_lr_mult: float = 0.01, mbstd_group: int = 32, mbstd_channels: int = 1,
+                 conv_clamp: float = 256.0, use_pallas: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if image_size != 4 * 2 ** (len(widths) - 1):
+            raise ValueError(f"{len(widths)} blocks down to 4x4 take {4 * 2 ** (len(widths) - 1)}, not {image_size}")
+        self.image_size, self.channels, self.num_classes = image_size, channels, num_classes
+        self.widths, self.cmap_dim, self.map_layers, self.map_lr_mult = tuple(widths), cmap_dim, map_layers, map_lr_mult
+        self.mbstd_group, self.mbstd_channels, self.conv_clamp = mbstd_group, mbstd_channels, conv_clamp
+        self.use_pallas = use_pallas
+        self._build(generator)
+
+    @property
+    def resolutions(self) -> Tuple[int, ...]:
+        return tuple(self.image_size // 2 ** i for i in range(len(self.widths) - 1))
+
+    def init(self, gen: torch.Generator) -> Tuple[Tree, Tree]:
+        w0 = self.widths[0]
+        params: Tree = {"b%d_fromrgb" % self.image_size: {"w": L._normal(gen, (w0, self.channels, 1, 1), 1.0),
+                                                         "b": torch.zeros(w0)}}
+
+        def conv(cin, cout, k=3):
+            return {"w": L._normal(gen, (cout, cin, k, k), 1.0), "b": torch.zeros(cout)}
+
+        for i, res in enumerate(self.resolutions):
+            w, nxt = self.widths[i], self.widths[i + 1]
+            params[f"b{res}_conv0"] = conv(w, w)
+            params[f"b{res}_conv1"] = conv(w, nxt)
+        c4 = self.widths[-1]
+        params["b4_conv"] = conv(c4 + self.mbstd_channels, c4)
+        params["b4_fc"] = L.eq_dense_init(gen, 16 * c4, c4)
+        params["b4_out"] = L.eq_dense_init(gen, c4, self.cmap_dim)
+        params["cmap_embed"] = L.eq_dense_init(gen, self.num_classes, self.cmap_dim)
+        for i in range(self.map_layers):
+            params[f"cmap{i}"] = L.eq_dense_init(gen, self.cmap_dim, self.cmap_dim, lr_mult=self.map_lr_mult)
+        return params, {}
+
+    def cmap(self, params: Tree, y: torch.Tensor, dtype) -> torch.Tensor:
+        h = L.normalize_2nd_moment(L.eq_dense_apply(params["cmap_embed"], L.onehot(y, self.num_classes, dtype=dtype)))
+        for i in range(self.map_layers):
+            h = L.eq_dense_apply(params[f"cmap{i}"], h, lr_mult=self.map_lr_mult, act=True)
+        return h
+
+    def apply(self, params: Tree, stats: Tree, x: torch.Tensor, y: torch.Tensor, *, train: bool,
+              generator: Optional[torch.Generator] = None, streams: int = 1):
+        conv = dict(clamp=self.conv_clamp, use_pallas=self.use_pallas)
+        h = L.eq_conv_act_apply(params["b%d_fromrgb" % self.image_size], x, **conv)
+        for res in self.resolutions:
+            h = L.eq_conv_act_apply(params[f"b{res}_conv0"], h, **conv)
+            h = L.eq_conv_act_apply(params[f"b{res}_conv1"], h, down=True, **conv)
+        h = L.minibatch_stddev(h, self.mbstd_group, self.mbstd_channels, streams)
+        h = L.eq_conv_act_apply(params["b4_conv"], h, **conv)
+        h = L.eq_dense_apply(params["b4_fc"], h.reshape(h.shape[0], -1), act=True)
+        h = L.eq_dense_apply(params["b4_out"], h)
+        logit = torch.sum(h * self.cmap(params, y, h.dtype), dim=-1) * (1.0 / self.cmap_dim ** 0.5)
+        return logit, stats
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return self.apply(*self.trees(), x, y, train=False)[0]

@@ -51,7 +51,13 @@ Semantics, as in the JAX package:
   layout the kernels take, cast to x's dtype for the forward; dx is the
   forward kernel on g with halo 2 − p against the flipped, in/out-swapped
   kernel; dw is ``conv3x3_wgrad`` cast to w's dtype. Gradients that autograd
-  does not need (dx of a conv on data) are not computed.
+  does not need (dx of a conv on data) are not computed. Where autograd
+  records the backward (``create_graph``: R1's gradient penalty), dx and
+  dw are the Functions ``_Conv3x3Nopad`` and ``_Conv3x3Wgrad``, whose own
+  backwards are these convs again (the filter gradient is bilinear in x
+  and g), so the gradient differentiates to any order on the same kernels
+  (counted in ``second_order_launches``); a gradient the running backward
+  will not use is not computed (``engine_needs``).
 
 A tensor on the CPU takes the plain versions (``reference_*``: nine
 shifted matmuls accumulated in float32, as the Pallas bodies do). A CUDA
@@ -118,10 +124,17 @@ def _pad_hw(x: torch.Tensor, p: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, p, p, p, p))
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulation dtype: float32, float64 for a
+    float64 tensor (which only the CPU takes)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _taps(x_pad: torch.Tensor, ho: int, wo: int):
+    ct = _acc_dtype(x_pad)
     for dy in range(3):
         for dx in range(3):
-            yield dy, dx, x_pad[:, dy:dy + ho, dx:dx + wo, :].reshape(-1, x_pad.shape[-1]).float()
+            yield dy, dx, x_pad[:, dy:dy + ho, dx:dx + wo, :].reshape(-1, x_pad.shape[-1]).to(ct)
 
 
 def reference_conv3x3_nopad(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -129,17 +142,18 @@ def reference_conv3x3_nopad(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     Cin, Cout) → (N, Ho, Wo, Cout) in x's dtype, float32 accumulation."""
     n, hp, wp, _ = x_pad.shape
     ho, wo = hp - 2, wp - 2
-    acc = torch.zeros((n * ho * wo, w.shape[-1]), dtype=torch.float32, device=x_pad.device)
+    acc = torch.zeros((n * ho * wo, w.shape[-1]), dtype=_acc_dtype(x_pad), device=x_pad.device)
     for dy, dx, patch in _taps(x_pad, ho, wo):
-        acc += patch @ w[dy, dx].float()
+        acc += patch @ w[dy, dx].to(acc.dtype)
     return acc.reshape(n, ho, wo, -1).to(x_pad.dtype)
 
 
 def reference_conv3x3_wgrad(x_pad: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``conv3x3_wgrad``: float32 (3, 3, Cin, Cout)."""
+    """Plain version of ``conv3x3_wgrad``: float32 (3, 3, Cin, Cout)
+    (float64 for float64 operands)."""
     _, ho, wo, cout = g.shape
-    g2 = g.reshape(-1, cout).float()
-    out = torch.empty((3, 3, x_pad.shape[-1], cout), dtype=torch.float32, device=x_pad.device)
+    g2 = g.reshape(-1, cout).to(_acc_dtype(g))
+    out = torch.empty((3, 3, x_pad.shape[-1], cout), dtype=g2.dtype, device=x_pad.device)
     for dy, dx, patch in _taps(x_pad, ho, wo):
         out[dy, dx] = patch.T @ g2
     return out
@@ -462,12 +476,123 @@ class _Conv3x3(torch.autograd.Function):
         x, w = ctx.saved_tensors
         g = g.contiguous()
         dx = dw = None
+        if torch.is_grad_enabled():  # a gradient to be differentiated again
+            return (*_conv_grads(x, w, g, ctx.p, engine_needs(ctx, 2)), None)
         if ctx.needs_input_grad[0]:
             w_flip = w.flip((0, 1)).transpose(2, 3).to(g.dtype).contiguous()
             dx = conv3x3_nopad(g, w_flip, pad=2 - ctx.p, role="dgrad").to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = conv3x3_wgrad(x, g, pad=ctx.p).to(w.dtype)
         return dx, dw, None
+
+
+# The 3×3 convs of second order since the counts were last cleared: those
+# of a backward that autograd records to differentiate again
+# (``create_graph``; R1's gradient penalty), and those of that backward's
+# own backward. Keyed as ``fwd_launches``, the role "dgrad2" (an input
+# gradient), "wgrad2" (a filter gradient) or "fwd2" (a forward of an
+# input by a filter cotangent); on the card each is a launch of the kernels
+# the first-order call takes (``_forward``, ``conv3x3_wgrad``), on the CPU
+# a call of the plain version.
+second_order_launches: collections.Counter = collections.Counter()
+
+
+def engine_needs(ctx, n: int):
+    """``ctx.needs_input_grad`` of a Function's first ``n`` inputs, less
+    those whose gradient the running backward will not use: an input that
+    requires a gradient the call does not ask for (R1's gradient in the
+    image alone, while the weights require theirs) is told apart by the
+    engine's plan, for any input that is not a leaf (a leaf under
+    ``autograd.grad`` the engine cannot tell of: taken as needed)."""
+    out = []
+    for i in range(n):
+        node = ctx.next_functions[i][0] if ctx.needs_input_grad[i] else None
+        try:
+            out.append(node is not None and torch._C._will_engine_execute_node(node))
+        except RuntimeError:
+            out.append(True)
+    return tuple(out)
+
+
+def _flip_io(w: torch.Tensor) -> torch.Tensor:
+    """The input gradient's kernel: HWIO w flipped in H and W, I and O
+    swapped (differentiable in w)."""
+    return w.flip((0, 1)).transpose(2, 3)
+
+
+def _conv_grads(x, w, g, p, needs, recorded: bool = True):
+    """(dx, dw) of ``conv3x3_nopad(x, w, p)`` for the cotangent g, None
+    where ``needs`` does not ask: dx the conv of g, halo 2 − p, by the
+    flipped kernel, dw the filter gradient; as the Functions below where
+    autograd is to record them (``recorded``), else as plain calls."""
+    dx = dw = None
+    if needs[0]:
+        dx = _conv2(g, _flip_io(w).to(g.dtype).contiguous(), 2 - p, "dgrad2", recorded).to(x.dtype)
+    if needs[1]:
+        if recorded:
+            dw = _Conv3x3Wgrad.apply(x, g, p)
+        else:
+            second_order_launches[("wgrad2",) + _key_shape(x, g.shape[3], p)] += 1
+            dw = conv3x3_wgrad(x, g, pad=p)
+        dw = dw.to(w.dtype)
+    return dx, dw
+
+
+def _conv2(x, w, pad, role, recorded):
+    """``conv3x3_nopad`` of second order, counted under ``role``: the
+    Function where autograd is to record it, else the plain call."""
+    if recorded:
+        return _Conv3x3Nopad.apply(x, w, pad, role)
+    second_order_launches[(role,) + _key_shape(x, w.shape[3], pad)] += 1
+    return conv3x3_nopad(x, w, pad, role=role[:-1])
+
+
+class _Conv3x3Nopad(torch.autograd.Function):
+    """``conv3x3_nopad(x, w, pad)`` differentiable to any order: its
+    backward is ``_conv_grads``, through these Functions again where
+    autograd records it."""
+
+    @staticmethod
+    def forward(ctx, x, w, pad, role):
+        ctx.p = pad
+        ctx.save_for_backward(x, w)
+        second_order_launches[(role,) + _key_shape(x, w.shape[3], pad)] += 1
+        return conv3x3_nopad(x, w, pad, role=role[:-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        recorded = torch.is_grad_enabled()
+        needs = engine_needs(ctx, 2) if recorded else ctx.needs_input_grad
+        return (*_conv_grads(x, w, g.contiguous(), ctx.p, needs, recorded), None, None)
+
+
+class _Conv3x3Wgrad(torch.autograd.Function):
+    """``conv3x3_wgrad(x, g, pad)``, the filter gradient, differentiable:
+    it is bilinear in x and g, so for its cotangent dW the gradient in x is
+    the input gradient of g by dW (the conv of g, halo 2 − pad, by dW
+    flipped) and the gradient in g the forward of x by dW."""
+
+    @staticmethod
+    def forward(ctx, x, g, pad):
+        ctx.p = pad
+        ctx.save_for_backward(x, g)
+        second_order_launches[("wgrad2",) + _key_shape(x, g.shape[3], pad)] += 1
+        return conv3x3_wgrad(x, g, pad)
+
+    @staticmethod
+    def backward(ctx, dw):
+        x, g = ctx.saved_tensors
+        dw = dw.to(x.dtype)
+        recorded = torch.is_grad_enabled()
+        needs = engine_needs(ctx, 2) if recorded else ctx.needs_input_grad
+        gx = _conv2(g, _flip_io(dw).contiguous(), 2 - ctx.p, "dgrad2", recorded) if needs[0] else None
+        gg = _conv2(x, dw.contiguous(), ctx.p, "fwd2", recorded) if needs[1] else None
+        return gx, gg, None
+
+
+def _key_shape(x, cout, pad):
+    return tuple(x.shape) + (cout, pad, _dtype_name(x))
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, padding: str = "SAME") -> torch.Tensor:

@@ -28,6 +28,7 @@
   }
 
 PHASE_MARK(sn)
+PHASE_MARK(d_reg)
 PHASE_MARK(d_grad)
 PHASE_MARK(d_adam)
 PHASE_MARK(g_grad)

@@ -13,7 +13,9 @@
 // normalised convs. Its per-sample variant (the cbn_* kernels), with k and b
 // given per sample, is the class-conditional batch norm of the ResNet G.
 // The bnm_* kernels compute the train-mode batch-norm moments that k and b
-// are folded from, and their gradient (their own notes are below).
+// are folded from, and their gradient (their own notes are below). The
+// mod_* kernels are StyleGAN2's modulated-conv epilogue, a per-sample scale
+// with a per-pixel term and a clamp (their notes are below too).
 //
 // Bound: bytes. The forward reads x and writes y once; the backward reads x
 // and g and writes dx once (dk and db are C values). A few flops an element,
@@ -545,8 +547,8 @@ cbn_bwd_rows(const T* __restrict__ x, const T* __restrict__ k, const T* __restri
 // sba_bwd_reduce for each sample: block (x, n) adds the p rows of sample
 // n's part into dk[n, :] and db[n, :], in the same fixed order.
 template <typename T>
-__global__ void __launch_bounds__(256)
-cbn_bwd_reduce(const float* __restrict__ part, int p, int c, T* __restrict__ dk, T* __restrict__ db) {
+__device__ __forceinline__ void per_sample_reduce(const float* __restrict__ part, int p, int c,
+                                                  T* __restrict__ dk, T* __restrict__ db) {
   __shared__ float s[8][33];
   const int width = 2 * c;
   const int col = blockIdx.x * 32 + threadIdx.x;
@@ -568,6 +570,186 @@ cbn_bwd_reduce(const float* __restrict__ part, int p, int c, T* __restrict__ dk,
       db[at + col - c] = from_f<T>(t);
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+cbn_bwd_reduce(const float* __restrict__ part, int p, int c, T* __restrict__ dk, T* __restrict__ db) {
+  per_sample_reduce<T>(part, p, c, dk, db);
+}
+
+// ---------------------------------------------------------------------------
+// The modulated conv's epilogue (mod_*), float32: x is (N, HW, C), k (N, C)
+// a sample's per-channel scale (StyleGAN2's demodulation coefficients), b
+// (C,) a per-channel bias and q (N, HW) a per-pixel term (the noise plane
+// times its strength), y[n, r, c] = clamp(act(x·k[n, c] + b[c] + q[n, r]),
+// ±L). The backward, with t = g·act'(z)·[−L ≤ act(z) ≤ L]: dx = t·k,
+// dk[n, c] = Σ_r t·x and the per-sample db[n, c] = Σ_r t (reduced as the
+// cbn_* backward's sums: partial rows a block, then mod_bwd_reduce), and
+// dq[n, r] = Σ_c t, the sum over a row's channels. A row's units are one
+// whole warp or more (C/W a multiple of 32, at most kThreads), so each
+// warp holds channels of one row and sums them by a fixed xor tree, and a
+// block sums its warps in order: no atomics, so two calls are bitwise
+// equal. The grid and its walk are cbn_*'s: (blocks a sample, N), a
+// thread walks its sample's rows by addition, U rows in flight; every
+// thread of a block takes the same number of iterations, as the row sums
+// meet at a barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int kModU = 4;  // rows in flight a thread
+
+template <int ACT>
+__device__ __forceinline__ float mod_apply(float x, float k, float b, float q, float slope, float lim) {
+  const float z = __fadd_rn(__fadd_rn(__fmul_rn(x, k), b), q);
+  float o = z;
+  if (ACT == kRelu) o = z < 0.f ? 0.f : z;
+  if (ACT == kLeakyRelu) o = z >= 0.f ? z : __fmul_rn(slope, z);
+  if (ACT == kTanh) o = tanhf(z);
+  return fminf(fmaxf(o, -lim), lim);
+}
+
+template <int W, int ACT>
+__global__ void __launch_bounds__(kThreads)
+mod_fwd_rows(const float* __restrict__ x, const float* __restrict__ k, const float* __restrict__ b,
+             const float* __restrict__ q, float* __restrict__ y, long long hw, int c, float slope, float lim) {
+  const int units = c / W;
+  const long long rs = (long long)gridDim.x * blockDim.y;
+  const long long estep = rs * c;
+  const long long base = (long long)blockIdx.y * hw * c;
+  const float* ks = k + (long long)blockIdx.y * c;
+  const float* qs = q + (long long)blockIdx.y * hw;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int ch = u * W;
+    float kf[W], bf[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      kf[i] = ks[ch + i];
+      bf[i] = b[ch + i];
+    }
+    long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+    for (long long off = base + r * c + ch; r < hw; r += rs, off += estep) {
+      const float qr = qs[r];
+      float v[W];
+      load<float, W>(x + off, v);
+#pragma unroll
+      for (int i = 0; i < W; ++i) v[i] = mod_apply<ACT>(v[i], kf[i], bf[i], qr, slope, lim);
+      store<float, W>(y + off, v);
+    }
+  }
+}
+
+// Block (ux, ry), ux = C/W threads a row (a multiple of 32); block
+// (blockIdx.x, n) writes its Σt·x and Σt to row n·gridDim.x + blockIdx.x of
+// `part`, as cbn_bwd_rows does.
+template <int W, int ACT>
+__global__ void __launch_bounds__(kThreads)
+mod_bwd_rows(const float* __restrict__ x, const float* __restrict__ k, const float* __restrict__ b,
+             const float* __restrict__ q, const float* __restrict__ g, float* __restrict__ dx,
+             float* __restrict__ dq, float* __restrict__ part, long long hw, int c, float slope, float lim,
+             int flags) {
+  __shared__ float red[2 * kThreads * W];
+  __shared__ float rowsum[kModU][kThreads / 32];
+  const bool want_dx = flags & kDx;
+  const bool want_sums = flags & (kDk | kDb);
+  const bool want_dq = flags & 8;
+  const int ux = blockDim.x, ry = blockDim.y;
+  const int warps = ux / 32;  // warps a row
+  const int tid = threadIdx.y * ux + threadIdx.x;
+  const long long rs = (long long)gridDim.x * ry;
+  const long long estep = rs * c;
+  const long long base = (long long)blockIdx.y * hw * c;
+  const int ch = threadIdx.x * W;
+  const float* ks = k + (long long)blockIdx.y * c;
+  const float* qs = q + (long long)blockIdx.y * hw;
+  float* dqs = dq ? dq + (long long)blockIdx.y * hw : nullptr;
+  float kf[W], bf[W], sk[W], sb[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    kf[i] = ks[ch + i];
+    bf[i] = b[ch + i];
+    sk[i] = sb[i] = 0.f;
+  }
+  for (long long r0 = (long long)blockIdx.x * ry; r0 < hw; r0 += kModU * rs) {
+    const long long r = r0 + threadIdx.y;
+    const long long off = base + r * c + ch;
+    float xv[kModU][W], gv[kModU][W], tq[kModU];
+#pragma unroll
+    for (int j = 0; j < kModU; ++j) {
+      tq[j] = 0.f;
+      if (r + j * rs < hw) {
+        load<float, W>(x + off + j * estep, xv[j]);
+        load<float, W>(g + off + j * estep, gv[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kModU; ++j) {
+      if (r + j * rs < hw) {
+        const float qr = qs[r + j * rs];
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const float z = __fadd_rn(__fadd_rn(__fmul_rn(xv[j][i], kf[i]), bf[i]), qr);
+          float o = z, a = 1.f;
+          if (ACT == kRelu) { o = z < 0.f ? 0.f : z; a = z >= 0.f ? 1.f : 0.f; }
+          if (ACT == kLeakyRelu) { o = z >= 0.f ? z : __fmul_rn(slope, z); a = z >= 0.f ? 1.f : slope; }
+          if (ACT == kTanh) { o = tanhf(z); a = __fsub_rn(1.f, __fmul_rn(o, o)); }
+          const float t = (o >= -lim && o <= lim) ? __fmul_rn(gv[j][i], a) : 0.f;
+          sk[i] = __fadd_rn(sk[i], __fmul_rn(t, xv[j][i]));
+          sb[i] = __fadd_rn(sb[i], t);
+          tq[j] = __fadd_rn(tq[j], t);
+          gv[j][i] = __fmul_rn(t, kf[i]);
+        }
+        if (want_dx) store<float, W>(dx + off + j * estep, gv[j]);
+      }
+    }
+    if (want_dq) {
+#pragma unroll
+      for (int j = 0; j < kModU; ++j) {
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) tq[j] = __fadd_rn(tq[j], __shfl_xor_sync(0xffffffffu, tq[j], m));
+      }
+      if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+        for (int j = 0; j < kModU; ++j) rowsum[j][threadIdx.y * warps + threadIdx.x / 32] = tq[j];
+      }
+      __syncthreads();
+      if (threadIdx.x < kModU) {
+        const int j = threadIdx.x;
+        if (r + j * rs < hw) {
+          float s = 0.f;
+          for (int w = 0; w < warps; ++w) s = __fadd_rn(s, rowsum[j][threadIdx.y * warps + w]);
+          dqs[r + j * rs] = s;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (want_sums) {
+    float* prow = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * 2 * c;
+    float* rk = red;
+    float* rb = red + ry * c;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      rk[threadIdx.y * c + ch + i] = sk[i];
+      rb[threadIdx.y * c + ch + i] = sb[i];
+    }
+    __syncthreads();
+    const int nthreads = ux * ry;
+    for (int l = tid; l < 2 * c; l += nthreads) {
+      const int which = l >= c ? 1 : 0;
+      const int col = l - which * c;
+      const float* src = (which ? rb : rk) + col;
+      float s = 0.f;
+      for (int rr = 0; rr < ry; ++rr) s = __fadd_rn(s, src[rr * c]);
+      prow[which * c + col] = s;
+    }
+  }
+}
+
+// cbn_bwd_reduce under this family's name, so that a trace tells the two
+// apart.
+__global__ void __launch_bounds__(256)
+mod_bwd_reduce(const float* __restrict__ part, int p, int c, float* __restrict__ dk, float* __restrict__ db) {
+  per_sample_reduce<float>(part, p, c, dk, db);
 }
 
 // ---------------------------------------------------------------------------
@@ -973,6 +1155,86 @@ int cond_bwd(const T* x, const T* k, const T* b, const T* g, T* dx, T* dk, T* db
   return (int)cudaGetLastError();
 }
 
+// The modulated conv's epilogue: cbn_*'s grid (one wave of the card shared
+// out over the n samples, the row layout of 16-byte units where c is a
+// multiple of 4 and the tensors are 16-byte aligned, else of single
+// channels).
+template <int ACT>
+void mod_fwd(const float* x, const float* k, const float* b, const float* q, float* y, long long n, long long hw,
+             int c, float slope, float lim, cudaStream_t s) {
+  const long long cap = (long long)sm_count();
+  if (aligned16(x) && aligned16(y) && c % 4 == 0) {
+    static const int occ = blocks_per_sm(mod_fwd_rows<4, ACT>);
+    const dim3 blk = row_block(c / 4);
+    const dim3 grd(grid(hw, blk.y, cond_cap(n, cap * occ)), (unsigned)n);
+    mod_fwd_rows<4, ACT><<<grd, blk, 0, s>>>(x, k, b, q, y, hw, c, slope, lim);
+  } else {
+    static const int occ = blocks_per_sm(mod_fwd_rows<1, ACT>);
+    const dim3 blk = row_block(c);
+    const dim3 grd(grid(hw, blk.y, cond_cap(n, cap * occ)), (unsigned)n);
+    mod_fwd_rows<1, ACT><<<grd, blk, 0, s>>>(x, k, b, q, y, hw, c, slope, lim);
+  }
+}
+
+// The backward's grid: a row's units are whole warps, at most a block
+// (else `ok` is false); blocks a sample by cond_bwd_plan's rules.
+struct ModPlan {
+  bool ok, vec;
+  dim3 block;
+  unsigned blocks;  // a sample's
+  long long depth;  // the most float32 additions on any term's way into dk or db
+};
+
+template <int ACT>
+ModPlan mod_bwd_plan(long long n, long long hw, int c, int flags, bool aligned) {
+  ModPlan p;
+  p.vec = aligned && c % 4 == 0;
+  const int units = p.vec ? c / 4 : c;
+  p.ok = units % 32 == 0 && units <= kThreads;
+  p.block = dim3(units > 0 ? units : 1, units > 0 ? kThreads / (units > 0 ? units : 1) : 1);
+  p.blocks = 1;
+  p.depth = 0;
+  if (!p.ok) return p;
+  int occ;
+  if (p.vec) {
+    static const int o = blocks_per_sm(mod_bwd_rows<4, ACT>);
+    occ = o;
+  } else {
+    static const int o = blocks_per_sm(mod_bwd_rows<1, ACT>);
+    occ = o;
+  }
+  const bool sums = flags & (kDk | kDb);
+  const long long cap = (long long)sm_count();
+  const long long r = ceil_div(16 * 2 * 4, 3LL * p.block.y * 4);
+  const long long min_rows = sums && r > kModU ? r : (long long)kModU;
+  p.blocks = grid(hw, p.block.y * min_rows, cond_cap(n, cap * occ));
+  const long long chain = ceil_div(hw, (long long)p.blocks * p.block.y) + p.block.y;
+  p.depth = sums ? chain + ceil_div(p.blocks, 8) + 8 : 0;
+  return p;
+}
+
+template <int ACT>
+int mod_bwd(const float* x, const float* k, const float* b, const float* q, const float* g, float* dx, float* dq,
+            float* dk, float* db, float* ws, long long ws_blocks, long long n, long long hw, int c, float slope,
+            float lim, int flags, cudaStream_t s) {
+  const bool sums = flags & (kDk | kDb);
+  const bool aligned = aligned16(x) && aligned16(g) && (!(flags & kDx) || aligned16(dx));
+  const ModPlan p = mod_bwd_plan<ACT>(n, hw, c, flags, aligned);
+  if (!p.ok || (sums && (long long)p.blocks * n > ws_blocks)) return (int)cudaErrorInvalidValue;
+  const dim3 grd(p.blocks, (unsigned)n);
+  if (p.vec) {
+    mod_bwd_rows<4, ACT><<<grd, p.block, 0, s>>>(x, k, b, q, g, dx, dq, ws, hw, c, slope, lim, flags);
+  } else {
+    mod_bwd_rows<1, ACT><<<grd, p.block, 0, s>>>(x, k, b, q, g, dx, dq, ws, hw, c, slope, lim, flags);
+  }
+  if (sums) {
+    const dim3 red((unsigned)ceil_div(2LL * c, 32), (unsigned)n);
+    mod_bwd_reduce<<<red, dim3(32, 8), 0, s>>>(ws, (int)p.blocks, c, (flags & kDk) ? dk : nullptr,
+                                             (flags & kDb) ? db : nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
 // The moments' grid for m rows of c channels: the row layout of 16-byte
 // units where c is a multiple of V and x (and dx) 16-byte aligned, else of
 // single channels (W = 1); one wave of the card at the kernel's occupancy,
@@ -1147,6 +1409,65 @@ extern "C" int scale_bias_act_cond_bwd_launch(const void* x, const void* k, cons
                                          static_cast<const T*>(b), static_cast<const T*>(g), static_cast<T*>(dx),
                                          static_cast<T*>(dk), static_cast<T*>(db), static_cast<float*>(ws),
                                          ws_blocks, n, hw, c, slope, flags, static_cast<cudaStream_t>(stream));
+  });
+  return rc;
+}
+
+// The modulated conv's epilogue, float32: x and y (n, hw, c), k (n, c),
+// b (c,), q (n, hw); y = clamp(act(x·k[s] + b + q[s, r]), ±lim). Returns a
+// cudaError_t as int, as above.
+extern "C" int mod_epilogue_launch(const void* x, const void* k, const void* b, const void* q, void* y,
+                                   long long n, long long hw, int c, int act, float slope, float lim,
+                                   void* stream) {
+  if (bad_cond_args(n, hw, c, 0, act) || !x || !k || !b || !q || !y) return (int)cudaErrorInvalidValue;
+  with_act<float>(act, [&](auto*, auto a) {
+    mod_fwd<decltype(a)::value>(static_cast<const float*>(x), static_cast<const float*>(k),
+                                static_cast<const float*>(b), static_cast<const float*>(q), static_cast<float*>(y),
+                                n, hw, c, slope, lim, static_cast<cudaStream_t>(stream));
+  });
+  return (int)cudaGetLastError();
+}
+
+// The backward's grid for flags as below and whether x, g and dx are all
+// 16-byte aligned: `blocks`, a sample's blocks (the workspace needs
+// n·blocks rows of 2·c floats where dk or db is asked for), and `depth`, as
+// scale_bias_act_bwd_plan's. cudaErrorInvalidValue where c is not whole
+// warps of units (c/4 aligned, else c, a multiple of 32 and at most 256).
+extern "C" int mod_epilogue_bwd_plan(long long n, long long hw, int c, int act, int flags, int aligned,
+                                     int* blocks, long long* depth) {
+  if (bad_cond_args(n, hw, c, 0, act) || flags <= 0 || flags > 15 || !blocks || !depth) {
+    return (int)cudaErrorInvalidValue;
+  }
+  bool ok = true;
+  with_act<float>(act, [&](auto*, auto a) {
+    const ModPlan p = mod_bwd_plan<decltype(a)::value>(n, hw, c, flags, aligned != 0);
+    ok = p.ok;
+    *blocks = (int)p.blocks;
+    *depth = p.depth;
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// The backward for the output cotangent g: flags say which of dx (1), dk
+// (2, (n, c)), the per-sample db (4, (n, c)) and dq (8, (n, hw)) to write;
+// dk and db need ws of ws_blocks rows of 2·c floats, at least n times the
+// blocks that mod_epilogue_bwd_plan reports. Returns a cudaError_t as int.
+extern "C" int mod_epilogue_bwd_launch(const void* x, const void* k, const void* b, const void* q, const void* g,
+                                       void* dx, void* dq, void* dk, void* db, void* ws, long long ws_blocks,
+                                       long long n, long long hw, int c, int act, float slope, float lim, int flags,
+                                       void* stream) {
+  if (bad_cond_args(n, hw, c, 0, act) || flags <= 0 || flags > 15 || !x || !k || !b || !q || !g ||
+      ((flags & kDx) && !dx) || ((flags & 8) && !dq) || ((flags & kDk) && !dk) || ((flags & kDb) && !db) ||
+      ((flags & (kDk | kDb)) && (!ws || ws_blocks < 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int rc = 0;
+  with_act<float>(act, [&](auto*, auto a) {
+    rc = mod_bwd<decltype(a)::value>(static_cast<const float*>(x), static_cast<const float*>(k),
+                                     static_cast<const float*>(b), static_cast<const float*>(q),
+                                     static_cast<const float*>(g), static_cast<float*>(dx), static_cast<float*>(dq),
+                                     static_cast<float*>(dk), static_cast<float*>(db), static_cast<float*>(ws),
+                                     ws_blocks, n, hw, c, slope, lim, flags, static_cast<cudaStream_t>(stream));
   });
   return rc;
 }

@@ -33,6 +33,20 @@ sample's rows alone; its kernels (``cbn_*``) carry their own names and
 launch counters (``cond_launches``, ``cond_bwd_launches``). It is not an
 operator: no exported program holds it.
 
+``scale_bias_act_noise`` is StyleGAN2's modulated-conv epilogue,
+clamp(act(x·k_n + b + q_{n,r}), ±clamp): k of (N, C) a sample (the
+demodulation), b of (C,), q a term a pixel (the noise plane times its
+strength), the clamp's mask in the gradient, and q's gradient the sum over
+a pixel's channels; float32 kernels of their own (``mod_*``, counters
+``noise_launches``, ``noise_bwd_launches``), not an operator.
+
+Each epilogue's gradient is itself differentiable: where autograd records
+the backward (``create_graph``, as R1's gradient penalty takes it), the
+backward is ``_EpilogueBwd``, whose forward is the same kernel launch (or
+plain twin) and whose backward is the closed-form second derivative in
+PyTorch arithmetic; ``second_order_launches`` counts those launches. Where
+autograd does not record it, the backward launches what it always has.
+
 ``bn_moments`` gives a train-mode batch norm's moments, E[x] and E[x²] per
 channel in float32, from which k and b are folded: one read of x by
 ``bnm_fwd_rows``, summing in float64, and a fixed-order reduce of its
@@ -62,6 +76,7 @@ import functools
 import torch
 
 from triplegan_tpu_torch.ops import build
+from triplegan_tpu_torch.ops.conv3x3 import engine_needs
 
 ACTS = {"linear": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -163,6 +178,9 @@ def _entry(name: str):
             "bn_moments_plan": [ll, i, i, i, pi, pll],
             "bn_moments_launch": [p, p, i, p, p, ll, i, i, p],
             "bn_moments_bwd_launch": [p, p, p, p, ll, i, i, p],
+            "mod_epilogue_launch": [p, p, p, p, p, ll, ll, i, i, f, f, p],
+            "mod_epilogue_bwd_plan": [ll, ll, i, i, i, i, pi, pll],
+            "mod_epilogue_bwd_launch": [p, p, p, p, p, p, p, p, p, p, ll, ll, ll, i, i, f, f, i, p],
         }
         bound = {}
         for entry, argtypes in signatures.items():
@@ -246,7 +264,10 @@ class _ScaleBiasAct(torch.autograd.Function):
     def backward(ctx, g):
         x, k, b = ctx.saved_tensors
         needs = tuple(ctx.needs_input_grad[:3])
-        if x.device.type == "cpu":
+        if torch.is_grad_enabled():  # a gradient to be differentiated again
+            spec = ("channel", ctx.act, ctx.slope, None, engine_needs(ctx, 3))
+            dx, dk, db, _ = _EpilogueBwd.apply(x, k, b, None, g, spec)
+        elif x.device.type == "cpu":
             dx, dk, db = reference_scale_bias_act_bwd(x, k, b, g, ctx.act, ctx.slope, needs)
         else:
             dx, dk, db = _backward(x, k, b, g, ctx.act, ctx.slope, needs)
@@ -399,7 +420,10 @@ class _ScaleBiasActCond(torch.autograd.Function):
     def backward(ctx, g):
         x, k, b = ctx.saved_tensors
         needs = tuple(ctx.needs_input_grad[:3])
-        if x.device.type == "cpu":
+        if torch.is_grad_enabled():  # a gradient to be differentiated again
+            spec = ("sample", ctx.act, ctx.slope, None, engine_needs(ctx, 3))
+            dx, dk, db, _ = _EpilogueBwd.apply(x, k, b, None, g, spec)
+        elif x.device.type == "cpu":
             dx, dk, db = reference_scale_bias_act_cond_bwd(x, k, b, g, ctx.act, ctx.slope, needs)
         else:
             dx, dk, db = _cond_backward(x, k, b, g, ctx.act, ctx.slope, needs)
@@ -484,6 +508,278 @@ def _cond_backward(x, k, b, g, act, slope, needs):
     dk = kb[0].to(k.dtype) if needs[1] else None
     db = kb[1].to(b.dtype) if needs[2] else None
     return dx, dk, db
+
+
+# ---------------------------------------------------------------------------
+# The modulated conv's epilogue: per-sample scale, per-channel bias, a
+# per-pixel term, the activation and a clamp
+# ---------------------------------------------------------------------------
+
+# Launches of the modulated conv's epilogue kernels (``mod_*``) since the
+# counts were last cleared, keyed as ``cond_launches`` (plus the clamp) and
+# ``cond_bwd_launches`` (the gradients a string of "x", "k", "b", "q").
+noise_launches: collections.Counter = collections.Counter()
+noise_bwd_launches: collections.Counter = collections.Counter()
+_NOISE_NEEDS = "xkbq"
+
+
+def _noise_views(x, k, b, q):
+    """x as (N, R, C) and k (N, C), b (C,), q (N, ...) as views that
+    broadcast against it: (N, 1, C), (1, 1, C), (N, R, 1)."""
+    n, c = x.shape[0], x.shape[-1]
+    return (x.reshape(n, -1, c), k.reshape(n, 1, c), b.reshape(1, 1, c),
+            None if q is None else q.reshape(n, -1, 1))
+
+
+def _clamp_mask(o, clamp):
+    return (o >= -clamp) & (o <= clamp)
+
+
+def reference_scale_bias_act_noise(x, k, b, q, act="leaky_relu", slope=0.2, clamp=256.0):
+    """The plain version of ``scale_bias_act_noise``, in float32 (float64
+    for a float64 x): clamp(act(x·k_n + b + q_{n,r}), ±clamp)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    x3, k3, b3, q3 = _noise_views(x, k, b, q)
+    z = x3.to(ct) * k3.to(ct) + b3.to(ct) + q3.to(ct)
+    return torch.clamp(apply_act(z, act, slope), -clamp, clamp).reshape(x.shape).to(x.dtype)
+
+
+def reference_scale_bias_act_noise_bwd(x, k, b, q, g, act="leaky_relu", slope=0.2, clamp=256.0,
+                                       needs=(True, True, True, True)):
+    """The plain backward: t = g·act'(z)·[|act(z)| within the clamp], dx =
+    t·k_n, dk (N, C) and db (C,) summed over the rows they scale, dq the
+    sum over each row's channels (q's shape); None where ``needs`` (dx, dk,
+    db, dq) does not ask."""
+    x3, k3, b3, q3 = _noise_views(x, k, b, q)
+    z = x3 * k3 + b3 + q3
+    t = g.reshape(x3.shape) * act_grad(z, act, slope) * _clamp_mask(apply_act(z, act, slope), clamp).to(x.dtype)
+    dx = (t * k3).reshape(x.shape) if needs[0] else None
+    dk = (t * x3).sum(dim=1).to(k.dtype) if needs[1] else None
+    db = t.sum(dim=(0, 1)).to(b.dtype) if needs[2] else None
+    dq = t.sum(dim=2).reshape(q.shape).to(q.dtype) if needs[3] else None
+    return dx, dk, db, dq
+
+
+def scale_bias_act_noise(x, k, b, q, act="leaky_relu", slope=0.2, clamp=256.0):
+    """The modulated conv's epilogue, clamp(act(x·k_n + b + q_{n,r}), ±clamp)
+    for x (N, ..., C): k (N, C) a sample's per-channel scale (StyleGAN2's
+    demodulation), b (C,) the bias, q (N, ...) over x's middle axes a term
+    a pixel (its noise plane times the noise strength). Differentiable in
+    x, k, b and q. CPU tensors take the plain versions, CUDA tensors the
+    ``mod_*`` kernels (float32, whose backward takes C/4, or C where x is
+    not 16-byte aligned or C not a multiple of 4, a multiple of 32 and at
+    most 256)."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}; expected one of {sorted(ACTS)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, k, b, q)):
+        return _ScaleBiasActNoise.apply(x, k, b, q, act, float(slope), float(clamp))
+    return _noise_forward(x, k, b, q, act, float(slope), float(clamp))
+
+
+class _ScaleBiasActNoise(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k, b, q, act, slope, clamp):
+        ctx.save_for_backward(x, k, b, q)
+        ctx.act, ctx.slope, ctx.clamp = act, slope, clamp
+        return _noise_forward(x, k, b, q, act, slope, clamp)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k, b, q = ctx.saved_tensors
+        if torch.is_grad_enabled():  # a gradient to be differentiated again
+            grads = _EpilogueBwd.apply(x, k, b, q, g, ("noise", ctx.act, ctx.slope, ctx.clamp, engine_needs(ctx, 4)))
+        else:
+            grads = _epilogue_bwd(x, k, b, q, g, ("noise", ctx.act, ctx.slope, ctx.clamp, ctx.needs_input_grad[:4]))
+        return (*grads, None, None, None)
+
+
+def _check_noise_cuda(x, k, b, q):
+    """What the ``mod_*`` kernels take: a non-empty contiguous float32 x of
+    (N, ..., C) on a CUDA device, k (N, C), b (C,) and q of x's shape but
+    the last axis, all float32 on its device. Returns (N, rows a sample,
+    C)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise TypeError(f"the modulation epilogue kernels take float32 CUDA tensors, got {x.device} {x.dtype}")
+    if x.dim() < 2 or x.numel() == 0 or not x.is_contiguous():
+        raise ValueError(f"scale_bias_act_noise needs a non-empty contiguous (N, ..., C) x, got {tuple(x.shape)}")
+    n, c = x.shape[0], x.shape[-1]
+    for name, v, shape in (("k", k, (n, c)), ("b", b, (c,)), ("q", q, tuple(x.shape[:-1]))):
+        if v.device != x.device or v.dtype != torch.float32 or tuple(v.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape} on {x.device}, got {v.dtype} {tuple(v.shape)} "
+                             f"on {v.device}")
+    return n, x.numel() // (n * c), c
+
+
+def _noise_forward(x, k, b, q, act, slope, clamp):
+    if x.device.type == "cpu":
+        return reference_scale_bias_act_noise(x, k, b, q, act, slope, clamp)
+    n, hw, c = _check_noise_cuda(x, k, b, q)
+    kc, bc, qc = k.contiguous(), b.contiguous(), q.contiguous()
+    y = torch.empty_like(x)
+    rc = _launch(_entry("mod_epilogue_launch"), x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(),
+                 qc.data_ptr(), y.data_ptr(), n, hw, c, ACTS[act], slope, clamp)
+    if rc != 0:
+        raise RuntimeError(f"scale_bias_act_noise kernel launch failed: cudaError {rc}")
+    noise_launches[tuple(x.shape), "float32", act, slope, clamp] += 1
+    return y
+
+
+def noise_bwd_plan(n, hw, c, act, flags, aligned):
+    """The modulation epilogue backward's grid, as ``cond_bwd_plan``'s: (a
+    sample's blocks; the depth of its sums). Raises where C is not whole
+    warps of the kernel's units."""
+    key = ("noise", n, hw, c, act, flags, aligned)
+    plan = _plans.get(key)
+    if plan is None:
+        blocks, depth = ctypes.c_int(), ctypes.c_longlong()
+        rc = _entry("mod_epilogue_bwd_plan")(n, hw, c, ACTS[act], flags, int(aligned), ctypes.byref(blocks),
+                                             ctypes.byref(depth))
+        if rc != 0:
+            raise RuntimeError(f"scale_bias_act_noise backward takes C/4 (C where unaligned) a multiple of 32 "
+                               f"and at most 256; got C {c} (cudaError {rc})")
+        plan = _plans[key] = (blocks.value, depth.value)
+    return plan
+
+
+def _noise_backward(x, k, b, q, g, act, slope, clamp, needs):
+    """(dx, dk, db, dq) of a CUDA x by one launch of ``mod_bwd_rows`` (and
+    its reduce where dk or db is asked for; db then sums the per-sample
+    rows); None where ``needs`` does not ask."""
+    n, hw, c = _check_noise_cuda(x, k, b, q)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must match x ({tuple(x.shape)} {x.dtype}), got {tuple(g.shape)} {g.dtype}")
+    flags = sum(1 << i for i, want in enumerate(needs) if want)
+    if not flags:
+        return None, None, None, None
+    g = g.contiguous()
+    kc, bc, qc = k.contiguous(), b.contiguous(), q.contiguous()
+    dx = torch.empty_like(x) if needs[0] else None
+    dq = torch.empty_like(qc) if needs[3] else None
+    aligned = (x.data_ptr() | g.data_ptr() | (0 if dx is None else dx.data_ptr())) % 16 == 0
+    blocks = noise_bwd_plan(n, hw, c, act, flags, aligned)[0]
+    kb = ws = None
+    if needs[1] or needs[2]:
+        kb = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+        ws = torch.empty((n * blocks, 2 * c), dtype=torch.float32, device=x.device)
+    rc = _launch(_entry("mod_epilogue_bwd_launch"), x.device, x.data_ptr(), kc.data_ptr(), bc.data_ptr(),
+                 qc.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
+                 None if dq is None else dq.data_ptr(), None if kb is None else kb[0].data_ptr(),
+                 None if kb is None else kb[1].data_ptr(), None if ws is None else ws.data_ptr(),
+                 0 if ws is None else n * blocks, n, hw, c, ACTS[act], slope, clamp, flags)
+    if rc != 0:
+        raise RuntimeError(f"scale_bias_act_noise backward kernel launch failed: cudaError {rc}")
+    noise_bwd_launches[tuple(x.shape), "float32", act, slope, clamp,
+                       "".join(name for name, want in zip(_NOISE_NEEDS, needs) if want)] += 1
+    dk = kb[0] if needs[1] else None
+    db = kb[1].sum(dim=0) if needs[2] else None
+    return dx, dk, db, dq
+
+
+# ---------------------------------------------------------------------------
+# Second order: the epilogues' gradients as differentiable functions
+# ---------------------------------------------------------------------------
+
+# Calls of ``_EpilogueBwd`` since the counts were last cleared: an
+# epilogue's backward run where autograd records it to differentiate it
+# again (``create_graph``; R1's gradient penalty). Keyed by (variant, x's
+# shape, x's dtype, act): on the card each is one launch of the variant's
+# backward kernel, on the CPU one call of its plain twin.
+second_order_launches: collections.Counter = collections.Counter()
+
+
+def act_grad2(z: torch.Tensor, act: str):
+    """d² act / dz², None where it is nought almost everywhere (the
+    piecewise-linear acts)."""
+    if act == "tanh":
+        t = torch.tanh(z)
+        return -2.0 * t * (1.0 - t * t)
+    return None
+
+
+def _epilogue_bwd(x, k, b, q, g, spec):
+    """The first-order backward of an epilogue variant (``spec`` = (variant,
+    act, slope, clamp, needs), variant "channel", "sample" or "noise"):
+    the kernels on the card, the plain twins on the CPU; (dx, dk, db, dq),
+    dq None but for "noise"."""
+    variant, act, slope, clamp, needs = spec
+    cpu = x.device.type == "cpu"
+    if variant == "noise":
+        if cpu:
+            return reference_scale_bias_act_noise_bwd(x, k, b, q, g, act, slope, clamp, needs)
+        return _noise_backward(x, k, b, q, g, act, slope, clamp, needs)
+    if variant == "sample":
+        out = (reference_scale_bias_act_cond_bwd if cpu else _cond_backward)(x, k, b, g, act, slope, needs)
+    else:
+        out = (reference_scale_bias_act_bwd if cpu else _backward)(x, k, b, g, act, slope, needs)
+    return (*out, None)
+
+
+def _sum_to(t, like):
+    return t.sum_to_size(like.shape)
+
+
+class _EpilogueBwd(torch.autograd.Function):
+    """An epilogue's backward, (x, k, b, q, g) → (dx, dk, db, dq), as a
+    function autograd differentiates: the forward is the first-order
+    backward (``_epilogue_bwd``: one launch of the variant's backward
+    kernel on the card), the backward its closed-form gradient in PyTorch
+    arithmetic, itself differentiable. With z = x·k + b (+ q), a = act'(z)
+    times the clamp's mask, a1 = act''(z) times the mask, and P = ddx·k +
+    ddk·x + ddb (+ ddq) the cotangents pulled onto x's elements, the
+    output's pairing with them is Σ g·a·P, so: dg = a·P, dx = g·(a·ddk +
+    a1·P·k), dk = Σ g·(a·ddx + a1·P·x), db = Σ g·a1·P, dq = Σ_c g·a1·P."""
+
+    @staticmethod
+    def forward(ctx, x, k, b, q, g, spec):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, k, b, q, g)
+        ctx.spec = spec
+        second_order_launches[spec[0], tuple(x.shape), _DTYPE_NAMES.get(x.dtype, str(x.dtype)), spec[1]] += 1
+        return _epilogue_bwd(x, k, b, q, g, spec)
+
+    @staticmethod
+    def backward(ctx, ddx, ddk, ddb, ddq):
+        x, k, b, q, g = ctx.saved_tensors
+        variant, act, slope, clamp, _ = ctx.spec
+        n, c = x.shape[0], x.shape[-1]
+        x3 = x.reshape(n, -1, c)
+        k3 = k.reshape(1, 1, c) if variant == "channel" else k.reshape(n, 1, c)
+        b3 = b.reshape(1, 1, c) if variant != "sample" else b.reshape(n, 1, c)
+        q3 = q.reshape(n, -1, 1) if q is not None else None
+        g3 = g.reshape(x3.shape)
+        kc, bc = k3.to(x.dtype), b3.to(x.dtype)
+        z = x3 * kc + bc + (0 if q3 is None else q3)
+        a, a1 = act_grad(z, act, slope), act_grad2(z, act)
+        if clamp is not None:
+            m = _clamp_mask(apply_act(z, act, slope), clamp).to(x.dtype)
+            a = a * m
+            a1 = None if a1 is None else a1 * m
+        terms = [ddx.reshape(x3.shape) * kc if ddx is not None else None,
+                 ddk.reshape(k3.shape).to(x.dtype) * x3 if ddk is not None else None,
+                 ddb.reshape(b3.shape).to(x.dtype) if ddb is not None else None,
+                 ddq.reshape(q3.shape) if ddq is not None else None]
+        terms = [t for t in terms if t is not None]
+        if not terms:
+            return None, None, None, None, None, None
+        p = functools.reduce(torch.add, terms)
+        need = ctx.needs_input_grad
+        gx = gk = gb = gq = gg = None
+        if need[4]:
+            gg = (a * p).expand(x3.shape).reshape(g.shape)
+        if need[0]:
+            parts = ([g3 * a * ddk.reshape(k3.shape).to(x.dtype)] if ddk is not None else []) + (
+                [g3 * a1 * p * kc] if a1 is not None else [])
+            gx = functools.reduce(torch.add, parts).reshape(x.shape) if parts else None
+        if need[1]:
+            parts = ([g3 * a * ddx.reshape(x3.shape)] if ddx is not None else []) + (
+                [g3 * a1 * p * x3] if a1 is not None else [])
+            gk = _sum_to(functools.reduce(torch.add, parts), k3).reshape(k.shape).to(k.dtype) if parts else None
+        if a1 is not None:
+            if need[2]:
+                gb = _sum_to(g3 * a1 * p, b3).reshape(b.shape).to(b.dtype)
+            if q is not None and need[3]:
+                gq = _sum_to(g3 * a1 * p, q3).reshape(q.shape)
+        return gx, gk, gb, gq, gg, None
 
 
 # ---------------------------------------------------------------------------

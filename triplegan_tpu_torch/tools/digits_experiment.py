@@ -89,7 +89,7 @@ class SupervisedBaseline:
                                 step=0, seed=0 if noise_seed is None else int(noise_seed))
         self.data = {"x": self._rescale(x),
                      "y": torch.as_tensor(np.asarray(y), dtype=torch.long, device=self.dev)}
-        self.train_step = TrainStep(self._body, lambda step, counts: list(self.adam.scalars(counts["clf"])),
+        self.train_step = TrainStep(self._body, lambda step, counts, reg: list(self.adam.scalars(counts["clf"])),
                                     () if noise_seed is None else (0,), metrics=("loss",))
         self.train_step.seed_of = lambda seed, step, domain: _noise_seed(seed, step)
         self.chunk = ScanChunk(self.train_step, 1, log=lambda *a, **kw: None)

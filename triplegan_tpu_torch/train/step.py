@@ -57,7 +57,8 @@ the ranks' noise, dropout, augmentation and draws differ while their
 states stay equal.
 
 The body opens the step's phases in order (``utils/profiling.py::
-phase``): ``sn`` (a spectrally normalised D's power iterations; only
+phase``): ``d_reg`` (the lazy R1 update of D, on the steps that carry
+one), ``sn`` (a spectrally normalised D's power iterations; only
 there), ``d_grad``, ``d_adam``, ``g_grad``, ``g_adam``, ``c_grad``,
 ``c_adam``, each a player's update before its Adam and the Adam, and
 ``end``, which closes the last. A phase lasts until the next opens. Each
@@ -66,6 +67,20 @@ phase's mark kernel, which a CUDA graph replays, so a trace of a replay
 divides by phase. Under ``share_pseudo_forward`` C's unlabeled forward
 runs in ``d_grad``; under a mesh each player's all-reduce falls in its
 ``*_grad`` phase. The marks change no value.
+
+StyleGAN2's lazy regularisation (``r1_interval`` k > 0 in the config):
+every step whose number is a multiple of k opens with an update of D by
+R1 alone, (γ/2)·k·mean ‖∇ₓD(x, y)‖² over the real labelled pairs of D's
+stream (``r1_gamma`` γ; the gradient taken with ``create_graph``, so the
+penalty's gradient runs the kernels' second-order Functions), and one
+Adam step of D's state; D's main update then starts from there, so D's
+Adam count advances by two on such a step (``TrainStep.updates``). That
+step preprocesses D's labelled images in ``d_reg`` and its main update
+reuses them, so every draw of the step is the plain step's. A G with an
+EMA copy (``ema_update``) has it lerped after G's Adam with β =
+0.5^(B / min(ema_kimg·1000, ema_rampup·B·step)), a scalar of the step. D
+is called with the number of row streams it is given (``streams``: the
+D update's 3B rows are three) where it takes one.
 """
 
 from __future__ import annotations
@@ -145,16 +160,44 @@ class TrainStep:
     players. ``body(state, x, gens, sc)`` is the step itself: ``gens`` its
     generators, one per entry of ``domains``, and ``sc`` its ``SCALARS`` as
     a float32 vector on the state's device; the body reads neither the
-    step nor any device value on the host. ``values(step, counts)`` gives
-    the scalars on the host in float64, ``counts`` each Adam's count.
+    step nor any device value on the host. ``values(step, counts, reg)``
+    gives the scalars on the host in float64, ``counts`` each Adam's count
+    and ``reg`` whether the step opens with D's R1 update
+    (``regularises``, the one place that decides it).
     ``mesh`` is the mesh the body's collectives run over (None: one
     process); the generators' seeds mix in its rank. ``metrics`` names the
     0-d tensors the body's metrics hold."""
 
     def __init__(self, body: Callable, values: Callable, domains: Sequence[int], mesh=None,
-                 metrics: Sequence[str] = METRICS):
+                 metrics: Sequence[str] = METRICS, reg_every: int = 0):
         self.body, self.values, self.domains, self.mesh = body, values, tuple(domains), mesh
         self.metrics = tuple(metrics)
+        self.reg_every = int(reg_every)
+
+    def regularises(self, step: int) -> bool:
+        """Whether step ``step`` opens with D's lazy R1 update: the body then
+        takes ``reg=True``."""
+        return self.reg_every > 0 and step % self.reg_every == 0
+
+    def pattern(self, step: int, n: int) -> Tuple[bool, ...]:
+        """``regularises`` of the ``n`` steps from ``step`` on."""
+        return tuple(self.regularises(step + i) for i in range(n))
+
+    def run_body(self, state, x, gens, sc, reg: bool):
+        return self.body(state, x, gens, sc, **({"reg": True} if reg else {}))
+
+    def updates(self, step: int) -> Dict[str, int]:
+        """Each Adam's updates in step ``step``: one, and D's R1 update."""
+        reg = self.regularises(step)
+        return {p: 1 + (reg and p == "disc") for p in PLAYERS}
+
+    def counts_after(self, counts: Dict[str, int], step: int, n: int) -> Dict[str, int]:
+        """Each Adam's count after the ``n`` steps from ``step`` on."""
+        counts = dict(counts)
+        for i in range(n):
+            for p, k in self.updates(step + i).items():
+                counts[p] = counts.get(p, 0) + k
+        return counts
 
     def seed_of(self, seed: int, step: int, domain: int) -> int:
         return _mixed_seed(seed, step, domain, None if self.mesh is None else self.mesh.rank)
@@ -165,13 +208,15 @@ class TrainStep:
     def scalars(self, state: TrainState, n: int = 1) -> torch.Tensor:
         """The scalars of the ``n`` steps from ``state`` on, (n,
         len(SCALARS)) float32 on the CPU: float64 values rounded once."""
-        rows = [self.values(state.step + i, {p: o.count + i for p, o in state.opt.items()}) for i in range(n)]
+        counts = {p: o.count for p, o in state.opt.items()}
+        rows = [self.values(state.step + i, self.counts_after(counts, state.step, i), self.regularises(state.step + i))
+                for i in range(n)]
         return torch.tensor(rows, dtype=torch.float64).float()
 
     def __call__(self, state: TrainState, x):
         dev = _device(state)
-        return self.body(state, x, self.generators(dev, state.seed, state.step),
-                         _upload(self.scalars(state), dev)[0])
+        return self.run_body(state, x, self.generators(dev, state.seed, state.step),
+                             _upload(self.scalars(state), dev)[0], self.regularises(state.step))
 
 
 class _Zca:
@@ -223,19 +268,42 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         )
     non_saturating = bool(cfg.non_saturating_g)
     spectral = getattr(disc, "power_iteration", None)  # a spectrally normalised D
+    ema = getattr(gen, "ema_update", None)  # a G with an EMA copy
+    reg_every = int(cfg.get("r1_interval", 0) or 0)
+    r1_weight = float(cfg.get("r1_gamma", 0.0)) / 2.0 * reg_every
+    d_kw = {"streams": 3} if getattr(disc, "mbstd_group", None) else {}  # D's update: three row streams
+    extra = ema is not None or reg_every > 0
+    if extra and mesh is not None:
+        raise ValueError("an EMA copy of G and the lazy R1 update run on one process")
+    global_b = int(cfg.batch_size)
+
+    def ema_beta(step: int) -> float:
+        if ema is None:
+            return 0.0
+        nimg = min(float(cfg.gen.ema_kimg) * 1000.0, float(cfg.gen.ema_rampup) * step * global_b)
+        return 0.5 ** (global_b / max(nimg, 1e-8))
 
     def pmean(tree):
         return tree if mesh is None else mesh.pmean_tree(tree)
 
-    def values(step: int, counts: Dict[str, int]) -> List[float]:
-        return [ap_sched(step), lr_now(step), *(v for p in PLAYERS for v in optimizers[p].scalars(counts[p]))]
+    def values(step: int, counts: Dict[str, int], reg: bool) -> List[float]:
+        """``SCALARS`` at step ``step`` from the counts at its start, and
+        where the step has them, the EMA's β and the R1 update's Adam
+        scalars (where ``reg``, D's main update reads D's count after
+        it)."""
+        main = dict(counts, disc=counts["disc"] + reg)
+        out = [ap_sched(step), lr_now(step), *(v for p in PLAYERS for v in optimizers[p].scalars(main[p]))]
+        if extra:
+            out += [ema_beta(step), *optimizers["disc"].scalars(counts["disc"])]
+        return out
 
-    def body(state: TrainState, batch, gens, sc) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def body(state: TrainState, batch, gens, sc, reg: bool = False) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         dev = _device(state)
         (rng,) = gens
         alpha_p_now, lr_frac = sc[0], sc[1]
         adam = {p: sc[2 + 3 * i:5 + 3 * i].unbind() for i, p in enumerate(PLAYERS)}
         params, bn = state.params, state.bn
+        opt_d_state = state.opt["disc"]
         zm, zw = zca.get(dev)
 
         def preprocess(x_uint8):
@@ -250,18 +318,35 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         def whiten_gen(x_raw):
             return apply_zca(x_raw, zm, zw) if zm is not None else x_raw
 
+        bd = batch["d"]
+        y_l, y_gd = bd["y_l"].long(), bd["y_g"].long()
+        if reg:  # ============ D's lazy R1 update, on the real labelled pairs ====
+            phase("d_reg", dev)
+            x_l = preprocess(bd["x_l"])
+            x_r = x_l.detach().requires_grad_(True)
+            pr = _with_grad(params["disc"])
+            logit_r, _ = disc.apply(pr, bn["disc"], x_r, y_l, train=True, generator=rng)
+            (g_x,) = torch.autograd.grad(logit_r.sum(), x_r, create_graph=True)
+            r1 = torch.mean(torch.sum(torch.square(g_x), dim=tuple(range(1, g_x.dim())))) * r1_weight
+            # a leaf R1 does not reach (a bias past the last activation) takes a zero
+            # gradient, as StyleGAN2-ADA's real_logits * 0 term gives it
+            gr = _like(pr, torch.autograd.grad(r1, _leaves(pr), allow_unused=True, materialize_grads=True))
+            pd_r, opt_d_state = opt_d.update(params["disc"], gr, opt_d_state, sc[12:15].unbind())
+            params = dict(params, disc=pd_r)
+            del x_r, logit_r, g_x, gr, pr
+
         # ================= D update (G, C at their current values) ==========
         d_sn = {}
         if spectral is not None:  # D's power iterations, from the kept u
             phase("sn", dev)
             d_sn = {"sn": spectral(params["disc"], bn["disc"])}
         phase("d_grad", dev)
-        bd = batch["d"]
-        x_l, x_u = preprocess(bd["x_l"]), preprocess(bd["x_u"])
-        y_l, y_gd = bd["y_l"].long(), bd["y_g"].long()
+        if not reg:
+            x_l = preprocess(bd["x_l"])
+        x_u = preprocess(bd["x_u"])
         z_d = bd["z"].to(cdt)
         with torch.no_grad():
-            x_g = whiten_gen(gen.apply(params["gen"], bn["gen"], z_d, y_gd, train=True, mesh=mesh)[0])
+            x_g = whiten_gen(gen.apply(params["gen"], bn["gen"], z_d, y_gd, train=True, mesh=mesh, generator=rng)[0])
         pc = _with_grad(params["clf"])
         if share_fwd:
             logits_c_u, bn_u = clf.apply(pc, bn["clf"], x_u, train=True, generator=rng, mesh=mesh)
@@ -274,26 +359,28 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         b = x_l.shape[0]
         pd = _with_grad(params["disc"])
         logit_all, bn_d_new = disc.apply(pd, bn["disc"], torch.cat([x_l, x_u, x_g]),
-                                         torch.cat([y_l, y_c, y_gd]), train=True, generator=rng, **d_sn)
+                                         torch.cat([y_l, y_c, y_gd]), train=True, generator=rng, **d_sn, **d_kw)
         lr_real, lr_cla, lr_gen = logit_all[:b], logit_all[b:2 * b], logit_all[2 * b:]
         d_total = losses.d_loss(lr_real, lr_cla, lr_gen, alpha)
         d_terms = losses.d_loss_terms(lr_real, lr_cla, lr_gen, alpha)
         gd = pmean(_like(pd, torch.autograd.grad(d_total, _leaves(pd))))
         phase("d_adam", dev)
-        pd_new, opt_d_new = opt_d.update(params["disc"], gd, state.opt["disc"], adam["disc"])
+        pd_new, opt_d_new = opt_d.update(params["disc"], gd, opt_d_state, adam["disc"])
 
         # ================= G update (scored by the new D) ====================
         phase("g_grad", dev)
         bg = batch["g"]
         z_g, y_gg = bg["z"].to(cdt), bg["y_g"].long()
         pg = _with_grad(params["gen"])
-        x_raw, bn_g_new = gen.apply(pg, bn["gen"], z_g, y_gg, train=True, mesh=mesh)
+        x_raw, bn_g_new = gen.apply(pg, bn["gen"], z_g, y_gg, train=True, mesh=mesh, generator=rng)
         logit_g, _ = disc.apply(pd_new, bn_d_new, whiten_gen(x_raw), y_gg, train=True,
                                 generator=rng)
         g_total = losses.g_loss(logit_g, alpha, non_saturating)
         gg = pmean(_like(pg, torch.autograd.grad(g_total, _leaves(pg))))
         phase("g_adam", dev)
         pg_new, opt_g_new = opt_g.update(params["gen"], gg, state.opt["gen"], adam["gen"])
+        if ema is not None:
+            bn_g_new = ema(pg_new, bn_g_new, sc[11])
 
         # ================= C update (sees the new D and G) ===================
         phase("c_grad", dev)
@@ -303,7 +390,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         y_l_c, y_gc = bc["y_l"].long(), bc["y_g"].long()
         z_c = bc["z"].to(cdt)
         with torch.no_grad():
-            x_g_c = whiten_gen(gen.apply(pg_new, bn_g_new, z_c, y_gc, train=True, mesh=mesh)[0])
+            x_g_c = whiten_gen(gen.apply(pg_new, bn_g_new, z_c, y_gc, train=True, mesh=mesh, generator=rng)[0])
         if share_fwd:
             log_u, y_c2 = logits_c_u, y_c
             log_l, s1 = clf.apply(pc, bn_u, x_l_c, train=True, generator=rng, mesh=mesh)
@@ -343,7 +430,7 @@ def make_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=None,
         metrics["alpha_p"], metrics["lr_frac"] = alpha_p_now, lr_frac
         return new_state, metrics
 
-    return TrainStep(body, values, (0,), mesh)
+    return TrainStep(body, values, (0,), mesh, reg_every=reg_every)
 
 
 def _make_batch_sampler(cfg):
@@ -411,11 +498,11 @@ def make_device_train_step(cfg, nets, optimizers, total_steps: int, zca_stats=No
     core = make_train_step(cfg, nets, optimizers, total_steps, zca_stats, pseudo_label_mode, mesh)
     draw = _make_batch_draw(cfg, 1 if mesh is None else mesh.world)
 
-    def body(state: TrainState, data, gens, sc):
+    def body(state: TrainState, data, gens, sc, reg: bool = False):
         rng, rng_batch = gens
-        return core.body(state, draw(rng_batch, data), (rng,), sc)
+        return core.run_body(state, draw(rng_batch, data), (rng,), sc, reg)
 
-    return TrainStep(body, core.values, (0, _SAMPLER_DOMAIN), mesh)
+    return TrainStep(body, core.values, (0, _SAMPLER_DOMAIN), mesh, reg_every=core.reg_every)
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +658,13 @@ class ScanChunk:
     stream (one eager step, so lazy set-up happens outside the capture),
     then captures the n steps into one graph, their 2·n generators
     registered with it and their scalars a static (n, len(SCALARS)) tensor,
-    and instantiates it. Every call re-seeds the generators on the host to
+    and instantiates it. A step that carries D's lazy R1 update
+    (``TrainStep.regularises``) runs other work than a plain one, so the
+    chunk keeps a graph for each pattern of such steps its calls meet (with
+    n dividing the interval, one whose first step carries it and one of
+    plain steps), each captured at the first call that needs it after a
+    warm-up step of each kind it holds, all in one memory pool (they never
+    run at once), and picks one by the call's first step. Every call re-seeds the generators on the host to
     the seeds the eager steps would draw from, copies the n steps' scalars
     (computed on the host) into the static tensor and replays the graph:
     one dispatch for n steps. The graph keeps every step's metrics; the
@@ -611,20 +704,22 @@ class ScanChunk:
         self.captures = self.replays = self.captured_steps = self.warmup_steps = 0
         self.graph_stats: Dict[str, float] = {}
         self.step_metrics: Dict[str, torch.Tensor] = {}
-        self._graph = self._key = None
+        self._graphs: Dict[Tuple[bool, ...], tuple] = {}  # pattern → (graph, gens, scalars, metrics)
+        self._key = self._pool = None
 
-    def _chunk(self, state, data, gens, sc):
+    def _chunk(self, state, data, gens, sc, pattern):
         """The chunk's work, eager on the CPU and captured on the card: the
         new state and the metrics stacked per step."""
         ms = []
         for i in range(self.n):
-            state, m = self.step.body(state, data, gens[i], sc[i])
+            state, m = self.step.run_body(state, data, gens[i], sc[i], pattern[i])
             ms.append(m)
         return state, _stacked(ms)
 
     def _advanced(self, state: TrainState) -> TrainState:
+        counts = self.step.counts_after({p: o.count for p, o in state.opt.items()}, state.step, self.n)
         return dataclasses.replace(state, step=state.step + self.n,
-                                   opt={p: AdamState(o.count + self.n, o.mu, o.nu) for p, o in state.opt.items()})
+                                   opt={p: AdamState(counts[p], o.mu, o.nu) for p, o in state.opt.items()})
 
     def _key_of(self, state: TrainState, data) -> tuple:
         return (tuple(t.data_ptr() for t in _state_tensors(state)),
@@ -639,31 +734,36 @@ class ScanChunk:
         if _device(state).type == "cuda":
             key = self._key_of(state, data)
             if key != self._key:
+                self._graphs, self._key, self._pool = {}, None, None  # the old graphs' pool goes first
+            pattern = self.step.pattern(state.step, self.n)
+            if pattern not in self._graphs:
                 with span("chunk.capture"):
-                    self._capture(state, data, key)
+                    self._capture(state, data, key, pattern)
 
     def __call__(self, state: TrainState, data):
         with span("chunk.call"):
             dev = _device(state)
+            pattern = self.step.pattern(state.step, self.n)
             if dev.type != "cuda":
                 gens = [self.step.generators(dev, state.seed, state.step + i) for i in range(self.n)]
-                new, stacked = self._chunk(state, data, gens, self.step.scalars(state, self.n))
+                new, stacked = self._chunk(state, data, gens, self.step.scalars(state, self.n), pattern)
                 _copy_into(state, new)
             else:
                 self.prepare(state, data)
-                for i, gens in enumerate(self._gens):
+                graph, graph_gens, scalars, metrics = self._graphs[pattern]
+                for i, gens in enumerate(graph_gens):
                     for g, domain in zip(gens, self.step.domains):
                         g.manual_seed(self.step.seed_of(state.seed, state.step + i, domain))
-                _upload(self.step.scalars(state, self.n), dev, out=self._scalars)
+                _upload(self.step.scalars(state, self.n), dev, out=scalars)
                 with span("chunk.replay"):
-                    self._graph.replay()
+                    graph.replay()
                 self.replays += 1
-                out = self._metrics.clone()
+                out = metrics.clone()
                 stacked = {k: out[j] for j, k in enumerate(self.step.metrics)}
             self.step_metrics = stacked
             return self._advanced(state), _reduce_scan_metrics(stacked, self.mode)
 
-    def _capture(self, state: TrainState, data, key) -> None:
+    def _capture(self, state: TrainState, data, key, pattern) -> None:
         dev = _device(state)
         mesh = self.step.mesh
         if mesh is not None and mesh.backend != "nccl":
@@ -671,16 +771,16 @@ class ScanChunk:
                 f"capturing {self.n} train steps as a CUDA graph under a {mesh.backend} process group: "
                 f"{mesh.backend}'s collectives on CUDA tensors stage through the host and cannot be "
                 f"captured. Use NCCL (one card a rank), or scan_steps=1. Nothing ran eagerly in its place.")
-        self._graph = self._key = self._metrics = None  # the old graph's pool goes first
         if mesh is not None:
             mesh.barrier()  # NCCL makes its communicator at the first collective: not in the capture
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            self.step.body(_clone_state(state), data, self.step.generators(dev, state.seed, state.step),
-                           _upload(self.step.scalars(state), dev)[0])
+            for reg in sorted(set(pattern)):  # a warm-up step of each kind the graph holds
+                self.step.run_body(_clone_state(state), data, self.step.generators(dev, state.seed, state.step),
+                                   _upload(self.step.scalars(state), dev)[0], reg)
+                self.warmup_steps += 1
         torch.cuda.current_stream(dev).wait_stream(stream)
-        self.warmup_steps += 1
 
         gens = [[torch.Generator(device=dev) for _ in self.step.domains] for _ in range(self.n)]
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -689,11 +789,11 @@ class ScanChunk:
         sc = _upload(self.step.scalars(state, self.n), dev)  # a static input, outside the graph's pool
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
                 mode = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")  # a host sync raises where it is
                 try:
-                    new, stacked = self._chunk(state, data, gens, sc)
+                    new, stacked = self._chunk(state, data, gens, sc, pattern)
                     _copy_into(state, new)
                     vec = torch.stack([stacked[k] for k in self.step.metrics])
                     del new, stacked
@@ -704,14 +804,17 @@ class ScanChunk:
         nodes = _graph_nodes(graph)
         graph.instantiate()
         seconds = time.perf_counter() - t0
-        self._graph, self._gens, self._scalars, self._metrics, self._key = graph, gens, sc, vec, key
+        self._graphs[pattern] = graph, gens, sc, vec
+        self._key, self._pool = key, graph.pool()
         self.captures += 1
         self.captured_steps += self.n
         self.graph_stats = {"steps": self.n, "nodes": nodes, "capture_s": seconds,
                             "pool_bytes": _pool_bytes(graph.pool())}
+        if any(pattern):
+            self.graph_stats["r1_steps"] = sum(pattern)
         self.log(f"graph: captured {self.n} steps as one CUDA graph: {nodes} nodes, "
                  f"{seconds:.3f} s to capture and instantiate, {self.graph_stats['pool_bytes']} bytes "
-                 f"of pool", flush=True)
+                 f"of pool{f', {sum(pattern)} with an R1 update' if any(pattern) else ''}", flush=True)
 
 
 def make_eval_step(cfg, nets, zca_stats=None, mesh=None):
