@@ -103,9 +103,12 @@ Phases, each fatal on failure (exit code 1, and no result line):
      step; R1's second-order Functions counted, its wide input gradients
      through the Winograd pipeline; R1's gradient of D, kernel arm against
      plain, on the card; then a replay of each graph under torch.profiler,
-     each hand-written kernel (the ``cbn_*`` input scales and the ``mod_*``
-     epilogues among them) run as many times as the eager steps' counts
-     give; its launches feed phase 7 (the modulation epilogue's rows);
+     each hand-written kernel (the ``cbn_*`` input scales, the ``mod_*``
+     epilogues and ``tconv2_kernel`` among them) run as many times as the
+     eager steps' counts give, the transposed conv 15 times a plain step and
+     21 an R1 step, and no record of cuDNN's ``dgrad2d_alg1_1``; its
+     launches feed phase 7 (the modulation epilogue's and the transposed
+     conv's rows);
   3d. digits: the real-data recipe of the port's campaign
      (``triplegan_tpu_torch/tools/digits_experiment.py``) for seed 1 and
      100 labels: ``cli prepare --dataset digits`` from the data file the
@@ -266,7 +269,11 @@ Phases, each fatal on failure (exit code 1, and no result line):
      each timed against its bytes ÷ 3.35 TB/s and against the plain twin;
      and the moments' counters on each graphed path (line
      "bn_moments_counters": the cifar10_4k graph arms, phase 3c's arms,
-     phase 3e).
+     phase 3e). Last, the stride-2 transposed conv (``tconv_case``, lines
+     "tconv3x3_s2") at each shape phase 3f launched it at: against its
+     plain twin in float64, 20 repeats bitwise, timed beside its
+     operations bound, the twin and cuDNN's call under its deterministic
+     algorithms.
 
 The kernels' JSON line sums each kernel's times over one train step at
 each setting (``per_step``: launches per step × that shape's time, with
@@ -478,7 +485,7 @@ def counts_zero():
 
     fold_moments()
     for counter in (sba.launches, sba.bwd_launches, sba.cond_launches, sba.cond_bwd_launches, sba.noise_launches,
-                    sba.noise_bwd_launches, cv.fwd_launches, cv.wino_launches, cv.wgrad_launches):
+                    sba.noise_bwd_launches, cv.fwd_launches, cv.wino_launches, cv.wgrad_launches, cv.tconv_launches):
         counter.clear()
 
 
@@ -973,7 +980,8 @@ HAND_KERNELS = {"sba_fwd": ("sba_fwd_rows<", "sba_fwd_c3<"), "sba_bwd": ("sba_bw
                 "wino_filter": ("wino_filter(",), "wino_input": ("wino_input<",), "wino_gemm": ("wino_gemm<",),
                 "wino_output": ("wino_output<",), "cbn_fwd": ("cbn_fwd_rows<",), "cbn_bwd": ("cbn_bwd_rows<",),
                 "cbn_bwd_reduce": ("cbn_bwd_reduce<",), "mod_fwd": ("mod_fwd_rows<",),
-                "mod_bwd": ("mod_bwd_rows<",), "mod_bwd_reduce": ("mod_bwd_reduce(",)}
+                "mod_bwd": ("mod_bwd_rows<",), "mod_bwd_reduce": ("mod_bwd_reduce(",),
+                "tconv": ("tconv2_kernel<",)}
 # Kineto keeps only the device records that lie inside its capture window,
 # which is taken on the host's clock; a card timestamp converted to that
 # clock can land a little past it (a profile that stopped right after its
@@ -1179,7 +1187,8 @@ def hand_kernels_per_step(counts: dict, n_steps: int, moments: dict) -> dict:
     ``bnm_bwd_rows``; the per-sample and the modulation epilogues (counts
     "scale_bias_act_cond" and "scale_bias_act_noise", where ``counts`` has
     them, and their "_bwd") run ``cbn_*`` and ``mod_*`` as the per-channel
-    one runs ``sba_*``."""
+    one runs ``sba_*``; a stride-2 transposed conv (count "conv3x3_tconv",
+    where ``counts`` has it) runs ``tconv2_kernel``."""
     from triplegan_tpu_torch.ops import conv3x3 as cv
 
     conv_reduce = wino = 0
@@ -1207,6 +1216,7 @@ def hand_kernels_per_step(counts: dict, n_steps: int, moments: dict) -> dict:
             "conv_wgrad": counts["conv3x3_wgrad"].total() / n_steps, "conv_reduce": conv_reduce / n_steps,
             "bnm_fwd": moments["bn_moments"].total() / n_steps, "bnm_reduce": moments["bn_moments"].total() / n_steps,
             "bnm_bwd": moments["bn_moments_bwd"].total() / n_steps,
+            "tconv": counts.get("conv3x3_tconv", collections.Counter()).total() / n_steps,
             **{g: wino / n_steps for g in ("wino_filter", "wino_input", "wino_gemm", "wino_output")}}
 
 
@@ -1434,14 +1444,21 @@ STYLEGAN2_BATCH = 64      # the configuration's own (mb 64)
 # the modulated convs' epilogue a step: seven modulated convs a G pass, three
 # G passes; backwards in G's own update
 STYLEGAN2_MOD = (21, 7)
+# the stride-2 transposed conv's launches a plain step and a step that opens
+# with R1: G's three up-convs in each of its three passes, the input
+# gradients of D's three stride-2 convs in D's and G's updates; R1 adds two
+# a stride-2 conv (its recorded input gradient, and the penalty's gradient
+# through D's forward again)
+STYLEGAN2_TCONV = (15, 21)
 
 
 def stylegan2_counts() -> dict:
     """``counts_read`` with the per-sample and the modulation epilogues'
-    counters."""
+    counters and the stride-2 transposed conv's."""
+    from triplegan_tpu_torch.ops import conv3x3 as cv
     from triplegan_tpu_torch.ops import scale_bias_act as sba
 
-    return dict(counts_read(), scale_bias_act_cond=sba.cond_launches.copy(),
+    return dict(counts_read(), conv3x3_tconv=cv.tconv_launches.copy(), scale_bias_act_cond=sba.cond_launches.copy(),
                 scale_bias_act_cond_bwd=sba.cond_bwd_launches.copy(),
                 scale_bias_act_noise=sba.noise_launches.copy(), scale_bias_act_noise_bwd=sba.noise_bwd_launches.copy())
 
@@ -1456,15 +1473,18 @@ def stylegan2_phase() -> dict:
     steps from the same state bitwise (every state tensor, G's w_avg and
     EMA copy among them, and every step's metrics); the modulation
     epilogue's counts ``STYLEGAN2_MOD`` a step over the warm-up and
-    captured steps; the R1 steps' second-order Functions counted, the
+    captured steps; the eager steps' stride-2 transposed convs
+    ``STYLEGAN2_TCONV`` (a plain step, an R1 step); the R1 steps' second-order Functions counted, the
     conv's input gradients through the Winograd pipeline; R1's gradient of
     D on the card, kernel arm against the plain arm, within 1e-3 of its
     norm; then three more chunks, from steps 8, 12 and 16, the first and
     the last each a replay of one of the two graphs under torch.profiler:
     its device records must hold each hand-written kernel as many times as
     the eager steps' counts give (an R1 step's and three plain steps', or
-    four plain steps'). Its counts are a main path's for phase 7, which
-    holds each modulation epilogue shape against its plain twin."""
+    four plain steps'), and no record of cuDNN's ``dgrad2d_alg1_1``
+    (the transposed direction is ``tconv2_kernel``'s). Its counts are a
+    main path's for phase 7, which holds each modulation epilogue shape
+    and each transposed conv shape against its plain twin."""
     import torch
 
     from triplegan_tpu_torch.configs import make_networks
@@ -1548,14 +1568,20 @@ def stylegan2_phase() -> dict:
           f"{STYLEGAN2}: R1's wide input gradients {wide} did not all run through the Winograd pipeline")
     r1_step, plain_step = eager[0], eager[1]
     check(all(e == plain_step for e in eager[1:]), f"{STYLEGAN2}: the plain eager steps ran {eager[1:]}")
+    check((plain_step["tconv"], r1_step["tconv"]) == STYLEGAN2_TCONV,
+          f"{STYLEGAN2}: the stride-2 transposed conv ran {plain_step['tconv']} times a plain step and "
+          f"{r1_step['tconv']} an R1 step, want {STYLEGAN2_TCONV}")
     replayed = collections.Counter()
     chunks = {}
     for name, kernels in (("plain", {g: GRAPH_K * plain_step[g] for g in HAND_KERNELS}),
                           ("r1", {g: r1_step[g] + (GRAPH_K - 1) * plain_step[g] for g in HAND_KERNELS})):
         in_chunk = {g: prof[name]["groups"][g]["launches"] for g in HAND_KERNELS}
         check(in_chunk == kernels, f"{STYLEGAN2}: a replay of the {name} graph ran {in_chunk}, want {kernels}")
+        alg1 = {k: c for k, c in prof[name]["_all"].items() if "dgrad2d_alg1_1" in k}
+        check(not alg1, f"{STYLEGAN2}: a replay of the {name} graph ran cuDNN's {alg1}")
         replayed.update(replayed_launches(prof[name]))
-        replayed.update({"scale_bias_act_noise": in_chunk["mod_fwd"], "scale_bias_act_noise_bwd": in_chunk["mod_bwd"],
+        replayed.update({"conv3x3_tconv": in_chunk["tconv"],
+                         "scale_bias_act_noise": in_chunk["mod_fwd"], "scale_bias_act_noise_bwd": in_chunk["mod_bwd"],
                          "scale_bias_act_cond": in_chunk["cbn_fwd"], "scale_bias_act_cond_bwd": in_chunk["cbn_bwd"]})
         chunks[name] = {"kernels_in_chunk": in_chunk, "groups": prof[name]["groups"],
                         "top_device": prof[name]["top_device"]}
@@ -4050,6 +4076,60 @@ def conv_case(op, n, h, w, cin, cout, pad, dtype, gen, flush, reps):
             "max_abs_err": max_err, "path": "direct", **wino_row}
 
 
+def tconv_case(n, h, w, cin, cout, gen, flush, reps) -> dict:
+    """Check and time one call of the stride-2 transposed conv kernel
+    (``tconv3x3_s2``, float32, x (n, h, w, cin) → (n, 2h + 1, 2w + 1,
+    cout)): against its plain twin (``F.conv_transpose2d``) in float64 on
+    the card within 8·sqrt(4·cin)·2⁻²⁴ of the twin on magnitudes (an output
+    sums at most 4·cin products), and every repeat bitwise equal to the
+    first call; timed beside its bound (the direct conv's operations,
+    2·9·cin·cout a low-resolution pixel, at the float32 peak, or its bytes,
+    x, w and y once each), the plain twin in float32 and the same call
+    under ``cudnn.deterministic`` (``library_ms``: the algorithm the
+    training step took before the kernel)."""
+    import torch
+
+    from triplegan_tpu_torch.ops import conv3x3 as cv
+
+    dev = torch.device("cuda")
+    x = torch.randn((n, h, w, cin), generator=gen, device=dev)
+    wt = torch.randn((3, 3, cin, cout), generator=gen, device=dev) / math.sqrt(9 * cin)
+    run = lambda: cv.tconv3x3_s2(x, wt)  # noqa: E731
+    plain = lambda: cv.reference_tconv3x3_s2(x, wt)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    want = cv.reference_tconv3x3_s2(x.double(), wt.double())
+    lim = 8.0 * math.sqrt(4 * cin) * 2.0 ** -24 * cv.reference_tconv3x3_s2(x.double().abs(), wt.double().abs())
+    case = f"tconv3x3_s2 {(n, h, w, cin, cout)}"
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{case}: {tuple(got.shape)}, non-finite")
+    err = (got.double() - want).abs()
+    if not bool((err <= lim).all()):
+        fail(f"{case}: max err {float(err.max())} exceeds tolerance (worst excess {float((err - lim).max())}); "
+             f"the call's tensors: {save_failing('tconv3x3_s2', x=x, w=wt, got=got)}")
+    max_err, share = float(err.max()), float((err / lim).max())
+    for rep in range(CONV_REPEATS):
+        again = run()
+        if not torch.equal(again, got):
+            fail(f"{case}: call {rep + 2} differs from the first at {int((again != got).sum())} elements; "
+                 f"the calls' tensors: {save_failing('tconv3x3_s2', x=x, w=wt, got=got, again=again)}")
+    del want, lim, err, got
+    tk = time_ms(run, flush, reps=reps, warm=2)
+    tp = time_ms(plain, flush, reps=reps, warm=2)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tl = time_ms(plain, flush, reps=reps, warm=2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    flops = 2.0 * n * h * w * 9 * cin * cout
+    nbytes = (x.numel() + wt.numel() + n * (2 * h + 1) * (2 * w + 1) * cout) * 4
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ms": tk["cold"], "warm_ms": tk["warm"], "plain_ms": tp["cold"], "library_ms": tl["cold"],
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "tflop_s": flops / (tk["cold"] * 1e9), "block_n": cv.tconv_plan(n, h, w, cin, cout),
+            "max_abs_err": max_err, "max_err_share": share}
+
+
 def sba_case(shape, dtype, act, slope, gen, flush, per_sample=False) -> dict:
     """Check and time one scale_bias_act kernel call against its plain
     version on seeded inputs of the given shape; ``per_sample``: the
@@ -4382,7 +4462,9 @@ def kernel_phase(sources, moments_paths) -> tuple:
     on the paths ``moments_paths`` gives (setting: (dtype, batch,
     ``moments_read()``, steps)); the modulation epilogue, forward and
     backward, at each shape and set of gradients a main path launched it
-    at."""
+    at; the stride-2 transposed conv at each shape a main path launched it
+    at (its roles, an up-conv's forward and a stride-2 conv's input
+    gradient, at one row)."""
     import torch
 
     dev = torch.device("cuda")
@@ -4392,9 +4474,12 @@ def kernel_phase(sources, moments_paths) -> tuple:
     bwd_keys = {(RAGGED_SHAPE, dt, "tanh", 0.1, "xkb"): {} for dt in ("float32", "bfloat16")}
     cond_keys = {(RAGGED_SHAPE, dt, "relu", 0.1): {} for dt in ("float32", "bfloat16")}
     cond_bwd_keys = {(RAGGED_SHAPE, dt, "relu", 0.1, "xkb"): {} for dt in ("float32", "bfloat16")}
-    noise_keys, noise_bwd_keys = {}, {}
+    noise_keys, noise_bwd_keys, tconv_keys = {}, {}, {}
     conv_keys, players = {}, collections.defaultdict(set)
     for source, counts, where in sources:
+        for (role, *shape, dtype), c in counts.get("conv3x3_tconv", {}).items():
+            rec = tconv_keys.setdefault(tuple(shape), {})
+            rec[source, role] = rec.get((source, role), 0) + c
         for key, c in counts.get("scale_bias_act_noise", {}).items():
             noise_keys.setdefault(key, {})[source] = c
         for key, c in counts.get("scale_bias_act_noise_bwd", {}).items():
@@ -4455,6 +4540,13 @@ def kernel_phase(sources, moments_paths) -> tuple:
                **conv_case(op, n, h, w, cin, cout, pad, getattr(torch, dtype), gen, flush, reps=5)}
         conv_rows.append(row)
         emit("conv3x3", row)
+    tconv_rows = []
+    for shape, launches in sorted(tconv_keys.items()):
+        row = {"input": list(shape[:4]), "cout": shape[4], "dtype": "float32",
+               "launches": {f"{src} {role}": c for (src, role), c in sorted(launches.items())},
+               **tconv_case(*shape, gen, flush, reps=5)}
+        tconv_rows.append(row)
+        emit("tconv3x3_s2", row)
     fold_moments()
     seen = MOMENTS_SEEN["bn_moments"] + MOMENTS_SEEN["bn_moments_bwd"]
     moment_rows = []
@@ -4470,7 +4562,7 @@ def kernel_phase(sources, moments_paths) -> tuple:
         moment_rows.append(row)
         emit("bn_moments", row)
     del flush
-    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows
+    return sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows, tconv_rows
 
 
 # ---------------------------------------------------------------------------
@@ -4479,7 +4571,7 @@ def kernel_phase(sources, moments_paths) -> tuple:
 
 
 def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows,
-            train_runs, serve_arms) -> list:
+            tconv_rows, train_runs, serve_arms) -> list:
     """One line per kernel: launches over every main path (the train arms,
     the graph arms', phase 3c's, 3e's and the driver's counted runs, the
     serving arms): the
@@ -4551,7 +4643,26 @@ def summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_
             "per_step": per_step,
         })
     kernels.append(moments_summary(moment_rows, replayed))
+    kernels.append(tconv_summary(tconv_rows, counted, replayed))
     return kernels
+
+
+def tconv_summary(rows, counted, replayed) -> dict:
+    """The stride-2 transposed conv's line of the summary: its launches
+    (counted by the wrapper, plus those the profiled replays made, by
+    kernel name), and one cifar10_stylegan2 step's launches (the rows'
+    launches on that path, both roles) times their cold ms, plain ms,
+    library ms and bound."""
+    path = f"train {STYLEGAN2} float32"
+    runs = [(sum(c for src, c in r["launches"].items() if src.startswith(path)), r) for r in rows]
+    per_step = {key: sum(n * r[key] for n, r in runs) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"name": "conv3x3_tconv", "route": "cuda", "source": "triplegan_tpu_torch/ops/csrc/conv3x3.cu",
+            "replaces": None, "launches": counted["conv3x3_tconv"] + replayed["conv3x3_tconv"],
+            "launches_counted": counted["conv3x3_tconv"], "launches_replayed": replayed["conv3x3_tconv"],
+            "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
+            "launches_a_step": sum(n for n, _ in runs), **per_step, "bound_by": "operations",
+            "basis": f"sum over one {STYLEGAN2} step's launches (R1's amortised as the eager steps ran them; "
+                     "float32, batch 64); library: cuDNN's F.conv_transpose2d under cudnn.deterministic"}
 
 
 def moments_summary(rows, replayed) -> dict:
@@ -4698,8 +4809,8 @@ def main():
     sources = (path_launches(train_arms, configs, serve_arms, host, mesh, deploy, doctor, digits)
                + snresnet["_sources"] + stylegan2["_sources"])
     emit("winograd_share", winograd_share(sources))
-    sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows = kernel_phase(
-        sources, moments_paths)
+    (sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows,
+     tconv_rows) = kernel_phase(sources, moments_paths)
     phases["kernels"] = time.perf_counter() - t_start
     emit("phase_end_s", phases)
     lost = [w for w in PROFILE_WINDOWS if any(w)]
@@ -4713,7 +4824,7 @@ def main():
                                  for path, (_, _, counters, n) in moments_paths.items()})
     config_runs = [run for rec in configs for run in rec["arms"] + [rec["serving"]] + ([rec["loop"]] if "loop" in rec else [])]
     kernels = summary(sba_rows, bwd_rows, cond_rows, cond_bwd_rows, noise_rows, noise_bwd_rows, conv_rows, moment_rows,
-                      train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor, digits, snresnet,
+                      tconv_rows, train_arms + graph_arms + config_runs + [driver, host, mesh, deploy, doctor, digits, snresnet,
                                                                stylegan2],
                       serve_arms)
     if args.out:
@@ -4722,7 +4833,7 @@ def main():
             json.dump({"smi": smi, "kind": kind, "build_s": build_s, "phase_end_s": phases,
                        "sba_rows": sba_rows, "sba_bwd_rows": bwd_rows, "cond_rows": cond_rows,
                        "cond_bwd_rows": cond_bwd_rows, "noise_rows": noise_rows, "noise_bwd_rows": noise_bwd_rows,
-                       "conv_rows": conv_rows, "bn_moments_rows": moment_rows,
+                       "conv_rows": conv_rows, "bn_moments_rows": moment_rows, "tconv_rows": tconv_rows,
                        "doctor": public(doctor), "debug": debug,
                        "train": [public(a) for a in train_arms],
                        "graph": [public(a) for a in graph_arms], "configs": [public(r) for r in configs],

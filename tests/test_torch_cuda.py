@@ -13,7 +13,9 @@ as PyTorch operators, and a ``.pt2`` artifact exported on the card that
 launches them there and runs its plain versions once moved to the CPU;
 StyleGAN2's modulation epilogue (``mod_*``) against its plain version,
 the conv of 513 input channels, and R1's double backward through the
-Winograd pipeline against float64 on the CPU.
+Winograd pipeline against float64 on the CPU; the stride-2 transposed
+conv (``tconv2_kernel``) at StyleGAN2's launched shapes against float64,
+bitwise repeatable, and R1's double backward through it.
 Skips where there is no CUDA device (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -1283,3 +1285,79 @@ def test_r1_double_backward_through_the_winograd_path_matches_float64_on_card(cu
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     assert any(key[0] == "dgrad2" and key[-1] == "float32" for key in cv.second_order_launches)
     assert any(key[0] == "channel" and key[2] == "float32" for key in sba.second_order_launches)
+
+
+# cifar10_stylegan2's launches of the stride-2 transposed conv: G's up-convs
+# and the input gradients of D's stride-2 convs, (rows, h) at 512 → 512; and
+# a ragged shape (odd sizes, 128 × 64 blocks, a last column tile cut short)
+_TCONV_SHAPES = [(n, h, h, 512, 512) for n in (64, 192) for h in (4, 8, 16)] + [(3, 5, 7, 48, 20)]
+
+
+def _tconv_want(x, w):
+    """The plain twin in float64 on the CPU, and the same on magnitudes."""
+    xd, wd = x.double().cpu(), w.double().cpu()
+    return cv.reference_tconv3x3_s2(xd, wd), cv.reference_tconv3x3_s2(xd.abs(), wd.abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _TCONV_SHAPES)
+def test_tconv_kernel_matches_its_float64_twin_and_repeats_bitwise_on_card(shape, cuda):
+    """``tconv3x3_s2`` at float32 (TF32 off) against ``F.conv_transpose2d``
+    in float64, within 8·sqrt(4·Cin)·2⁻²⁴ of the twin on magnitudes (an
+    output sums at most 4·Cin products); a second call bitwise equal to the
+    first; one launch counted, keyed by role and shape."""
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(h * 7 + n)
+    x = torch.randn(shape[:4], generator=g, device=cuda)
+    wt = torch.randn((3, 3, cin, cout), generator=g, device=cuda) / (9 * cin) ** 0.5
+    cv.tconv_launches.clear()
+    y = cv.tconv3x3_s2(x, wt, role="dgrad")
+    assert y.shape == (n, 2 * h + 1, 2 * w + 1, cout)
+    want, mag = _tconv_want(x, wt)
+    assert bool(((y.double().cpu() - want).abs() <= 8 * (4 * cin) ** 0.5 * 2.0 ** -24 * mag).all())
+    assert torch.equal(cv.tconv3x3_s2(x, wt, role="dgrad"), y)
+    assert cv.tconv_launches == {("dgrad", n, h, w, cin, cout, "float32"): 2}
+
+
+@pytest.mark.cuda
+def test_tconv_wrapper_raises_on_what_its_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 4, 4, 24), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cv.tconv3x3_s2(x, torch.zeros((3, 3, 24, 8), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        cv.tconv3x3_s2(x[..., :16].contiguous().bfloat16(), torch.zeros((3, 3, 16, 8), device=cuda).bfloat16())
+
+
+@pytest.mark.cuda
+def test_r1_double_backward_through_the_tconv_kernel_matches_float64_on_card(cuda):
+    """R1's gradient of a chain of two of StyleGAN2 D's filtered stride-2
+    convs (512 → 512, 16 × 16 → 8 × 8 → 4 × 4, 8 rows, the epilogue
+    between) in parameters, in the kernel arm on the card in float32
+    against the CPU's plain versions in float64: within 1e-4 of each
+    gradient's largest magnitude; the recorded input gradients and the
+    penalty's through the forward again on ``tconv3x3_s2``."""
+    import math
+
+    from triplegan_tpu_torch.nn import layers as L
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(1)
+    n, hw, c = 8, 16, 512
+    xc = torch.randn(n, hw, hw, c, dtype=torch.float64)
+    w1, w2 = (torch.randn(c, c, 3, 3, dtype=torch.float64) for _ in range(2))
+    b = torch.randn(c, dtype=torch.float64) * 0.1
+    cv.tconv_launches.clear()
+    out = {}
+    for dev, dt in (("cpu", torch.float64), (cuda, torch.float32)):
+        xs = xc.to(dev, dt).requires_grad_(True)
+        ws = [t.to(dev, dt).requires_grad_(True) for t in (w1, w2)]
+        bb = b.to(dev, dt).requires_grad_(True)
+        h = L.eq_conv_act_apply({"w": ws[0], "b": bb}, xs, down=True, use_pallas=True)
+        y = L.down_conv(h, ws[1] / math.sqrt(9 * c), use_pallas=True)
+        (gx,) = torch.autograd.grad(torch.square(y).sum(), xs, create_graph=True)
+        out[str(dev)] = [t.double().cpu() for t in torch.autograd.grad(torch.square(gx).sum(), ws + [bb])]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert {k[:4] for k in cv.tconv_launches} == {("dgrad", n, 8, 8), ("dgrad", n, 4, 4)}
+    assert all(c_ >= 2 for c_ in cv.tconv_launches.values())

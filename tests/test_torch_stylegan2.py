@@ -19,12 +19,17 @@ the kernels take their plain versions):
   Functions through their CPU twins (float64 throughout, so the default
   tolerances), and the R1 step's gradient reaching D's parameters through
   the port's second-order Functions, by their counters;
+- the stride-2 transposed conv's Functions (G's up-conv, D's stride-2
+  conv whose input gradient it is) against cuDNN's ops to second order in
+  float64, a step's calls of its kernel wrapper as its counter keys them,
+  and ``use_pallas`` off and bfloat16 keeping cuDNN's path;
 - a ``cli train`` run dir of ``cifar10_stylegan2`` (graphed chunks, eager
   on the CPU, R1 every 2 steps) that checkpoints w_avg and the EMA copy,
   resumes, samples and evaluates, and whose serving, ``.pt2`` export and
   data-dependent init refuse it by name.
 """
 
+import collections
 import functools
 import math
 import os
@@ -33,6 +38,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch.nn.functional as F  # noqa: E402
 
 import plain_stylegan2 as plain  # noqa: E402
 from triplegan_tpu_torch import cli  # noqa: E402
@@ -248,6 +254,121 @@ def test_the_conv_function_is_twice_differentiable(padding):
                      dtype=torch.float64, requires_grad=True)
     p = C._PAD[padding]
     assert torch.autograd.gradcheck(lambda x, gy: C._Conv3x3Wgrad.apply(x, gy, p), (x, gy))
+
+
+@pytest.mark.parametrize("hw", [4, 8, 16])
+@pytest.mark.parametrize("op", ["up", "down"])
+def test_the_stride2_transposed_conv_functions_match_cudnns_ops_to_second_order(op, hw):
+    """``_TConv3x3S2`` (the up-conv's, at G's sizes h → 2h + 1) and
+    ``_Conv3x3S2`` (the stride-2 conv whose input gradient is the
+    transposed conv, at D's 2h + 1 → h) in float64 through their CPU
+    twins: forward and both gradients against ``F.conv_transpose2d`` and
+    ``F.conv2d(stride=2)`` and their autograd, and ``gradgradcheck``."""
+    g = torch.Generator().manual_seed(13 + hw)
+    d = torch.float64
+    if op == "up":
+        x = torch.randn(2, hw, hw, 5, generator=g, dtype=d)
+        w = torch.randn(3, 3, 5, 4, generator=g, dtype=d)
+        fn = lambda x, w: C._TConv3x3S2.apply(x, w, "up")  # noqa: E731
+        ref = lambda x, w: F.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1), stride=2)  # noqa: E731
+    else:
+        x = torch.randn(2, 2 * hw + 1, 2 * hw + 1, 5, generator=g, dtype=d)
+        w = torch.randn(4, 5, 3, 3, generator=g, dtype=d)
+        fn = C._Conv3x3S2.apply
+        ref = lambda x, w: F.conv2d(x.permute(0, 3, 1, 2), w, stride=2)  # noqa: E731
+    x1, w1, x2, w2 = (t.clone().requires_grad_(True) for t in (x, w, x, w))
+    got, want = fn(x1, w1), ref(x2, w2).permute(0, 2, 3, 1)
+    assert got.shape == want.shape == ((2, 2 * hw + 1, 2 * hw + 1, 4) if op == "up" else (2, hw, hw, 4))
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    cot = torch.randn(got.shape, generator=g, dtype=d)
+    for a, b in zip(torch.autograd.grad(got, (x1, w1), cot), torch.autograd.grad(want, (x2, w2), cot)):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    assert torch.autograd.gradgradcheck(fn, (x1, w1))
+
+
+def _spy_tconv(monkeypatch):
+    """The calls of ``tconv3x3_s2``, keyed as its launch counter keys them
+    on the card: (role, N, h, w, Cin, Cout, dtype)."""
+    calls = collections.Counter()
+    real = C.tconv3x3_s2
+
+    def spy(x, w, role="up"):
+        calls[(role, *x.shape, w.shape[3], str(x.dtype).split(".")[-1])] += 1
+        return real(x, w, role)
+
+    monkeypatch.setattr(C, "tconv3x3_s2", spy)
+    return calls
+
+
+def test_a_step_runs_the_transposed_conv_for_each_up_conv_pass_and_stride2_input_gradient(monkeypatch):
+    """In the kernel arm a plain step runs ``tconv3x3_s2`` for G's two
+    up-convs (16 → 16 at 4 → 9, 16 → 8 at 8 → 17) in each of its three
+    passes, and for the input gradients of D's two stride-2 convs in the
+    D update (3B rows) and the G update (B rows); a step that opens with R1
+    adds two a stride-2 conv at B rows, the recorded input gradient and the
+    penalty's gradient through D's forward again. The keys are the launch
+    counter's, and ``chip_smoke.hand_kernels_per_step`` maps them to the
+    kernel's launches a step."""
+    calls = _spy_tconv(monkeypatch)
+    cfg = _cfg(True)
+    nets = make_networks(cfg)
+    opts = make_optimizers(cfg, TOTAL)
+    state = create_state(cfg, nets, opts, device="cpu", seed=2)
+    batch = _batches(synthetic_dataset(16, 3, 10, n_train=64, n_test=8, num_labeled=16, seed=0))[0]
+    step = S.make_train_step(cfg, nets, opts, TOTAL, pseudo_label_mode="argmax")
+    up = {("up", B, 4, 4, 16, 16, "float32"): 3, ("up", B, 8, 8, 16, 8, "float32"): 3}
+    dgrad = {("dgrad", n, h, h, 16, c, "float32"): 1 for n in (B, 3 * B) for h, c in ((4, 16), (8, 8))}
+    step(dataclasses_replace(state, step=1), batch)
+    assert calls == {**up, **dgrad}
+    calls.clear()
+    step(state, batch)  # step 0 carries R1
+    assert calls == {**up, **dgrad, **{("dgrad", B, h, h, 16, c, "float32"): 3 for h, c in ((4, 16), (8, 8))}}
+    chip_smoke = pytest.importorskip("chip_smoke")
+    moments = {"bn_moments": collections.Counter(), "bn_moments_bwd": collections.Counter()}
+    counts = {"conv3x3_fwd": collections.Counter(), "conv3x3_wgrad": collections.Counter(),
+              "scale_bias_act": collections.Counter(), "scale_bias_act_bwd": collections.Counter(),
+              "conv3x3_tconv": calls}
+    assert chip_smoke.hand_kernels_per_step(counts, 2, moments)["tconv"] == 7
+
+
+@pytest.mark.parametrize("use_pallas, dtype, takes", [(False, torch.float32, False), (True, torch.bfloat16, False),
+                                                      (True, torch.float32, True)])
+def test_the_transposed_direction_takes_the_kernel_only_in_the_kernel_arm_at_float32(monkeypatch, use_pallas,
+                                                                                     dtype, takes):
+    """``up_conv`` and ``down_conv``: with ``use_pallas`` off, and at
+    bfloat16, cuDNN's path (``F.conv_transpose2d``, the autograd of
+    ``F.conv2d``) as before, and no call of the kernel's wrapper or its
+    Functions; in the kernel arm at float32 the up-conv's forward and the
+    stride-2 conv's input gradient on ``tconv3x3_s2``. The result is the
+    same either way."""
+    calls = _spy_tconv(monkeypatch)
+    library = collections.Counter()
+    real_t = F.conv_transpose2d
+
+    def conv_transpose2d(*a, **kw):
+        library["conv_transpose2d"] += 1
+        return real_t(*a, **kw)
+
+    monkeypatch.setattr(F, "conv_transpose2d", conv_transpose2d)
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(2, 4, 4, 16, generator=g).to(dtype).requires_grad_(True)
+    w = torch.randn(8, 16, 3, 3, generator=g).requires_grad_(True)
+    up = L.up_conv(x, w, use_pallas)
+    down = L.down_conv(up, w.transpose(0, 1), use_pallas)
+    dx, dw = torch.autograd.grad(down.float().square().sum(), (x, w))
+    assert up.shape == (2, 8, 8, 8) and down.shape == (2, 4, 4, 16)
+    if takes:  # the library's calls are the wrapper's CPU twin's
+        assert calls == {("up", 2, 4, 4, 16, 8, "float32"): 1, ("dgrad", 2, 4, 4, 16, 8, "float32"): 1}
+        assert library["conv_transpose2d"] == 2
+    else:  # the up-conv's forward; the stride-2 conv's input gradient is autograd's
+        assert not calls and library["conv_transpose2d"] == 1
+    x2, w2 = x.detach().float().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    u2 = L.upfirdn(real_t(x2.permute(0, 3, 1, 2), w2.transpose(0, 1), stride=2).permute(0, 2, 3, 1), pad=1, gain=4.0)
+    y2 = F.conv2d(L.upfirdn(u2, pad=2).permute(0, 3, 1, 2), w2.transpose(0, 1), stride=2).permute(0, 2, 3, 1)
+    if dtype == torch.float32:
+        torch.testing.assert_close(down, y2, rtol=1e-5, atol=1e-5)
+        for a, b in zip((dx, dw), torch.autograd.grad(y2.square().sum(), (x2, w2))):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("variant, act", [("channel", "leaky_relu"), ("channel", "tanh"), ("sample", "linear"),

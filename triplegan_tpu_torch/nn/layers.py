@@ -16,7 +16,9 @@ Generator's subpixel phase convs) through the Hopper conv kernels
 through the ``bn_moments`` kernels; on the CPU those take their plain
 versions.
 1×1 convs, stride-2 convs and every conv with ``use_pallas`` off go to
-``F.conv2d``.
+``F.conv2d``; StyleGAN2's stride-2 transposed convs (its up-convs'
+forwards, its stride-2 convs' input gradients) go, with ``use_pallas`` at
+float32, to the hand-written ``tconv3x3_s2`` kernel.
 
 A contiguous NHWC tensor permuted to NCHW is a channels_last view, which
 ``F.conv2d`` takes without a copy and answers in channels_last, so the
@@ -43,8 +45,7 @@ follows the conv one launch of ``scale_bias_act_noise``, with √2 folded
 into k, b and the noise term, as leaky ReLU is positively homogeneous),
 ToRGB, the FIR filter [1, 3, 3, 1] ⊗ [1, 3, 3, 1] / 64 (upfirdn2d's
 paddings), the up-conv (a stride-2 transposed conv and the filter at gain
-4, ``F.conv_transpose2d``), D's filtered stride-2 conv and the minibatch
-standard deviation.
+4), D's filtered stride-2 conv and the minibatch standard deviation.
 
 Init functions keep JAX's shapes and scales (normal, std 0.05; g = 1,
 b = 0; BN scale 1, bias 0, mean 0, var 1) and draw from an explicit
@@ -70,7 +71,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from triplegan_tpu_torch.ops.conv3x3 import conv3x3
+from triplegan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_s2, conv_transpose3x3_s2
 from triplegan_tpu_torch.ops.scale_bias_act import (apply_act, bn_moments, reference_bn_moments, scale_bias_act,
                                                     scale_bias_act_cond, scale_bias_act_noise)
 
@@ -584,19 +585,35 @@ def upfirdn(x: torch.Tensor, *, up: int = 1, pad: int = 0, pad_after: Optional[i
     return _fir1d(_fir1d(x, 1, g1), 2, g1).contiguous()
 
 
-def down_conv(x: torch.Tensor, w_oihw: torch.Tensor) -> torch.Tensor:
+def _tconv_arm(x: torch.Tensor, use_pallas: bool) -> bool:
+    """Whether a stride-2 conv's transposed direction runs on the
+    hand-written kernel (``ops/conv3x3.py`` ``tconv3x3_s2``): in the kernel
+    arm at float32; bfloat16 stays on cuDNN."""
+    return use_pallas and x.dtype == torch.float32
+
+
+def down_conv(x: torch.Tensor, w_oihw: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
     """StyleGAN2-ADA's ``conv2d_resample`` with down = 2 and a 3×3 kernel:
     the FIR filter with 2 pixels of zeros each side, then a VALID stride-2
-    conv (``F.conv2d``); (N, H, W, Cin) → (N, H/2, W/2, Cout)."""
+    conv (``F.conv2d``); (N, H, W, Cin) → (N, H/2, W/2, Cout). In the
+    kernel arm (``_tconv_arm``) the conv's input gradient is the
+    transposed conv's kernel (``conv3x3_s2``)."""
     xb = upfirdn(x, pad=2)
+    if _tconv_arm(xb, use_pallas):
+        return conv3x3_s2(xb, w_oihw.to(x.dtype))
     return F.conv2d(xb.permute(0, 3, 1, 2), w_oihw.to(x.dtype), stride=2).permute(0, 2, 3, 1).contiguous()
 
 
-def up_conv(x: torch.Tensor, w_oihw: torch.Tensor) -> torch.Tensor:
+def up_conv(x: torch.Tensor, w_oihw: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
     """StyleGAN2-ADA's ``conv2d_resample`` with up = 2 and a 3×3 kernel:
     the stride-2 transposed conv by the (O, I) kernel taken as (I, O),
-    unflipped (``F.conv_transpose2d``: (N, H, W) → 2H + 1, 2W + 1), then
-    the FIR filter at gain 4 with a pixel of zeros each side → 2H, 2W."""
+    unflipped (``F.conv_transpose2d``: (N, H, W) → 2H + 1, 2W + 1; in the
+    kernel arm, ``_tconv_arm``, the hand-written kernel,
+    ``conv_transpose3x3_s2``), then the FIR filter at gain 4 with a pixel
+    of zeros each side → 2H, 2W."""
+    if _tconv_arm(x, use_pallas):
+        y = conv_transpose3x3_s2(x.contiguous(), w_oihw.permute(2, 3, 1, 0).to(x.dtype).contiguous())
+        return upfirdn(y, pad=1, gain=4.0)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w_oihw.transpose(0, 1).to(x.dtype), stride=2)
     return upfirdn(y.permute(0, 2, 3, 1), pad=1, gain=4.0)
 
@@ -645,7 +662,7 @@ def modulated_conv_apply(p: Params, x: torch.Tensor, w_lat: torch.Tensor, *, up:
     s = _styles(p, w_lat)
     d = torch.rsqrt(torch.square(s) @ torch.sum(torch.square(w), dim=(2, 3)).t() + 1e-8)
     xs = _scale_input(x, s, use_pallas)
-    y = up_conv(xs, w) if up else _conv(xs, w, 1, "SAME", use_pallas)
+    y = up_conv(xs, w, use_pallas) if up else _conv(xs, w, 1, "SAME", use_pallas)
     n, h, wd, c = y.shape
     q = (torch.zeros((n, h, wd), dtype=y.dtype, device=y.device) if noise is None
          else noise.to(y.dtype) * p["r"].to(y.dtype))
@@ -677,7 +694,7 @@ def eq_conv_act_apply(p: Params, x: torch.Tensor, *, down: bool = False, clamp: 
     gain = 1.0 / math.sqrt(w.shape[1] * w.shape[2] * w.shape[3])
     if not use_pallas:
         w = w * gain
-    y = down_conv(x, w) if down else _conv(x, w, 1, "SAME", use_pallas)
+    y = down_conv(x, w, use_pallas) if down else _conv(x, w, 1, "SAME", use_pallas)
     if use_pallas:
         c = y.shape[-1]
         k = torch.full((c,), SQRT2 * gain, dtype=y.dtype, device=y.device)

@@ -1,5 +1,6 @@
 """3×3 stride-1 convolution of NHWC activations with hand-written Hopper
-forward and filter-gradient kernels, and its autograd Function.
+forward and filter-gradient kernels, and its autograd Function; and the
+stride-2 transposed 3×3 convolution on a hand-written kernel of its own.
 
 Two CUDA sources replace the TPU kernels of
 ``triplegan_tpu/ops/pallas_conv.py`` (``_fwd_kernel`` behind
@@ -58,10 +59,20 @@ Semantics, as in the JAX package:
   and g), so the gradient differentiates to any order on the same kernels
   (counted in ``second_order_launches``); a gradient the running backward
   will not use is not computed (``engine_needs``).
+* ``tconv3x3_s2(x, w)``: the VALID stride-2 transposed 3×3 conv, (N, h,
+  w, Cin) → (N, 2h + 1, 2w + 1, Cout), float32 only, on ``csrc/
+  conv3x3.cu`` ``tconv2_kernel`` (the output's four parity phases as
+  implicit GEMMs over their own taps, on the forward kernel's product
+  loop; each output written once by one block, so results repeat
+  bitwise). It replaces no TPU kernel: StyleGAN2's up-convs
+  (``conv_transpose3x3_s2``) and the input gradients of its stride-2
+  convs (``conv3x3_s2``, whose forward and filter gradient stay cuDNN's)
+  run on it, twice differentiable (``_TConv3x3S2``, ``_Conv3x3S2``).
 
 A tensor on the CPU takes the plain versions (``reference_*``: nine
-shifted matmuls accumulated in float32, as the Pallas bodies do). A CUDA
-tensor launches the kernel or raises; there is no fallback.
+shifted matmuls accumulated in float32, as the Pallas bodies do;
+``F.conv_transpose2d`` for ``tconv3x3_s2``). A CUDA tensor launches the
+kernel or raises; there is no fallback.
 
 The forward is also a PyTorch operator, ``torch.ops.triplegan_torch.
 conv3x3_fwd`` (``conv3x3_op``): ``conv3x3_nopad`` for CUDA tensors, the plain
@@ -606,6 +617,149 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, padding: str = "SAME") -> torch.Te
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Conv3x3.apply(x, w, padding)
     return conv3x3_op(x, w.to(x.dtype).contiguous(), _PAD[padding])
+
+
+# ---------------------------------------------------------------------------
+# The stride-2 transposed 3×3 conv (StyleGAN2's up-convs, and the input
+# gradient of its stride-2 convs)
+# ---------------------------------------------------------------------------
+
+# Launches of ``tconv3x3_s2``'s kernel since the counts were last cleared,
+# keyed (role, N, h, w, Cin, Cout, dtype) of its input: role "up" (an
+# up-conv's forward) or "dgrad" (the input gradient of a stride-2 conv).
+tconv_launches: collections.Counter = collections.Counter()
+# Phase tiles of 128 rows by 128 columns take a call with at least this many
+# of them (two waves of the card); a call with fewer takes 128 × 64 tiles,
+# twice as many blocks of half the work.
+_TCONV_MIN_WIDE_BLOCKS = 2 * _F32_WAVE
+
+
+def reference_tconv3x3_s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``tconv3x3_s2``: ``F.conv_transpose2d`` at stride 2
+    of NHWC x (N, h, w, Cin) by HWIO w (3, 3, Cin, Cout), → (N, 2h + 1,
+    2w + 1, Cout) NHWC."""
+    y = torch.nn.functional.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1).to(x.dtype), stride=2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def tconv_plan(n: int, h: int, w: int, cin: int, cout: int) -> int:
+    """The width bn of ``tconv3x3_s2``'s blocks (128 rows of a phase by bn
+    columns of Cout): 128 where the four phases' 128 × 128 tiles come to
+    ``_TCONV_MIN_WIDE_BLOCKS`` or more, else 64. A function of the shapes
+    alone, so results repeat."""
+    rows = sum(math.ceil(n * (h + 1 - py) * (w + 1 - px) / 128) for py in (0, 1) for px in (0, 1))
+    return 128 if rows * math.ceil(cout / 128) >= _TCONV_MIN_WIDE_BLOCKS else 64
+
+
+def _lib_tconv():
+    tconv = build.load("conv3x3").tconv3x3_s2_launch
+    if tconv.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        tconv.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        tconv.restype = i
+    return tconv
+
+
+def tconv3x3_s2(x: torch.Tensor, w: torch.Tensor, role: str = "up") -> torch.Tensor:
+    """VALID stride-2 transposed 3×3 conv of NHWC x (N, h, w, Cin) by HWIO
+    w (3, 3, Cin, Cout): y[n, 2i+a, 2j+b] += x[n, i, j] · w[a, b], → (N,
+    2h + 1, 2w + 1, Cout). CPU tensors take the plain version; CUDA tensors
+    the float32 kernel (``csrc/conv3x3.cu`` ``tconv2_kernel``: the output's
+    four parity phases as implicit GEMMs over their taps alone, each
+    output written once by one block, so results repeat bitwise), which
+    takes Cin a multiple of 16 and Cout of 4, or raises. ``role`` only
+    labels the launch count: "up", or "dgrad" where x is a cotangent."""
+    if x.device.type == "cpu":
+        return reference_tconv3x3_s2(x, w)
+    _check_cuda("tconv3x3_s2", x=x, w=w)
+    n, h, wd, cin = x.shape
+    if tuple(w.shape[:3]) != (3, 3, cin):
+        raise ValueError(f"w must be (3, 3, {cin}, Cout), got {tuple(w.shape)}")
+    cout = w.shape[3]
+    if x.dtype != torch.float32 or cin % 16 or cout % 4:
+        raise ValueError(f"the tconv3x3_s2 kernel takes float32 with Cin a multiple of 16 and Cout of 4, "
+                         f"got {x.dtype}, Cin {cin}, Cout {cout}")
+    y = torch.empty((n, 2 * h + 1, 2 * wd + 1, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib_tconv()(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, cin, cout,
+                          tconv_plan(n, h, wd, cin, cout), stream)
+    if rc != 0:
+        raise RuntimeError(f"tconv3x3_s2 kernel launch failed: cudaError {rc} (x and w must be 16-byte aligned)")
+    tconv_launches[role, n, h, wd, cin, cout, _dtype_name(x)] += 1
+    return y
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2)
+
+
+class _TConv3x3S2(torch.autograd.Function):
+    """``tconv3x3_s2(x, w)`` differentiable to any order: its input
+    gradient is the stride-2 conv of the cotangent by w and its filter
+    gradient cuDNN's weight gradient (``F.conv2d``, ``conv2d_weight``:
+    PyTorch ops that autograd records where it is to)."""
+
+    @staticmethod
+    def forward(ctx, x, w, role):
+        ctx.save_for_backward(x, w)
+        return tconv3x3_s2(x, w, role)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        needs = engine_needs(ctx, 2) if torch.is_grad_enabled() else ctx.needs_input_grad
+        gc = _nchw(g)
+        dx = dw = None
+        if needs[0]:
+            dx = torch.nn.functional.conv2d(gc, w.permute(2, 3, 0, 1).to(g.dtype), stride=2)
+            dx = dx.permute(0, 2, 3, 1).contiguous()
+        if needs[1]:
+            dw = torch.nn.grad.conv2d_weight(gc, (w.shape[2], w.shape[3], 3, 3), _nchw(x), stride=2)
+            dw = dw.permute(2, 3, 0, 1).to(w.dtype)
+        return dx, dw, None
+
+
+class _Conv3x3S2(torch.autograd.Function):
+    """The VALID stride-2 3×3 conv of NHWC x (N, 2h + 1, 2w + 1, Cin) by
+    OIHW w (cuDNN's forward, ``F.conv2d``), whose input gradient is the
+    transposed conv of the cotangent by w (``_TConv3x3S2`` where autograd
+    records it, R1's gradient penalty, else ``tconv3x3_s2``), its filter
+    gradient cuDNN's; a gradient the running backward will not use is not
+    computed."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.nn.functional.conv2d(_nchw(x), w, stride=2).permute(0, 2, 3, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        recorded = torch.is_grad_enabled()
+        needs = engine_needs(ctx, 2) if recorded else ctx.needs_input_grad
+        g = g.contiguous()
+        dx = dw = None
+        if needs[0]:
+            wk = w.permute(2, 3, 0, 1).contiguous()  # HWIO of the transposed conv: I the conv's Cout
+            dx = _TConv3x3S2.apply(g, wk, "dgrad") if recorded else tconv3x3_s2(g, wk, "dgrad")
+        if needs[1]:
+            dw = torch.nn.grad.conv2d_weight(_nchw(x), w.shape, _nchw(g), stride=2)
+        return dx, dw
+
+
+def conv_transpose3x3_s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``tconv3x3_s2(x, w)`` of contiguous NHWC x and HWIO
+    w (an up-conv: launches counted under "up")."""
+    return _TConv3x3S2.apply(x, w, "up")
+
+
+def conv3x3_s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable VALID stride-2 3×3 conv of contiguous NHWC x of odd
+    height and width by OIHW w → NHWC, whose input gradient runs on
+    ``tconv3x3_s2``."""
+    return _Conv3x3S2.apply(x, w)
 
 
 def _conv3x3_op(x, w, pad):

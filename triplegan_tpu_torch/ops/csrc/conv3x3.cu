@@ -7,7 +7,9 @@
 //   wino_*       <- _fwd_kernel    (launched by conv3x3_nopad for the wide
 //                                   convs: Winograd F(2x2, 3x3), below)
 //   wgrad_kernel <- _wgrad_kernel  (launched by conv3x3_wgrad)
-// bfloat16 calls go to conv3x3_sm90.cu.
+// bfloat16 calls go to conv3x3_sm90.cu. tconv2_kernel (launched by
+// tconv3x3_s2: StyleGAN2's up-convs and the input gradients of its stride-2
+// convs) replaces no TPU kernel: the JAX package leaves those convs to XLA.
 //
 // Semantics. x is (N, Hin, Win, Cin) row-major; it is read with a zero halo
 // of `pad` pixels (0, 1 or 2) on every side, checked per copy, so that
@@ -81,6 +83,14 @@
 //   time where Cin >= 64 and Cout >= 32; the caller takes the forward
 //   kernel below those widths, where the transforms cost more than the
 //   products save (ops/conv3x3.py f32_wino_plan).
+// - tconv2 (below): the VALID stride-2 transposed 3x3 conv, bound by
+//   operations too (9*C1*C2*2 flops a low-resolution pixel, 512 wide:
+//   hundreds of flops a byte). Scattering each input pixel's nine taps
+//   (col2im), or a GEMM over the zero-inserted input, does 4x the products
+//   or adds in device memory; split by output parity into four phases, it
+//   is four dense implicit GEMMs of K = 4, 2, 2 and 1 times C1 on the
+//   forward kernel's product loop, whose only waste is the border rows of
+//   the even phases (8.5% at 16x16 -> 33x33).
 // All kernels are deterministic: the caller plans the splits from the
 // shapes alone, and no float atomics are used, so two runs give the same
 // bits. Offsets into x, g and y are 64-bit.
@@ -942,6 +952,179 @@ __global__ void wino_output(const float* __restrict__ m, float* __restrict__ y, 
   }
 }
 
+// ---------------------------------------------------------------------------
+// tconv2: the VALID stride-2 transposed 3x3 conv, as four phase GEMMs
+// ---------------------------------------------------------------------------
+//
+// y (N, 2h+1, 2w+1, C2) from x (N, h, w, C1) and W (3, 3, C1, C2), HWIO:
+//   y[n, 2i+a, 2j+b, c2] += x[n, i, j, c1] * W[a, b, c1, c2]
+// An output row 2p + py takes the kernel rows a = py (mod 2): for py = 0
+// (p in 0..h) a = 0 from input row p and a = 2 from row p - 1; for py = 1
+// (p in 0..h-1) a = 1 from row p. Columns likewise. So the output splits
+// into four phase grids (py, px), each an implicit GEMM with no product on
+// a zero tap, M = N x (the grid), N = C2, K = (its taps) x C1:
+//   phase 0 (0,0): (h+1) x (w+1), taps {0,2} x {0,2}, K = 4*C1
+//   phase 1 (0,1): (h+1) x w,     taps {0,2} x {1},   K = 2*C1
+//   phase 2 (1,0): h x (w+1),     taps {1} x {0,2},   K = 2*C1
+//   phase 3 (1,1): h x w,         tap (1,1),          K = C1
+// An input pixel outside [0,h) x [0,w) (a border of phases 0-2) reads zero.
+// The four phases are one launch, their blocks in phase order, so the
+// blocks with the longest K start first. A block computes one BM x BN
+// output tile of its phase over the whole K, on the forward kernel's
+// product loop (A k-major, staged through registers, tile_products), and
+// stores it straight to its phase's rows of y: every output element is
+// written once, by one block, its fmaf chain in ascending k (tap-major),
+// with no atomics and no workspace, so two runs give the same bits.
+// C1 % 16 == 0, so each K tile of 16 lies within one tap; C2 % 4 == 0 and
+// x, W, y 16-byte aligned (the caller checks).
+
+struct TconvShape {
+  int n, h, w, c1, c2, ho, wo;
+  int ntn;       // column tiles: ceil(C2 / BN)
+  int first[5];  // the first block of each phase; first[4] = all blocks
+};
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+tconv2_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y, TconvShape s) {
+  static_assert((BM / TM) * (BN / TN) == kThreads, "one accumulator tile per thread");
+  static_assert(TM == 8, "A k-major, as the forward kernel's 8-row threads read it");
+  constexpr int kAS = BM + 4;
+  constexpr int kAFloats = kBK * kAS;
+  constexpr int kStage = kAFloats + kBK * BN;
+  constexpr int kAChunks = kBK / 4;            // chunks of four channels of a pixel
+  constexpr int kAPass = kThreads / kAChunks;
+  constexpr int kAPix = BM / kAPass;           // pixels (rows of A) each thread copies
+  constexpr int kBChunks = kBK * BN / 4;
+  extern __shared__ __align__(16) float smem[];
+  // each row of the tile: x's offset of its pixel (p, q), p and q, and y's
+  // offset of its output (-1 past the phase's rows)
+  __shared__ long long sBase[BM], sOut[BM];
+  __shared__ int sP[BM], sQ[BM];
+
+  const int tid = threadIdx.x;
+  int ph = 0;
+  while (ph < 3 && (int)blockIdx.x >= s.first[ph + 1]) ++ph;
+  const int py = ph >> 1, px = ph & 1;
+  const int hp = s.h + 1 - py, wp = s.w + 1 - px;
+  const int ntx = 2 - px;  // taps along w
+  const long long mph = (long long)s.n * hp * wp;
+  const int tile = blockIdx.x - s.first[ph];
+  const long long m0 = (long long)(tile / s.ntn) * BM;
+  const int n0 = (tile % s.ntn) * BN;
+  for (int r = tid; r < BM; r += kThreads) {
+    const long long m = m0 + r;
+    if (m < mph) {
+      const int nn = (int)(m / (hp * wp));
+      const int rem = (int)(m - (long long)nn * hp * wp);
+      const int p = rem / wp, q = rem - p * wp;
+      sBase[r] = (((long long)nn * s.h + p) * s.w + q) * s.c1;
+      sOut[r] = (((long long)nn * s.ho + 2 * p + py) * s.wo + 2 * q + px) * s.c2;
+      sP[r] = p;
+      sQ[r] = q;
+    } else {
+      sBase[r] = 0;
+      sOut[r] = -1;
+      sP[r] = sQ[r] = kFar;
+    }
+  }
+  __syncthreads();
+
+  // This thread copies chunk ac (k = 4*ac .. 4*ac+3 of each tile) of rows
+  // ar*kAPix .. ar*kAPix + kAPix-1, through registers, as fwd_segment's
+  // staged copies do. The K walk, one tile a load: channels ci0 ..
+  // ci0+15 of tap `tap` (row-major over the phase's taps).
+  const int ac = tid % kAChunks, ar = tid / kAChunks;
+  int tap = 0, ci0 = 0;
+  float ra[kAPix][4];
+  auto put = [&](int slot) {
+    float* sa4 = smem + slot * kStage + 4 * ac * kAS + ar * kAPix;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v[kAPix];
+#pragma unroll
+      for (int p = 0; p < kAPix; ++p) v[p] = ra[p][e];
+      store_vec(sa4 + e * kAS, v);
+    }
+  };
+  auto load = [&](int slot) {
+    float* sb = smem + slot * kStage + kAFloats;
+    const int ti = tap / ntx, tj = tap - ti * ntx;
+    const int di = py ? 0 : -ti, dj = px ? 0 : -tj;    // input row p + di, column q + dj
+    const int a = py ? 1 : 2 * ti, b = px ? 1 : 2 * tj;  // the kernel's tap
+    const long long koff = (long long)(di * s.w + dj) * s.c1 + ci0 + 4 * ac;
+#pragma unroll
+    for (int p = 0; p < kAPix; ++p) {
+      const int r = ar * kAPix + p;
+      const int hi = sP[r] + di, wi = sQ[r] + dj;
+      const bool ok = (unsigned)hi < (unsigned)s.h && (unsigned)wi < (unsigned)s.w;
+      const float4 f = ok ? __ldg(reinterpret_cast<const float4*>(x + sBase[r] + koff))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      ra[p][0] = f.x; ra[p][1] = f.y; ra[p][2] = f.z; ra[p][3] = f.w;
+    }
+    // B: W's rows (a, b, ci0 .. ci0+15), columns n0 .. n0+BN-1
+    const float* wrow = w + ((long long)(a * 3 + b) * s.c1 + ci0) * s.c2;
+#pragma unroll
+    for (int c = 0; c < (kBChunks + kThreads - 1) / kThreads; ++c) {
+      const int idx = tid + c * kThreads;
+      if (kBChunks % kThreads != 0 && idx >= kBChunks) break;
+      const int kr = idx / (BN / 4), cc = idx % (BN / 4);
+      const int col = n0 + 4 * cc;
+      const bool ok = col < s.c2;
+      cp_async16(sb + kr * BN + 4 * cc, ok ? wrow + (long long)kr * s.c2 + col : w, ok);
+    }
+    ci0 += kBK;
+    if (ci0 == s.c1) {
+      ci0 = 0;
+      ++tap;
+    }
+  };
+
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  // The ring as in fwd_segment: K tile t sits in slot t % kStages.
+  const int nt = (4 >> (py + px)) * (s.c1 / kBK);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nt) {
+      load(t);
+      put(t);
+    }
+    cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nk = t + kStages - 1;
+    if (nk < nt) load(nk % kStages);
+    cp_async_commit();
+    const float* sa = smem + (t % kStages) * kStage;
+    tile_products<BM, BN, TM, TN, kAS>(sa, sa + kAFloats, ty, tx, acc);
+    if (nk < nt) put(nk % kStages);
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long off = sOut[col_of<BM, TM>(ty, i)];
+    if (off >= 0) store_row<BN, TN>(y + off, acc[i], n0, tx, s.c2, true);
+  }
+}
+
+template <int BM, int BN, int TM, int TN>
+int launch_tconv(const float* x, const float* w, float* y, const TconvShape& s, cudaStream_t st) {
+  constexpr int smem = kStages * (kBK * (BM + 4) + kBK * BN) * (int)sizeof(float);
+  const auto kernel = tconv2_kernel<BM, BN, TM, TN>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)s.first[4], kThreads, smem, st>>>(x, w, y, s);
+  return (int)cudaGetLastError();
+}
+
 // Blocks for an elementwise pass over `total` items: 256 threads, at most
 // 16 waves of the card's 132 SMs (the kernels stride over the rest).
 unsigned elementwise_blocks(long long total) {
@@ -1130,4 +1313,33 @@ extern "C" int conv3x3_wino_launch(const float* x, const float* w, float* ws, fl
     wino_output<false><<<elementwise_blocks(s.t * (s.cp / 4)), 256, 0, st>>>(m, y, s);
   }
   return (int)cudaGetLastError();
+}
+
+// The VALID stride-2 transposed 3x3 conv (tconv2_kernel): x (n, h, w, c1),
+// w (3, 3, c1, c2) HWIO, y (n, 2h+1, 2w+1, c2), all float32, 16-byte
+// aligned, c1 a multiple of 16 and c2 of 4. bn, the blocks' width in
+// columns of c2: 64 (128 x 64, 8 x 4 a thread) or 128 (128 x 128, 8 x 8).
+// Returns a cudaError_t as int, as conv3x3_fwd_launch does.
+extern "C" int tconv3x3_s2_launch(const float* x, const float* w, float* y, int n, int h, int wd, int c1,
+                                  int c2, int bn, void* stream) {
+  if (n <= 0 || h <= 0 || wd <= 0 || c1 <= 0 || c2 <= 0 || c1 % kBK != 0 || c2 % 4 != 0 ||
+      (bn != 64 && bn != 128) || !aligned16(x) || !aligned16(w) || !aligned16(y) ||
+      (long long)(h + 1) * (wd + 1) > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TconvShape s;
+  s.n = n; s.h = h; s.w = wd; s.c1 = c1; s.c2 = c2;
+  s.ho = 2 * h + 1;
+  s.wo = 2 * wd + 1;
+  s.ntn = (c2 + bn - 1) / bn;
+  long long blocks = 0;
+  for (int ph = 0; ph < 4; ++ph) {
+    s.first[ph] = (int)blocks;
+    const long long m = (long long)n * (h + 1 - (ph >> 1)) * (wd + 1 - (ph & 1));
+    blocks += (m + 127) / 128 * s.ntn;  // both blocks are 128 rows
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  }
+  s.first[4] = (int)blocks;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bn == 128 ? launch_tconv<128, 128, 8, 8>(x, w, y, s, st) : launch_tconv<128, 64, 8, 4>(x, w, y, s, st);
 }
